@@ -1,0 +1,365 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero before the last line:
+
+1. build   — compile every CUDA source of the port with nvcc (sm_90a).
+2. kernels — hold the flash-attention kernel against its plain torch version
+             on the card, in bf16, at yi-6b shapes (B=1, Hq=32, Hkv=4,
+             D=128) for every prompt length the serve phase prefills and a
+             few more, and one D=64 case, with the blocks the main path
+             picks; show that the limit would catch a dropped tail tile.
+3. timing  — at S=1024 causal: the kernel, its plain version and, as a
+             yardstick only, torch's scaled_dot_product_attention (the port
+             never calls it), with CUDA events; the bound from the data sheet.
+4. serve   — yi-6b at full width and depth with random weights from a seeded
+             generator: 8 requests of mixed prompt lengths through the
+             continuous engine; every request gets its tokens and the flash
+             kernel launches once per layer per prefill.
+5. parity  — the last logits of one prefill through the kernel and through
+             the plain version agree within a stated bf16 tolerance.
+
+Prints a ``kernels`` JSON line, then the card's name and power limit, then
+``{"ok": true, "device": {...}}`` as the last line. Needs one card; imports no
+jax and nothing of the reference package.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+ARCH = "yi-6b"
+PROMPT_LENS = (64, 77, 128, 300, 513, 1000, 1024, 2047)
+MAX_NEW = 16
+SLOTS = 4
+SEED = 0
+# An element passes when |got - want| <= RTOL * |want| + ATOL_RMS * rms(want).
+# Against the plain version: one bf16 ulp of the output (both round the same
+# f32 softmax, summed in another order), plus a floor for outputs near zero.
+KERNEL_RTOL, KERNEL_ATOL_RMS = 2**-7, 0.02
+# Against the f32 full-softmax oracle: also the bf16 cast of p before p.v.
+ORACLE_RTOL, ORACLE_ATOL_RMS = 2**-6, 0.05
+KERNEL_S = (1, 77, 513, 1024, 2047)
+LOGIT_TOL = 0.25   # |logit| ~ N(0, 1): 32 bf16 layers amplify ulp differences
+TIMED_S = 1024
+
+
+def fail(msg: str) -> None:
+    print(f"[smoke] FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(f"[smoke] {msg}", flush=True)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def outside(got, want, rtol: float, atol_rms: float):
+    """(elements outside the limit, max |got - want| / limit)."""
+    got, want = got.float(), want.float()
+    limit = rtol * want.abs() + atol_rms * want.pow(2).mean().sqrt()
+    ratio = (got - want).abs() / limit
+    return int((ratio > 1).sum()), float(ratio.max())
+
+
+def drop_tail(q, k, v, causal: bool, keep: int):
+    """The attention a kernel that skipped keys >= ``keep`` (its ragged last
+    KV tile) would give, in f32: the error the kernel check must catch."""
+    import torch
+
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, hq // hkv, s, d).float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * d ** -0.5
+    pos = torch.arange(s, device=q.device)
+    seen = (pos[None, :] < keep) & ((pos[None, :] <= pos[:, None]) if causal else True)
+    p = torch.softmax(logits.masked_fill(~seen, float("-inf")), dim=-1).nan_to_num(0.0)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def flash_work(b, hq, hkv, s, d, causal):
+    """(flops, bytes) the attention forward must do/move: q.k and p.v over
+    the (causal) pairs, each input read once and the output written once."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * b * hq * d * pairs
+    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * 2
+    return flops, nbytes
+
+
+def main() -> None:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke needs an NVIDIA card")
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"the port's sources are missing under {SRC}")
+    sys.path.insert(0, str(SRC))
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.hw.gpu_h100 import GPU_H100
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.engine import Request
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import attention as tattn
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    props = torch.cuda.get_device_properties(0)
+    log(f"device {props.name}: {props.multi_processor_count} SMs "
+        f"(target {GPU_H100.name}: {GPU_H100.num_cores}), torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+
+    # ---------------------------------------------------------------- build
+    t0 = time.perf_counter()
+    secs = build.build()
+    log(f"build: {secs} ({time.perf_counter() - t0:.1f} s wall)")
+    for name in secs:
+        text = build.log_path(name).read_text() if build.log_path(name).exists() else ""
+        regs = [int(w) for line in text.splitlines() if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:]) if nxt == "registers,"]
+        spills = [line.strip() for line in text.splitlines()
+                  if "spill" in line and not line.strip().startswith("0 bytes stack")]
+        if regs:
+            log(f"build {name}: {len(regs)} kernels, registers max {max(regs)} "
+                f"min {min(regs)}; lines with spills: {spills[:3] or 'none'}")
+
+    # -------------------------------------------------------------- kernels
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def qkv(b, hq, hkv, s, d):
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                     for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+
+    # every (S, blocks) the serve phase launches, at its head counts
+    cases = [(1, 32, 4, s, 128, c) for s in sorted(set(KERNEL_S) | set(PROMPT_LENS))
+             for c in (True, False)] + [(1, 8, 2, 300, 64, True)]
+    log(f"kernel limit: |kernel-plain| <= {KERNEL_RTOL}*|plain| + "
+        f"{KERNEL_ATOL_RMS}*rms(plain); |kernel-oracle| <= {ORACLE_RTOL}*|oracle| + "
+        f"{ORACLE_ATOL_RMS}*rms(oracle)")
+    max_err = 0.0
+    for b, hq, hkv, s, d, causal in cases:
+        q, k, v = qkv(b, hq, hkv, s, d)
+        bq, bk = ops.tuned_flash_blocks(s, d, 2)
+        got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v, causal=causal, block_q=bq, block_k=bk)
+        oracle = ref.attention(q, k, v, causal=causal)
+        err = float((got.float() - want.float()).abs().max())
+        max_err = max(max_err, err)
+        bad, worst = outside(got, want, KERNEL_RTOL, KERNEL_ATOL_RMS)
+        bad_o, worst_o = outside(got, oracle, ORACLE_RTOL, ORACLE_ATOL_RMS)
+        line = (f"kernel B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal} "
+                f"blocks=({bq},{bk}): max|kernel-plain|={err:.3e} "
+                f"rms(plain)={float(want.float().pow(2).mean().sqrt()):.3e}, "
+                f"{bad} outside, worst at {worst:.3f} of the limit; oracle: "
+                f"{bad_o} outside, worst at {worst_o:.3f}")
+        if s % bk:
+            keep = s - s % bk
+            dropped = drop_tail(q, k, v, causal, keep)
+            n_drop, worst_drop = outside(dropped, want, KERNEL_RTOL, KERNEL_ATOL_RMS)
+            line += (f"; a dropped tail tile ({s - keep} of {s} keys) would give "
+                     f"max err {float((dropped.float() - want.float()).abs().max()):.3e}, "
+                     f"{n_drop} outside, worst at {worst_drop:.1f} of the limit")
+            # a tail of 5% of the keys or more must not slip through
+            if n_drop == 0 and (s - keep) * 20 >= s:
+                fail(f"the kernel limit would miss a dropped tail tile at S={s}")
+        log(line)
+        if bad or bad_o or not torch.isfinite(got).all():
+            fail(f"flash kernel disagrees at S={s} D={d} causal={causal}")
+
+    # --------------------------------------------------------------- timing
+    cfg = get_config(ARCH)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for s in sorted(set(PROMPT_LENS)):
+        q, k, v = qkv(1, hq, hkv, s, d)
+        bq, bk = ops.tuned_flash_blocks(s, d, 2)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, block_q=bq,
+                                                block_k=bk), iters=20)
+        flops, nbytes = flash_work(1, hq, hkv, s, d, True)
+        bound = max(flops / GPU_H100.peak_flops_bf16, nbytes / GPU_H100.hbm_bandwidth) * 1e3
+        log(f"timing S={s} blocks=({bq},{bk}): kernel {ms:.4f} ms, bound {bound:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s)")
+    q, k, v = qkv(1, hq, hkv, TIMED_S, d)
+    bq, bk = ops.tuned_flash_blocks(TIMED_S, d, 2)
+    kern_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, block_q=bq,
+                                                 block_k=bk), iters=50)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
+                                                        block_q=bq, block_k=bk),
+                       iters=5)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), iters=50)
+    flops, nbytes = flash_work(1, hq, hkv, TIMED_S, d, True)
+    t_ops, t_bytes = flops / GPU_H100.peak_flops_bf16, nbytes / GPU_H100.hbm_bandwidth
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"timing S={TIMED_S} causal blocks=({bq},{bk}): kernel {kern_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa (yardstick) {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB)")
+    del q, k, v
+
+    # ---------------------------------------------------------------- serve
+    model = Model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"init {ARCH}: {n_params / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
+        f"{time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(SEED)
+    cap = max(PROMPT_LENS) + MAX_NEW + 2
+
+    def requests():
+        return [Request(i, [int(t) for t in rng.integers(0, cfg.vocab, n)], MAX_NEW)
+                for i, n in enumerate(PROMPT_LENS)]
+
+    # warm-up (library handles, first launches); not counted
+    serve(model, params, [Request(0, list(range(1, 65)), 2)], slots=SLOTS,
+          cap=cap, scheduler="continuous")
+    reqs = requests()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    stats = serve(model, params, reqs, slots=SLOTS, cap=cap, scheduler="continuous")
+    launches = ops.launch_counts()
+    log(f"serve: {stats['tokens']} tokens in {stats['wall_s']:.3f} s "
+        f"({stats['tok_per_s']:.1f} tok/s), TTFT p50 {stats['ttft_s']['p50']:.4f} s "
+        f"p99 {stats['ttft_s']['p99']:.4f} s, latency p50 "
+        f"{stats['latency_s']['p50']:.4f} s p99 {stats['latency_s']['p99']:.4f} s, "
+        f"{stats['engine_steps']} decode steps, {stats['prefills']} prefills, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("serve blocks per S: " + ", ".join(
+        f"{s}->{ops.tuned_flash_blocks(s, d, 2)}" for s in PROMPT_LENS))
+    log(f"serve launches: {launches}")
+    if any(len(r.out) != MAX_NEW for r in reqs):
+        fail(f"a request got too few tokens: {[len(r.out) for r in reqs]}")
+    if any(not 0 <= t < cfg.vocab for r in reqs for t in r.out):
+        fail("a token outside the vocabulary")
+    if stats["prefills"] != len(PROMPT_LENS):
+        fail(f"{stats['prefills']} prefills for {len(PROMPT_LENS)} requests")
+    if launches["flash_attention"] != stats["prefills"] * cfg.n_layers:
+        fail(f"flash launches {launches['flash_attention']} != prefills x layers "
+             f"{stats['prefills'] * cfg.n_layers}")
+
+    _profile_serve(model, params, requests(), cap, serve, stats["wall_s"])
+
+    # --------------------------------------------------------------- parity
+    prompt = torch.tensor([[int(t) for t in rng.integers(0, cfg.vocab, 513)]],
+                          dtype=torch.int32, device=dev)
+    _, _, got = model.prefill(params, {"tokens": prompt}, 513)
+
+    def plain_attention(q, k, v, *, causal=True, scale=None, blocks=None):
+        bq, bk = blocks or ops.tuned_flash_blocks(q.shape[2], q.shape[3], 2)
+        return fa.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                        block_q=bq, block_k=bk)
+
+    kernel_attention = tattn.kops.attention
+    tattn.kops.attention = plain_attention  # this phase only
+    try:
+        _, _, want = model.prefill(params, {"tokens": prompt}, 513)
+    finally:
+        tattn.kops.attention = kernel_attention
+    got, want = got.float(), want.float()
+    diff = float((got - want).abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0))
+    log(f"parity S=513 last logits {tuple(got.shape)}: max|kernel-plain|={diff:.4e} "
+        f"(tol {LOGIT_TOL}), cosine {cos:.6f}, |logits| max {float(want.abs().max()):.3f}, "
+        f"argmax {int(got.argmax())} vs {int(want.argmax())}")
+    if not torch.isfinite(got).all() or got.shape != (1, 1, cfg.vocab) or diff > LOGIT_TOL:
+        fail("prefill through the kernel disagrees with the plain version")
+
+    # -------------------------------------------------------------- results
+    print(json.dumps({"kernels": [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "launches": launches["flash_attention"], "max_abs_err": max_err,
+        "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": lib_ms}]}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _profile_serve(model, params, reqs, cap, serve, wall_unprofiled: float) -> None:
+    """Device time by kernel over a second, profiled run of the same serve."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        serve(model, params, reqs, slots=SLOTS, cap=cap, scheduler="continuous")
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(r[1] for r in rows)
+    log(f"profile (second serve run, profiler on): wall {wall * 1e3:.1f} ms, device "
+        f"busy {total:.1f} ms; against the unprofiled run's wall "
+        f"{wall_unprofiled * 1e3:.1f} ms the device is idle "
+        f"{100 * (1 - total / (wall_unprofiled * 1e3)):.1f}% of the time")
+    groups = {}
+    for key, ms, n in rows:
+        if "flash_fwd_kernel" in key:
+            g = "flash kernel (prefill attention)"
+        elif any(w in key for w in ("gemm", "gemv", "nvjet", "xmma", "Gemv")):
+            g = "cuBLAS matrix products"
+        elif "copy" in key:
+            g = "copies and casts"
+        else:
+            g = "other elementwise/reduction"
+        acc = groups.setdefault(g, [0.0, 0])
+        acc[0] += ms
+        acc[1] += n
+    for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"profile group {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  x{n:<6} {g}")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
+        log(f"profile  {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  x{n:<6} {key[:90]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,161 @@
+"""Flash-attention forward: the Hopper CUDA kernel's wrapper and its plain
+torch version.
+
+Replaces the TPU kernel ``_flash_kernel`` of
+``src/repro/kernels/flash_attention.py`` (``flash_attention_pallas``). The
+kernel is ``csrc/flash_attention.cu``: one thread block per (batch*q-head,
+q-tile), a loop over KV tiles inside the block, q/k/v tiles in shared memory
+and ``mma.sync`` bf16 products with f32 accumulation. Its source says what
+bounds it on the H100 and what the design does about it.
+
+``flash_attention`` launches the kernel for CUDA tensors and runs
+``flash_attention_plain`` for CPU tensors, and for nothing else: on a CUDA
+tensor it launches or raises. The plain version walks the same q/k blocks
+with the same tail handling, causal tile skip and GQA head map, so the CPU
+tests exercise the kernel's tiling logic through it.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+_NEG_INF = -1e30
+HEAD_DIMS = (64, 128)  # head dims the kernel is built for
+BLOCKS = (16, 32, 64, 128)  # block_q / block_k values the kernel is built for
+
+# kernel launches in this process (the main-path witness); reset via
+# ``ops.reset_launch_counts``
+LAUNCHES = 0
+
+
+def _check_shapes(q, k, v) -> None:
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError(f"expected q [B,Hq,S,D], k/v [B,Hkv,S,D]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if k.shape != (b, hkv, s, d) or v.shape != k.shape or hq % hkv:
+        raise ValueError(f"incompatible q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if s < 1:
+        raise ValueError("empty sequence")
+
+
+def flash_attention_plain(
+    q: torch.Tensor,  # [B, Hq, S, D]
+    k: torch.Tensor,  # [B, Hkv, S, D]
+    v: torch.Tensor,  # [B, Hkv, S, D]
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    block_q: int = 64,
+    block_k: int = 64,
+) -> torch.Tensor:
+    """Online-softmax attention over (block_q, block_k) tiles, in torch.
+
+    Scores and the running max/sum/accumulator are f32; p is cast to v's
+    dtype before the p·v product, which accumulates in f32. Tile slices stop
+    at S (the kernel's tail mask: keys past S weigh nothing and query rows
+    past S are never written), and with ``causal`` KV tiles wholly above
+    the diagonal are skipped."""
+    _check_shapes(q, k, v)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    h = torch.arange(b * hq, device=q.device)
+    kv_rows = (h // hq) * hkv + (h % hq) // group
+    qf = q.reshape(b * hq, s, d)
+    kf = k.reshape(b * hkv, s, d)[kv_rows]
+    vf = v.reshape(b * hkv, s, d)[kv_rows]
+    out = torch.empty_like(qf)
+    nk = -(-s // block_k)
+    for q0 in range(0, s, block_q):
+        q1 = min(q0 + block_q, s)
+        qi = qf[:, q0:q1].float()
+        m = torch.full((b * hq, q1 - q0, 1), _NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b * hq, q1 - q0, d), device=q.device)
+        last = min(nk - 1, (q0 + block_q - 1) // block_k) if causal else nk - 1
+        for kt in range(last + 1):
+            k0, k1 = kt * block_k, min(kt * block_k + block_k, s)
+            sc = (qi @ kf[:, k0:k1].float().transpose(1, 2)) * scale
+            if causal:
+                q_pos = torch.arange(q0, q1, device=q.device)[:, None]
+                k_pos = torch.arange(k0, k1, device=q.device)[None, :]
+                sc = sc.masked_fill(k_pos > q_pos, _NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            p = torch.exp(sc - m_new)
+            corr = torch.exp(m - m_new)
+            l = corr * l + p.sum(-1, keepdim=True)
+            acc = acc * corr + p.to(v.dtype).float() @ vf[:, k0:k1].float()
+            m = m_new
+        out[:, q0:q1] = (acc / l.clamp_min(1e-30)).to(q.dtype)
+    return out.reshape(b, hq, s, d)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = build.load("flash_attention").flash_attention_fwd_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(q, k, v, causal: bool, scale: float, block_q: int,
+            block_k: int) -> torch.Tensor:
+    global LAUNCHES
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the flash kernel takes bfloat16; {name} is {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the flash kernel is built for head dims {HEAD_DIMS}, "
+                         f"not {d}")
+    if block_q not in BLOCKS or block_k not in BLOCKS:
+        raise ValueError(f"blocks ({block_q}, {block_k}) not in {BLOCKS}")
+    if b * hq > 65535:
+        raise ValueError(f"B*Hq = {b * hq} exceeds the grid's y extent")
+    fn = _kernel()
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 b, hq, hkv, s, d, block_q, block_k, scale, int(causal),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: cudaError_t {err}")
+    LAUNCHES += 1
+    return o
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Hq, S, D]
+    k: torch.Tensor,  # [B, Hkv, S, D]
+    v: torch.Tensor,  # [B, Hkv, S, D]
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    block_q: int = 64,
+    block_k: int = 64,
+) -> torch.Tensor:
+    """GQA flash-attention forward; out [B, Hq, S, D] in q's dtype. CUDA
+    tensors launch the Hopper kernel, CPU tensors run the plain version."""
+    _check_shapes(q, k, v)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, scale, block_q, block_k)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     block_q=block_q, block_k=block_k)
+    raise ValueError(f"no flash attention for device {q.device}")

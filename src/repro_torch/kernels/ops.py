@@ -1,0 +1,77 @@
+"""Kernel entry points with statically picked schedules.
+
+``attention`` dispatches on the tensors' device: a CUDA tensor launches the
+hand-written Hopper kernel, a CPU tensor runs its plain torch version. There
+is no switch that sends a CUDA tensor to the plain version.
+
+The block sizes come from ``tuned_flash_blocks``: a static, device-free
+choice made once per shape and memoised. The schedule-DB, snapshot and
+kernel-bundle tiers of the reference picker arrive with the port of the
+schedule database.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.hw.gpu_h100 import GPU_H100
+from repro_torch.kernels import flash_attention as _flash_mod
+from repro_torch.kernels.flash_attention import BLOCKS, flash_attention
+
+
+def launch_counts() -> Dict[str, int]:
+    """How many times each hand-written kernel has launched in this process."""
+    return {"flash_attention": _flash_mod.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    _flash_mod.LAUNCHES = 0
+
+
+@functools.lru_cache(maxsize=256)
+def tuned_flash_blocks(s: int, d: int, dtype_bytes: int = 2) -> Tuple[int, int]:
+    """Static block_q/block_k choice for flash attention over the block
+    sizes the CUDA kernel is built for.
+
+    The score is the reference pick's (``repro/kernels/ops.py``): per KV step
+    a fixed matrix-unit cost plus the staged q/k/v bytes over the memory
+    rate, times the number of (q-tile, kv-tile) steps, with ragged tiles
+    counted whole. Candidates whose shared-memory working set (q, k and v
+    tiles with rows padded by 16 bytes; the softmax statistics and the
+    accumulator stay in registers) exceeds what one H100 block may use are
+    pruned."""
+    target = GPU_H100
+    best, best_score = None, float("inf")
+    for bq in BLOCKS:
+        for bk in BLOCKS:
+            smem = (bq + 2 * bk) * (d * dtype_bytes + 16)
+            if smem > target.fast_mem_bytes:
+                continue
+            tiles = (bq // 128 or 1) * (bk // 128 or 1) * max(1, d // 128)
+            dma = (bq * d + 2 * bk * d) * dtype_bytes
+            t = 2 * tiles * 20 / target.clock_hz + dma / target.hbm_bandwidth
+            score = t * (-(-s // bq)) * (-(-s // bk))
+            if score < best_score:
+                best, best_score = (bq, bk), score
+    if best is None:
+        raise ValueError(f"no flash block fits shared memory at d={d}")
+    return best
+
+
+def attention(
+    q: torch.Tensor,  # [B, Hq, S, D]
+    k: torch.Tensor,  # [B, Hkv, S, D]
+    v: torch.Tensor,  # [B, Hkv, S, D]
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    blocks: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """Flash attention with statically picked blocks."""
+    if blocks is None:
+        blocks = tuned_flash_blocks(q.shape[-2], q.shape[-1], q.element_size())
+    bq, bk = blocks
+    return flash_attention(q, k, v, causal=causal, scale=scale,
+                           block_q=bq, block_k=bk)

@@ -1,0 +1,168 @@
+"""Batched serving entry point: continuous batching (default) or wave fallback.
+
+* ``continuous`` (default) — ``launch/engine.py``: per-slot position
+  vectors, an admission queue with per-request deadlines, and slot refill
+  the moment a request finishes (EOS / ``max_new`` / deadline).
+* ``wave`` (fallback, for parity comparison) — waves of ``slots`` equal-
+  length prompts prefill batched, then decode in lockstep with a scalar
+  position; a finished request parks its slot until the wave drains.
+
+Both report per-request TTFT / end-to-end latency percentiles and
+``wasted_slot_steps`` (slot-steps burned on pad/finished slots).
+
+On the card:  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b
+On the CPU:   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
+    --reduced --device cpu --requests 6 --slots 2 --max-new 16
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.launch.engine import ContinuousEngine, Request, request_stats
+from repro_torch.models.model import Model
+
+__all__ = ["Request", "ServeEngine", "serve", "group_into_waves"]
+
+
+def group_into_waves(requests: List[Request], slots: int) -> List[List[Request]]:
+    """Bucket by prompt length (wave prefill is one batched call, so a wave
+    must be homogeneous), then chunk each bucket into waves of at most
+    ``slots``. Submission order is preserved within a bucket."""
+    buckets: Dict[int, List[Request]] = {}
+    for r in requests:
+        buckets.setdefault(len(r.prompt), []).append(r)
+    waves = []
+    for length in buckets:
+        group = buckets[length]
+        waves.extend(group[i: i + slots] for i in range(0, len(group), slots))
+    return waves
+
+
+class ServeEngine:
+    """Lockstep wave scheduler (the fallback baseline)."""
+
+    def __init__(self, model: Model, params, slots: int, cap: int):
+        self.model = model
+        self.params = params
+        self.slots = slots
+        self.cap = cap
+        self.engine_steps = 0        # decode steps
+        self.slot_steps = 0          # slot-steps doing live work
+        self.wasted_slot_steps = 0   # slot-steps on pad/finished slots
+        self.prefills = 0
+        self._t0 = time.perf_counter()
+
+    def run_wave(self, wave: List[Request]) -> None:
+        if len({len(r.prompt) for r in wave}) != 1:
+            raise ValueError("a wave holds prompts of one length")
+        n = len(wave)
+        prompts = np.array([r.prompt for r in wave], np.int32)
+        if n < self.slots:  # pad to engine width
+            prompts = np.pad(prompts, ((0, self.slots - n), (0, 0)))
+        batch = {"tokens": torch.from_numpy(prompts).to(self.model.device)}
+        cache, pos, last_logits = self.model.prefill(self.params, batch, self.cap)
+        self.prefills += 1
+        tok = torch.argmax(last_logits[:, 0], dim=-1).to(torch.int32)
+        tok_np = tok.cpu().numpy()  # one host sync per step, not one per slot
+        now = time.perf_counter() - self._t0
+        for i, r in enumerate(wave):
+            r.out.append(int(tok_np[i]))
+            r.t_first = now
+            if len(r.out) >= r.max_new:
+                r.t_done = now
+        max_new = max(r.max_new for r in wave)
+        for t in range(max_new - 1):
+            # pad rows and already-finished requests still run the full
+            # decode step — the wave scheduler's cost, reported as waste
+            live = sum(1 for r in wave if len(r.out) < r.max_new)
+            logits, cache = self.model.decode_step(self.params, cache, tok,
+                                                   pos + t)
+            self.engine_steps += 1
+            self.slot_steps += live
+            self.wasted_slot_steps += self.slots - live
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            tok_np = tok.cpu().numpy()
+            now = time.perf_counter() - self._t0
+            for i, r in enumerate(wave):
+                if len(r.out) < r.max_new:
+                    r.out.append(int(tok_np[i]))
+                    if len(r.out) >= r.max_new:
+                        r.t_done = now
+
+
+def serve(model: Model, params, requests: List[Request], slots: int,
+          cap: int, scheduler: str = "continuous") -> Dict:
+    """Serve ``requests`` with the chosen scheduler."""
+    t0 = time.perf_counter()
+    if scheduler == "continuous":
+        engine = ContinuousEngine(model, params, slots, cap)
+        engine.run(requests)
+        stats = engine.stats()
+    elif scheduler == "wave":
+        engine = ServeEngine(model, params, slots, cap)
+        for wave in group_into_waves(requests, slots):
+            engine.run_wave(wave)
+        stats = {"engine_steps": engine.engine_steps,
+                 "slot_steps": engine.slot_steps,
+                 "wasted_slot_steps": engine.wasted_slot_steps,
+                 "prefills": engine.prefills,
+                 "cache_reloads": 0}  # no schedule cache to reload yet
+    else:
+        raise ValueError(f"unknown scheduler: {scheduler!r}")
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    wall = time.perf_counter() - t0
+    toks = sum(len(r.out) for r in requests)
+    stats.update({"scheduler": scheduler, "wall_s": wall, "tokens": toks,
+                  "tok_per_s": toks / max(wall, 1e-9)})
+    stats.update(request_stats(requests))
+    return stats
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--scheduler", choices=("continuous", "wave"),
+                    default="continuous",
+                    help="continuous = per-slot positions + refill on free; "
+                         "wave = lockstep fallback for parity comparison")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = Model(cfg, device=args.device)
+    params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, [int(t) for t in rng.integers(0, cfg.vocab, args.prompt_len)],
+                    args.max_new)
+            for i in range(args.requests)]
+    cap = args.prompt_len + args.max_new + 2
+    stats = serve(model, params, reqs, slots=args.slots, cap=cap,
+                  scheduler=args.scheduler)
+    print(f"[serve] {stats['scheduler']}: {stats['tokens']} tokens in "
+          f"{stats['wall_s']:.2f}s ({stats['tok_per_s']:.1f} tok/s, "
+          f"{stats['engine_steps']} engine steps, "
+          f"{stats['slot_steps']} live slot-steps, "
+          f"{stats['wasted_slot_steps']} wasted)")
+    print(f"[serve] ttft p50/p95/p99 = {stats['ttft_s']['p50']:.3f}/"
+          f"{stats['ttft_s']['p95']:.3f}/{stats['ttft_s']['p99']:.3f}s; "
+          f"latency p50/p95/p99 = {stats['latency_s']['p50']:.3f}/"
+          f"{stats['latency_s']['p95']:.3f}/{stats['latency_s']['p99']:.3f}s")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,107 @@
+"""Shared layers (plain functions over dicts of tensors).
+
+Parameters of a layer stack carry a leading group dimension ``lead`` (see
+``models/transformer.py``); the functions here take one group's slice.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """``scale * N(0, 1)`` drawn in f32 on the generator's device, then cast."""
+    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return x.normal_(generator=gen).mul_(scale).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+
+def init_norm(cfg, device, lead: Tuple[int, ...] = ()) -> Dict:
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
+    return {"w": torch.ones(lead + (cfg.d_model,), dtype=cfg.torch_param_dtype(),
+                            device=device)}
+
+
+def apply_norm(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    ms = (xf * xf).mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + cfg.norm_eps)
+    return (y * p["w"].float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+
+
+def rope_tables(cfg, positions: torch.Tensor, d: Optional[int] = None):
+    """positions [.., S] -> (sin, cos) each [..., S, d/2] in f32."""
+    d = d or cfg.head_dim
+    half = d // 2
+    idx = torch.arange(0, half, dtype=torch.float32, device=positions.device)
+    freqs = cfg.rope_theta ** (-idx / half)
+    ang = positions.float()[..., None] * freqs  # [..., S, half]
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x [..., S, D]; rotate-half convention."""
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+
+def init_dense_mlp(cfg, gen, lead: Tuple[int, ...] = ()) -> Dict:
+    if cfg.activation != "swiglu":
+        raise NotImplementedError(f"activation {cfg.activation!r} is not ported yet")
+    d, f = cfg.d_model, cfg.d_ff
+    dt = cfg.torch_param_dtype()
+    return {
+        "w1": normal(gen, lead + (d, f), d ** -0.5, dt),
+        "w2": normal(gen, lead + (f, d), f ** -0.5, dt),
+        "w3": normal(gen, lead + (d, f), d ** -0.5, dt),
+    }
+
+
+def apply_dense_mlp(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    cd = cfg.torch_compute_dtype()
+    xc = x.to(cd)
+    h = xc @ p["w1"].to(cd)
+    g = xc @ p["w3"].to(cd)
+    return ((F.silu(h) * g) @ p["w2"].to(cd)).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# embedding / unembedding
+# --------------------------------------------------------------------------
+
+
+def init_embed(cfg, gen) -> Dict:
+    dt = cfg.torch_param_dtype()
+    p = {"tok": normal(gen, (cfg.vocab, cfg.d_model), 0.02, dt)}
+    if not cfg.tie_embeddings:
+        p["head"] = normal(gen, (cfg.d_model, cfg.vocab), cfg.d_model ** -0.5, dt)
+    return p
+
+
+def embed(cfg, p: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens.long()].to(cfg.torch_compute_dtype())
+
+
+def unembed(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    cd = cfg.torch_compute_dtype()
+    w = p["head"] if "head" in p else p["tok"].T
+    return x.to(cd) @ w.to(cd)

@@ -1,0 +1,120 @@
+"""The port's serving stack held against the reference's on reduced yi-6b
+with converted weights: greedy tokens and slot accounting."""
+import numpy as np
+import jax
+import pytest
+
+from repro.configs.base import get_config as jget_config
+from repro.launch.engine import greedy_decode_reference as jgreedy
+from repro.launch.engine import Request as JRequest
+from repro.launch.serve import serve as jserve
+from repro.models.model import Model as JModel
+from repro_torch.configs.base import get_config
+from repro_torch.launch.engine import (Request, greedy_decode_reference,
+                                       latency_summary)
+from repro_torch.launch.serve import group_into_waves, serve
+from repro_torch.models.model import Model
+from repro_torch.weights import from_jax
+
+# (prompt_len, max_new): mixed lengths and budgets, as in test_serving.py
+SPEC = [(4, 3), (8, 6), (4, 5), (8, 2), (12, 4), (4, 6), (12, 7)]
+CAP = max(p + m for p, m in SPEC) + 2
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jmodel = JModel(jget_config("yi_6b").reduced())
+    jparams = jmodel.init(jax.random.key(0))
+    model = Model(get_config("yi_6b").reduced(), device="cpu")
+    params = from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [[int(t) for t in rng.integers(0, 256, p)] for p, _ in SPEC]
+    want = {i: jgreedy(jmodel, jparams, pr, m, CAP)
+            for i, (pr, (_, m)) in enumerate(zip(prompts, SPEC))}
+    return jmodel, jparams, model, params, prompts, want
+
+
+def _requests(cls, prompts):
+    return [cls(i, list(pr), m) for i, (pr, (_, m)) in enumerate(zip(prompts, SPEC))]
+
+
+@pytest.mark.parametrize("scheduler,slots", [("continuous", 3), ("wave", 3),
+                                             ("continuous", 2)])
+def test_scheduler_matches_reference_greedy_and_accounting(setup, scheduler, slots):
+    """Token-for-token equal to the reference's one-at-a-time greedy decode,
+    and the same engine_steps / slot_steps / wasted_slot_steps as the
+    reference's own scheduler on the same requests."""
+    jmodel, jparams, model, params, prompts, want = setup
+    reqs = _requests(Request, prompts)
+    stats = serve(model, params, reqs, slots=slots, cap=CAP, scheduler=scheduler)
+    assert {r.rid: r.out for r in reqs} == want
+    jreqs = _requests(JRequest, prompts)
+    jstats = jserve(jmodel, jparams, jreqs, slots=slots, cap=CAP,
+                    scheduler=scheduler)
+    for key in ("engine_steps", "slot_steps", "wasted_slot_steps", "prefills",
+                "tokens"):
+        assert stats[key] == jstats[key], key
+    assert set(stats["ttft_s"]) == {"p50", "p95", "p99", "mean"}
+    assert len(stats["requests"]) == len(SPEC)
+
+
+def test_port_greedy_reference_matches(setup):
+    _, _, model, params, prompts, want = setup
+    for i, (pr, (_, m)) in enumerate(zip(prompts, SPEC)):
+        assert greedy_decode_reference(model, params, pr, m, CAP) == want[i]
+
+
+def test_eos_frees_slot_early(setup):
+    _, _, model, params, prompts, want = setup
+    reqs = [Request(i, list(prompts[1]), 6) for i in range(3)]
+    eos = want[1][2]  # cut request 0 at its third emitted token
+    reqs[0].eos_id = eos
+    stats = serve(model, params, reqs, slots=2, cap=CAP, scheduler="continuous")
+    assert reqs[0].out[-1] == eos and len(reqs[0].out) <= 3
+    assert reqs[0].out == want[1][: len(reqs[0].out)]
+    assert all(len(r.out) == 6 for r in reqs[1:])
+    assert stats["prefills"] == 3
+
+
+def test_deadline_truncates_and_is_counted(setup):
+    _, _, model, params, prompts, _ = setup
+    reqs = [Request(0, list(prompts[0]), 50, deadline_s=0.0),
+            Request(1, list(prompts[0]), 4)]
+    stats = serve(model, params, reqs, slots=1, cap=64, scheduler="continuous")
+    assert reqs[0].truncated and len(reqs[0].out) == 1
+    assert len(reqs[1].out) == 4 and not reqs[1].truncated
+    assert stats["deadline_truncations"] == 1
+
+
+@pytest.mark.parametrize("scheduler", ["continuous", "wave"])
+def test_stats_keys_match_reference(setup, scheduler):
+    """Both schedulers report the reference's stats keys; with no schedule
+    cache to reload, ``cache_reloads`` is 0 as in an unhooked reference."""
+    jmodel, jparams, model, params, prompts, _ = setup
+    stats = serve(model, params, [Request(i, list(prompts[0]), 3) for i in range(4)],
+                  slots=2, cap=CAP, scheduler=scheduler)
+    jstats = jserve(jmodel, jparams,
+                    [JRequest(i, list(prompts[0]), 3) for i in range(4)],
+                    slots=2, cap=CAP, scheduler=scheduler)
+    assert set(stats) == set(jstats)
+    assert stats["cache_reloads"] == jstats["cache_reloads"] == 0
+
+
+def test_group_into_waves_buckets_by_length():
+    reqs = [Request(i, [0] * p, 1) for i, p in enumerate([4, 8, 4, 4])]
+    waves = group_into_waves(reqs, slots=2)
+    assert [[r.rid for r in w] for w in waves] == [[0, 2], [3], [1]]
+
+
+def test_latency_summary_percentiles():
+    s = latency_summary([0.1] * 99 + [1.0])
+    assert s["p50"] == pytest.approx(0.1)
+    assert latency_summary([]) == {"p50": 0.0, "p95": 0.0, "p99": 0.0,
+                                   "mean": 0.0}
+
+
+def test_unknown_scheduler_rejected(setup):
+    _, _, model, params, prompts, _ = setup
+    with pytest.raises(ValueError):
+        serve(model, params, [Request(0, [1, 2], 1)], slots=1, cap=8,
+              scheduler="fifo")
