@@ -5,7 +5,9 @@
 
 Phases, in order; any failure exits non-zero before the last line:
 
-1. build   — compile every CUDA source of the port with nvcc (sm_90a).
+1. build   — compile every CUDA source of the port with nvcc (sm_90a), one
+             nvcc per source, in parallel; log registers and spills, and fail
+             on a spill in the matmul kernel.
 2. kernels — hold the flash-attention kernel against its plain torch version
              on the card, in bf16, at yi-6b shapes (B=1, Hq=32, Hkv=4,
              D=128) for every prompt length the serve phase prefills and a
@@ -14,16 +16,28 @@ Phases, in order; any failure exits non-zero before the last line:
 3. timing  — at S=1024 causal: the kernel, its plain version and, as a
              yardstick only, torch's scaled_dot_product_attention (the port
              never calls it), with CUDA events; the bound from the data sheet.
-4. serve   — yi-6b at full width and depth with random weights from a seeded
+4. matmul  — hold the matmul kernel against its plain version in bf16 at
+             every yi-6b projection of a 2048-token prefill, the unembed and
+             the reference's matmul_{1024,2048,4096}_bf16 presets, with every
+             configuration of the Hopper space (the tuner's pick among them);
+             show that the limit would catch a dropped last K block.
+5. tuner   — the slice's main path, counted: at each yi-6b shape the ES
+             search (tune, seed 0) against the exhaustive best, ops.matmul
+             with the statically picked blocks, and the paper's top-k ratio
+             (static ranking vs every configuration timed on the card); then
+             the kernel, its plain version, torch.matmul (a yardstick the port
+             never calls) and the data-sheet bound.
+6. serve   — yi-6b at full width and depth with random weights from a seeded
              generator: 8 requests of mixed prompt lengths through the
              continuous engine; every request gets its tokens and the flash
              kernel launches once per layer per prefill.
-5. parity  — the last logits of one prefill through the kernel and through
+7. parity  — the last logits of one prefill through the kernel and through
              the plain version agree within a stated bf16 tolerance.
 
-Prints a ``kernels`` JSON line, then the card's name and power limit, then
-``{"ok": true, "device": {...}}`` as the last line. Needs one card; imports no
-jax and nothing of the reference package.
+Prints a ``topk`` JSON line (ratio@1/5 per shape), a ``kernels`` JSON line,
+then the card's name and power limit, then ``{"ok": true, "device": {...}}``
+as the last line. Needs one card; imports no jax and nothing of the
+reference package.
 """
 from __future__ import annotations
 
@@ -50,6 +64,14 @@ ORACLE_RTOL, ORACLE_ATOL_RMS = 2**-6, 0.05
 KERNEL_S = (1, 77, 513, 1024, 2047)
 LOGIT_TOL = 0.25   # |logit| ~ N(0, 1): 32 bf16 layers amplify ulp differences
 TIMED_S = 1024
+# matmul: an element passes when |kernel - plain| <= MM_RTOL * |plain| +
+# MM_ATOL_RMS * rms(plain). Both sum exact bf16 products in f32 (in another
+# order) and round once, so they differ by at most about one bf16 ulp;
+# dropping a bk slice of K moves an output by about sqrt(bk/K) * rms.
+MM_RTOL, MM_ATOL_RMS = 2**-7, 0.01
+MM_PRESETS = ((1024, 1024, 1024), (2048, 2048, 2048), (4096, 4096, 4096))
+MM_TIMED = (2048, 4096, 4096)
+TOPK_ITERS = 10
 
 
 def fail(msg: str) -> None:
@@ -109,6 +131,22 @@ def flash_work(b, hq, hkv, s, d, causal):
     return flops, nbytes
 
 
+def nvidia_smi(query: str) -> str:
+    """First line of ``nvidia-smi --query-gpu=<query>`` (csv, no header)."""
+    smi = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def matmul_work(m, n, k):
+    """(flops, bytes) of C = A @ B in bf16: each input read once, C written
+    once."""
+    return 2 * m * n * k, 2 * (m * k + k * n + m * n)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -119,10 +157,14 @@ def main() -> None:
         fail(f"the port's sources are missing under {SRC}")
     sys.path.insert(0, str(SRC))
 
+    from repro_torch.benchmarks.topk_ratio import YI6B_SHAPES, topk_ratio_matmul
     from repro_torch.configs.base import get_config
+    from repro_torch.core.spaces import MatmulSpace
+    from repro_torch.core.tuner import best_schedule, tune
     from repro_torch.hw.gpu_h100 import GPU_H100
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as km
     from repro_torch.launch.engine import Request
     from repro_torch.launch.serve import serve
     from repro_torch.models import attention as tattn
@@ -145,10 +187,15 @@ def main() -> None:
         regs = [int(w) for line in text.splitlines() if "registers" in line
                 for w, nxt in zip(line.split(), line.split()[1:]) if nxt == "registers,"]
         spills = [line.strip() for line in text.splitlines()
-                  if "spill" in line and not line.strip().startswith("0 bytes stack")]
+                  if "spill" in line and any(
+                      w.isdigit() and int(w) > 0 and nxt == "bytes"
+                      and "spill" in after for w, nxt, after in zip(
+                          line.split(), line.split()[1:], line.split()[2:]))]
         if regs:
             log(f"build {name}: {len(regs)} kernels, registers max {max(regs)} "
                 f"min {min(regs)}; lines with spills: {spills[:3] or 'none'}")
+        if name == "matmul" and spills:
+            fail(f"the matmul kernel spills: {spills[:3]}")
 
     # -------------------------------------------------------------- kernels
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -225,6 +272,129 @@ def main() -> None:
         f"{nbytes / 1e6:.2f} MB)")
     del q, k, v
 
+    # --------------------------------------------------------------- matmul
+    log(f"matmul limit: |kernel-plain| <= {MM_RTOL}*|plain| + "
+        f"{MM_ATOL_RMS}*rms(plain), per element; the same against the f32 oracle")
+    mm_err = 0.0
+    mm_spaces = {}
+    for m, n, k in YI6B_SHAPES + MM_PRESETS:
+        cfgs = list(MatmulSpace(m, n, k, 2, target_kind=GPU_H100.kind).enumerate(None))
+        pick = dict(zip(("bm", "bn", "bk", "double_buffer"),
+                        ops.tuned_matmul_blocks(m, n, k, 2)))
+        if pick not in cfgs:
+            fail(f"the static pick {pick} at {m}x{n}x{k} is not a built configuration")
+        mm_spaces[(m, n, k)] = cfgs
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        y = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+        got = ops.matmul(x, y)
+        oracle = ref.matmul(x, y)
+        bad_o, worst_o = outside(got, oracle, MM_RTOL, MM_ATOL_RMS)
+        line = [f"matmul {m}x{n}x{k}: pick {pick}, oracle {bad_o} outside "
+                f"(worst {worst_o:.3f})"]
+        if bad_o:
+            fail(f"matmul kernel disagrees with the oracle at {m}x{n}x{k}")
+        del oracle
+        for bk in sorted({c["bk"] for c in cfgs}):
+            group = [c for c in cfgs if c["bk"] == bk]
+            want = km.matmul_plain(x, y, group[0]["bm"], group[0]["bn"], bk)
+            worst, err = 0.0, 0.0
+            for sched in group:
+                got = km.matmul(x, y, **sched)
+                torch.cuda.synchronize()
+                bad, w = outside(got, want, MM_RTOL, MM_ATOL_RMS)
+                err = max(err, float((got.float() - want.float()).abs().max()))
+                worst = max(worst, w)
+                if bad or not torch.isfinite(got).all():
+                    fail(f"matmul kernel disagrees at {m}x{n}x{k} {sched}: {bad} outside")
+            mm_err = max(mm_err, err)
+            dropped = (km.matmul_plain(x[:, :k - bk], y[:k - bk], group[0]["bm"],
+                                       group[0]["bn"], bk)
+                       if k > bk else torch.zeros_like(want))
+            n_drop, w_drop = outside(dropped, want, MM_RTOL, MM_ATOL_RMS)
+            line.append(f"bk={bk}: {len(group)} configs, 0 outside, worst "
+                        f"{worst:.3f}, max err {err:.3e}; dropped last K block "
+                        f"{n_drop} outside (worst {w_drop:.1f}x)")
+            if n_drop == 0:
+                fail(f"the matmul limit would miss a dropped last K block at "
+                     f"{m}x{n}x{k} bk={bk}")
+        log("; ".join(line))
+    del x, y, got, want, dropped
+
+    # ---------------------------------------------------------------- tuner
+    ops.reset_launch_counts()
+    expected, topk = 0, {}
+    for m, n, k in YI6B_SHAPES:
+        space = MatmulSpace(m, n, k, 2, target_kind=GPU_H100.kind)
+        res = tune(space, GPU_H100, seed=SEED)
+        best, best_score = best_schedule(space, GPU_H100)
+        log(f"tune {m}x{n}x{k}: ES {res.config} score {res.score * 1e3:.4f} ms "
+            f"({res.evaluations} evaluations, {res.wall_seconds:.3f} s); "
+            f"exhaustive best {best} {best_score * 1e3:.4f} ms; "
+            f"{'equal' if res.config == best else 'differs'}")
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        y = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+        out = ops.matmul(x, y)
+        torch.cuda.synchronize()
+        expected += 1
+        if out.shape != (m, n) or not torch.isfinite(out).all():
+            fail(f"ops.matmul at {m}x{n}x{k} gave {tuple(out.shape)} or non-finite values")
+        r = topk_ratio_matmul(m, n, k, iters=TOPK_ITERS, seed=SEED)
+        expected += r["n_configs"] * (3 + TOPK_ITERS)  # measure's warm-up + iters
+        ratios = {key: v for key, v in r.items()
+                  if key.startswith(("ratio@", "top1", "rank_corr"))}
+        if not all(np.isfinite(v) and (v > 0 or key == "rank_corr")
+                   for key, v in ratios.items()):
+            fail(f"non-finite top-k ratio at {m}x{n}x{k}: {ratios}")
+        measured = [e["config"] for e in r["ranking"]]
+        if sorted(map(str, measured)) != sorted(map(str, mm_spaces[(m, n, k)])):
+            fail(f"top-k at {m}x{n}x{k} measured configurations the check did not")
+        by_ms = sorted(r["ranking"], key=lambda e: e["ms"])
+        short = lambda e: (f"({e['config']['bm']},{e['config']['bn']},{e['config']['bk']},"
+                           f"{int(e['config']['double_buffer'])}) {e['ms']:.4f}")
+        log(f"topk {m}x{n}x{k}: " + ", ".join(f"{key}={v:.4f}" for key, v in ratios.items())
+            + f"; best static {r['best_static_ms']:.4f} ms, best measured "
+            f"{r['best_oracle_ms']:.4f} ms; static {r['static_s']:.3f} s vs measure "
+            f"{r['measure_s']:.3f} s over {r['n_configs']}/{r['space_size']} configs")
+        twins = {}
+        for e in r["ranking"]:
+            c = e["config"]
+            twins.setdefault((c["bm"], c["bn"], c["bk"]), {})[c["double_buffer"]] = e
+        static2 = sum(v[True]["score"] < v[False]["score"] for v in twins.values())
+        card2 = sum(v[True]["ms"] < v[False]["ms"] for v in twins.values())
+        log(f"topk {m}x{n}x{k}: two stages preferred over one by the model in "
+            f"{static2}/{len(twins)} tiles, on the card in {card2}/{len(twins)}; "
+            "overflow-penalised: "
+            + str([e["config"] for e in r["ranking"] if e["score"] > 1.0]))
+        log(f"topk {m}x{n}x{k} static top5 [ms]: "
+            + ", ".join(short(e) for e in r["ranking"][:5])
+            + " | measured top5: " + ", ".join(short(e) for e in by_ms[:5]))
+        topk[f"{m}x{n}x{k}"] = r
+    mm_launches = ops.launch_counts()["matmul"]
+    log(f"tuner path launches: {ops.launch_counts()} (expected matmul {expected})")
+    if mm_launches != expected or mm_launches == 0:
+        fail(f"matmul launches {mm_launches} != {expected} on the tuner path")
+    for m, n, k in YI6B_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        y = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+        blocks = ops.tuned_matmul_blocks(m, n, k, 2)
+        kern = cuda_ms(lambda: ops.matmul(x, y), iters=20)
+        lib = cuda_ms(lambda: torch.matmul(x, y), iters=20)
+        flops, nbytes = matmul_work(m, n, k)
+        t_ops, t_bytes = flops / GPU_H100.peak_flops_bf16, nbytes / GPU_H100.hbm_bandwidth
+        bound = max(t_ops, t_bytes) * 1e3
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        log(f"timing matmul {m}x{n}x{k} blocks={blocks}: kernel {kern:.4f} ms "
+            f"({flops / kern / 1e9:.1f} TFLOP/s), torch.matmul (yardstick) "
+            f"{lib:.4f} ms, bound {bound:.4f} ms by {by}")
+        if (m, n, k) == MM_TIMED:
+            mm_ms, mm_lib_ms, mm_bound_ms, mm_bound_by = kern, lib, bound, by
+            mm_plain_ms = cuda_ms(lambda: km.matmul_plain(x, y, *blocks[:3]), iters=3)
+            log(f"timing matmul {m}x{n}x{k}: plain {mm_plain_ms:.4f} ms")
+    log("card after the matmul timing (clocks.sm, clocks.max.sm, power.draw, "
+        f"temperature.gpu): {nvidia_smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu')}")
+    del x, y
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- serve
     model = Model(cfg, device="cuda")
     t0 = time.perf_counter()
@@ -296,19 +466,23 @@ def main() -> None:
         fail("prefill through the kernel disagrees with the plain version")
 
     # -------------------------------------------------------------- results
+    print(json.dumps({"topk": {s: {"top1_ratio": r["top1_ratio"],
+                                    "ratio@5": r["ratio@5"]}
+                               for s, r in topk.items()}}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",
         "launches": launches["flash_attention"], "max_abs_err": max_err,
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": lib_ms}]}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+        "bound_by": bound_by, "library_ms": lib_ms}, {
+        "name": "matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/matmul.cu",
+        "replaces": "src/repro/kernels/matmul.py:28",
+        "launches": mm_launches, "max_abs_err": mm_err,
+        "ms": mm_ms, "plain_ms": mm_plain_ms, "bound_ms": mm_bound_ms,
+        "bound_by": mm_bound_by, "library_ms": mm_lib_ms}]}), flush=True)
+    print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

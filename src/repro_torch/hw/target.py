@@ -1,9 +1,10 @@
 """Hardware target description (the port's own copy of the reference schema).
 
 A ``HardwareTarget`` carries what the static schedule choice reads: compute
-geometry, functional units and per-opcode tables (filled by the slice that
-ports the cost model), the memory hierarchy and the chip's roofline peaks.
-All values are published data-sheet numbers; nothing here is measured.
+geometry, functional units and per-opcode latency/throughput tables (read by
+the ILP model, ``core/ilp.py``), the memory hierarchy and the chip's
+roofline peaks. All values are published data-sheet numbers; nothing here is
+measured.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ class FunctionalUnit:
 @dataclasses.dataclass(frozen=True)
 class HardwareTarget:
     name: str
-    kind: str  # "tpu" | "cpu" | "gpu"
+    kind: str  # "tpu" | "cpu" | "gpu" (SIMT) | "sm90" (tensor-core Hopper)
 
     # --- compute geometry ---
     vreg_shape: Tuple[int, int]  # (rows, lanes) of one vector issue
@@ -30,7 +31,7 @@ class HardwareTarget:
     # --- functional units & instruction tables ---
     units: Tuple[FunctionalUnit, ...]
     # opcode -> (unit_name, latency_cycles, inverse_throughput_cycles)
-    instruction_table: Mapping[str, Tuple[str, int, int]]
+    instruction_table: Mapping[str, Tuple[str, int, float]]
     issue_width: int
 
     # --- memory hierarchy ---
@@ -43,3 +44,16 @@ class HardwareTarget:
     peak_flops_bf16: float  # FLOP/s
     peak_flops_f32: float
     ici_bandwidth: float = 0.0  # bytes/s per inter-chip link
+
+    def latency(self, opcode: str) -> int:
+        return self.instruction_table[opcode][1]
+
+    def unit_of(self, opcode: str) -> str:
+        return self.instruction_table[opcode][0]
+
+    def inv_throughput(self, opcode: str) -> float:
+        return self.instruction_table[opcode][2]
+
+    @property
+    def bytes_per_cycle_hbm(self) -> float:
+        return self.hbm_bandwidth / self.clock_hz

@@ -3,6 +3,7 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` on its own into ``build/kernels/<name>-<digest>.so`` at the root of
 the checkout (a directory ``.gitignore`` lists), then loaded with ``ctypes``.
+Sources that need building are compiled in parallel, one ``nvcc`` each.
 The digest covers the sources and the flags, so an edited kernel is rebuilt
 and an unchanged one is reused.
 """
@@ -20,7 +21,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention",)
+SOURCES = ("flash_attention", "matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,9 +54,10 @@ def log_path(name: str) -> Path:
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile every source in ``names`` (default: all) that is not built
-    yet. Returns the seconds each build took (0.0 when the library was
-    already there); raises with the compiler's log on failure."""
+    yet, all at once. Returns the seconds each build took (0.0 when the
+    library was already there); raises with the compiler's log on failure."""
     secs = {}
+    running = {}
     for n in (SOURCES if names is None else names):
         secs[n] = 0.0
         lib = library_path(n)
@@ -64,14 +66,21 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".tmp{os.getpid()}")
-        t0 = time.perf_counter()
-        r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-                           capture_output=True, text=True)
-        log_path(n).write_text(r.stdout + r.stderr)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {n}:\n{r.stdout}{r.stderr}")
-        os.replace(tmp, lib)
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        running[n] = (proc, tmp, lib, time.perf_counter())
+    failed = []
+    for n, (proc, tmp, lib, t0) in running.items():
+        out, _ = proc.communicate()
         secs[n] = time.perf_counter() - t0
+        log_path(n).write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {n}:\n{out}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return secs
 
 

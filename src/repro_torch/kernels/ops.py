@@ -1,13 +1,16 @@
 """Kernel entry points with statically picked schedules.
 
-``attention`` dispatches on the tensors' device: a CUDA tensor launches the
-hand-written Hopper kernel, a CPU tensor runs its plain torch version. There
-is no switch that sends a CUDA tensor to the plain version.
+``matmul`` and ``attention`` dispatch on the tensors' device: a CUDA tensor
+launches the hand-written Hopper kernel, a CPU tensor runs its plain torch
+version. There is no switch that sends a CUDA tensor to the plain version.
 
-The block sizes come from ``tuned_flash_blocks``: a static, device-free
-choice made once per shape and memoised. The schedule-DB, snapshot and
-kernel-bundle tiers of the reference picker arrive with the port of the
-schedule database.
+Block sizes are static, device-free choices made once per shape and
+memoised: ``matmul``'s come from the Tuna tuner
+(``core.tuner.tuned_matmul_blocks``: the cost model ranks the Hopper matmul
+space on the ``gpu_h100`` target), ``attention``'s from
+``tuned_flash_blocks`` below. The schedule-DB, snapshot and kernel-bundle
+tiers of the reference pickers arrive with the port of the schedule
+database.
 """
 from __future__ import annotations
 
@@ -16,18 +19,40 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.tuner import tuned_matmul_blocks
 from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.kernels import flash_attention as _flash_mod
+from repro_torch.kernels import matmul as _matmul_mod
 from repro_torch.kernels.flash_attention import BLOCKS, flash_attention
 
 
 def launch_counts() -> Dict[str, int]:
     """How many times each hand-written kernel has launched in this process."""
-    return {"flash_attention": _flash_mod.LAUNCHES}
+    return {"flash_attention": _flash_mod.LAUNCHES,
+            "matmul": _matmul_mod.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     _flash_mod.LAUNCHES = 0
+    _matmul_mod.LAUNCHES = 0
+
+
+def matmul(
+    x: torch.Tensor,  # [M, K]
+    y: torch.Tensor,  # [K, N]
+    *,
+    blocks: Optional[Tuple] = None,
+) -> torch.Tensor:
+    """Tuna-tuned blocked matmul. ``blocks`` is (bm, bn, bk) or (bm, bn,
+    bk, double_buffer), the latter defaulting to two stages; without it the
+    static tuner picks all four for this shape."""
+    _matmul_mod.check_shapes(x, y)
+    if blocks is None:
+        blocks = tuned_matmul_blocks(x.shape[0], y.shape[1], x.shape[1],
+                                     x.element_size())
+    bm, bn, bk, *rest = blocks
+    return _matmul_mod.matmul(x, y, bm=bm, bn=bn, bk=bk,
+                              double_buffer=rest[0] if rest else True)
 
 
 @functools.lru_cache(maxsize=256)

@@ -7,6 +7,11 @@ from typing import Optional
 import torch
 
 
+def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """C = A @ B computed in f32, output in x's dtype."""
+    return (x.float() @ y.float()).to(x.dtype)
+
+
 def attention(
     q: torch.Tensor,  # [B, Hq, S, D]
     k: torch.Tensor,  # [B, Hkv, S, D]

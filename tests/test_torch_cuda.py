@@ -1,4 +1,4 @@
-"""The port's CUDA kernel held against its plain torch version on the card.
+"""The port's CUDA kernels held against their plain torch versions on the card.
 
 Imports no jax, so it runs where only the port is installed:
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_plain
 
@@ -62,3 +63,62 @@ def test_kernel_refuses_non_contiguous(card):
     q, k, v = _qkv(1, 2, 1, 64, 64, card)
     with pytest.raises(ValueError):
         ops.attention(q.transpose(2, 3), k, v)
+
+
+# matmul: |kernel - plain| <= 2^-7 * |plain| + MM_ATOL_RMS * rms(plain). Both
+# sum exact bf16 products in f32 (in another order) and round once, so they
+# differ by at most about one bf16 ulp (as in chip_smoke.py).
+MM_ATOL_RMS = 0.01
+
+
+def _ab(m, n, k, device):
+    rng = np.random.default_rng(m + 7 * n + 13 * k)
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to(device, torch.bfloat16) for s in ((m, k), (k, n)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(256, 512, 384), (128, 256, 128),
+                                   (2048, 4096, 4096), (2048, 512, 4096),
+                                   (2048, 11008, 4096), (2048, 4096, 11008)])
+@pytest.mark.parametrize("blocks", [(32, 32, 32), (64, 128, 64), (128, 256, 128),
+                                    (128, 64, 32), (32, 256, 64), (128, 128, 128)])
+@pytest.mark.parametrize("double_buffer", [False, True])
+def test_matmul_kernel_matches_plain(card, shape, blocks, double_buffer):
+    a, b = _ab(*shape, card)
+    before = ops.launch_counts()["matmul"]
+    got = ops.matmul(a, b, blocks=blocks + (double_buffer,))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["matmul"] == before + 1
+    want = kmatmul.matmul_plain(a, b, *blocks).float()
+    limit = RTOL * want.abs() + MM_ATOL_RMS * want.pow(2).mean().sqrt()
+    assert int(((got.float() - want).abs() > limit).sum()) == 0
+
+
+@pytest.mark.gpu
+def test_matmul_on_the_card_never_runs_the_plain_version(card, monkeypatch):
+    def boom(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(kmatmul, "matmul_plain", boom)
+    a, b = _ab(256, 256, 256, card)
+    assert ops.matmul(a, b).shape == (256, 256)  # tuned blocks, the kernel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["f32", "non-contiguous", "indivisible", "unbuilt"])
+def test_matmul_kernel_refuses(card, case):
+    a, b = _ab(256, 256, 256, card)
+    blocks = (64, 64, 64)
+    if case == "f32":
+        a, b, err = a.float(), b.float(), TypeError
+    elif case == "non-contiguous":
+        b, err = b.t(), ValueError
+    elif case == "indivisible":
+        a, err = a[:100], ValueError
+    else:
+        blocks, err = (16, 64, 64), ValueError
+    before = ops.launch_counts()["matmul"]
+    with pytest.raises(err):
+        ops.matmul(a, b, blocks=blocks)
+    assert ops.launch_counts()["matmul"] == before

@@ -1,6 +1,9 @@
-"""The port's flash attention (plain blocked version on the CPU, the CUDA
-kernel on a card) held against the reference's Pallas kernel in interpret
-mode and the reference oracle, on the same numpy-seeded inputs."""
+"""The port's kernels (plain blocked versions on the CPU, the CUDA kernels
+on a card) held against the reference's Pallas kernels in interpret mode and
+the reference oracles, on the same numpy-seeded inputs."""
+import re
+import sys
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -8,9 +11,12 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.matmul import matmul_pallas
 from repro.models.attention import chunked_attention as jchunked
+from repro_torch.core.spaces import SM90_MATMUL_TILES
 from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels.flash_attention import (BLOCKS, flash_attention,
                                                  flash_attention_plain)
 from repro_torch.models.attention import chunked_attention
@@ -127,8 +133,9 @@ def test_wrapper_rejects_bad_shapes():
 def test_launch_counter_only_counts_kernel_launches():
     ops.reset_launch_counts()
     arrs = _torch(_qkv(1, 2, 1, 8, 64))
-    ops.attention(*arrs)  # CPU: the plain version, not a launch
-    assert ops.launch_counts() == {"flash_attention": 0}
+    ops.attention(*arrs)  # CPU: the plain versions, not launches
+    ops.matmul(torch.ones((64, 32)), torch.ones((32, 64)))
+    assert ops.launch_counts() == {"flash_attention": 0, "matmul": 0}
 
 
 def test_kernel_library_is_keyed_by_source_digest():
@@ -152,3 +159,126 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
     assert not build.BUILD_DIR.exists()
+
+
+def test_kernel_builds_run_in_parallel(tmp_path, monkeypatch):
+    """Every source that needs building gets its own nvcc, all started
+    together; a second build finds the libraries and compiles nothing."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import sys, time\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "t0 = time.time(); time.sleep(1.0)\n"
+        "open(out, 'w').write(f'{t0} {time.time()}')\n"
+        "print('ptxas info    : Used 32 registers')\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    secs = build.build()
+    assert set(secs) == set(build.SOURCES) and all(s > 0 for s in secs.values())
+    spans = [tuple(map(float, build.library_path(n).read_text().split()))
+             for n in build.SOURCES]
+    assert max(s for s, _ in spans) < min(e for _, e in spans)  # overlapped
+    assert "registers" in build.log_path("matmul").read_text()
+    assert build.build() == {n: 0.0 for n in build.SOURCES}
+
+
+# --------------------------------------------------------------------------
+# matmul
+# --------------------------------------------------------------------------
+
+# the reference's TestMatmulKernel tolerances: TOL * sqrt(k) atol, TOL rtol
+MATMUL_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-1}
+JDTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def _xy(m, n, k):
+    return (RNG.standard_normal((m, k)).astype(np.float32),
+            RNG.standard_normal((k, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("m,n,k,bm,bn,bk", [
+    (128, 128, 128, 64, 64, 64),
+    (256, 128, 512, 128, 128, 128),
+    (64, 256, 128, 64, 128, 128),   # blocks clamp to shape
+    (384, 256, 256, 128, 256, 128),  # non-pow2 M
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_matches_pallas_and_oracle(m, n, k, bm, bn, bk, dtype):
+    """The reference's TestMatmulKernel grid, through ops.matmul (the plain
+    version on CPU tensors) and matmul_plain."""
+    x, y = _xy(m, n, k)
+    got = ops.matmul(*_torch((x, y), dtype), blocks=(bm, bn, bk))
+    assert got.dtype == dtype and got.shape == (m, n)
+    plain = kmatmul.matmul_plain(*_torch((x, y), dtype), bm, bn, bk)
+    assert torch.equal(got, plain)
+    jx, jy = (jnp.asarray(a, JDTYPE[dtype]) for a in (x, y))
+    want_pallas = matmul_pallas(jx, jy, bm=bm, bn=bn, bk=bk, interpret=True)
+    tol = dict(atol=MATMUL_TOL[dtype] * np.sqrt(k), rtol=MATMUL_TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(want_pallas), **tol)
+    np.testing.assert_allclose(_np(got), _np(jref.matmul(jx, jy)), **tol)
+    np.testing.assert_allclose(_np(ref.matmul(*_torch((x, y), dtype))),
+                               _np(jref.matmul(jx, jy)), **tol)
+
+
+def test_matmul_f32_is_exact_to_summation_order():
+    """In f32 the plain version is the reference's product up to summation
+    order: far inside the reference's tolerance."""
+    x, y = _xy(256, 128, 512)
+    got = ops.matmul(*_torch((x, y)), blocks=(128, 64, 32))
+    want = matmul_pallas(jnp.asarray(x), jnp.asarray(y), bm=128, bn=64, bk=32,
+                         interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=5e-5, rtol=1e-5)
+
+
+def test_matmul_picks_tuned_blocks_when_none_given():
+    x, y = _xy(256, 384, 512)
+    blocks = ops.tuned_matmul_blocks(256, 384, 512, 4)
+    got = ops.matmul(*_torch((x, y)))
+    assert torch.equal(got, kmatmul.matmul_plain(*_torch((x, y)), *blocks[:3]))
+    np.testing.assert_allclose(_np(got), x @ y, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("m,n,k,blocks", [
+    (100, 128, 128, (64, 64, 64)),   # indivisible (the reference's case)
+    (128, 128, 96, (64, 64, 64)),    # K not divisible by bk
+    (128, 128, 128, (16, 64, 64)),   # bm never built
+    (48, 128, 128, (64, 64, 64)),    # bm clamps to an unbuilt 48
+])
+def test_matmul_refuses_unbuilt_or_indivisible_blocks(m, n, k, blocks):
+    x, y = _torch(_xy(m, n, k))
+    with pytest.raises(ValueError):
+        ops.matmul(x, y, blocks=blocks)
+    with pytest.raises(ValueError):
+        kmatmul.matmul_plain(x, y, *blocks)
+
+
+def test_matmul_blocks_clamp_to_the_shape():
+    """A block larger than its dimension clamps to it, as in the reference:
+    bk 256 -> 128 here, a built size, so it runs."""
+    assert kmatmul.resolve_blocks(128, 128, 128, 64, 64, 256) == (64, 64, 128)
+    x, y = _xy(128, 128, 128)
+    got = ops.matmul(*_torch((x, y)), blocks=(64, 64, 256))
+    np.testing.assert_allclose(_np(got), x @ y, atol=1e-3, rtol=1e-4)
+
+
+def test_matmul_refuses_bad_shapes_and_devices():
+    with pytest.raises(ValueError):
+        ops.matmul(torch.zeros((64, 32)), torch.zeros((64, 32)))
+    with pytest.raises(ValueError):
+        kmatmul.matmul(torch.empty((64, 64), device="meta"),
+                       torch.empty((64, 64), device="meta"), bm=64, bn=64, bk=64)
+
+
+def test_matmul_source_instantiates_exactly_the_built_tiles():
+    """The tile sizes csrc/matmul.cu instantiates are the sm90 knob values
+    the tuner ranks (core/spaces.SM90_MATMUL_TILES)."""
+    src = (build.CSRC / "matmul.cu").read_text()
+    built = {
+        "bm": tuple(int(v) for v in re.findall(r"MM_BN\((\d+)\)", src)),
+        "bn": tuple(int(v) for v in re.findall(r"MM_BK\(BM_, (\d+)\)", src)),
+        "bk": tuple(int(v) for v in re.findall(r"MM_CASE\(BM_, BN_, (\d+)\)", src)),
+    }
+    assert built == SM90_MATMUL_TILES == kmatmul.BLOCKS
+    assert not re.search(r"gemm|gemv|xmma|nvjet", src, re.IGNORECASE)

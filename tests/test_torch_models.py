@@ -151,14 +151,18 @@ def test_long_prompt_takes_chunked_path(pair, monkeypatch):
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Importing every module of the port loads no jax and no ``repro``
-    module (a subprocess: this test process has jax loaded already)."""
+    """Importing every module of the port, then registering its op families
+    and running the static matmul pick, loads no jax and no ``repro`` module
+    (a subprocess: this test process has jax loaded already)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        "from repro_torch.core import op_registry, tuner\n"
+        "op_registry.families()  # the lazy import of the op families\n"
+        "tuner.tuned_matmul_blocks(2048, 4096, 4096)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "assert len(mods) >= 15, mods\n"
