@@ -7,15 +7,23 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. build   — compile every CUDA source of the port with nvcc (sm_90a), one
              nvcc per source, in parallel; log registers and spills, and fail
-             on a spill in the matmul kernel.
+             on a spill in either kernel or an ignored setmaxnreg; count the
+             flash library's wgmma (HGMMA) and TMA (UTMALDG) instructions in
+             its SASS and fail without HGMMA or with a wait after every
+             HGMMA (serialized by ptxas); check that the shared memory
+             the library launches each flash instantiation with is what
+             ``flash_attention.smem_bytes`` (the block picker's pruning) says.
 2. kernels — hold the flash-attention kernel against its plain torch version
              on the card, in bf16, at yi-6b shapes (B=1, Hq=32, Hkv=4,
              D=128) for every prompt length the serve phase prefills and a
              few more, and one D=64 case, with the blocks the main path
              picks; show that the limit would catch a dropped tail tile.
-3. timing  — at S=1024 causal: the kernel, its plain version and, as a
-             yardstick only, torch's scaled_dot_product_attention (the port
-             never calls it), with CUDA events; the bound from the data sheet.
+3. timing  — at every prompt length of the serve, causal: the kernel, its
+             plain version and, as a yardstick only, torch's
+             scaled_dot_product_attention (the port never calls it), with
+             CUDA events: the kernel and SDPA as device time (a CUDA graph of
+             the calls, replayed) and as back-to-back eager calls, the plain
+             version eagerly; the bound from the data sheet.
 4. matmul  — hold the matmul kernel against its plain version in bf16 at
              every yi-6b projection of a 2048-token prefill, the unembed and
              the reference's matmul_{1024,2048,4096}_bf16 presets, with every
@@ -42,6 +50,7 @@ reference package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +107,34 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in a CUDA
+    graph, replayed ``reps`` times between CUDA events. Unlike back-to-back
+    eager calls this leaves out the host's dispatch, which is longer than a
+    short kernel."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
 def outside(got, want, rtol: float, atol_rms: float):
     """(elements outside the limit, max |got - want| / limit)."""
     got, want = got.float(), want.float()
@@ -139,6 +176,32 @@ def nvidia_smi(query: str) -> str:
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     return smi.stdout.strip().splitlines()[0]
+
+
+def flash_sass_counts(lib) -> dict:
+    """HGMMA (wgmma) and TMA instruction counts in the SASS of ``lib``, from
+    the toolkit's cuobjdump (or the copy Triton ships)."""
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tools = [Path(CUDA_HOME) / "bin" / "cuobjdump"] if CUDA_HOME else []
+    tools.append(shutil.which("cuobjdump"))
+    try:
+        import triton
+
+        tools.append(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    tool = next((str(t) for t in tools if t and Path(t).exists()), None)
+    if tool is None:
+        fail("no cuobjdump to read the flash kernel's SASS")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=120)
+    if out.returncode != 0:
+        fail(f"cuobjdump failed: {out.stderr.strip()[:300]}")
+    return {w: out.stdout.count(w)
+            for w in ("HGMMA", "UTMALDG", "UBLKCP", "WARPGROUP.DEPBAR")}
 
 
 def matmul_work(m, n, k):
@@ -194,8 +257,38 @@ def main() -> None:
         if regs:
             log(f"build {name}: {len(regs)} kernels, registers max {max(regs)} "
                 f"min {min(regs)}; lines with spills: {spills[:3] or 'none'}")
-        if name == "matmul" and spills:
-            fail(f"the matmul kernel spills: {spills[:3]}")
+        if spills:
+            fail(f"the {name} kernel spills: {spills[:3]}")
+        if "setmaxnreg ignored" in text:
+            fail(f"ptxas ignored setmaxnreg in {name}")
+    flash_log = build.log_path("flash_attention").read_text()
+    flash_regs = {}
+    for entry, used in zip(re.findall(r"Compiling entry function '([^']+)'", flash_log),
+                           re.findall(r"Used (\d+) registers", flash_log)):
+        m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E", entry)
+        if m:
+            flash_regs["bq{}_bk{}_d{}".format(*m.groups())] = int(used)
+    log(f"build flash registers per instantiation (launch count; the consumer "
+        f"warpgroups of BQ=128 raise theirs to 240 with setmaxnreg): {flash_regs}")
+    if len(flash_regs) != len(fa.BLOCKS) ** 2 * len(fa.HEAD_DIMS):
+        fail(f"expected {len(fa.BLOCKS) ** 2 * len(fa.HEAD_DIMS)} flash instantiations, "
+             f"found {sorted(flash_regs)}")
+    sass = flash_sass_counts(build.library_path("flash_attention"))
+    log(f"build flash SASS: {sass}")
+    if sass["HGMMA"] == 0 or sass["UTMALDG"] + sass["UBLKCP"] == 0:
+        fail(f"the flash library has no wgmma or no TMA instruction: {sass}")
+    # ptxas may serialize wgmma without a warning: a wait after every one
+    if sass["WARPGROUP.DEPBAR"] >= sass["HGMMA"]:
+        fail(f"the flash library waits on every wgmma alone: {sass}")
+    for bq in fa.BLOCKS:
+        for bk in fa.BLOCKS:
+            for d in fa.HEAD_DIMS:
+                lib_bytes = fa.kernel_smem_bytes(bq, bk, d)
+                if lib_bytes != fa.smem_bytes(bq, bk, d) or lib_bytes > GPU_H100.fast_mem_bytes:
+                    fail(f"flash ({bq},{bk}) d={d}: the library launches with {lib_bytes} "
+                         f"B of shared memory, smem_bytes says {fa.smem_bytes(bq, bk, d)}")
+    log(f"build flash shared memory: library = smem_bytes <= {GPU_H100.fast_mem_bytes} B "
+        f"at all {len(flash_regs)} instantiations")
 
     # -------------------------------------------------------------- kernels
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -244,30 +337,44 @@ def main() -> None:
     # --------------------------------------------------------------- timing
     cfg = get_config(ARCH)
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sweep = []
     for s in sorted(set(PROMPT_LENS)):
         q, k, v = qkv(1, hq, hkv, s, d)
         bq, bk = ops.tuned_flash_blocks(s, d, 2)
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, block_q=bq,
-                                                block_k=bk), iters=20)
+        kern = lambda: fa.flash_attention(q, k, v, causal=True, block_q=bq, block_k=bk)
+        sdpa_fn = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+        ms, sdpa = graph_ms(kern), graph_ms(sdpa_fn)
+        ms_eager, sdpa_eager = cuda_ms(kern, iters=20), cuda_ms(sdpa_fn, iters=20)
+        plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
+                                                         block_q=bq, block_k=bk),
+                        iters=3, warmup=1)
         flops, nbytes = flash_work(1, hq, hkv, s, d, True)
         bound = max(flops / GPU_H100.peak_flops_bf16, nbytes / GPU_H100.hbm_bandwidth) * 1e3
-        log(f"timing S={s} blocks=({bq},{bk}): kernel {ms:.4f} ms, bound {bound:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s)")
+        sweep.append({"S": s, "blocks": [bq, bk], "ms": ms, "sdpa_ms": sdpa,
+                      "eager_ms": ms_eager, "sdpa_eager_ms": sdpa_eager,
+                      "plain_ms": plain, "bound_ms": bound,
+                      "tflops": flops / ms / 1e9})
+        log(f"timing S={s} causal blocks=({bq},{bk}), graph replay: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), sdpa (yardstick) {sdpa:.4f} ms "
+            f"({ms / sdpa:.2f}x); eager back-to-back: kernel {ms_eager:.4f}, sdpa "
+            f"{sdpa_eager:.4f}; plain {plain:.4f} ms; bound {bound:.4f} ms")
     q, k, v = qkv(1, hq, hkv, TIMED_S, d)
     bq, bk = ops.tuned_flash_blocks(TIMED_S, d, 2)
-    kern_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, block_q=bq,
-                                                 block_k=bk), iters=50)
+    kern_ms = graph_ms(lambda: fa.flash_attention(q, k, v, causal=True, block_q=bq,
+                                                  block_k=bk), iters=50)
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
                                                         block_q=bq, block_k=bk),
                        iters=5)
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+    lib_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), iters=50)
     flops, nbytes = flash_work(1, hq, hkv, TIMED_S, d, True)
     t_ops, t_bytes = flops / GPU_H100.peak_flops_bf16, nbytes / GPU_H100.hbm_bandwidth
     bound_ms = max(t_ops, t_bytes) * 1e3
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"timing S={TIMED_S} causal blocks=({bq},{bk}): kernel {kern_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa (yardstick) {lib_ms:.4f} ms, bound "
+    log(f"timing S={TIMED_S} causal blocks=({bq},{bk}), graph replay: kernel "
+        f"{kern_ms:.4f} ms, sdpa (yardstick) {lib_ms:.4f} ms ({kern_ms / lib_ms:.2f}x); "
+        f"plain (eager) {plain_ms:.4f} ms; bound "
         f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
         f"{nbytes / 1e6:.2f} MB)")
     del q, k, v
@@ -475,7 +582,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:30",
         "launches": launches["flash_attention"], "max_abs_err": max_err,
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": lib_ms}, {
+        "bound_by": bound_by, "library_ms": lib_ms, "sass": sass,
+        "registers": flash_regs, "sweep": sweep}, {
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:28",
@@ -518,7 +626,7 @@ def _profile_serve(model, params, reqs, cap, serve, wall_unprofiled: float) -> N
         f"{100 * (1 - total / (wall_unprofiled * 1e3)):.1f}% of the time")
     groups = {}
     for key, ms, n in rows:
-        if "flash_fwd_kernel" in key:
+        if "flash_fwd_wgmma_kernel" in key:
             g = "flash kernel (prefill attention)"
         elif any(w in key for w in ("gemm", "gemv", "nvjet", "xmma", "Gemv")):
             g = "cuBLAS matrix products"

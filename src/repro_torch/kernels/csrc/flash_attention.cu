@@ -8,296 +8,468 @@
 // q-tile) pair and loops over the KV tiles itself, with the statistics and
 // the accumulator in registers.
 //
-// Layout: q [B*Hq, S, D], k/v [B*Hkv, S, D], o [B*Hq, S, D], all contiguous.
-// Block h reads KV row (h / Hq) * Hkv + (h % Hq) / (Hq / Hkv).
-//
-// Each warp owns 16 query rows and issues mma.sync.m16n8k16 (bf16 x bf16 ->
-// f32): S = Q K^T with the Q fragments held in registers for the whole
-// loop, then P V with P cast to bf16 straight from the score registers, as
-// the TPU kernel casts p to v's dtype before its second product. The q, k and
-// v tiles sit in shared memory with rows padded by 16 bytes. Tails: rows of
-// a tile at or past S are zero-filled on load, keys at or past S are masked
-// to -1e30, and output rows at or past S are never written, so any S >= 1
-// runs with any block size. Causal: keys are masked by absolute position and
-// KV tiles wholly above the diagonal are never loaded.
-//
 // Bound on this card: at yi-6b prefill (B=1, Hq=32, Hkv=4, D=128) with
 // S=1024 causal the work is 4*32*1024*1025/2*128 ~ 8.6 GFLOP, 8.7 us at
-// 989 TFLOP/s, against ~19 MB of q/k/v/o, 5.6 us at 3.35 TB/s: it is bound by
-// the tensor cores. This simple design does nothing about that yet: loads
-// are synchronous (no cp.async/TMA pipeline), mma.sync reaches a fraction of
-// the wgmma rate, and V fragments are assembled from 16-bit shared loads.
+// 989 TFLOP/s, against ~19 MB of q/k/v/o, 5.6 us at 3.35 TB/s: the tensor
+// cores bound it, so the design is about keeping them fed:
+//
+// - Products are warpgroup `wgmma`, the only path to the full tensor-core
+//   rate. Each consumer warpgroup owns 64 query rows: S = Q K^T is an SS
+//   wgmma m64n{BK}k16 (Q and K both K-major in shared memory, D/16 steps);
+//   O += P V is an RS wgmma m64n{D}k16 with P converted to bf16 in the
+//   registers the score accumulator came out in (for 16-bit types the
+//   accumulator layout of one wgmma is the A-fragment layout of the next)
+//   and V read MN-major through the descriptor's transpose bit.
+// - Loads are TMA, issued by one producer thread: the Q tile once, then a
+//   ring of two K/V stages with a full and an empty mbarrier for each K and
+//   each V, so K is refilled as soon as its scores are out and the next
+//   tile lands while the current one is multiplied. The tensor maps are 3-D
+//   [B*H, S, D], so rows past S within a head read as zeros and never the
+//   next head's rows. Tiles are unpadded and 128-byte swizzled, a 128-wide
+//   row stored as two 64-column swizzle atoms.
+// - Softmax overlaps the tensor cores twice over. Inside a warpgroup, step
+//   i issues tile i's Q K^T and tile i-1's P V back to back and runs tile
+//   i's softmax while P V is still running. With BQ = 128 two consumer
+//   warpgroups share a block and take turns issuing (named barriers), so
+//   one's softmax runs under the other's products; `setmaxnreg` moves
+//   registers from the producer warpgroup (24) to them (240).
+// - Masking runs only in the KV tiles that need it: those that cross the
+//   diagonal (causal) and the ragged last tile. A zero-filled key row
+//   scores 0, not -inf, so keys at or past S are masked explicitly to
+//   -1e30 (the reference's mask value); KV tiles wholly above the diagonal
+//   are never loaded; query rows past S are zero and never stored.
+// - Under causal masking the q-tiles run heaviest first: the q-tile is the
+//   slow grid axis, reversed, so the first wave holds every head's longest
+//   tiles and the short ones fill the tail.
+//
+// Layout: q [B*Hq, S, D], k/v [B*Hkv, S, D], o [B*Hq, S, D], all contiguous.
+// Block (h, .) reads KV row (h / Hq) * Hkv + (h % Hq) / (Hq / Hkv).
+// Built for D in {64, 128}, BQ in {64, 128}, BK in {64, 128}.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
 constexpr float kNegInf = -1e30f;  // the reference's mask value
-constexpr int kPad = 8;            // bf16 padding per shared row (16 bytes)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kStages = 2;
+constexpr int kAtomBytes = 128;  // one swizzled row: 64 bf16
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0,
-                                          uint32_t a1, uint32_t a2,
-                                          uint32_t a3, uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+template <int BQ, int BK, int D>
+struct Cfg {
+  static_assert(BQ == 64 || BQ == 128, "BQ is one or two warpgroups of 64 rows");
+  static_assert(BK == 64 || BK == 128, "BK is the N of an m64nBKk16 wgmma");
+  static_assert(D == 64 || D == 128, "D is a multiple of the 64-column atom");
+  static constexpr int kConsumers = BQ / 64;              // consumer warpgroups
+  static constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
+  static constexpr int kCols = D / 64;                     // atoms per row
+  static constexpr int kQBytes = BQ * D * 2;
+  static constexpr int kKVBytes = BK * D * 2;  // one K or one V tile
+  static constexpr int kKOff = kQBytes;        // stage st: K, then V
+  static constexpr int kBarOff = kQBytes + kStages * 2 * kKVBytes;
+  // barriers at kBarOff: q_full and a full and an empty barrier for each
+  // stage's K and V (8 B each, 128 B reserved), and 1024 B of slack to
+  // align the tiles' base to the swizzle period
+  static constexpr int kSmem = kBarOff + 128 + 1024;
+};
+
+// 2^x by the special-function unit, denormal results flushed to zero (they
+// weigh nothing next to a row sum of at least 1); exp2f would add a range
+// fix-up to every element
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// two consecutive bf16 in shared memory; the lower column in the low half
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows [row0, row0 + ROWS) of a [S, D] matrix into shared memory with row
-// stride D + kPad, 16 bytes a thread; rows at or past s are zero-filled
-template <int ROWS, int D, int NT>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int s) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += NT) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < s) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
+// Scores to the log2 domain, masked where MASK: element 4j+e of a thread's
+// accumulator is (row0 + 8*(e/2), key k0 + 8j + 2t + e%2).
+template <bool MASK, int BK>
+__device__ __forceinline__ void scale_scores(float (&sc)[BK / 2], float scale_log2,
+                                             int k0, int t, int row0, int s,
+                                             int causal) {
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    float x = sc[i] * scale_log2;
+    if (MASK) {
+      const int key = k0 + (i / 4) * 8 + 2 * t + (i & 1);
+      const int row = row0 + ((i & 2) ? 8 : 0);
+      if (key >= s || (causal && key > row)) x = kNegInf;
     }
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
+    sc[i] = x;
   }
 }
 
 template <int BQ, int BK, int D>
-__global__ void __launch_bounds__(BQ * 2)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int hq,
-                     int hkv, int s, float scale, int causal) {
-  constexpr int NT = BQ * 2;  // BQ / 16 warps
-  constexpr int LD = D + kPad;
-  constexpr int NKT = BK / 8;  // 8-wide key tiles of a score block
-  constexpr int NDT = D / 8;   // 8-wide column tiles of the output
-  constexpr int KD = D / 16;   // k-steps of Q K^T
-  constexpr int KK = BK / 16;  // k-steps of P V
+__global__ void __launch_bounds__(Cfg<BQ, BK, D>::kThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           bf16* __restrict__ o, int hq, int hkv, int s,
+                           float scale_log2, int causal) {
+  using C = Cfg<BQ, BK, D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  // barriers: q_full, then per stage full_k, full_v, empty_k, empty_v
+  const uint32_t bar_q = base + C::kBarOff;
+  auto bar = [&](int kind, int st) { return bar_q + 8u * (1 + kind * kStages + st); };
+  auto k_s = [&](int st) { return base + C::kKOff + st * 2u * C::kKVBytes; };
+  auto v_s = [&](int st) { return k_s(st) + C::kKVBytes; };
+  constexpr int kFullK = 0, kFullV = 1, kEmptyK = 2, kEmptyV = 3;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + BQ * LD;
-  bf16* vs = ks + BK * LD;
-
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.x;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
   const int kvrow = (h / hq) * hkv + (h % hq) / (hq / hkv);
-  const bf16* qh = q + (size_t)h * s * D;
-  const bf16* kh = k + (size_t)kvrow * s * D;
-  const bf16* vh = v + (size_t)kvrow * s * D;
-
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // row within the warp's 8-row half
-  const int t = lane & 3;   // column pair within an 8-wide tile
-  const int r0 = (threadIdx.x / 32) * 16;
-  const int qpos0 = q0 + r0 + g;  // this thread's two query rows
-  const int qpos1 = qpos0 + 8;
-
-  load_tile<BQ, D, NT>(qs, qh, q0, s);
-  __syncthreads();
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-    const bf16* p = qs + (r0 + g) * LD + kd * 16 + t * 2;
-    qf[kd][0] = ld_pair(p);
-    qf[kd][1] = ld_pair(p + 8 * LD);
-    qf[kd][2] = ld_pair(p + 8);
-    qf[kd][3] = ld_pair(p + 8 * LD + 8);
-  }
-
-  float acc[NDT][4];
-#pragma unroll
-  for (int nd = 0; nd < NDT; ++nd) {
-    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-  }
-  float m0 = kNegInf, m1 = kNegInf;  // running max of rows qpos0, qpos1
-  float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
-
   const int nk = (s + BK - 1) / BK;
-  const int last = causal ? min(nk - 1, (q0 + BQ - 1) / BK) : nk - 1;
+  const int n_tiles = causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
 
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<BK, D, NT>(ks, kh, k0, s);
-    load_tile<BK, D, NT>(vs, vh, k0, s);
-    __syncthreads();
-
-    float sc[NKT][4];
-#pragma unroll
-    for (int nt = 0; nt < NKT; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        const bf16* p = ks + (nt * 8 + g) * LD + kd * 16 + t * 2;
-        mma_16816(sc[nt], qf[kd][0], qf[kd][1], qf[kd][2], qf[kd][3],
-                  ld_pair(p), ld_pair(p + 8));
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar(kFullK, st), 1);
+      mbar_init(bar(kFullV, st), 1);
+      mbar_init(bar(kEmptyK, st), 128 * C::kConsumers);
+      mbar_init(bar(kEmptyV, st), 128 * C::kConsumers);
     }
-
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < NKT; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kpos = k0 + nt * 8 + t * 2 + j;
-        float s0 = sc[nt][j] * scale;
-        float s1 = sc[nt][2 + j] * scale;
-        if (kpos >= s || (causal && kpos > qpos0)) s0 = kNegInf;
-        if (kpos >= s || (causal && kpos > qpos1)) s1 = kNegInf;
-        sc[nt][j] = s0;
-        sc[nt][2 + j] = s1;
-        mx0 = fmaxf(mx0, s0);
-        mx1 = fmaxf(mx1, s1);
-      }
-    }
-    // a row's 4 column pairs live in the 4 lanes of one quad
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0);
-    const float mn1 = fmaxf(m1, mx1);
-    const float c0 = expf(m0 - mn0);
-    const float c1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NKT; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        sc[nt][j] = expf(sc[nt][j] - mn0);
-        sc[nt][2 + j] = expf(sc[nt][2 + j] - mn1);
-        ps0 += sc[nt][j];
-        ps1 += sc[nt][2 + j];
-      }
-    }
-    l0 = l0 * c0 + ps0;
-    l1 = l1 * c1 + ps1;
-#pragma unroll
-    for (int nd = 0; nd < NDT; ++nd) {
-      acc[nd][0] *= c0;
-      acc[nd][1] *= c0;
-      acc[nd][2] *= c1;
-      acc[nd][3] *= c1;
-    }
-
-    // P V: the score accumulator of key tiles 2kk, 2kk+1 is exactly the A
-    // fragment of the 16-deep product step kk
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      const uint32_t a0 = pack_f32(sc[2 * kk][0], sc[2 * kk][1]);
-      const uint32_t a1 = pack_f32(sc[2 * kk][2], sc[2 * kk][3]);
-      const uint32_t a2 = pack_f32(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      const uint32_t a3 = pack_f32(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-#pragma unroll
-      for (int nd = 0; nd < NDT; ++nd) {
-        const bf16* p = vs + (kk * 16 + t * 2) * LD + nd * 8 + g;
-        mma_16816(acc[nd], a0, a1, a2, a3, pack_bf16(p[0], p[LD]),
-                  pack_bf16(p[8 * LD], p[9 * LD]));
-      }
-    }
+    fence_mbarrier_init();
   }
+  __syncthreads();
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = fmaxf(l0, 1e-30f);
-  const float d1 = fmaxf(l1, 1e-30f);
-  bf16* oh = o + (size_t)h * s * D;
+  const int wg = threadIdx.x / 128;
+  if (wg == C::kConsumers) {
+    // ---------------------------------------------------------- producer
+    if constexpr (C::kConsumers == 2) setmaxnreg_dec<24>();
+    if (threadIdx.x == C::kConsumers * 128) {
+      mbar_arrive_expect_tx(bar_q, C::kQBytes);
 #pragma unroll
-  for (int nd = 0; nd < NDT; ++nd) {
-    const int col = nd * 8 + t * 2;
-    if (qpos0 < s) {
-      *reinterpret_cast<uint32_t*>(oh + (size_t)qpos0 * D + col) =
-          pack_f32(acc[nd][0] / d0, acc[nd][1] / d0);
+      for (int c = 0; c < C::kCols; ++c) {
+        tma_load_3d(q_s + c * BQ * kAtomBytes, &tq, bar_q, c * 64, q0, h);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        // K, then V, each once the consumers released tile i - kStages' copy
+        const uint32_t parity = ((i / kStages) - 1) & 1;
+        if (i >= kStages) mbar_wait(bar(kEmptyK, st), parity);
+        mbar_arrive_expect_tx(bar(kFullK, st), C::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < C::kCols; ++c) {
+          tma_load_3d(k_s(st) + c * BK * kAtomBytes, &tk, bar(kFullK, st), c * 64, i * BK,
+                      kvrow);
+        }
+        if (i >= kStages) mbar_wait(bar(kEmptyV, st), parity);
+        mbar_arrive_expect_tx(bar(kFullV, st), C::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < C::kCols; ++c) {
+          tma_load_3d(v_s(st) + c * BK * kAtomBytes, &tv, bar(kFullV, st), c * 64, i * BK,
+                      kvrow);
+        }
+      }
     }
-    if (qpos1 < s) {
-      *reinterpret_cast<uint32_t*>(oh + (size_t)qpos1 * D + col) =
-          pack_f32(acc[nd][2] / d1, acc[nd][3] / d1);
+  } else {
+    // --------------------------------------------------------- consumers
+    if constexpr (C::kConsumers == 2) setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int t = lane & 3;                                         // column pair
+    const int row0 = q0 + wg * 64 + (tid / 32) * 16 + (lane >> 2);  // and row0 + 8
+    const int wg_row_min = q0 + wg * 64;
+    const uint32_t q_wg = q_s + wg * 64 * kAtomBytes;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    uint32_t pf[BK / 16][4];           // P of the previous tile as bf16 A fragments
+    float m0 = kNegInf, m1 = kNegInf;  // running max (log2 domain) of row0, row0+8
+    float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
+
+    // S = Q K^T of tile i: D/16 k-steps, step kk 32 bytes into column atom kk/4
+    auto issue_s = [&](int i, float (&sc)[BK / 2]) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a = q_wg + (kk / 4) * BQ * kAtomBytes + (kk % 4) * 32;
+        const uint32_t b = k_s(i % kStages) + (kk / 4) * BK * kAtomBytes + (kk % 4) * 32;
+        wgmma_ss<BK, 0>(sc, smem_desc_sw128(a, 16, 1024), smem_desc_sw128(b, 16, 1024),
+                        kk > 0);
+      }
+    };
+    // O += P V of tile i: V is [BK keys][D], MN-major here; step kk starts 16
+    // key rows (2048 B) further, the two column atoms lie BK rows apart
+    auto issue_pv = [&](int i) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma_rs<D, 1>(acc, pf[kk],
+                       smem_desc_sw128(v_s(i % kStages) + kk * 16 * kAtomBytes,
+                                       BK * kAtomBytes, 1024),
+                       1);
+      }
+    };
+    // tile i's scores (landed) -> probabilities in place; updates m and l
+    // and returns the factors the accumulator must be rescaled by
+    auto softmax = [&](int i, float (&sc)[BK / 2], float& c0, float& c1) {
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) fence_operand(sc[j]);
+      mbar_arrive(bar(kEmptyK, i % kStages));  // this thread is done with K of tile i
+      const int k0 = i * BK;
+      if (k0 + BK > s || (causal && k0 + BK - 1 > wg_row_min)) {
+        scale_scores<true, BK>(sc, scale_log2, k0, t, row0, s, causal);
+      } else {
+        scale_scores<false, BK>(sc, scale_log2, k0, t, row0, s, causal);
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      // a row's 8-column tiles are spread over the 4 lanes of one quad
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      c0 = exp2_ftz(m0 - mx0);
+      c1 = exp2_ftz(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        sc[4 * j] = exp2_ftz(sc[4 * j] - mx0);
+        sc[4 * j + 1] = exp2_ftz(sc[4 * j + 1] - mx0);
+        sc[4 * j + 2] = exp2_ftz(sc[4 * j + 2] - mx1);
+        sc[4 * j + 3] = exp2_ftz(sc[4 * j + 3] - mx1);
+        ps0 += sc[4 * j] + sc[4 * j + 1];
+        ps1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = l0 * c0 + ps0;
+      l1 = l1 * c1 + ps1;
+    };
+    // once no P V is in flight: rescale the accumulator and pack P
+    auto rescale_and_pack = [&](const float (&sc)[BK / 2], float c0, float c1) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= c0;
+        acc[4 * j + 1] *= c0;
+        acc[4 * j + 2] *= c1;
+        acc[4 * j + 3] *= c1;
+      }
+      // key tiles 2kk and 2kk+1 of the accumulator form k-step kk of P V
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pf[kk][0] = pack_bf16x2(sc[8 * kk], sc[8 * kk + 1]);
+        pf[kk][1] = pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pf[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pf[kk][3] = pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+    auto fence_acc_and_p = [&]() {
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) fence_operand(acc[j]);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) fence_operand(pf[kk][e]);
+      }
+    };
+    // Two consumer warpgroups take turns issuing their products (named
+    // barriers 1 and 2), so one runs its softmax while the tensor cores
+    // work on the other's; warpgroup 0 goes first. Each warpgroup takes
+    // n_tiles + 1 turns and passes every turn on but warpgroup 1's last.
+    auto take_turn = [&]() {
+      if constexpr (C::kConsumers == 2) named_barrier_sync(1 + wg, 256);
+    };
+    auto pass_turn = [&](bool last) {
+      if constexpr (C::kConsumers == 2) {
+        if (wg == 0 || !last) named_barrier_arrive(2 - wg, 256);
+      }
+    };
+    if (C::kConsumers == 2 && wg == 1) named_barrier_arrive(1, 256);
+    mbar_wait(bar_q, 0);
+
+    {  // tile 0: its scores alone
+      float sc[BK / 2], c0, c1;
+      mbar_wait(bar(kFullK, 0), 0);
+      take_turn();
+      wgmma_fence();
+      issue_s(0, sc);
+      wgmma_commit();
+      pass_turn(false);
+      wgmma_wait<0>();
+      softmax(0, sc, c0, c1);
+      rescale_and_pack(sc, c0, c1);
+    }
+    // Step i issues tile i's S = Q K^T and tile i-1's O += P V back to back,
+    // then runs tile i's softmax while P V is still on the tensor cores.
+    for (int i = 1; i < n_tiles; ++i) {
+      float sc[BK / 2], c0, c1;
+      mbar_wait(bar(kFullK, i % kStages), (i / kStages) & 1);
+      mbar_wait(bar(kFullV, (i - 1) % kStages), ((i - 1) / kStages) & 1);
+      take_turn();
+      wgmma_fence();
+      issue_s(i, sc);
+      wgmma_commit();
+      issue_pv(i - 1);
+      wgmma_commit();
+      pass_turn(false);
+      wgmma_wait<1>();  // S of tile i has landed; P V may still run
+      softmax(i, sc, c0, c1);
+      wgmma_wait<0>();  // P V of tile i-1 is done: acc, P and V are free
+      fence_acc_and_p();
+      mbar_arrive(bar(kEmptyV, (i - 1) % kStages));
+      rescale_and_pack(sc, c0, c1);
+    }
+    {  // the last tile's P V
+      const int i = n_tiles - 1;
+      mbar_wait(bar(kFullV, i % kStages), (i / kStages) & 1);
+      take_turn();
+      wgmma_fence();
+      issue_pv(i);
+      wgmma_commit();
+      pass_turn(true);
+      wgmma_wait<0>();
+      fence_acc_and_p();
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float d0 = fmaxf(l0, 1e-30f);
+    const float d1 = fmaxf(l1, 1e-30f);
+    bf16* oh = o + (size_t)h * s * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (row0 < s) {
+        *reinterpret_cast<uint32_t*>(oh + (size_t)row0 * D + col) =
+            pack_bf16x2(acc[4 * j] / d0, acc[4 * j + 1] / d0);
+      }
+      if (row0 + 8 < s) {
+        *reinterpret_cast<uint32_t*>(oh + (size_t)(row0 + 8) * D + col) =
+            pack_bf16x2(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+      }
     }
   }
 }
 
+// ------------------------------------------------------------------- host
+
+// cuTensorMapEncodeTiled is a driver function; the library links only the
+// CUDA runtime, so it is fetched through the runtime's entry-point query.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// [bh, s, d] bf16, read in boxes of 64 columns x `rows` rows, 128B-swizzled;
+// out-of-range rows read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, int bh, int s, int d, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int BQ, int BK, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int hq, int hkv, int s, float scale, int causal,
-                   cudaStream_t stream) {
-  constexpr size_t kSmem = (size_t)(BQ + 2 * BK) * (D + kPad) * sizeof(bf16);
-  auto kern = flash_fwd_kernel<BQ, BK, D>;
-  if (kSmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int hq,
+                   int hkv, int s, float scale, int causal, cudaStream_t stream) {
+  using C = Cfg<BQ, BK, D>;
+  auto kern = flash_fwd_wgmma_kernel<BQ, BK, D>;
+  // the dynamic shared-memory limit is raised once per device
+  static bool raised[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmem);
     if (err != cudaSuccess) return err;
+    raised[dev] = true;
   }
-  const dim3 grid((s + BQ - 1) / BQ, bh);
-  kern<<<grid, BQ * 2, kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), hq, hkv, s, scale,
-      causal);
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, b * hq, s, D, BQ) || !make_map(&tk, k, b * hkv, s, D, BK) ||
+      !make_map(&tv, v, b * hkv, s, D, BK)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(b * hq, (s + BQ - 1) / BQ);
+  kern<<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, static_cast<bf16*>(o), hq,
+                                                hkv, s, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dispatch(int bq, int bk, const void* q, const void* k,
-                     const void* v, void* o, int bh, int hq, int hkv, int s,
-                     float scale, int causal, cudaStream_t st) {
-#define FLASH_CASE(BQ_, BK_)                                                \
-  if (bq == BQ_ && bk == BK_)                                               \
-    return launch<BQ_, BK_, D>(q, k, v, o, bh, hq, hkv, s, scale, causal, st);
-#define FLASH_ROW(BQ_) \
-  FLASH_CASE(BQ_, 16) FLASH_CASE(BQ_, 32) FLASH_CASE(BQ_, 64) FLASH_CASE(BQ_, 128)
-  FLASH_ROW(16) FLASH_ROW(32) FLASH_ROW(64) FLASH_ROW(128)
-#undef FLASH_ROW
-#undef FLASH_CASE
-  return cudaErrorInvalidValue;
-}
+#define FLASH_BUILT(X) \
+  X(64, 64, 64) X(64, 128, 64) X(128, 64, 64) X(128, 128, 64) \
+  X(64, 64, 128) X(64, 128, 128) X(128, 64, 128) X(128, 128, 128)
 
 }  // namespace
 
+// Dynamic shared memory of the (d, block_q, block_k) instantiation in bytes,
+// or -1 when that instantiation is not built.
+extern "C" int flash_attention_smem_bytes(int d, int block_q, int block_k) {
+#define FLASH_SMEM(BQ_, BK_, D_) \
+  if (d == D_ && block_q == BQ_ && block_k == BK_) return Cfg<BQ_, BK_, D_>::kSmem;
+  FLASH_BUILT(FLASH_SMEM)
+#undef FLASH_SMEM
+  return -1;
+}
+
 // q, o: [b, hq, s, d]; k, v: [b, hkv, s, d]; bf16, contiguous, 16-byte
-// aligned. Built for d in {64, 128} and block_q, block_k in {16, 32, 64, 128};
+// aligned. Built for d in {64, 128} and block_q, block_k in {64, 128};
 // anything else returns cudaErrorInvalidValue without launching.
-extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
-                                        const void* v, void* o, int b, int hq,
-                                        int hkv, int s, int d, int block_q,
-                                        int block_k, float scale, int causal,
-                                        void* stream) {
+extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
+                                        void* o, int b, int hq, int hkv, int s, int d,
+                                        int block_q, int block_k, float scale,
+                                        int causal, void* stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || s <= 0 || hq % hkv != 0) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return dispatch<64>(block_q, block_k, q, k, v, o, b * hq, hq, hkv, s,
-                          scale, causal, st);
-    case 128:
-      return dispatch<128>(block_q, block_k, q, k, v, o, b * hq, hq, hkv, s,
-                           scale, causal, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+#define FLASH_CASE(BQ_, BK_, D_)                                              \
+  if (d == D_ && block_q == BQ_ && block_k == BK_)                            \
+    return launch<BQ_, BK_, D_>(q, k, v, o, b, hq, hkv, s, scale, causal, st);
+  FLASH_BUILT(FLASH_CASE)
+#undef FLASH_CASE
+  return cudaErrorInvalidValue;
 }

@@ -4,9 +4,10 @@ torch version.
 Replaces the TPU kernel ``_flash_kernel`` of
 ``src/repro/kernels/flash_attention.py`` (``flash_attention_pallas``). The
 kernel is ``csrc/flash_attention.cu``: one thread block per (batch*q-head,
-q-tile), a loop over KV tiles inside the block, q/k/v tiles in shared memory
-and ``mma.sync`` bf16 products with f32 accumulation. Its source says what
-bounds it on the H100 and what the design does about it.
+q-tile), a producer warp that streams K/V tiles with TMA through a ring of
+two shared-memory stages, and one or two consumer warpgroups of 64 query
+rows whose products are ``wgmma`` (bf16 in, f32 accumulation). Its source
+says what bounds it on the H100 and what the design does about it.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors, and for nothing else: on a CUDA
@@ -26,11 +27,19 @@ from repro_torch.kernels import build
 
 _NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # head dims the kernel is built for
-BLOCKS = (16, 32, 64, 128)  # block_q / block_k values the kernel is built for
+BLOCKS = (64, 128)  # block_q / block_k values the kernel is built for
 
 # kernel launches in this process (the main-path witness); reset via
 # ``ops.reset_launch_counts``
 LAUNCHES = 0
+
+
+def smem_bytes(block_q: int, block_k: int, d: int) -> int:
+    """Dynamic shared memory of the kernel at these blocks, as its ``Cfg``
+    computes it: the Q tile, two stages of K and V tiles (bf16, unpadded),
+    128 bytes of barriers and 1024 bytes of slack to align the tiles to the
+    1024-byte swizzle period."""
+    return 2 * d * (block_q + 2 * 2 * block_k) + 128 + 1024
 
 
 def _check_shapes(q, k, v) -> None:
@@ -108,6 +117,16 @@ def _kernel():
     return fn
 
 
+def kernel_smem_bytes(block_q: int, block_k: int, d: int) -> int:
+    """The built library's own count of the shared memory it launches the
+    (d, block_q, block_k) instantiation with; -1 where none is built. Loads
+    (and if needed builds) the library: for checks on the card."""
+    fn = build.load("flash_attention").flash_attention_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(d, block_q, block_k)
+
+
 def _launch(q, k, v, causal: bool, scale: float, block_q: int,
             block_k: int) -> torch.Tensor:
     global LAUNCHES
@@ -124,9 +143,10 @@ def _launch(q, k, v, causal: bool, scale: float, block_q: int,
         raise ValueError(f"the flash kernel is built for head dims {HEAD_DIMS}, "
                          f"not {d}")
     if block_q not in BLOCKS or block_k not in BLOCKS:
-        raise ValueError(f"blocks ({block_q}, {block_k}) not in {BLOCKS}")
-    if b * hq > 65535:
-        raise ValueError(f"B*Hq = {b * hq} exceeds the grid's y extent")
+        raise ValueError(f"blocks ({block_q}, {block_k}) are not built; the "
+                         f"kernel is built for {BLOCKS} x {BLOCKS}")
+    if -(-s // block_q) > 65535:
+        raise ValueError(f"{-(-s // block_q)} q-tiles exceed the grid's y extent")
     fn = _kernel()
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):

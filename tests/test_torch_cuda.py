@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_plain
@@ -33,9 +34,9 @@ def _qkv(b, hq, hkv, s, d, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [1, 77, 513, 1024])
+@pytest.mark.parametrize("s", [1, 77, 513, 1024, 2047])
 @pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("blocks", [(16, 32), (64, 64), (128, 128), (32, 128)])
+@pytest.mark.parametrize("blocks", [(64, 64), (64, 128), (128, 64), (128, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_kernel_matches_plain(card, s, d, blocks, causal):
     q, k, v = _qkv(2, 8, 2, s, d, card)
@@ -56,6 +57,26 @@ def test_kernel_refuses_what_it_was_not_built_for(card, dtype, d):
     q, k, v = (t.to(dtype) for t in _qkv(1, 2, 1, 8, d, card))
     with pytest.raises((ValueError, TypeError)):
         ops.attention(q, k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", [(32, 32), (16, 64), (64, 256)])
+def test_kernel_refuses_unbuilt_blocks(card, blocks):
+    q, k, v = _qkv(1, 2, 1, 64, 64, card)
+    before = ops.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError):
+        ops.attention(q, k, v, blocks=blocks)
+    assert ops.launch_counts()["flash_attention"] == before
+
+
+@pytest.mark.gpu
+def test_kernel_on_the_card_never_runs_the_plain_version(card, monkeypatch):
+    def boom(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(kflash, "flash_attention_plain", boom)
+    q, k, v = _qkv(1, 8, 1, 300, 128, card)
+    assert ops.attention(q, k, v).shape == (1, 8, 300, 128)
 
 
 @pytest.mark.gpu

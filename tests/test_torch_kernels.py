@@ -17,8 +17,8 @@ from repro_torch.core.spaces import SM90_MATMUL_TILES
 from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import matmul as kmatmul
-from repro_torch.kernels.flash_attention import (BLOCKS, flash_attention,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (BLOCKS, HEAD_DIMS, flash_attention,
+                                                 flash_attention_plain, smem_bytes)
 from repro_torch.models.attention import chunked_attention
 
 RNG = np.random.default_rng(42)
@@ -71,6 +71,40 @@ def test_flash_ragged_lengths(s, causal):
     np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
 
 
+@pytest.mark.parametrize("bq,bk", [(128, 128), (128, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gqa_8to1_at_built_blocks(bq, bk, causal):
+    """yi-6b's head group (8 q-heads per kv-head) at D=128, through the
+    blocks the Hopper kernel is built for: ops.attention and the plain
+    version against the Pallas kernel (same blocks) and the oracle."""
+    arrs = _qkv(1, 8, 1, 256, 128)
+    got = ops.attention(*_torch(arrs), causal=causal, blocks=(bq, bk))
+    plain = flash_attention_plain(*_torch(arrs), causal=causal, block_q=bq,
+                                  block_k=bk)
+    assert torch.equal(got, plain)
+    want_pallas = flash_attention_pallas(*map(jnp.asarray, arrs), causal=causal,
+                                         block_q=bq, block_k=bk, interpret=True)
+    want_ref = jref.attention(*map(jnp.asarray, arrs), causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want_pallas), **F32_TOL)
+    np.testing.assert_allclose(_np(got), _np(want_ref), **F32_TOL)
+
+
+@pytest.mark.parametrize("s", [1, 77, 300])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_ragged_lengths_at_built_blocks(s, causal):
+    """Ragged S at blocks (64, 128): one partial q-tile and one partial KV
+    tile, as the kernel's zero-filled TMA boxes see them, against the
+    Pallas kernel run with one S-sized block and the oracle."""
+    arrs = _qkv(1, 4, 2, s, 128)
+    got = ops.attention(*_torch(arrs), causal=causal, blocks=(64, 128))
+    assert got.shape == (1, 4, s, 128)
+    want = flash_attention_pallas(*map(jnp.asarray, arrs), causal=causal,
+                                  block_q=s, block_k=s, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+    np.testing.assert_allclose(_np(got), _np(jref.attention(
+        *map(jnp.asarray, arrs), causal=causal)), **F32_TOL)
+
+
 def test_flash_bf16():
     arrs = _qkv(1, 4, 2, 128, 64)
     got = ops.attention(*_torch(arrs, torch.bfloat16), causal=True,
@@ -104,15 +138,37 @@ def test_chunked_attention_matches_reference(s, chunk):
 def test_tuned_flash_blocks_fit_the_kernel(s, d):
     bq, bk = ops.tuned_flash_blocks(s, d, 2)
     assert bq in BLOCKS and bk in BLOCKS
-    assert (bq + 2 * bk) * (d * 2 + 16) <= GPU_H100.fast_mem_bytes
+    assert smem_bytes(bq, bk, d) <= GPU_H100.fast_mem_bytes
     assert ops.tuned_flash_blocks(s, d, 2) is ops.tuned_flash_blocks(s, d, 2)
 
 
 def test_tuned_flash_blocks_shrink_for_short_prompts():
     """A prompt no longer than the smallest block gets the smallest tiles:
     larger ones stage more bytes for the same single step."""
-    assert ops.tuned_flash_blocks(1, 128, 2) == (16, 16)
+    assert ops.tuned_flash_blocks(1, 128, 2) == (64, 64)
+    assert ops.tuned_flash_blocks(64, 128, 2) == (64, 64)
+    assert ops.tuned_flash_blocks(77, 128, 2) == (128, 128)
     assert ops.tuned_flash_blocks(1024, 128, 2) == (128, 128)
+
+
+@pytest.mark.parametrize("bq", BLOCKS)
+@pytest.mark.parametrize("bk", BLOCKS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_built_flash_blocks_fit_shared_memory(bq, bk, d):
+    """Every built instantiation fits the 232,448 bytes one H100 block may
+    use, at one block per SM: Q, two K/V stages, barriers, alignment."""
+    assert smem_bytes(bq, bk, d) <= 232_448 == GPU_H100.fast_mem_bytes
+    assert smem_bytes(bq, bk, d) == 2 * d * (bq + 4 * bk) + 128 + 1024
+
+
+def test_flash_source_instantiates_exactly_the_built_blocks():
+    """The (block_q, block_k, d) triples csrc/flash_attention.cu builds are
+    BLOCKS x BLOCKS x HEAD_DIMS, and the kernel's products are wgmma."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    macro = re.search(r"#define FLASH_BUILT\(X\)(.*?)\n\n", src, re.S).group(1)
+    built = {tuple(map(int, t)) for t in re.findall(r"X\((\d+), (\d+), (\d+)\)", macro)}
+    assert built == {(bq, bk, d) for bq in BLOCKS for bk in BLOCKS for d in HEAD_DIMS}
+    assert "wgmma_ss" in src and "wgmma_rs" in src and "mma.sync" not in src
 
 
 def test_wrapper_has_no_fallback_off_cpu():
