@@ -6,13 +6,16 @@
 Phases, in order; any failure exits non-zero before the last line:
 
 1. build   — compile every CUDA source of the port with nvcc (sm_90a), one
-             nvcc per source, in parallel; log registers and spills, and fail
-             on a spill in either kernel or an ignored setmaxnreg; count the
-             flash library's wgmma (HGMMA) and TMA (UTMALDG) instructions in
-             its SASS and fail without HGMMA or with a wait after every
-             HGMMA (serialized by ptxas); check that the shared memory
-             the library launches each flash instantiation with is what
-             ``flash_attention.smem_bytes`` (the block picker's pruning) says.
+             nvcc per source, in parallel; log registers per instantiation
+             and spills, and fail on a spill in either library or an ignored
+             setmaxnreg; count each library's wgmma (HGMMA), TMA (UTMALDG),
+             mma.sync (HMMA) and wgmma-wait (WARPGROUP.DEPBAR) instructions
+             in its SASS and fail without HGMMA or TMA, with any HMMA, or
+             with a wait after every HGMMA (serialized by ptxas); check that
+             the shared memory each library reports for every instantiation
+             is what ``flash_attention.smem_bytes`` (the block picker's
+             pruning) and ``matmul.smem_bytes`` (the tuner's ``sm90``
+             accounting) say.
 2. kernels — hold the flash-attention kernel against its plain torch version
              on the card, in bf16, at yi-6b shapes (B=1, Hq=32, Hkv=4,
              D=128) for every prompt length the serve phase prefills and a
@@ -32,9 +35,11 @@ Phases, in order; any failure exits non-zero before the last line:
 5. tuner   — the slice's main path, counted: at each yi-6b shape the ES
              search (tune, seed 0) against the exhaustive best, ops.matmul
              with the statically picked blocks, and the paper's top-k ratio
-             (static ranking vs every configuration timed on the card); then
-             the kernel, its plain version, torch.matmul (a yardstick the port
-             never calls) and the data-sheet bound.
+             (static ranking vs every configuration timed on the card, as
+             device time by CUDA-graph replay); then, at every yi-6b shape,
+             the kernel and torch.matmul (a yardstick the port never calls)
+             by graph replay and as back-to-back eager calls, and the
+             data-sheet bound; the plain version at 2048x4096x4096.
 6. serve   — yi-6b at full width and depth with random weights from a seeded
              generator: 8 requests of mixed prompt lengths through the
              continuous engine; every request gets its tokens and the flash
@@ -108,31 +113,14 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def graph_ms(fn, iters: int = 20, reps: int = 10) -> float:
-    """Device time of one call of ``fn``: ``iters`` calls captured in a CUDA
-    graph, replayed ``reps`` times between CUDA events. Unlike back-to-back
-    eager calls this leaves out the host's dispatch, which is longer than a
-    short kernel."""
+    """Device time of one call of ``fn`` in ms: ``iters`` calls captured in
+    a CUDA graph, replayed ``reps`` times between CUDA events (the top-k
+    benchmark's ``measure.time_fn``). Unlike back-to-back eager calls this
+    leaves out the host's dispatch, which is longer than a short kernel."""
     import torch
+    from repro_torch.benchmarks.measure import time_fn
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * reps)
+    return time_fn(fn, torch.device("cuda"), iters=iters, reps=reps) * 1e3
 
 
 def outside(got, want, rtol: float, atol_rms: float):
@@ -178,9 +166,10 @@ def nvidia_smi(query: str) -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def flash_sass_counts(lib) -> dict:
-    """HGMMA (wgmma) and TMA instruction counts in the SASS of ``lib``, from
-    the toolkit's cuobjdump (or the copy Triton ships)."""
+def sass_counts(lib) -> dict:
+    """wgmma (HGMMA), tensor-map TMA load (UTMALDG), mma.sync (HMMA) and
+    wgmma-wait (WARPGROUP.DEPBAR) instruction counts in the SASS of the library
+    ``lib``, from the toolkit's cuobjdump (or the copy Triton ships)."""
     import shutil
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -195,13 +184,13 @@ def flash_sass_counts(lib) -> dict:
         pass
     tool = next((str(t) for t in tools if t and Path(t).exists()), None)
     if tool is None:
-        fail("no cuobjdump to read the flash kernel's SASS")
+        fail("no cuobjdump to read the kernels' SASS")
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                          timeout=120)
     if out.returncode != 0:
         fail(f"cuobjdump failed: {out.stderr.strip()[:300]}")
     return {w: out.stdout.count(w)
-            for w in ("HGMMA", "UTMALDG", "UBLKCP", "WARPGROUP.DEPBAR")}
+            for w in ("HGMMA", "UTMALDG", "HMMA", "WARPGROUP.DEPBAR")}
 
 
 def matmul_work(m, n, k):
@@ -261,25 +250,42 @@ def main() -> None:
             fail(f"the {name} kernel spills: {spills[:3]}")
         if "setmaxnreg ignored" in text:
             fail(f"ptxas ignored setmaxnreg in {name}")
-    flash_log = build.log_path("flash_attention").read_text()
-    flash_regs = {}
-    for entry, used in zip(re.findall(r"Compiling entry function '([^']+)'", flash_log),
-                           re.findall(r"Used (\d+) registers", flash_log)):
-        m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E", entry)
-        if m:
-            flash_regs["bq{}_bk{}_d{}".format(*m.groups())] = int(used)
+    def registers(name, kernel, fmt):
+        text = build.log_path(name).read_text()
+        found = {}
+        for entry, used in zip(re.findall(r"Compiling entry function '([^']+)'", text),
+                               re.findall(r"Used (\d+) registers", text)):
+            m = re.search(kernel + r"ILi(\d+)ELi(\d+)ELi(\d+)E(?:Li(\d+)E)?", entry)
+            if m:
+                found[fmt.format(*m.groups())] = int(used)
+        return found
+
+    flash_regs = registers("flash_attention", "flash_fwd_wgmma_kernel", "bq{}_bk{}_d{}")
     log(f"build flash registers per instantiation (launch count; the consumer "
         f"warpgroups of BQ=128 raise theirs to 240 with setmaxnreg): {flash_regs}")
     if len(flash_regs) != len(fa.BLOCKS) ** 2 * len(fa.HEAD_DIMS):
         fail(f"expected {len(fa.BLOCKS) ** 2 * len(fa.HEAD_DIMS)} flash instantiations, "
              f"found {sorted(flash_regs)}")
-    sass = flash_sass_counts(build.library_path("flash_attention"))
-    log(f"build flash SASS: {sass}")
-    if sass["HGMMA"] == 0 or sass["UTMALDG"] + sass["UBLKCP"] == 0:
-        fail(f"the flash library has no wgmma or no TMA instruction: {sass}")
-    # ptxas may serialize wgmma without a warning: a wait after every one
-    if sass["WARPGROUP.DEPBAR"] >= sass["HGMMA"]:
-        fail(f"the flash library waits on every wgmma alone: {sass}")
+    mm_configs = [(bm, bn, bk, db) for bm in km.BLOCKS["bm"] for bn in km.BLOCKS["bn"]
+                  for bk in km.BLOCKS["bk"] for db in (False, True)]
+    mm_regs = registers("matmul", "matmul_wgmma_kernel", "bm{}_bn{}_bk{}_s{}")
+    log(f"build matmul registers per instantiation (launch count; the consumer "
+        f"warpgroups of bm=128 raise theirs to 240 with setmaxnreg): {mm_regs}")
+    if sorted(mm_regs) != sorted(f"bm{bm}_bn{bn}_bk{bk}_s{2 if db else 1}"
+                                 for bm, bn, bk, db in mm_configs):
+        fail(f"expected the {len(mm_configs)} matmul instantiations of "
+             f"{km.BLOCKS}, found {sorted(mm_regs)}")
+    sass = sass_counts(build.library_path("flash_attention"))
+    mm_sass = sass_counts(build.library_path("matmul"))
+    log(f"build SASS: flash {sass}, matmul {mm_sass}")
+    for name, counts in (("flash", sass), ("matmul", mm_sass)):
+        if counts["HGMMA"] == 0 or counts["UTMALDG"] == 0:
+            fail(f"the {name} library has no wgmma or no TMA instruction: {counts}")
+        if counts["HMMA"]:
+            fail(f"the {name} library still has mma.sync (HMMA): {counts}")
+        # ptxas may serialize wgmma without a warning: a wait after every one
+        if counts["WARPGROUP.DEPBAR"] >= counts["HGMMA"]:
+            fail(f"the {name} library waits on every wgmma alone: {counts}")
     for bq in fa.BLOCKS:
         for bk in fa.BLOCKS:
             for d in fa.HEAD_DIMS:
@@ -289,6 +295,14 @@ def main() -> None:
                          f"B of shared memory, smem_bytes says {fa.smem_bytes(bq, bk, d)}")
     log(f"build flash shared memory: library = smem_bytes <= {GPU_H100.fast_mem_bytes} B "
         f"at all {len(flash_regs)} instantiations")
+    for bm, bn, bk, db in mm_configs:
+        lib_bytes = km.kernel_smem_bytes(bm, bn, bk, db)
+        staged = (2 if db else 1) * km.smem_bytes(bm, bn, bk, 2)
+        if lib_bytes != staged or lib_bytes > GPU_H100.fast_mem_bytes:
+            fail(f"matmul ({bm},{bn},{bk}, {2 if db else 1} stages): the library stages "
+                 f"{lib_bytes} B of shared memory, the sm90 model counts {staged}")
+    log(f"build matmul shared memory: library = stages x smem_bytes <= "
+        f"{GPU_H100.fast_mem_bytes} B at all {len(mm_configs)} instantiations")
 
     # -------------------------------------------------------------- kernels
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -446,7 +460,9 @@ def main() -> None:
         if out.shape != (m, n) or not torch.isfinite(out).all():
             fail(f"ops.matmul at {m}x{n}x{k} gave {tuple(out.shape)} or non-finite values")
         r = topk_ratio_matmul(m, n, k, iters=TOPK_ITERS, seed=SEED)
-        expected += r["n_configs"] * (3 + TOPK_ITERS)  # measure's warm-up + iters
+        # measure's eager warm-up + the calls captured in its graph (a replay
+        # runs the kernel without calling the wrapper, so it is not counted)
+        expected += r["n_configs"] * (3 + TOPK_ITERS)
         ratios = {key: v for key, v in r.items()
                   if key.startswith(("ratio@", "top1", "rank_corr"))}
         if not all(np.isfinite(v) and (v > 0 or key == "rank_corr")
@@ -480,21 +496,33 @@ def main() -> None:
     log(f"tuner path launches: {ops.launch_counts()} (expected matmul {expected})")
     if mm_launches != expected or mm_launches == 0:
         fail(f"matmul launches {mm_launches} != {expected} on the tuner path")
+    mm_sweep = []
     for m, n, k in YI6B_SHAPES:
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         y = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
         blocks = ops.tuned_matmul_blocks(m, n, k, 2)
-        kern = cuda_ms(lambda: ops.matmul(x, y), iters=20)
-        lib = cuda_ms(lambda: torch.matmul(x, y), iters=20)
+        kern = lambda: ops.matmul(x, y)
+        lib_fn = lambda: torch.matmul(x, y)
+        # in turns (kernel, library, library, kernel): under load the card
+        # runs at its power limit, and its clock drifts from one call to the next
+        k1, l1, l2, k2 = (graph_ms(f) for f in (kern, lib_fn, lib_fn, kern))
+        ms, lib = (k1 + k2) / 2, (l1 + l2) / 2
+        ms_eager, lib_eager = cuda_ms(kern, iters=20), cuda_ms(lib_fn, iters=20)
         flops, nbytes = matmul_work(m, n, k)
         t_ops, t_bytes = flops / GPU_H100.peak_flops_bf16, nbytes / GPU_H100.hbm_bandwidth
         bound = max(t_ops, t_bytes) * 1e3
         by = "operations" if t_ops >= t_bytes else "bytes"
-        log(f"timing matmul {m}x{n}x{k} blocks={blocks}: kernel {kern:.4f} ms "
-            f"({flops / kern / 1e9:.1f} TFLOP/s), torch.matmul (yardstick) "
-            f"{lib:.4f} ms, bound {bound:.4f} ms by {by}")
+        mm_sweep.append({"shape": [m, n, k], "blocks": list(blocks), "ms": ms,
+                         "eager_ms": ms_eager, "library_ms": lib,
+                         "library_eager_ms": lib_eager, "bound_ms": bound,
+                         "tflops": flops / ms / 1e9})
+        log(f"timing matmul {m}x{n}x{k} blocks={blocks}, graph replay: kernel "
+            f"{ms:.4f} ms [{k1:.4f}, {k2:.4f}] ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"torch.matmul (yardstick) {lib:.4f} ms [{l1:.4f}, {l2:.4f}] "
+            f"({ms / lib:.2f}x); eager back-to-back: kernel "
+            f"{ms_eager:.4f}, torch.matmul {lib_eager:.4f}; bound {bound:.4f} ms by {by}")
         if (m, n, k) == MM_TIMED:
-            mm_ms, mm_lib_ms, mm_bound_ms, mm_bound_by = kern, lib, bound, by
+            mm_ms, mm_lib_ms, mm_bound_ms, mm_bound_by = ms, lib, bound, by
             mm_plain_ms = cuda_ms(lambda: km.matmul_plain(x, y, *blocks[:3]), iters=3)
             log(f"timing matmul {m}x{n}x{k}: plain {mm_plain_ms:.4f} ms")
     log("card after the matmul timing (clocks.sm, clocks.max.sm, power.draw, "
@@ -589,7 +617,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/matmul.py:28",
         "launches": mm_launches, "max_abs_err": mm_err,
         "ms": mm_ms, "plain_ms": mm_plain_ms, "bound_ms": mm_bound_ms,
-        "bound_by": mm_bound_by, "library_ms": mm_lib_ms}]}), flush=True)
+        "bound_by": mm_bound_by, "library_ms": mm_lib_ms, "sass": mm_sass,
+        "registers": mm_regs, "sweep": mm_sweep}]}), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

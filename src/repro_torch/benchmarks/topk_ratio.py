@@ -7,10 +7,10 @@ ranking against measured ground truth.
 one on the card). The counterpart of the reference's
 ``benchmarks/topk_ratio.py``: the cost model scores the ``sm90`` matmul
 space on the ``gpu_h100`` target with no card involved, then every
-candidate runs through the hand-written Hopper kernel and is timed with
-CUDA events (``measure.py``). When the space is no larger than
-``n_configs`` (the H100 space has at most 72 configs) all of it is
-measured, so the oracle is the true measured optimum.
+candidate runs through the hand-written Hopper kernel and is timed as
+device time, by CUDA-graph replay (``measure.py``). When the space is no
+larger than ``n_configs`` (the H100 space has at most 24 configs) all of it
+is measured, so the oracle is the true measured optimum.
 
     python -m repro_torch.benchmarks.topk_ratio [--shape M N K]... [--out F]
 

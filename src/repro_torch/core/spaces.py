@@ -117,12 +117,20 @@ def _wrap_parallel(prog: Program, meta: ScheduleMeta,
 # Tile sizes the Hopper matmul kernel (kernels/csrc/matmul.cu) is built for:
 # consecutive powers of two, so ``_divisors_pow2`` over each range yields
 # exactly the built sizes that divide the shape (plus its fallback, dropped
-# below when it is not built).
+# below when it is not built). bm is one or two wgmma warpgroups of 64 rows;
+# bn and bk are whole 64-column (128-byte) swizzle atoms.
 SM90_MATMUL_TILES: Dict[str, Tuple[int, ...]] = {
-    "bm": (32, 64, 128),
-    "bn": (32, 64, 128, 256),
-    "bk": (32, 64, 128),
+    "bm": (64, 128),
+    "bn": (64, 128, 256),
+    "bk": (64, 128),
 }
+
+
+def sm90_matmul_smem_bytes(bm: int, bn: int, bk: int, dtype_bytes: int) -> int:
+    """Shared memory one stage of the Hopper matmul kernel holds: an A tile
+    [bm, bk] and a B tile [bk, bn], unpadded. The C tile stays in the
+    consumers' registers and is not staged."""
+    return (bm * bk + bk * bn) * dtype_bytes
 
 
 def _built_divisors(n: int, built: Tuple[int, ...]) -> List[int]:
@@ -154,10 +162,11 @@ def _matmul_knobs(attrs: Dict, kind: str) -> Dict[str, List]:
     }
 
 
-def _matmul_tpu(attrs: Dict, cfg: Dict) -> Tuple[Program, ScheduleMeta]:
+def _matmul_tpu(attrs: Dict, cfg: Dict,
+                kind: str) -> Tuple[Program, ScheduleMeta]:
     """TPU and sm90: grid block loops + matrix-unit nest (on sm90 the grid
-    is the CUDA grid of (bm, bn) tiles, the ``gk`` block loop the K loop
-    inside each thread block, one cp.async stage per operand per step)."""
+    is the set of (bm, bn) output tiles, the ``gk`` block loop the K loop
+    inside each thread block, one TMA stage of A and B per step)."""
     M, N, K, db = attrs["M"], attrs["N"], attrs["K"], attrs["dtype_bytes"]
     bm, bn, bk = cfg["bm"], cfg["bn"], cfg["bk"]
     gm, gn, gk = M // bm, N // bn, K // bk
@@ -184,7 +193,10 @@ def _matmul_tpu(attrs: Dict, cfg: Dict) -> Tuple[Program, ScheduleMeta]:
     grid_n = Loop("gn", gn, (kloop,), "serial")
     grid_m = Loop("gm", gm, (grid_n,), "serial")
     prog = Program((A, B, C), (grid_m,), name=f"matmul_{M}x{N}x{K}")
-    tile_bytes = (bm * bk + bk * bn + bm * bn) * db
+    if kind == "sm90":
+        tile_bytes = sm90_matmul_smem_bytes(bm, bn, bk, db)
+    else:
+        tile_bytes = (bm * bk + bk * bn + bm * bn) * db
     meta = ScheduleMeta(
         grid_size=gm * gn * gk,
         double_buffer=cfg["double_buffer"],
@@ -237,7 +249,7 @@ def _matmul_cpu(attrs: Dict, cfg: Dict) -> Tuple[Program, ScheduleMeta]:
 def _build_matmul(attrs: Dict, cfg: Dict,
                   kind: str) -> Tuple[Program, ScheduleMeta]:
     if kind in ("tpu", "sm90"):
-        return _matmul_tpu(attrs, cfg)
+        return _matmul_tpu(attrs, cfg, kind)
     return _matmul_cpu(attrs, cfg)
 
 

@@ -4,8 +4,8 @@ The port's own copy of ``repro.core.visa``, held against it by
 ``tests/test_torch_core.py``. One deliberate change: a ``tensor.*`` nest
 is tensorized into ``mxu.matmul`` tiles whenever the target's instruction
 table has that opcode (the reference asks ``kind == "tpu"``), so a
-tensor-core GPU target (``hw/gpu_h100.py``, one ``mma.sync.m16n8k16`` per
-tile) is scored on its matrix unit instead of as SIMT FMAs. Of the
+tensor-core GPU target (``hw/gpu_h100.py``, one m16n8k16 tile of tensor-core
+work per opcode) is scored on its matrix unit instead of as SIMT FMAs. Of the
 reference's targets only the TPU has ``mxu.matmul``, so they lower exactly
 as before.
 

@@ -15,17 +15,20 @@ The instruction table follows the reference's A100 target
 (``repro/hw/gpu_a100.py``), with the throughputs and widths derived from the
 numbers above:
 
-  * ``mxu.matmul`` is one ``mma.sync.m16n8k16`` bf16 tile (``mxu_shape=(16,
-    8)``; the VISA lowering tiles k by ``mxu_shape[0]``, i.e. k=16), which is
-    2*16*8*16 = 4096 FLOP. One tensor core retires 989e12 / (132 SMs * 1.98
-    GHz * 4) = 946 FLOP/cycle, so a tile occupies it 4096 / 946 = 4.33
-    cycles; the ``mxu`` unit has the SM's 4 tensor cores as issue width.
-    ``mma.sync`` does not reach the 989 TFLOP/s that ``wgmma`` does on this
-    card; the model does not correct for that, because no measured number
-    goes into a target.
-  * ``dma.*`` models cp.async staging HBM -> shared memory at the per-SM
-    share of the memory rate: 3.35e12 / 1.98e9 / 132 = 12.8 B/cycle/SM, so
-    one 128 B line every 10 cycles.
+  * ``mxu.matmul`` is one m16n8k16 bf16 tile of tensor-core work
+    (``mxu_shape=(16, 8)``; the VISA lowering tiles k by ``mxu_shape[0]``,
+    i.e. k=16), which is 2*16*8*16 = 4096 FLOP. One tensor core retires
+    989e12 / (132 SMs * 1.98 GHz * 4) = 946 FLOP/cycle, so a tile occupies
+    it 4096 / 946 = 4.33 cycles; the ``mxu`` unit has the SM's 4 tensor
+    cores as issue width. The kernel issues ``wgmma.m64n{bn}k16``, one
+    warpgroup instruction per 64 x bn x 16 product, which is exactly
+    4 * bn/8 of these tiles at the same rate per FLOP. The model keeps the
+    m16n8k16 tile as its unit of counting: a unit of (64, bn) would change
+    with the very knob being ranked.
+  * ``dma.*`` models TMA staging HBM -> shared memory at the per-SM share
+    of the memory rate: 3.35e12 / 1.98e9 / 132 = 12.8 B/cycle/SM, so one
+    128 B line every 10 cycles; the issue width of 2 is the kernel's one or
+    two stages in flight.
   * SIMT (``simd.*``, for families that do not tensorize): 128 FP32 lanes
     per SM (132 * 128 * 2 FLOP * 1.98 GHz = 67 TFLOP/s) => 4 FFMA warp
     instructions per cycle; 64 INT32 lanes => 2; 16 SFUs => one MUFU warp
@@ -59,7 +62,7 @@ GPU_H100 = HardwareTarget(
     name="gpu_h100",
     kind="sm90",
     vreg_shape=(1, 32),  # one warp = 32 lanes
-    mxu_shape=(16, 8),  # mma.sync m16n8k16 output tile
+    mxu_shape=(16, 8),  # the m16n8k16 tile the model counts in
     num_cores=_SMS,
     units=(
         FunctionalUnit("mxu", issue_width=4),     # 4 tensor cores per SM
@@ -67,7 +70,7 @@ GPU_H100 = HardwareTarget(
         FunctionalUnit("alu", issue_width=2),     # 64 INT32 lanes / 32
         FunctionalUnit("sfu", issue_width=1),     # 16 SFUs -> 1/2 warp-instr
         FunctionalUnit("lsu", issue_width=1),     # 128 B/cycle shared memory
-        FunctionalUnit("dma", issue_width=2),     # cp.async stages in flight
+        FunctionalUnit("dma", issue_width=2),     # TMA stages in flight
         FunctionalUnit("scalar", issue_width=4),  # 4 warp schedulers
     ),
     # opcode -> (unit, latency, inverse throughput), cycles at 1.98 GHz

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives as inline PTX, shared by the port's kernels:
 // mbarriers, TMA tensor loads, wgmma with shared-memory descriptors, and
-// setmaxnreg. Plain PTX keeps the build to one nvcc call per source with no
+// setmaxnreg; and, on the host, the TMA tensor maps both kernels load
+// through. Plain PTX keeps the build to one nvcc call per source with no
 // include path beyond the CUDA toolkit's.
 //
 // Conventions used by the callers:
@@ -15,6 +16,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -142,6 +144,9 @@ __device__ __forceinline__ void fence_operand(uint32_t& r) {
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define HOPPER_D32 HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
 #define HOPPER_D64 HOPPER_D32, HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
+#define HOPPER_D128                                                          \
+  HOPPER_D64, HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88),     \
+      HOPPER_D8(96), HOPPER_D8(104), HOPPER_D8(112), HOPPER_D8(120)
 #define HOPPER_REGS32                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
@@ -152,6 +157,16 @@ __device__ __forceinline__ void fence_operand(uint32_t& r) {
   "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
   "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
   "%61, %62, %63}, "
+#define HOPPER_REGS128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
+  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
+  "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
+  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, " \
+  "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, " \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, " \
+  "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
 
 // D[64 x N] (+)= A[64 x 16] * B[16 x N], bf16 in, f32 accumulator, both
 // operands in shared memory. A is K-major; B is K-major (TRANS_B = 0) or
@@ -179,6 +194,40 @@ __device__ __forceinline__ void wgmma_ss<128, 0>(float (&d)[64], uint64_t desc_a
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_REGS64
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : HOPPER_D64
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// B MN-major: row-major [K][N] tiles read through the transpose bit
+template <>
+__device__ __forceinline__ void wgmma_ss<64, 1>(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_REGS32
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : HOPPER_D32
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128, 1>(float (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_REGS64
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : HOPPER_D64
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<256, 1>(float (&d)[128], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_REGS128
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : HOPPER_D128
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -216,8 +265,10 @@ __device__ __forceinline__ void wgmma_rs<128, 1>(float (&d)[64], const uint32_t 
 #undef HOPPER_D8
 #undef HOPPER_D32
 #undef HOPPER_D64
+#undef HOPPER_D128
 #undef HOPPER_REGS32
 #undef HOPPER_REGS64
+#undef HOPPER_REGS128
 
 // ----------------------------------------------------------------- setmaxnreg
 
@@ -231,6 +282,49 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int REGS>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+// ---------------------------------------------------------------- host side
+
+// cuTensorMapEncodeTiled is a driver function; the libraries link only the
+// CUDA runtime, so it is fetched through the runtime's entry-point query.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// [bh, s, d] bf16, read in boxes of 64 columns x `rows` rows, 128B-swizzled;
+// out-of-range rows read as zeros
+inline bool make_map(CUtensorMap* map, const void* ptr, int bh, int s, int d, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

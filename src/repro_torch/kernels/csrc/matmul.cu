@@ -5,249 +5,291 @@
 // launched by `matmul_pallas`). The TPU kernel walks a (M/bm, N/bn, K/bk)
 // grid with K as the sequential third axis and carries the f32 accumulator
 // in VMEM scratch from one K step to the next, zeroed at k=0 and written once
-// at the last k. Here one thread block owns one (bm, bn) output tile and runs
-// the K loop itself, with the accumulator in registers; the tile is cast to
-// bf16 and written once at the end. bm, bn, bk and the stage count are
-// template parameters, so the accumulator arrays stay in registers; the
-// built set is the `sm90` knob list of src/repro_torch/core/spaces.py
-// (SM90_MATMUL_TILES), which the static tuner ranks.
-//
-// Per K step the block stages an A tile [bm, bk] and a B tile [bk, bn] in
-// shared memory with cp.async (16 bytes a thread, rows padded by 16 bytes so
-// that ldmatrix is free of bank conflicts), through two stages when
-// `double_buffer` is set (the copy of step k+1 overlaps the products of step
-// k) or one. Warps own min(bm/2, 32) x min(bn/2, 64) sub-tiles, so every
-// block has at least 4 warps (2 x 2 for the smallest tiles, 16 for 128 x 256)
-// and a thread holds at most 64 accumulator floats. A fragments come from
-// ldmatrix.x4; B is row-major [k][n] in shared memory,
-// and ldmatrix.x4.trans turns it into the column-major B fragment that
-// mma.sync.m16n8k16.row.col expects (two 8-wide n tiles per load).
+// at the last k. Here the accumulator of a (bm, bn) output tile lives in the
+// registers of the block that owns the tile, which runs the K loop itself
+// and writes the tile once, as bf16, at the end. bm, bn, bk and the stage
+// count are template parameters; the built set is the `sm90` knob list of
+// src/repro_torch/core/spaces.py (SM90_MATMUL_TILES), which the static tuner
+// ranks.
 //
 // Bound on this card: at a yi-6b projection (M=2048 tokens, N=K=4096) the
 // work is 2*2048*4096*4096 = 68.7 GFLOP, 69.5 us at 989 TFLOP/s, against
-// 67 MB of A, B and C, 20 us at 3.35 TB/s: it is bound by the tensor cores.
-// This simple design reaches only part of that: mma.sync does not reach the
-// wgmma rate, and there is no TMA, no warp specialisation and no persistent
-// tile loop yet.
+// 67 MB of A, B and C, 20 us at 3.35 TB/s: the tensor cores bound it at
+// every yi-6b shape, so the design is about keeping them fed:
+//
+// - Products are warpgroup `wgmma`, the only path to the full tensor-core
+//   rate. Each of the bm/64 consumer warpgroups owns 64 rows x bn of the
+//   tile and issues SS wgmma m64n{bn}k16: A K-major, B row-major [K][N],
+//   i.e. MN-major, read through the descriptor's transpose bit.
+// - Loads are TMA, issued by one thread of a producer warpgroup. A stage
+//   holds bk/64 slots of 64 K-columns (one 128-byte swizzle atom wide),
+//   each an A box [bm rows][64] and bn/64 B boxes [64 K-rows][64 columns]
+//   with a full and an empty mbarrier of its own: the shared memory is a
+//   ring of (stages * bk/64) slots, refilled slot by slot. The consumers
+//   start on a slot as soon as it lands.
+// - With two stages the consumers keep one slot's wgmma group in flight:
+//   they issue slot i, wait until slot i-1's group is done and release
+//   slot i-1 at once, so at bk=128 the producer has up to three slots in
+//   flight while one is multiplied. (Releasing a whole stage at a time
+//   leaves one stage in flight, and was slower at every two-stage bk=128
+//   tile on the H100.) With one stage there is no overlap: the
+//   consumers multiply the whole stage, wait for its groups and release
+//   all its slots, and the producer then loads all of them at once.
+// - Blocks are persistent: the grid is the SM count times the blocks that
+//   fit on one SM (both queried once per device), and block b takes output
+//   tiles b, b + grid, ... The tiles run M-fastest, so the tiles in flight
+//   at one time share a few B column panels, which are re-read from L2
+//   rather than HBM (the unembed's B is 524 MB; A is 16 MB). The producer
+//   runs ahead into the next tile while the consumers write this one.
+// - The epilogue goes straight from the accumulators to global memory as
+//   bf16 pairs; no C tile is staged in shared memory.
+// - With two consumer warpgroups `setmaxnreg` gives them 240 registers and
+//   the producer 24 (168 at launch for 384 threads), so a 64 x 256 f32
+//   accumulator (128 registers a thread) fits without a spill.
+//
+// Layout: a [m, k], b [k, n], c [m, n], bf16, row-major, contiguous, 16-byte
+// aligned; the blocks divide the shape. Built for bm in {64, 128}, bn in
+// {64, 128, 256}, bk in {64, 128} and one or two stages (24 instantiations).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr int kPad = 8;  // bf16 padding per shared row (16 bytes)
+constexpr int kAtomBytes = 128;  // one swizzled row: 64 bf16
+constexpr int kBox = 64;         // K-columns of one box (one atom wide)
+constexpr int kMaxDevices = 64;
+constexpr int kMaxSmem = 232448;  // what one block may use on sm_90
 
-template <int BM, int BN, int BK>
-struct Tile {
-  static constexpr int kWarpM = BM / 2 < 32 ? BM / 2 : 32;  // 16 or 32 rows
-  static constexpr int kWarpN = BN / 2 < 64 ? BN / 2 : 64;  // 16, 32 or 64
-  static constexpr int kWarpsN = BN / kWarpN;
-  static constexpr int kThreads = 32 * (BM / kWarpM) * kWarpsN;
-  static constexpr int kLdA = BK + kPad;
-  static constexpr int kLdB = BN + kPad;
-  static constexpr int kStageElems = BM * kLdA + BK * kLdB;
+template <int BM, int BN, int BK, int S>
+struct Cfg {
+  static_assert(BM == 64 || BM == 128, "BM is one or two warpgroups of 64 rows");
+  static_assert(BN == 64 || BN == 128 || BN == 256, "BN is the N of an m64nBNk16 wgmma");
+  static_assert(BK == 64 || BK == 128, "BK is a multiple of the 64-column atom");
+  static_assert(S == 1 || S == 2, "one or two stages");
+  static constexpr int kConsumers = BM / 64;               // consumer warpgroups
+  static constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
+  static constexpr int kSlotsPerStage = BK / kBox;
+  static constexpr int kSlots = S * kSlotsPerStage;        // the ring
+  static constexpr int kABox = BM * kAtomBytes;            // A box [BM][64]
+  static constexpr int kBAtom = kBox * kAtomBytes;         // B atom [64][64]
+  static constexpr int kSlotBytes = kABox + (BN / 64) * kBAtom;
+  static constexpr int kStaged = kSlots * kSlotBytes;      // S * (BM + BN) * BK * 2
+  // barriers after the slots: a full and an empty barrier per slot (8 B
+  // each, 128 B reserved); 1024 B of slack align the tiles' base to the
+  // swizzle period
+  static constexpr int kSmem = kStaged + 128 + 1024;
+  static_assert(kStaged == S * (BM + BN) * BK * 2, "a stage is A and B, unpadded");
+  static_assert(8 * 2 * kSlots <= 128, "barriers fit their reserve");
+  static_assert(kSmem <= kMaxSmem, "fits one block's shared memory");
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
-}
+template <int BM, int BN, int BK, int S>
+__global__ void __launch_bounds__(Cfg<BM, BN, BK, S>::kThreads, 1)
+    matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                        const __grid_constant__ CUtensorMap tb, bf16* __restrict__ c,
+                        int m, int n, int k) {
+  using C = Cfg<BM, BN, BK, S>;
+  constexpr int R = C::kSlots;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  // slot q: the A box at base + q * kSlotBytes, then the B boxes
+  auto a_s = [&](int q) { return base + q * C::kSlotBytes; };
+  auto b_s = [&](int q) { return a_s(q) + C::kABox; };
+  auto full = [&](int q) { return base + C::kStaged + 8u * q; };
+  auto empty = [&](int q) { return base + C::kStaged + 8u * (R + q); };
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+  const int tiles_m = m / BM;
+  const int tiles = tiles_m * (n / BN);
+  const int nb = k / kBox;  // slots' worth of K per tile
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// one K step's A tile [BM, BK] and B tile [BK, BN] into a shared stage
-template <int BM, int BN, int BK>
-__device__ __forceinline__ void load_stage(bf16* sa, const bf16* a,
-                                           const bf16* b, int n, int k, int m0,
-                                           int n0, int k0) {
-  using T = Tile<BM, BN, BK>;
-  bf16* sb = sa + BM * T::kLdA;
-  constexpr int kRowA = BK / 8;  // 16-byte chunks per row
-  constexpr int kRowB = BN / 8;
-  constexpr int kChunksA = BM * kRowA;
-  constexpr int kChunksB = BK * kRowB;
-#pragma unroll
-  for (int j = 0; j < (kChunksA + T::kThreads - 1) / T::kThreads; ++j) {
-    const int i = threadIdx.x + j * T::kThreads;
-    if (kChunksA % T::kThreads == 0 || i < kChunksA) {
-      const int r = i / kRowA;
-      const int c = (i % kRowA) * 8;
-      cp_async16(sa + r * T::kLdA + c, a + (size_t)(m0 + r) * k + k0 + c);
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < R; ++q) {
+      mbar_init(full(q), 1);
+      mbar_init(empty(q), 128 * C::kConsumers);
     }
+    fence_mbarrier_init();
   }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == C::kConsumers) {
+    // ---------------------------------------------------------- producer
+    if constexpr (C::kConsumers == 2) setmaxnreg_dec<24>();
+    if (threadIdx.x == C::kConsumers * 128) {
+      int it = 0;  // slots filled by this block, over all its tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % tiles_m) * BM;
+        const int n0 = (tile / tiles_m) * BN;
+        for (int kb = 0; kb < nb; ++kb, ++it) {
+          const int q = it % R;
+          // the consumers released this slot's previous fill
+          if (it >= R) mbar_wait(empty(q), ((it / R) - 1) & 1);
+          mbar_arrive_expect_tx(full(q), C::kSlotBytes);
+          tma_load_3d(a_s(q), &ta, full(q), kb * kBox, m0, 0);
 #pragma unroll
-  for (int j = 0; j < (kChunksB + T::kThreads - 1) / T::kThreads; ++j) {
-    const int i = threadIdx.x + j * T::kThreads;
-    if (kChunksB % T::kThreads == 0 || i < kChunksB) {
-      const int r = i / kRowB;
-      const int c = (i % kRowB) * 8;
-      cp_async16(sb + r * T::kLdB + c, b + (size_t)(k0 + r) * n + n0 + c);
-    }
-  }
-}
-
-template <int BM, int BN, int BK, bool DB>
-__global__ void __launch_bounds__(Tile<BM, BN, BK>::kThreads)
-    matmul_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
-                       bf16* __restrict__ c, int n, int k) {
-  using T = Tile<BM, BN, BK>;
-  constexpr int MT = T::kWarpM / 16;  // 16-row mma tiles of a warp
-  constexpr int NT = T::kWarpN / 8;   // 8-wide mma tiles of a warp (even)
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wm = (warp / T::kWarpsN) * T::kWarpM;
-  const int wn = (warp % T::kWarpsN) * T::kWarpN;
-
-  float acc[MT][NT][4] = {};
-  const int steps = k / BK;
-
-  load_stage<BM, BN, BK>(smem, a, b, n, k, m0, n0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < steps; ++kt) {
-    const int s = DB ? (kt & 1) : 0;
-    if constexpr (DB) {
-      if (kt + 1 < steps) {  // prefetch step kt+1 into the other stage
-        load_stage<BM, BN, BK>(smem + ((kt + 1) & 1) * T::kStageElems, a, b, n,
-                               k, m0, n0, (kt + 1) * BK);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-    } else {
-      if (kt > 0) {
-        load_stage<BM, BN, BK>(smem, a, b, n, k, m0, n0, kt * BK);
-        cp_async_commit();
-      }
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // step kt's tiles are in shared memory for every warp
-
-    const bf16* sa = smem + s * T::kStageElems;
-    const bf16* sb = sa + BM * T::kLdA;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        ldsm_x4(af[mt], sa + (wm + mt * 16 + lane % 16) * T::kLdA + kk +
-                            (lane / 16) * 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        // matrices: k rows 0-7 / 8-15 of n tile nt, then of n tile nt+1
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, sb + (kk + lane % 16) * T::kLdB + wn + nt * 8 +
-                              (lane / 16) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_16816(acc[mt][nt], af[mt], bf[0], bf[1]);
-          mma_16816(acc[mt][nt + 1], af[mt], bf[2], bf[3]);
+          for (int j = 0; j < BN / 64; ++j) {
+            tma_load_3d(b_s(q) + j * C::kBAtom, &tb, full(q), n0 + j * 64, kb * kBox, 0);
+          }
         }
       }
     }
-    __syncthreads();  // every warp is done with this stage before it refills
-  }
+  } else {
+    // --------------------------------------------------------- consumers
+    if constexpr (C::kConsumers == 2) setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int wg_row = wg * 64 * kAtomBytes;  // this warpgroup's rows of an A box
 
-  const int g = lane >> 2;  // row within an 8-row half of an mma tile
-  const int t = lane & 3;   // column pair within an 8-wide mma tile
+    float acc[BN / 2];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    // slot fill `it`: wait until it landed, then 4 k16 products as one
+    // group (A: 32 B further into the atom per k16; B: 16 K-rows, 2048 B,
+    // further; its 64-column atoms lie kBAtom apart). `first` overwrites acc.
+    auto issue = [&](int it, bool first) {
+      const int q = it % R;
+      mbar_wait(full(q), (it / R) & 1);
+      wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const size_t row = m0 + wm + mt * 16 + g;
-      const int col = n0 + wn + nt * 8 + t * 2;
-      *reinterpret_cast<__nv_bfloat162*>(c + row * n + col) =
-          __floats2bfloat162_rn(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<__nv_bfloat162*>(c + (row + 8) * n + col) =
-          __floats2bfloat162_rn(acc[mt][nt][2], acc[mt][nt][3]);
+      for (int kk = 0; kk < kBox / 16; ++kk) {
+        const uint64_t da = smem_desc_sw128(a_s(q) + wg_row + kk * 32, 16, 1024);
+        const uint64_t db = smem_desc_sw128(b_s(q) + kk * 16 * kAtomBytes, C::kBAtom, 1024);
+        wgmma_ss<BN, 1>(acc, da, db, (first && kk == 0) ? 0 : 1);
+      }
+      wgmma_commit();
+    };
+    auto release = [&](int it) { mbar_arrive(empty(it % R)); };
+
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % tiles_m) * BM;
+      const int n0 = (tile / tiles_m) * BN;
+      if constexpr (S == 2) {
+        issue(it, true);
+        for (int kb = 1; kb < nb; ++kb) {
+          issue(it + kb, false);
+          wgmma_wait<1>();  // slot kb-1's group is done
+          release(it + kb - 1);
+        }
+        wgmma_wait<0>();
+        release(it + nb - 1);
+      } else {
+        for (int kb = 0; kb < nb; kb += C::kSlotsPerStage) {
+#pragma unroll
+          for (int h = 0; h < C::kSlotsPerStage; ++h) issue(it + kb + h, kb + h == 0);
+          wgmma_wait<0>();
+#pragma unroll
+          for (int h = 0; h < C::kSlotsPerStage; ++h) release(it + kb + h);
+        }
+      }
+      it += nb;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
+
+      // element 4j+e of acc is (row 16*warp + lane/4 + 8*(e/2), column
+      // 8j + 2*(lane%4) + e%2) of this warpgroup's 64 x BN
+      const size_t row = (size_t)m0 + wg * 64 + (tid / 32) * 16 + (lane >> 2);
+      bf16* c0 = c + row * n + n0 + 2 * (lane & 3);
+      bf16* c8 = c0 + 8 * (size_t)n;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(c0 + 8 * j) = pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(c8 + 8 * j) =
+            pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
     }
   }
 }
 
-template <int BM, int BN, int BK, bool DB>
+// ------------------------------------------------------------------- host
+
+template <int BM, int BN, int BK, int S>
 cudaError_t launch(const void* a, const void* b, void* c, int m, int n, int k,
                    cudaStream_t stream) {
-  using T = Tile<BM, BN, BK>;
-  constexpr size_t kSmem = (DB ? 2 : 1) * T::kStageElems * sizeof(bf16);
-  auto kern = matmul_bf16_kernel<BM, BN, BK, DB>;
-  if (kSmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  using C = Cfg<BM, BN, BK, S>;
+  auto kern = matmul_wgmma_kernel<BM, BN, BK, S>;
+  // once per device: raise the dynamic shared-memory limit, then size the
+  // persistent grid from the SM count and the blocks that fit on one SM
+  static int resident[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmem);
     if (err != cudaSuccess) return err;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, C::kThreads,
+                                                        C::kSmem);
+    if (err != cudaSuccess) return err;
+    if (sms * per_sm <= 0) return cudaErrorInvalidConfiguration;
+    resident[dev] = sms * per_sm;
   }
-  const dim3 grid(n / BN, m / BM);
-  kern<<<grid, T::kThreads, kSmem, stream>>>(static_cast<const bf16*>(a),
-                                             static_cast<const bf16*>(b),
-                                             static_cast<bf16*>(c), n, k);
+  CUtensorMap ta, tb;
+  // A as [1, m, k] in boxes [BM rows][64]; B as [1, k, n] in boxes [64][64]
+  if (!make_map(&ta, a, 1, m, k, BM) || !make_map(&tb, b, 1, k, n, kBox)) {
+    return cudaErrorInvalidValue;
+  }
+  const int tiles = (m / BM) * (n / BN);
+  const int grid = tiles < resident[dev] ? tiles : resident[dev];
+  kern<<<grid, C::kThreads, C::kSmem, stream>>>(ta, tb, static_cast<bf16*>(c), m, n, k);
   return cudaGetLastError();
 }
 
+// every built (BM, BN, BK) tile, each with one and two stages
+#define MM_BUILT(X)                                                            \
+  X(64, 64, 64) X(64, 64, 128) X(64, 128, 64) X(64, 128, 128) X(64, 256, 64)   \
+  X(64, 256, 128) X(128, 64, 64) X(128, 64, 128) X(128, 128, 64)               \
+  X(128, 128, 128) X(128, 256, 64) X(128, 256, 128)
+
 }  // namespace
 
+// Shared memory the (bm, bn, bk) instantiation with one (double_buffer = 0)
+// or two stages holds for its A and B tiles, in bytes; its launch adds 128 B
+// of barriers and 1024 B of alignment slack. -1 where none is built.
+extern "C" int matmul_smem_bytes(int bm, int bn, int bk, int double_buffer) {
+#define MM_SMEM(BM_, BN_, BK_)                           \
+  if (bm == BM_ && bn == BN_ && bk == BK_)               \
+    return double_buffer ? Cfg<BM_, BN_, BK_, 2>::kStaged \
+                         : Cfg<BM_, BN_, BK_, 1>::kStaged;
+  MM_BUILT(MM_SMEM)
+#undef MM_SMEM
+  return -1;
+}
+
 // a [m, k], b [k, n], c [m, n]: bf16, row-major, contiguous, 16-byte
-// aligned. Built for bm in {32, 64, 128}, bn in {32, 64, 128, 256}, bk in
-// {32, 64, 128} and one or two stages; the blocks must divide the shape.
-// Anything else returns cudaErrorInvalidValue without launching.
+// aligned. Built for bm in {64, 128}, bn in {64, 128, 256}, bk in {64, 128}
+// and one or two stages; the blocks must divide the shape. Anything else
+// returns cudaErrorInvalidValue without launching.
 extern "C" int matmul_bf16(const void* a, const void* b, void* c, int m, int n,
                            int k, int bm, int bn, int bk, int double_buffer,
                            void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || bm <= 0 || bn <= 0 || bk <= 0 ||
-      m % bm != 0 || n % bn != 0 || k % bk != 0 || m / bm > 65535) {
+      m % bm != 0 || n % bn != 0 || k % bk != 0) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MM_CASE(BM_, BN_, BK_)                                            \
-  if (bm == BM_ && bn == BN_ && bk == BK_)                                \
-    return double_buffer ? launch<BM_, BN_, BK_, true>(a, b, c, m, n, k, st) \
-                         : launch<BM_, BN_, BK_, false>(a, b, c, m, n, k, st);
-#define MM_BK(BM_, BN_) MM_CASE(BM_, BN_, 32) MM_CASE(BM_, BN_, 64) MM_CASE(BM_, BN_, 128)
-#define MM_BN(BM_) MM_BK(BM_, 32) MM_BK(BM_, 64) MM_BK(BM_, 128) MM_BK(BM_, 256)
-  MM_BN(32) MM_BN(64) MM_BN(128)
-#undef MM_BN
-#undef MM_BK
+#define MM_CASE(BM_, BN_, BK_)                                          \
+  if (bm == BM_ && bn == BN_ && bk == BK_)                              \
+    return double_buffer ? launch<BM_, BN_, BK_, 2>(a, b, c, m, n, k, st) \
+                         : launch<BM_, BN_, BK_, 1>(a, b, c, m, n, k, st);
+  MM_BUILT(MM_CASE)
 #undef MM_CASE
   return cudaErrorInvalidValue;
 }

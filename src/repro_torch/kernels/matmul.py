@@ -2,11 +2,12 @@
 version.
 
 Replaces the TPU kernel ``_matmul_kernel`` of ``src/repro/kernels/matmul.py``
-(``matmul_pallas``). The kernel is ``csrc/matmul.cu``: one thread block per
-(bm, bn) output tile, the K loop inside the block, A and B tiles staged in
-shared memory by cp.async through one or two stages, ``mma.sync`` bf16
-products accumulated in f32 registers and cast once at the end. Its source
-says what bounds it on the H100 and what the design does about it.
+(``matmul_pallas``). The kernel is ``csrc/matmul.cu``: persistent blocks that
+walk the (bm, bn) output tiles, a producer warp that streams A and B tiles
+with TMA through one or two shared-memory stages, and one or two consumer
+warpgroups of 64 rows whose products are ``wgmma`` (bf16 in, f32
+accumulation), written once as bf16 at the end of each tile. Its source says
+what bounds it on the H100 and what the design does about it.
 
 ``matmul`` launches the kernel for CUDA tensors and runs ``matmul_plain`` for
 CPU tensors, and for nothing else: on a CUDA tensor it launches or raises.
@@ -21,10 +22,13 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.spaces import SM90_MATMUL_TILES
+from repro_torch.core.spaces import SM90_MATMUL_TILES, sm90_matmul_smem_bytes
 from repro_torch.kernels import build
 
 BLOCKS = SM90_MATMUL_TILES  # bm / bn / bk values the kernel is built for
+# shared memory of one stage: the A and B tiles, unpadded (the C tile stays
+# in registers); the tuner's sm90 space prunes with the same function
+smem_bytes = sm90_matmul_smem_bytes
 
 # kernel launches in this process (the main-path witness); reset via
 # ``ops.reset_launch_counts``
@@ -78,6 +82,17 @@ def _kernel():
     return fn
 
 
+def kernel_smem_bytes(bm: int, bn: int, bk: int, double_buffer: bool) -> int:
+    """The built library's own count of the shared memory the (bm, bn, bk)
+    instantiation stages for A and B over its one or two stages; -1 where
+    none is built. Loads (and if needed builds) the library: for checks on
+    the card."""
+    fn = build.load("matmul").matmul_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn(bm, bn, bk, int(double_buffer))
+
+
 def _launch(x, y, bm: int, bn: int, bk: int,
             double_buffer: bool) -> torch.Tensor:
     global LAUNCHES
@@ -91,8 +106,6 @@ def _launch(x, y, bm: int, bn: int, bk: int,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     bm, bn, bk = resolve_blocks(m, n, k, bm, bn, bk)
-    if m // bm > 65535:
-        raise ValueError(f"M/bm = {m // bm} exceeds the grid's y extent")
     fn = _kernel()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):

@@ -7,6 +7,7 @@ objects, then require exactly equal knobs, signatures, enumeration order,
 VISA text, features, scores, rankings and ES results.
 """
 import dataclasses
+import itertools
 import json
 import random
 
@@ -23,7 +24,7 @@ from repro.core import visa as jvisa
 from repro.hw import TARGETS as JTARGETS
 from repro_torch.benchmarks import topk_ratio
 from repro_torch.core import cost_model, es, op_registry, tuner, visa
-from repro_torch.core.spaces import SM90_MATMUL_TILES, MatmulSpace
+from repro_torch.core.spaces import SM90_MATMUL_TILES, MatmulSpace, sm90_matmul_smem_bytes
 from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.hw.target import FunctionalUnit, HardwareTarget
 
@@ -159,7 +160,7 @@ def test_port_registry_holds_the_legacy_families_only():
         assert op_registry.get(name) is not jop_registry.get(name)
     space = op_registry.space_from_signature(
         "matmul[K=64,M=128,N=256,dtype_bytes=2]", "sm90")
-    assert isinstance(space, MatmulSpace) and space.knobs["bn"] == [32, 64, 128, 256]
+    assert isinstance(space, MatmulSpace) and space.knobs["bn"] == [64, 128, 256]
 
 
 def test_target_helpers():
@@ -179,7 +180,7 @@ def test_target_helpers():
 
 
 @pytest.mark.parametrize("shape", YI6B_SHAPES + (
-    (1024, 1024, 1024), (4096, 4096, 4096), (96, 4096, 160), (64, 96, 32)))
+    (1024, 1024, 1024), (4096, 4096, 4096), (192, 4096, 320), (64, 192, 64)))
 def test_sm90_space_holds_built_tiles_that_divide(shape):
     m, n, k = shape
     space = MatmulSpace(m, n, k, 2, target_kind=GPU_H100.kind)
@@ -193,7 +194,8 @@ def test_sm90_space_holds_built_tiles_that_divide(shape):
 @pytest.mark.parametrize("shape", YI6B_SHAPES)
 def test_tuned_matmul_blocks_fit_shared_memory_and_are_memoised(shape):
     bm, bn, bk, db = tuner.tuned_matmul_blocks(*shape)
-    staged = (2 if db else 1) * (bm * (bk + 8) + bk * (bn + 8)) * 2
+    staged = (2 if db else 1) * (bm * bk + bk * bn) * 2
+    assert staged == (2 if db else 1) * sm90_matmul_smem_bytes(bm, bn, bk, 2)
     assert staged <= 232_448 == GPU_H100.fast_mem_bytes
     before = tuner.tuned_matmul_blocks.cache_info().hits
     assert tuner.tuned_matmul_blocks(*shape) == (bm, bn, bk, db)
@@ -201,10 +203,57 @@ def test_tuned_matmul_blocks_fit_shared_memory_and_are_memoised(shape):
 
 
 @pytest.mark.parametrize("shape", [(100, 4096, 4096), (2048, 4096, 48),
-                                   (16, 64, 64), (2048, 80, 4096)])
+                                   (16, 64, 64), (2048, 80, 4096),
+                                   (96, 4096, 160), (64, 96, 32)])
 def test_tuned_matmul_blocks_refuses_shapes_no_built_tile_divides(shape):
     with pytest.raises(ValueError):
         tuner.tuned_matmul_blocks(*shape)
+
+
+@pytest.mark.parametrize("bm,bn,bk", list(itertools.product(*SM90_MATMUL_TILES.values())))
+def test_sm90_smem_accounting_leaves_out_the_c_tile(bm, bn, bk):
+    """One stage holds an A tile and a B tile, unpadded; the C tile stays in
+    the kernel's registers, so the model neither counts it nor calls two
+    stages of any built tile an overflow."""
+    assert sm90_matmul_smem_bytes(bm, bn, bk, 2) == (bm * bk + bk * bn) * 2
+    assert 2 * sm90_matmul_smem_bytes(bm, bn, bk, 2) <= GPU_H100.fast_mem_bytes
+    space = MatmulSpace(bm, bn, bk, 2, target_kind=GPU_H100.kind)
+    for db in (False, True):
+        prog, meta = space.instantiate({"bm": bm, "bn": bn, "bk": bk, "double_buffer": db})
+        assert meta.vmem_tile_bytes == sm90_matmul_smem_bytes(bm, bn, bk, 2)
+        feats = cost_model.extract_features(prog, GPU_H100, meta)
+        assert feats.vmem_overflow == 0.0
+
+
+@pytest.mark.parametrize("shape", [(2048, 11008, 4096), (2048, 4096, 11008),
+                                   (2048, 64000, 4096), (2048, 4096, 4096)])
+def test_static_pick_takes_two_stages_at_bk_128(shape):
+    """Where two bk=128 stages fit, the model prefers them to the one-stage
+    twin (the card's order in every earlier chip run); with the C tile
+    counted as staged it used to pick the twin at the first three shapes."""
+    bm, bn, bk, db = tuner.tuned_matmul_blocks(*shape)
+    assert (bk, db) == (128, True)
+    assert 2 * sm90_matmul_smem_bytes(bm, bn, bk, 2) <= GPU_H100.fast_mem_bytes
+
+
+@pytest.mark.parametrize("m,n,k", [(512, 512, 512), (256, 384, 128), (1024, 2048, 4096)])
+def test_tpu_tile_bytes_and_scores_match_the_reference(m, n, k):
+    """The sm90 accounting leaves the ``tpu`` kind as the reference has it:
+    every configuration's ScheduleMeta (C tile counted) and score agree
+    with ``repro.core``'s on the reference's TPU target."""
+    attrs = {"M": m, "N": n, "K": k, "dtype_bytes": 2}
+    ref, port = _spaces("matmul", attrs, "tpu")
+    jtarget, target = JTARGETS["tpu_v5e"], _port_target(JTARGETS["tpu_v5e"])
+    cfgs = list(ref.enumerate(None))
+    assert cfgs == list(port.enumerate(None))
+    for cfg in cfgs:
+        jprog, jmeta = ref.instantiate(cfg)
+        prog, meta = port.instantiate(cfg)
+        assert dataclasses.asdict(meta) == dataclasses.asdict(jmeta)
+        assert meta.vmem_tile_bytes == (cfg["bm"] * cfg["bk"] + cfg["bk"] * cfg["bn"]
+                                        + cfg["bm"] * cfg["bn"]) * 2
+        assert cost_model.evaluate(prog, target, meta) == \
+            jcost_model.evaluate(jprog, jtarget, jmeta)
 
 
 def test_sm90_matmul_is_tensorized():
@@ -248,9 +297,9 @@ def test_topk_ratio_plumbing_on_the_cpu():
     """The top-k benchmark on the plain version at a small shape: every
     config of the space measured once, the ranking in static order, the
     reference's keys. (A CPU time says nothing about the card.)"""
-    res = topk_ratio.topk_ratio_matmul(64, 128, 64, ks=(1, 5), iters=1,
+    res = topk_ratio.topk_ratio_matmul(128, 128, 128, ks=(1, 5), iters=1,
                                        device="cpu")
-    space = MatmulSpace(64, 128, 64, 2, target_kind="sm90")
+    space = MatmulSpace(128, 128, 128, 2, target_kind="sm90")
     assert res["n_configs"] == res["space_size"] == space.size()
     for key in ("ratio@1", "ratio@5", "top1_ratio", "best_static_ms",
                 "best_oracle_ms", "static_s", "measure_s"):
@@ -260,7 +309,7 @@ def test_topk_ratio_plumbing_on_the_cpu():
     assert scores == sorted(scores)
     assert res["ranking"][0]["config"] == dict(zip(
         ("bm", "bn", "bk", "double_buffer"),
-        tuner.tuned_matmul_blocks(64, 128, 64)))
+        tuner.tuned_matmul_blocks(128, 128, 128)))
 
 
 def test_topk_ratio_command_line_on_the_cpu(tmp_path, capsys):

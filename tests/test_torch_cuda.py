@@ -4,6 +4,8 @@ Imports no jax, so it runs where only the port is installed:
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 Without a card every test here skips.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -102,8 +104,8 @@ def _ab(m, n, k, device):
 @pytest.mark.parametrize("shape", [(256, 512, 384), (128, 256, 128),
                                    (2048, 4096, 4096), (2048, 512, 4096),
                                    (2048, 11008, 4096), (2048, 4096, 11008)])
-@pytest.mark.parametrize("blocks", [(32, 32, 32), (64, 128, 64), (128, 256, 128),
-                                    (128, 64, 32), (32, 256, 64), (128, 128, 128)])
+@pytest.mark.parametrize("blocks", [(64, 64, 64), (64, 128, 64), (128, 256, 128),
+                                    (128, 64, 128), (64, 256, 64), (128, 128, 128)])
 @pytest.mark.parametrize("double_buffer", [False, True])
 def test_matmul_kernel_matches_plain(card, shape, blocks, double_buffer):
     a, b = _ab(*shape, card)
@@ -114,6 +116,70 @@ def test_matmul_kernel_matches_plain(card, shape, blocks, double_buffer):
     want = kmatmul.matmul_plain(a, b, *blocks).float()
     limit = RTOL * want.abs() + MM_ATOL_RMS * want.pow(2).mean().sqrt()
     assert int(((got.float() - want).abs() > limit).sum()) == 0
+
+
+def _matmul_within_limit(got, want):
+    want = want.float()
+    limit = RTOL * want.abs() + MM_ATOL_RMS * want.pow(2).mean().sqrt()
+    return int(((got.float() - want).abs() > limit).sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("double_buffer", [False, True])
+def test_matmul_persistent_loop_wraps(card, double_buffer):
+    """4096 output tiles of 64 x 64 on a grid of (SMs x blocks per SM):
+    every block walks many tiles, and the producer runs into each next
+    tile while the consumers write the last one."""
+    a, b = _ab(4096, 4096, 4096, card)
+    got = ops.matmul(a, b, blocks=(64, 64, 64, double_buffer))
+    torch.cuda.synchronize()
+    assert _matmul_within_limit(got, kmatmul.matmul_plain(a, b, 64, 64, 64))
+
+
+@pytest.mark.gpu
+def test_matmul_has_no_grid_extent_limit(card):
+    """M/bm = 65537 row tiles: more than a grid's y extent, which bounded
+    the one-block-per-tile kernel; the persistent grid walks them all."""
+    a, b = _ab(64 * 65537, 64, 64, card)
+    got = ops.matmul(a, b, blocks=(64, 64, 64, True))
+    torch.cuda.synchronize()
+    assert _matmul_within_limit(got, kmatmul.matmul_plain(a, b, 64, 64, 64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bm,bn,bk", list(itertools.product(*kmatmul.BLOCKS.values())))
+def test_matmul_library_stages_what_the_model_counts(card, bm, bn, bk):
+    """The shared memory the library stages for A and B at each built
+    configuration is what ``smem_bytes`` (the sm90 cost model's count)
+    says, stage by stage, and fits one block."""
+    for db in (False, True):
+        staged = kmatmul.kernel_smem_bytes(bm, bn, bk, db)
+        assert staged == (2 if db else 1) * kmatmul.smem_bytes(bm, bn, bk, 2)
+        assert staged == (2 if db else 1) * (bm * bk + bk * bn) * 2
+        assert staged + 128 + 1024 <= 232_448  # + barriers and alignment slack
+    assert kmatmul.kernel_smem_bytes(32, bn, bk, True) == -1
+
+
+@pytest.mark.gpu
+def test_matmul_launch_replays_in_a_cuda_graph(card):
+    """The launch allocates nothing and does not synchronise, so it can be
+    captured; a replay reads the inputs' current contents."""
+    a, b = _ab(1024, 2048, 1024, card)
+    blocks = (128, 256, 128, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.matmul(a, b, blocks=blocks)  # builds, raises the limit, sizes the grid
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ops.launch_counts()["matmul"]
+    with torch.cuda.graph(graph):
+        got = ops.matmul(a, b, blocks=blocks)
+    assert ops.launch_counts()["matmul"] == before + 1
+    a.copy_(torch.flip(a, dims=(0,)))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _matmul_within_limit(got, kmatmul.matmul_plain(a, b, 128, 256, 128))
 
 
 @pytest.mark.gpu
@@ -127,7 +193,8 @@ def test_matmul_on_the_card_never_runs_the_plain_version(card, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["f32", "non-contiguous", "indivisible", "unbuilt"])
+@pytest.mark.parametrize("case", ["f32", "non-contiguous", "indivisible", "unbuilt",
+                                  "no-longer-built"])
 def test_matmul_kernel_refuses(card, case):
     a, b = _ab(256, 256, 256, card)
     blocks = (64, 64, 64)
@@ -137,8 +204,10 @@ def test_matmul_kernel_refuses(card, case):
         b, err = b.t(), ValueError
     elif case == "indivisible":
         a, err = a[:100], ValueError
-    else:
+    elif case == "unbuilt":
         blocks, err = (16, 64, 64), ValueError
+    else:  # 32 left the built set with wgmma's 64-row warpgroup tiles
+        blocks, err = (32, 32, 32), ValueError
     before = ops.launch_counts()["matmul"]
     with pytest.raises(err):
         ops.matmul(a, b, blocks=blocks)

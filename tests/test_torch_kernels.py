@@ -1,6 +1,7 @@
 """The port's kernels (plain blocked versions on the CPU, the CUDA kernels
 on a card) held against the reference's Pallas kernels in interpret mode and
 the reference oracles, on the same numpy-seeded inputs."""
+import itertools
 import re
 import sys
 
@@ -190,7 +191,7 @@ def test_launch_counter_only_counts_kernel_launches():
     ops.reset_launch_counts()
     arrs = _torch(_qkv(1, 2, 1, 8, 64))
     ops.attention(*arrs)  # CPU: the plain versions, not launches
-    ops.matmul(torch.ones((64, 32)), torch.ones((32, 64)))
+    ops.matmul(torch.ones((64, 64)), torch.ones((64, 64)))
     assert ops.launch_counts() == {"flash_attention": 0, "matmul": 0}
 
 
@@ -282,8 +283,8 @@ def test_matmul_f32_is_exact_to_summation_order():
     """In f32 the plain version is the reference's product up to summation
     order: far inside the reference's tolerance."""
     x, y = _xy(256, 128, 512)
-    got = ops.matmul(*_torch((x, y)), blocks=(128, 64, 32))
-    want = matmul_pallas(jnp.asarray(x), jnp.asarray(y), bm=128, bn=64, bk=32,
+    got = ops.matmul(*_torch((x, y)), blocks=(128, 64, 64))
+    want = matmul_pallas(jnp.asarray(x), jnp.asarray(y), bm=128, bn=64, bk=64,
                          interpret=True)
     np.testing.assert_allclose(_np(got), _np(want), atol=5e-5, rtol=1e-5)
 
@@ -328,13 +329,17 @@ def test_matmul_refuses_bad_shapes_and_devices():
 
 
 def test_matmul_source_instantiates_exactly_the_built_tiles():
-    """The tile sizes csrc/matmul.cu instantiates are the sm90 knob values
-    the tuner ranks (core/spaces.SM90_MATMUL_TILES)."""
+    """The (bm, bn, bk) tiles csrc/matmul.cu instantiates (each with one and
+    two stages) are exactly the sm90 knob values the tuner ranks
+    (core/spaces.SM90_MATMUL_TILES): bm {64, 128}, bn {64, 128, 256}, bk
+    {64, 128}. Its products are wgmma and its loads TMA."""
     src = (build.CSRC / "matmul.cu").read_text()
-    built = {
-        "bm": tuple(int(v) for v in re.findall(r"MM_BN\((\d+)\)", src)),
-        "bn": tuple(int(v) for v in re.findall(r"MM_BK\(BM_, (\d+)\)", src)),
-        "bk": tuple(int(v) for v in re.findall(r"MM_CASE\(BM_, BN_, (\d+)\)", src)),
-    }
-    assert built == SM90_MATMUL_TILES == kmatmul.BLOCKS
+    macro = re.search(r"#define MM_BUILT\(X\)(.*?)\n\n", src, re.S).group(1)
+    built = [tuple(map(int, t)) for t in re.findall(r"X\((\d+), (\d+), (\d+)\)", macro)]
+    assert SM90_MATMUL_TILES == kmatmul.BLOCKS == {
+        "bm": (64, 128), "bn": (64, 128, 256), "bk": (64, 128)}
+    assert sorted(built) == sorted(itertools.product(*SM90_MATMUL_TILES.values()))
+    assert "launch<BM_, BN_, BK_, 2>" in src and "launch<BM_, BN_, BK_, 1>" in src
+    assert "wgmma_ss<BN, 1>" in src and "tma_load_3d" in src
+    assert "mma.sync" not in src and "cp.async" not in src
     assert not re.search(r"gemm|gemv|xmma|nvjet", src, re.IGNORECASE)
