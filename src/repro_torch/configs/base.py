@@ -115,7 +115,12 @@ class ArchConfig:
         )
 
     def param_count(self) -> int:
+        """Total parameters."""
         return _count_params(self)
+
+    def active_param_count(self) -> int:
+        """Per-token active parameters (MoE: top_k + shared experts only)."""
+        return _count_params(self, active_only=True)
 
     def torch_param_dtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
@@ -154,22 +159,100 @@ class ArchConfig:
         )
 
 
-def _count_params(cfg: ArchConfig) -> int:
-    """Total parameters of the dense attention pattern (the only one ported)."""
-    d, hd = cfg.d_model, cfg.head_dim
-    attn = d * (cfg.n_heads * hd + 2 * cfg.n_kv_heads * hd) + cfg.n_heads * hd * d
-    mlp = (3 if cfg.activation in ("swiglu", "geglu") else 2) * d * cfg.d_ff
-    total = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
-    return total + cfg.n_layers * (attn + mlp + 2 * d)
+def _mixer_params(cfg: ArchConfig, kind: str) -> int:
+    d = cfg.d_model
+    hd = cfg.head_dim
+    if kind == "attention":
+        qkv = d * (cfg.n_heads * hd + 2 * cfg.n_kv_heads * hd)
+        return qkv + cfg.n_heads * hd * d
+    if kind == "mamba":
+        di = cfg.ssm_expand * d
+        return (
+            d * 2 * di  # in_proj (x, z)
+            + di * cfg.ssm_conv  # depthwise conv
+            + di * (2 * cfg.ssm_state + 1)  # W_B, W_C, W_dt(rank-1ish)
+            + d * di // 16  # dt projection (low rank)
+            + di * cfg.ssm_state  # A_log
+            + di  # D skip
+            + di * d  # out_proj
+        )
+    if kind == "mlstm":
+        di = 2 * d
+        h = cfg.n_heads
+        return d * 3 * di + 3 * d * h + di * d  # qkv, gates(i,f,o per head), out
+    if kind == "slstm":
+        h = cfg.n_heads
+        dh = cfg.d_model // h
+        return 4 * d * d + 4 * h * dh * dh + d * d  # in gates, recurrent, out
+    return 0
+
+
+def _mlp_params(cfg: ArchConfig, kind: str) -> int:
+    d = cfg.d_model
+    if kind == "dense":
+        mult = 3 if cfg.activation in ("swiglu", "geglu") else 2
+        return mult * d * cfg.d_ff
+    if kind == "moe":
+        moe = cfg.moe
+        mult = 3 if cfg.activation in ("swiglu", "geglu") else 2
+        per_expert = mult * d * moe.d_expert
+        total = moe.n_experts * per_expert + d * moe.n_experts  # + router
+        if moe.shared_expert:
+            total += per_expert
+        return total
+    return 0
+
+
+def _mlp_active_params(cfg: ArchConfig, kind: str) -> int:
+    if kind != "moe":
+        return _mlp_params(cfg, kind)
+    moe = cfg.moe
+    mult = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    per_expert = mult * cfg.d_model * moe.d_expert
+    active = moe.top_k * per_expert + cfg.d_model * moe.n_experts
+    if moe.shared_expert:
+        active += per_expert
+    return active
+
+
+def _count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    total = cfg.vocab * cfg.d_model  # embedding
+    if not cfg.tie_embeddings:
+        total += cfg.vocab * cfg.d_model
+    layers = []
+    for i in range(cfg.n_layers):
+        layers.append((cfg.mixer_kind(i), cfg.mlp_kind(i)))
+    for mixer, mlp in layers:
+        total += _mixer_params(cfg, mixer)
+        total += (
+            _mlp_active_params(cfg, mlp) if active_only else _mlp_params(cfg, mlp)
+        )
+        total += 2 * cfg.d_model  # norms
+    if cfg.encoder_decoder:
+        for _ in range(cfg.n_encoder_layers):
+            total += _mixer_params(cfg, "attention") + _mlp_params(cfg, "dense")
+            total += 2 * cfg.d_model
+        total += cfg.n_layers * (_mixer_params(cfg, "attention") + cfg.d_model)
+    return total
 
 
 # ---------------------------------------------------------------------------
 # registry: the configs whose slice has been ported
 # ---------------------------------------------------------------------------
 
-ARCH_IDS = ("yi_6b",)
+ARCH_IDS = (
+    "yi_6b",
+    "qwen3_moe_235b_a22b",
+    "jamba_v01_52b",
+    "llama4_maverick_400b_a17b",
+)
 
-_ALIASES = {"yi-6b": "yi_6b"}
+_ALIASES = {
+    "yi-6b": "yi_6b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+}
 
 
 def get_config(name: str) -> ArchConfig:

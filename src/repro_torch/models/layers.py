@@ -5,14 +5,37 @@ Parameters of a layer stack carry a leading group dimension ``lead`` (see
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 
+def span(name: str):
+    """A named range for ``torch.profiler`` (its device time is the time of
+    the kernels launched inside it); nothing while no profiler runs, so the
+    serving path pays a flag check, not a profiler call."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+# A leaf of more elements than this is drawn one slice of its first axis at a
+# time, so that its f32 scratch stays at most 8 GiB (a full-width MoE stack's
+# expert weights are 6.4 B elements per leaf).
+DRAW_CHUNK = 2**31
+
+
 def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
     """``scale * N(0, 1)`` drawn in f32 on the generator's device, then cast."""
+    shape = tuple(shape)
+    if len(shape) > 1 and math.prod(shape) > DRAW_CHUNK:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        for i in range(shape[0]):
+            out[i] = normal(gen, shape[1:], scale, dtype)
+        return out
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     return x.normal_(generator=gen).mul_(scale).to(dtype)
 
@@ -64,10 +87,13 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
 # --------------------------------------------------------------------------
 
 
-def init_dense_mlp(cfg, gen, lead: Tuple[int, ...] = ()) -> Dict:
+def init_dense_mlp(cfg, gen, lead: Tuple[int, ...] = (),
+                   d_ff: Optional[int] = None) -> Dict:
+    """A SwiGLU MLP of width ``d_ff`` (default ``cfg.d_ff``; an MoE's shared
+    expert passes ``d_expert``)."""
     if cfg.activation != "swiglu":
         raise NotImplementedError(f"activation {cfg.activation!r} is not ported yet")
-    d, f = cfg.d_model, cfg.d_ff
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = cfg.torch_param_dtype()
     return {
         "w1": normal(gen, lead + (d, f), d ** -0.5, dt),

@@ -1,8 +1,10 @@
-"""Model facade: init / logits / prefill / decode for the dense decoder.
+"""Model facade: init / logits / prefill / decode for the decoder-only
+families the port serves (dense, MoE, and the attention/mamba hybrid).
 
 Batch schema: ``{"tokens": [B, S] int}`` on the model's device. The decode
-cache is a tuple (one dict per pattern position) of ``{"k", "v"}`` leaves
-``[G, B, Hkv, cap, dh]``.
+cache is a tuple with one dict per pattern position: ``{"k", "v"}`` leaves
+``[G, B, Hkv, cap, dh]`` for attention, ``{"conv", "h"}`` leaves
+``[G, B, K-1, d_inner]`` and ``[G, B, d_inner, N]`` for mamba.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ class Model:
 
     def forward_hidden(self, params, batch) -> torch.Tensor:
         x, pos = self._embed_inputs(params, batch)
-        x = T.apply_stack(self.cfg, params["layers"], x, pos, causal=True)
+        x, _ = T.apply_stack(self.cfg, params["layers"], x, pos, causal=True)
         return L.apply_norm(self.cfg, params["norm_f"], x)
 
     def logits(self, params, batch) -> torch.Tensor:
@@ -55,7 +57,8 @@ class Model:
 
     def prefill(self, params, batch, cap: int):
         """Run the prompt and build a decode cache of capacity ``cap``: the
-        prompt's k/v land in ``[..., :S, :]`` and the rest stays zero.
+        prompt's k/v land in ``[..., :S, :]`` and the rest stays zero; each
+        mamba layer holds its state after the prompt.
         Returns (cache, pos_next, last_logits [B, 1, V])."""
         cfg = self.cfg
         x, pos = self._embed_inputs(params, batch)
@@ -63,19 +66,20 @@ class Model:
         if cap < s_total:
             raise ValueError(f"cache capacity {cap} < prompt length {s_total}")
         cache = self.init_cache(x.shape[0], cap)
-        x = T.apply_stack(cfg, params["layers"], x, pos, causal=True,
-                          cache=cache)
+        x, _ = T.apply_stack(cfg, params["layers"], x, pos, causal=True,
+                             cache=cache)
         x = L.apply_norm(cfg, params["norm_f"], x[:, -1:])
         last_logits = L.unembed(cfg, params["embed"], x)
         return cache, torch.tensor(s_total, dtype=torch.int32), last_logits
 
     def decode_step(self, params, cache, token: torch.Tensor, pos: torch.Tensor):
         """token [B] int; pos 0-dim (all rows at one depth) or [B] (per-slot
-        depths), every entry below the cache capacity. Writes the new k/v
-        into ``cache`` in place. Returns (logits [B, V], cache)."""
+        depths), every entry below the attention cache's capacity. Writes
+        the new k/v and mamba states into ``cache`` in place. Returns
+        (logits [B, V], cache)."""
         cfg = self.cfg
-        cap = cache[0]["k"].shape[3]
-        if int(pos.max()) >= cap or int(pos.min()) < 0:
+        cap = next((c["k"].shape[3] for c in cache if "k" in c), None)
+        if int(pos.min()) < 0 or (cap is not None and int(pos.max()) >= cap):
             raise ValueError(f"decode position out of the cache [0, {cap})")
         pos = pos.to(self.device)
         x = L.embed(cfg, params["embed"], token.to(self.device)[:, None])

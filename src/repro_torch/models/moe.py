@@ -1,0 +1,154 @@
+"""Mixture-of-Experts MLP: top-k routing, capacity-bounded gather dispatch
+and a scatter-add combine (the port of ``repro.models.moe``).
+
+Per batch row, each expert receives a capacity-``C`` gather of token vectors
+(no ``[T, E, C]`` one-hot); the expert products are two batched einsums over
+the expert axis (cuBLAS); the combine adds each slot's weighted output back
+to its token. Assignments ranked past the capacity are dropped (Switch
+style), bounded by ``capacity_factor``.
+
+The reference's expert-parallel pins (``pctx.moe_pin()`` and its sharding
+constraints) place tensors over a device mesh; on one device they do
+nothing, so they are left out here until the multi-device slice.
+
+Aux loss: Switch load-balancing  E · Σ_e f_e · P_e.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+
+
+def init_moe(cfg, gen, lead: Tuple[int, ...] = ()) -> Dict:
+    if cfg.activation != "swiglu":
+        raise NotImplementedError(f"activation {cfg.activation!r} is not ported yet")
+    moe = cfg.moe
+    d, fe, e = cfg.d_model, moe.d_expert, moe.n_experts
+    dt = cfg.torch_param_dtype()
+    sc_in, sc_out = d ** -0.5, fe ** -0.5
+    p = {
+        "router": L.normal(gen, lead + (d, e), sc_in, dt),
+        "w1": L.normal(gen, lead + (e, d, fe), sc_in, dt),
+        "w2": L.normal(gen, lead + (e, fe, d), sc_out, dt),
+        "w3": L.normal(gen, lead + (e, d, fe), sc_in, dt),
+    }
+    if moe.shared_expert:
+        p["shared"] = L.init_dense_mlp(cfg, gen, lead, d_ff=fe)
+    return p
+
+
+def route(cfg, p: Dict, x: torch.Tensor):
+    """x [B,S,D] -> (topk_idx [B,S,k], gates [B,S,k], aux_loss scalar).
+
+    The top k are taken from a stable descending sort, so that equal
+    probabilities go to the lower expert index first, as ``jax.lax.top_k``
+    does (``torch.topk`` promises no order on ties)."""
+    moe = cfg.moe
+    with L.span("moe.route"):
+        logits = x.float() @ p["router"].float()  # [B,S,E]
+        probs = torch.softmax(logits, dim=-1)
+        srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gates, idx = srt.values[..., :moe.top_k], srt.indices[..., :moe.top_k]
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        # Switch aux loss: fraction of tokens per expert x mean router prob
+        e = moe.n_experts
+        f = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
+        pbar = probs.mean(dim=(0, 1))
+        aux = e * torch.sum(f * pbar)
+    return idx, gates.to(x.dtype), aux
+
+
+def ranks(flat_e: torch.Tensor) -> torch.Tensor:
+    """flat_e [B, N] expert ids -> each assignment's rank among the equal ids
+    before it in its row: a stable sort plus a segment-start cummax, O(N)
+    memory (the reference's ``ranks_one``). A function of the ids only, the
+    same on every device."""
+    n = flat_e.shape[1]
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    ar = torch.arange(n, device=flat_e.device).expand_as(flat_e)
+    is_start = torch.ones_like(flat_e, dtype=torch.bool)
+    is_start[:, 1:] = sorted_e[:, 1:] != sorted_e[:, :-1]
+    seg_start = torch.cummax(torch.where(is_start, ar, 0), dim=1).values
+    return torch.empty_like(flat_e).scatter_(1, order, ar - seg_start)
+
+
+def dispatch_plan(idx: torch.Tensor, gates: torch.Tensor, cap: int,
+                  n_experts: int, dtype: torch.dtype):
+    """Capacity assignment per batch row.
+
+    idx/gates [B, S, k] -> (dispatch_idx [B, E, C] source token of each
+    capacity slot (0 if unused), slot_w [B, E, C] its gate (0 if unused),
+    keep [B, S*k] which assignments got a slot, emptied [B] whether slot
+    (0, 0) was emptied as the reference empties it)."""
+    b, s, k = idx.shape
+    e = n_experts
+    flat_e = idx.reshape(b, s * k)
+    pos = ranks(flat_e)
+    keep = pos < cap
+    ar = torch.arange(s * k, device=idx.device)
+    token_of_slot = (ar // k).expand(b, -1)
+    # Write only the kept assignments: a dropped one goes to an overflow
+    # slot C of its expert, which is cut off below, so no kept slot depends
+    # on the order in which duplicate indices are applied.
+    lin = flat_e * (cap + 1) + pos.clamp_max(cap)
+    dispatch_idx = torch.zeros((b, e * (cap + 1)), dtype=torch.long, device=idx.device)
+    dispatch_idx.scatter_(1, lin, token_of_slot)
+    slot_w = torch.zeros((b, e * (cap + 1)), dtype=dtype, device=idx.device)
+    slot_w.scatter_(1, lin, gates.reshape(b, s * k).to(dtype))
+    dispatch_idx = dispatch_idx.view(b, e, cap + 1)[:, :, :cap]
+    slot_w = slot_w.view(b, e, cap + 1)[:, :, :cap]
+    # The reference (src/repro/models/moe.py:96-103) scatters every dropped
+    # assignment to (expert 0, slot 0) <- (token 0, gate 0), and XLA applies
+    # the writes in order, so a drop after the row's first assignment to
+    # expert 0 overwrites that kept slot and the token loses expert 0's
+    # contribution. The port reproduces this on purpose and explicitly
+    # (ROADMAP Queue C lists it as a defect of the reference).
+    first0 = torch.where(flat_e == 0, ar, s * k).amin(dim=1)
+    last_drop = torch.where(keep, -1, ar).amax(dim=1)
+    emptied = last_drop > first0
+    dispatch_idx[:, 0, 0] = torch.where(emptied, 0, dispatch_idx[:, 0, 0])
+    slot_w[:, 0, 0] = torch.where(emptied, 0, slot_w[:, 0, 0])
+    return dispatch_idx, slot_w, keep, emptied
+
+
+def apply_moe(cfg, p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y [B,S,D], aux_loss)."""
+    moe = cfg.moe
+    b, s, d = x.shape
+    e, k = moe.n_experts, moe.top_k
+    cap = max(1, int(s * k * moe.capacity_factor / e))
+    cd = cfg.torch_compute_dtype()
+
+    idx, gates, aux = route(cfg, p, x)
+    with L.span("moe.route"):
+        dispatch_idx, slot_w, _, _ = dispatch_plan(idx, gates, cap, e, cd)
+
+    # ---- gather -> expert compute --------------------------------------
+    with L.span("moe.gather_scatter"):
+        rows = torch.arange(b, device=x.device)[:, None, None]
+        xin = x[rows, dispatch_idx]  # [B,E,C,D]
+        xin = xin * (slot_w[..., None] != 0)  # zero out unused slots
+    with L.span("moe.experts"):
+        xc = xin.to(cd)
+        h = torch.einsum("becd,edf->becf", xc, p["w1"].to(cd))
+        g = torch.einsum("becd,edf->becf", xc, p["w3"].to(cd))
+        out = torch.einsum("becf,efd->becd", F.silu(h) * g, p["w2"].to(cd))
+        out = out * slot_w[..., None]
+
+    # ---- scatter-add combine -------------------------------------------
+    with L.span("moe.gather_scatter"):
+        flat = (torch.arange(b, device=x.device)[:, None, None] * s
+                + dispatch_idx).reshape(-1)
+        y = torch.zeros((b * s, d), dtype=cd, device=x.device)
+        y.index_add_(0, flat, out.reshape(-1, d))
+        y = y.view(b, s, d)
+
+    if moe.shared_expert:
+        with L.span("moe.experts"):
+            y = y + L.apply_dense_mlp(cfg, p["shared"], x).to(cd)
+    return y.to(x.dtype), aux.float()

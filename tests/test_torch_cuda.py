@@ -212,3 +212,84 @@ def test_matmul_kernel_refuses(card, case):
     with pytest.raises(err):
         ops.matmul(a, b, blocks=blocks)
     assert ops.launch_counts()["matmul"] == before
+
+
+# --------------------------------------------------------------------------
+# the MoE and hybrid slice: flash at their head groups, MoE ranks, Mamba
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv", [(64, 4), (32, 8), (40, 8)])  # qwen3-moe, jamba, llama4
+@pytest.mark.parametrize("s", [64, 77, 513, 2047])
+def test_kernel_matches_plain_at_new_head_groups(card, hq, hkv, s):
+    """GQA groups 16, 4 and 5 at D=128, causal, with the blocks the main
+    path picks."""
+    q, k, v = _qkv(1, hq, hkv, s, 128, card)
+    blocks = ops.tuned_flash_blocks(s, 128, 2)
+    got = ops.attention(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True, block_q=blocks[0],
+                                 block_k=blocks[1])
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    atol = ATOL_RMS * float(np.sqrt(np.mean(want ** 2)))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,k,s,cap", [(128, 8, 2047, 159), (16, 2, 2047, 319),
+                                       (128, 8, 64, 5), (128, 8, 1, 1)])
+def test_moe_dispatch_plan_on_the_card_equals_the_cpus(card, e, k, s, cap):
+    """Ranks, kept set, dispatch plan and the emptied slot (0, 0) are a
+    function of the routing indices only: equal on both devices."""
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(e + s)
+    idx = torch.from_numpy(np.stack([np.stack([rng.permutation(e)[:k] for _ in range(s)])
+                                     for _ in range(4)]))
+    gates = torch.from_numpy(rng.uniform(0.1, 1.0, idx.shape).astype(np.float32))
+    cpu = moe.dispatch_plan(idx, gates, cap, e, torch.float32)
+    gpu = moe.dispatch_plan(idx.to(card), gates.to(card), cap, e, torch.float32)
+    flat = idx.reshape(4, -1)
+    assert torch.equal(moe.ranks(flat.to(card)).cpu(), moe.ranks(flat))
+    for a, b in zip(cpu, gpu):
+        assert torch.equal(a, b.cpu())
+
+
+def _within(got, want, rtol, atol_rms):
+    """(elements outside rtol*|want| + atol_rms*rms(want), worst ratio)."""
+    got, want = got.float(), want.float()
+    limit = rtol * want.abs() + atol_rms * want.pow(2).mean().sqrt()
+    ratio = (got - want).abs() / limit
+    return int((ratio > 1).sum()), float(ratio.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,chunk", [(40, 16), (300, 256), (77, 0)])
+def test_mamba_forward_on_the_card_matches_stepped_decode(card, s, chunk):
+    """bf16 jamba mixer at reduced width: the chunked scan (ragged last
+    chunk included) against decode stepped token by token. Limit
+    2^-6*|decode| + 0.02*rms(decode): the two round the conv in bf16 in
+    another order (one or two bf16 ulps of u), which the f32 scan carries
+    into y and the bf16 out-projection sums over d_inner."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(get_config("jamba_v01_52b").reduced(),
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    p = ssm.init_mamba(cfg, torch.Generator(device=card).manual_seed(0))
+    rng = np.random.default_rng(s)
+    x = torch.from_numpy(0.5 * rng.standard_normal((2, s, cfg.d_model)).astype(np.float32))
+    x = x.to(card, torch.bfloat16)
+    y, st = ssm.mamba_forward(cfg, p, x, chunk=chunk, return_state=True)
+    cache = ssm.init_mamba_cache(cfg, 2, torch.bfloat16, card)
+    ys = []
+    for t in range(s):
+        yt, cache = ssm.mamba_decode(cfg, p, x[:, t:t + 1], cache)
+        ys.append(yt)
+    for got, want, rtol, atol_rms in ((y, torch.cat(ys, dim=1), 2**-6, 0.05),
+                                      (st["h"], cache["h"], 2**-6, 0.02),
+                                      (st["conv"], cache["conv"], 2**-7, 0.0)):
+        bad, worst = _within(got, want, rtol, atol_rms)
+        assert bad == 0, f"{bad} outside, worst at {worst:.3f} of the limit"

@@ -1,5 +1,7 @@
-"""The port's reduced yi-6b held against the reference model on converted
-weights, plus the port's isolation from jax and from ``repro``."""
+"""The port's reduced models held against the reference model on converted
+weights (yi-6b, and as parametrised cases the MoE qwen3-moe and llama4 and
+the attention/mamba/MoE hybrid jamba), plus the port's isolation from jax
+and from ``repro``."""
 import dataclasses
 import os
 import subprocess
@@ -21,16 +23,27 @@ from repro_torch.weights import from_jax
 TOL = dict(atol=1e-4, rtol=1e-4)  # f32 on both sides: summation order only
 RNG = np.random.default_rng(3)
 SRC = Path(__file__).resolve().parents[1] / "src"
+# the architectures ported after yi-6b: every block pattern the port serves
+NEW_ARCHS = ("qwen3_moe_235b_a22b", "jamba_v01_52b", "llama4_maverick_400b_a17b")
+
+
+def _make_pair(arch):
+    jcfg = jget_config(arch).reduced()
+    jmodel = JModel(jcfg)
+    jparams = jmodel.init(jax.random.key(0))
+    model = Model(get_config(arch).reduced(), device="cpu")
+    params = from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    return jmodel, jparams, model, params
 
 
 @pytest.fixture(scope="module")
 def pair():
-    jcfg = jget_config("yi_6b").reduced()
-    jmodel = JModel(jcfg)
-    jparams = jmodel.init(jax.random.key(0))
-    model = Model(get_config("yi_6b").reduced(), device="cpu")
-    params = from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
-    return jmodel, jparams, model, params
+    return _make_pair("yi_6b")
+
+
+@pytest.fixture(scope="module", params=NEW_ARCHS)
+def arch_pair(request):
+    return _make_pair(request.param)
 
 
 def _tokens(b, s, vocab=256):
@@ -45,7 +58,7 @@ def _close(got, want):
 def _close_cache(cache, jcache):
     leaves = [d[key] for d in cache for key in sorted(d)]
     jleaves = [d[key] for d in jcache for key in sorted(d)]
-    assert len(leaves) == len(jleaves) == 2
+    assert len(leaves) == len(jleaves) == len(jax.tree.leaves(jcache))
     for a, b in zip(leaves, jleaves):
         assert tuple(a.shape) == b.shape
         _close(a, b)
@@ -53,6 +66,10 @@ def _close_cache(cache, jcache):
 
 def test_init_matches_reference_tree(pair):
     """``Model.init`` draws the reference's tree: same keys, shapes, dtypes."""
+    _check_init_tree(pair)
+
+
+def _check_init_tree(pair):
     jmodel, jparams, model, params = pair
     mine = model.init(torch.Generator().manual_seed(0))
     flat = {jax.tree_util.keystr(p): v.shape
@@ -77,6 +94,10 @@ def test_from_jax_keeps_bf16_and_tree_shape():
 
 
 def test_logits_match(pair):
+    _check_logits(pair)
+
+
+def _check_logits(pair):
     jmodel, jparams, model, params = pair
     toks = _tokens(2, 12)
     got = model.logits(params, {"tokens": torch.from_numpy(toks)})
@@ -86,6 +107,10 @@ def test_logits_match(pair):
 
 @pytest.mark.parametrize("b,s,cap", [(1, 7, 12), (2, 12, 16)])
 def test_prefill_matches(pair, b, s, cap):
+    _check_prefill(pair, b, s, cap)
+
+
+def _check_prefill(pair, b, s, cap):
     jmodel, jparams, model, params = pair
     toks = _tokens(b, s)
     cache, pos, last = model.prefill(params, {"tokens": torch.from_numpy(toks)},
@@ -99,6 +124,10 @@ def test_prefill_matches(pair, b, s, cap):
 
 @pytest.mark.parametrize("vector", [False, True])
 def test_decode_step_matches(pair, vector):
+    _check_decode_step(pair, vector)
+
+
+def _check_decode_step(pair, vector):
     jmodel, jparams, model, params = pair
     b, s, cap = 3, 8, 12
     toks = _tokens(b, s)
@@ -112,6 +141,61 @@ def test_decode_step_matches(pair, vector):
                                       jnp.asarray(pos))
     _close(got, want)
     _close_cache(cache, jcache)
+
+
+def test_init_matches_reference_tree_new_archs(arch_pair):
+    """The MoE (``router``, ``w1/w2/w3`` ``[G, E, ...]``, ``shared``) and
+    Mamba trees, per pattern position."""
+    _check_init_tree(arch_pair)
+
+
+def test_logits_match_new_archs(arch_pair):
+    _check_logits(arch_pair)
+
+
+@pytest.mark.parametrize("b,s,cap", [(1, 7, 12), (2, 12, 16)])
+def test_prefill_matches_new_archs(arch_pair, b, s, cap):
+    """Last logits and every cache leaf: attention k/v and mamba
+    ``{conv, h}``."""
+    _check_prefill(arch_pair, b, s, cap)
+
+
+@pytest.mark.parametrize("vector", [False, True])
+def test_decode_step_matches_new_archs(arch_pair, vector):
+    _check_decode_step(arch_pair, vector)
+
+
+def test_stack_aux_loss_matches_reference(arch_pair):
+    """``apply_stack`` returns the summed MoE aux loss where the reference
+    does, with the hidden state."""
+    from repro.models import transformer as JT
+    from repro_torch.models import transformer as T
+
+    jmodel, jparams, model, params = arch_pair
+    x = RNG.standard_normal((2, 10, model.cfg.d_model)).astype(np.float32)
+    pos = np.arange(10)
+    y, aux = T.apply_stack(model.cfg, params["layers"], torch.from_numpy(x),
+                           torch.from_numpy(pos))
+    jy, _, jaux = JT.apply_stack(jmodel.cfg, jparams["layers"], jnp.asarray(x),
+                                 jnp.asarray(pos))
+    _close(y, jy)
+    _close(aux, jaux)
+    assert float(aux) > 0
+
+
+def test_moe_prefill_with_drops_matches_reference():
+    """Reduced qwen3-moe at capacity factor 0.25 (most assignments dropped,
+    slot (0, 0) emptied as the reference empties it)."""
+    jcfg = jget_config("qwen3_moe_235b_a22b").reduced()
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, capacity_factor=0.25))
+    cfg = get_config("qwen3_moe_235b_a22b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.25))
+    jmodel = JModel(jcfg)
+    jparams = jmodel.init(jax.random.key(1))
+    pair = (jmodel, jparams, Model(cfg, device="cpu"),
+            from_jax(jax.tree.map(np.asarray, jparams), device="cpu"))
+    _check_prefill(pair, 2, 16, 20)
+    _check_decode_step(pair, True)
 
 
 def test_decode_step_rejects_position_past_cache(pair):
@@ -203,6 +287,34 @@ def test_config_fields_match_reference(reduced):
     assert mine.torch_compute_dtype() == getattr(torch, ref.compute_dtype)
 
 
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_config_fields_match_reference_new_archs(arch, reduced):
+    """Fields, pattern and parameter counts (total and active) of the MoE
+    and hybrid configs; the aliases resolve to the same config."""
+    mine, ref = get_config(arch), jget_config(arch)
+    assert get_config(ref.name) == mine
+    if reduced:
+        mine, ref = mine.reduced(), ref.reduced()
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert mine.pattern() == ref.pattern()
+    assert mine.param_count() == ref.param_count()
+    assert mine.active_param_count() == ref.active_param_count()
+
+
+@pytest.mark.parametrize("change", [dict(slstm_every=2, slstm_offset=1),
+                                    dict(encoder_decoder=True, n_encoder_layers=2)])
+def test_unported_blocks_raise(change):
+    """The xLSTM mixers and cross-attention come with later slices: a
+    pattern that needs them is refused, not run as something else."""
+    cfg = dataclasses.replace(get_config("yi_6b").reduced(), **change)
+    model = Model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError):
+        model.init_cache(1, 8)
+
+
 def test_unported_config_is_refused():
     with pytest.raises(ValueError):
-        get_config("qwen3_moe_235b_a22b")
+        get_config("xlstm_13b")

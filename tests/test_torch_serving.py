@@ -1,5 +1,6 @@
 """The port's serving stack held against the reference's on reduced yi-6b
-with converted weights: greedy tokens and slot accounting."""
+(and, as parametrised cases, reduced qwen3-moe, jamba and llama4) with
+converted weights: greedy tokens and slot accounting."""
 import numpy as np
 import jax
 import pytest
@@ -21,17 +22,28 @@ SPEC = [(4, 3), (8, 6), (4, 5), (8, 2), (12, 4), (4, 6), (12, 7)]
 CAP = max(p + m for p, m in SPEC) + 2
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jmodel = JModel(jget_config("yi_6b").reduced())
+def _make_setup(arch):
+    jmodel = JModel(jget_config(arch).reduced())
     jparams = jmodel.init(jax.random.key(0))
-    model = Model(get_config("yi_6b").reduced(), device="cpu")
+    model = Model(get_config(arch).reduced(), device="cpu")
     params = from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     rng = np.random.default_rng(7)
     prompts = [[int(t) for t in rng.integers(0, 256, p)] for p, _ in SPEC]
     want = {i: jgreedy(jmodel, jparams, pr, m, CAP)
             for i, (pr, (_, m)) in enumerate(zip(prompts, SPEC))}
     return jmodel, jparams, model, params, prompts, want
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _make_setup("yi_6b")
+
+
+@pytest.fixture(scope="module",
+                params=["qwen3_moe_235b_a22b", "jamba_v01_52b",
+                        "llama4_maverick_400b_a17b"])
+def arch_setup(request):
+    return _make_setup(request.param)
 
 
 def _requests(cls, prompts):
@@ -44,6 +56,24 @@ def test_scheduler_matches_reference_greedy_and_accounting(setup, scheduler, slo
     """Token-for-token equal to the reference's one-at-a-time greedy decode,
     and the same engine_steps / slot_steps / wasted_slot_steps as the
     reference's own scheduler on the same requests."""
+    _check_scheduler(setup, scheduler, slots)
+
+
+@pytest.mark.parametrize("scheduler,slots", [("continuous", 3), ("wave", 3)])
+def test_scheduler_matches_reference_greedy_new_archs(arch_setup, scheduler, slots):
+    """The MoE and hybrid models through both schedulers: mamba states and
+    k/v copied into slots, free slots decoding garbage, MoE decode at
+    capacity 1."""
+    _check_scheduler(arch_setup, scheduler, slots)
+
+
+def test_port_greedy_reference_matches_new_archs(arch_setup):
+    _, _, model, params, prompts, want = arch_setup
+    for i, (pr, (_, m)) in enumerate(zip(prompts, SPEC)):
+        assert greedy_decode_reference(model, params, pr, m, CAP) == want[i]
+
+
+def _check_scheduler(setup, scheduler, slots):
     jmodel, jparams, model, params, prompts, want = setup
     reqs = _requests(Request, prompts)
     stats = serve(model, params, reqs, slots=slots, cap=CAP, scheduler=scheduler)
