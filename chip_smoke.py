@@ -20,7 +20,11 @@ Phases, in order; any failure exits non-zero before the last line:
              on the card, in bf16, at yi-6b shapes (B=1, Hq=32, Hkv=4,
              D=128) for every prompt length the serve phase prefills and a
              few more, and one D=64 case, with the blocks the main path
-             picks; show that the limit would catch a dropped tail tile.
+             picks; show that the limit would catch a dropped tail tile;
+             then at stablelm-3b's head dim 80 (Hq=Hkv=32, causal and not,
+             the same lengths), where the kernel pads its tiles to 128
+             columns, and show that the limit would catch a kernel that
+             lost the second column atom (columns 64-79 zero).
 3. timing  — at every prompt length of the serve, causal: the kernel, its
              plain version and, as a yardstick only, torch's
              scaled_dot_product_attention (the port never calls it), with
@@ -48,9 +52,11 @@ Phases, in order; any failure exits non-zero before the last line:
              the plain version agree within a stated bf16 tolerance; then
              yi-6b's weights are freed.
 8. groups  — the flash kernel against its plain version and the oracle at
-             the head groups of the next two serves, (Hq, Hkv) = (64, 4)
-             and (32, 8), D=128, causal, at every prompt length they
-             prefill; the kernel, SDPA and the plain version at S=1024.
+             the head groups of the later serves, (Hq, Hkv) = (64, 4),
+             (48, 8), (40, 8) and (32, 8), D=128, causal, at every prompt
+             length they prefill; the kernel, SDPA and the plain version at
+             S=1024 at those groups and at (32, 32) with D=80 (the bound
+             from the unpadded work).
 9. moe-serve, hybrid-serve — qwen3-moe-235b-a22b (8 of 94 layers) and
              jamba-v0.1-52b (one period, 8 of 32 layers) at full width with
              seeded random weights, the same 8 requests through the
@@ -60,7 +66,15 @@ Phases, in order; any failure exits non-zero before the last line:
              gather/scatter, expert products, attention, mamba and the rest,
              with the share of MoE assignments dropped per prefill and
              whether slot (0, 0) was emptied; the parity of phase 7 with the
-             kernel run's MoE routing pinned in the plain run.
+             kernel run's MoE routing pinned in the plain run. Both also
+             serve the same 8 requests a second time and log how many tokens
+             differ (the bf16 index_add_ combine's run-to-run determinism; a
+             measurement, not a gate).
+10. dense-serve — nemotron-4-15b (32 layers), qwen2.5-14b (48) and
+             stablelm-3b (32), uncut, one after another, each freed before
+             the next: the same 8 requests, every request gets its tokens,
+             flash launches = prefills x layers, a profiled second run, the
+             parity of phase 7.
 
 Prints a ``topk`` JSON line (ratio@1/5 per shape), a ``kernels`` JSON line,
 then the card's name and power limit, then ``{"ok": true, "device": {...}}``
@@ -118,6 +132,16 @@ TOPK_ITERS = 10
 # mamba, 4 MoE and 4 dense MLPs; 13.3 B parameters, 26.6 GB; 32 layers
 # would be about 103 GB)
 NEW_SERVES = (("qwen3-moe-235b-a22b", 8), ("jamba-v0.1-52b", 8))
+# the dense decoders, uncut (every layer, every width): nemotron-4-15b (32
+# layers, 15.63 B parameters, 29.1 GiB in bf16; layernorm, squared ReLU,
+# 48/8 heads), qwen2.5-14b (48 layers, 14.77 B, 27.5 GiB; QKV bias, 40/8
+# heads) and stablelm-3b (32 layers, 2.80 B, 5.2 GiB; layernorm, 32 heads
+# of 80, MHA)
+DENSE_SERVES = (("nemotron-4-15b", 32), ("qwen2.5-14b", 48), ("stablelm-3b", 32))
+# stablelm-3b's attention: head dim 80, which the kernel stages padded to
+# 128 columns; held to the one-ulp limit KERNEL_RTOL (32 heads of 80 give
+# fewer outputs per case than yi-6b's 32 of 128)
+D80_HEADS = (32, 32, 80)
 # The MoE layer at full width against a loop over its kept assignments in
 # f32: the layer rounds h, g, their product, the expert output and its
 # gate-weighted copy to bf16 (2^-8 relative each) and adds the top-k
@@ -287,6 +311,17 @@ def check_flash(cases, qkv, rtol: float = KERNEL_RTOL) -> float:
             # a tail of 5% of the keys or more must not slip through
             if n_drop == 0 and (s - keep) * 20 >= s:
                 fail(f"the kernel limit would miss a dropped tail tile at S={s}")
+        if d % 64:
+            # a head dim padded to whole 64-column atoms: a kernel that lost
+            # the second atom would leave columns 64.. of the output at zero
+            lost = got.clone()
+            lost[..., 64:] = 0
+            n_lost, worst_lost = outside(lost, want, rtol, KERNEL_ATOL_RMS)
+            line += (f"; a kernel that lost the second column atom (columns 64-{d - 1} "
+                     f"zero) would give {n_lost} outside, worst at {worst_lost:.1f} of "
+                     f"the limit")
+            if n_lost == 0:
+                fail(f"the kernel limit would miss a lost second column atom at S={s}")
         log(line)
         if bad or bad_o or not torch.isfinite(got).all():
             fail(f"flash kernel disagrees at Hq={hq} Hkv={hkv} S={s} D={d} causal={causal}")
@@ -417,6 +452,12 @@ def main() -> None:
         f"{KERNEL_ATOL_RMS}*rms(plain); |kernel-oracle| <= {ORACLE_RTOL}*|oracle| + "
         f"{ORACLE_ATOL_RMS}*rms(oracle)")
     max_err = check_flash(cases, qkv)
+    log(f"kernel at stablelm-3b's head dim 80 (Hq, Hkv, D) = {D80_HEADS}, padded to "
+        f"{fa.padded_head_dim(80)} columns in shared memory, at every prompt length "
+        f"and KERNEL_S, causal and not, limit {KERNEL_RTOL}*|plain|")
+    max_err = max(max_err, check_flash(
+        [(1, *D80_HEADS[:2], s, D80_HEADS[2], c)
+         for s in sorted(set(KERNEL_S) | set(PROMPT_LENS)) for c in (True, False)], qkv))
 
     # --------------------------------------------------------------- timing
     cfg = get_config(ARCH)
@@ -660,11 +701,14 @@ def main() -> None:
 
     # ------------------------------------------------- the new head groups
     groups = sorted({(c.n_heads, c.n_kv_heads, c.head_dim)
-                     for c in (get_config(a) for a, _ in NEW_SERVES)}, reverse=True)
-    log(f"kernel at the new serves' head groups (Hq, Hkv, D) {groups}, causal, "
-        f"at every prompt length they prefill")
+                     for c in (get_config(a) for a, _ in NEW_SERVES + DENSE_SERVES)},
+                    reverse=True)
+    checked = [g for g in groups if g != D80_HEADS]  # D=80: the kernel phase
+    log(f"kernel at the later serves' head groups (Hq, Hkv, D) {checked}, causal, "
+        f"at every prompt length they prefill (the two-ulp argument of GROUP_RTOL "
+        f"holds at any group: it needs only many outputs)")
     max_err = max(max_err, check_flash(
-        [(1, hq, hkv, s, d, True) for hq, hkv, d in groups for s in sorted(set(PROMPT_LENS))],
+        [(1, hq, hkv, s, d, True) for hq, hkv, d in checked for s in sorted(set(PROMPT_LENS))],
         qkv, rtol=GROUP_RTOL))
     for hq, hkv, d in groups:
         q, k, v = qkv(1, hq, hkv, TIMED_S, d)
@@ -676,12 +720,18 @@ def main() -> None:
         plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
                                                          block_q=bq, block_k=bk),
                         iters=3, warmup=1)
+        # at D=80 the bound is the unpadded work: the padding is the kernel's
         flops, nbytes = flash_work(1, hq, hkv, TIMED_S, d, True)
-        bound = max(flops / GPU_H100.peak_flops_bf16, nbytes / GPU_H100.hbm_bandwidth) * 1e3
-        sweep.append({"S": TIMED_S, "Hq": hq, "Hkv": hkv, "blocks": [bq, bk], "ms": ms,
-                      "sdpa_ms": sdpa, "plain_ms": plain, "bound_ms": bound,
-                      "tflops": flops / ms / 1e9})
-        log(f"timing Hq={hq} Hkv={hkv} (group {hq // hkv}) S={TIMED_S} causal "
+        t_ops, t_bytes = flops / GPU_H100.peak_flops_bf16, nbytes / GPU_H100.hbm_bandwidth
+        bound = max(t_ops, t_bytes) * 1e3
+        entry = {"S": TIMED_S, "Hq": hq, "Hkv": hkv, "D": d, "blocks": [bq, bk], "ms": ms,
+                 "sdpa_ms": sdpa, "plain_ms": plain, "bound_ms": bound,
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                 "tflops": flops / ms / 1e9}
+        sweep.append(entry)
+        if (hq, hkv, d) == D80_HEADS:
+            d80 = entry
+        log(f"timing Hq={hq} Hkv={hkv} (group {hq // hkv}) D={d} S={TIMED_S} causal "
             f"blocks=({bq},{bk}), graph replay: kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s), sdpa (yardstick) {sdpa:.4f} ms "
             f"({ms / sdpa:.2f}x); plain {plain:.4f} ms; bound {bound:.4f} ms")
@@ -689,7 +739,11 @@ def main() -> None:
 
     # ------------------------------------------- moe-serve and hybrid-serve
     for arch, n_layers in NEW_SERVES:
-        serve_launches[arch] = serve_cut(arch, n_layers)
+        serve_launches[arch] = serve_arch(arch, n_layers)
+
+    # ------------------------------------------------------- dense-serve
+    for arch, n_layers in DENSE_SERVES:
+        serve_launches[arch] = serve_arch(arch, n_layers)
     log(f"flash launches per serve: {serve_launches}")
 
     # -------------------------------------------------------------- results
@@ -703,7 +757,8 @@ def main() -> None:
         "launches": sum(serve_launches.values()),
         "launches_by_serve": serve_launches, "max_abs_err": max_err,
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": lib_ms, "sass": sass,
+        "bound_by": bound_by, "library_ms": lib_ms, "head_dims": list(fa.HEAD_DIMS),
+        "d80": d80, "sass": sass,
         "registers": flash_regs, "sweep": sweep}, {
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -869,34 +924,25 @@ def moe_loop(cfg, p, x):
 
 
 def check_mixers(arch, cfg, layers) -> None:
-    """At full width on the card: the first MoE layer against ``moe_loop``
-    at S=77 (capacity drops included), and, where the pattern has one, the
+    """At full width on the card, where the pattern has one: the first MoE
+    layer against ``moe_loop`` at S=77 (capacity drops included), and the
     first mamba layer's chunked prefill at S=300 (a whole chunk and a
     ragged one) against its decode stepped token by token."""
     import torch
-    from repro_torch.models import moe as moe_mod
     from repro_torch.models import ssm
     from repro_torch.models.transformer import group_slice
 
     dev = layers[0]["norm1"]["w"].device
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     pattern = cfg.pattern()
-    pp = next(i for i, (_, mlp) in enumerate(pattern) if mlp == "moe")
-    p = group_slice(layers[pp], 0)["mlp"]
-    x = torch.randn((1, 77, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
-    y, _ = moe_mod.apply_moe(cfg, p, x)
-    want, dropped, emptied = moe_loop(cfg, p, x)
-    bad, worst = outside(y[0], want, MOE_RTOL, MOE_ATOL_RMS)
-    log(f"mixers {arch}: MoE layer {pp} at S=77 against the loop over kept assignments "
-        f"({dropped} of {77 * cfg.moe.top_k} dropped, slot (0, 0) emptied: {emptied}): "
-        f"max|layer-loop|={float((y[0].float() - want).abs().max()):.3e}, rms(loop) "
-        f"{float(want.pow(2).mean().sqrt()):.3e}, {bad} outside {MOE_RTOL}*|loop| + "
-        f"{MOE_ATOL_RMS}*rms, worst at {worst:.3f} of the limit")
-    if bad or not torch.isfinite(y).all():
-        fail(f"{arch}: the MoE layer disagrees with the loop over its kept assignments")
-    if not any(mixer == "mamba" for mixer, _ in pattern):
+    moe_at = [i for i, (_, mlp) in enumerate(pattern) if mlp == "moe"]
+    mamba_at = [i for i, (mixer, _) in enumerate(pattern) if mixer == "mamba"]
+    if moe_at:
+        check_moe_layer(arch, cfg, group_slice(layers[moe_at[0]], 0)["mlp"], moe_at[0],
+                        gen)
+    if not mamba_at:
         return
-    pp = next(i for i, (mixer, _) in enumerate(pattern) if mixer == "mamba")
+    pp = mamba_at[0]
     p = group_slice(layers[pp], 0)["mixer"]
     x = torch.randn((1, 300, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
@@ -928,12 +974,33 @@ def check_mixers(arch, cfg, layers) -> None:
         fail(f"{arch}: the mamba prefill disagrees with the f32 stepped decode")
 
 
-def serve_cut(arch: str, n_layers: int) -> int:
-    """Serve ``arch`` at full width with its depth cut to ``n_layers``:
-    init from a seeded generator, the 8 requests through the continuous
-    engine (checked and counted), a profiled second run with the MoE drop
-    record, and the S=513 parity of kernel and plain attention. Frees the
-    weights. Returns the flash launches of the counted serve."""
+def check_moe_layer(arch, cfg, p, pp, gen) -> None:
+    """The MoE layer at pattern position ``pp`` against ``moe_loop`` at S=77."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+
+    x = torch.randn((1, 77, cfg.d_model), generator=gen, device=gen.device).to(torch.bfloat16)
+    y, _ = moe_mod.apply_moe(cfg, p, x)
+    want, dropped, emptied = moe_loop(cfg, p, x)
+    bad, worst = outside(y[0], want, MOE_RTOL, MOE_ATOL_RMS)
+    log(f"mixers {arch}: MoE layer {pp} at S=77 against the loop over kept assignments "
+        f"({dropped} of {77 * cfg.moe.top_k} dropped, slot (0, 0) emptied: {emptied}): "
+        f"max|layer-loop|={float((y[0].float() - want).abs().max()):.3e}, rms(loop) "
+        f"{float(want.pow(2).mean().sqrt()):.3e}, {bad} outside {MOE_RTOL}*|loop| + "
+        f"{MOE_ATOL_RMS}*rms, worst at {worst:.3f} of the limit")
+    if bad or not torch.isfinite(y).all():
+        fail(f"{arch}: the MoE layer disagrees with the loop over its kept assignments")
+
+
+def serve_arch(arch: str, n_layers: int) -> int:
+    """Serve ``arch`` at full width with ``n_layers`` layers (its own depth,
+    or cut to fit the card): init from a seeded generator, the 8 requests
+    through the continuous engine (checked and counted), a profiled second
+    run, and the S=513 parity of kernel and plain attention. With MoE layers
+    also: the same 8 requests served again with the tokens that differ
+    counted, the profiled run's MoE drop record, and the parity with the
+    kernel run's routing pinned. Frees the weights. Returns the flash
+    launches of the counted serve."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
@@ -948,11 +1015,16 @@ def serve_cut(arch: str, n_layers: int) -> int:
     kinds = [(cfg.mixer_kind(i), cfg.mlp_kind(i)) for i in range(n_layers)]
     count = lambda kind: sum(kind in k for k in kinds)
     n_attn, n_moe = count("attention"), count("moe")
-    log(f"{arch}: depth cut {full.n_layers} -> {n_layers} layers "
-        f"(dataclasses.replace(cfg, n_layers={n_layers})), every width as published "
+    depth = (f"depth cut {full.n_layers} -> {n_layers} layers (dataclasses.replace(cfg, "
+             f"n_layers={n_layers}))" if n_layers < full.n_layers
+             else f"uncut ({n_layers} layers)")
+    experts = (f", experts {cfg.moe.n_experts} top-{cfg.moe.top_k} of width "
+               f"{cfg.moe.d_expert}, capacity factor {cfg.moe.capacity_factor}"
+               if cfg.moe else "")
+    log(f"{arch}: {depth}, every width as published "
         f"(d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, experts {cfg.moe.n_experts} top-{cfg.moe.top_k} "
-        f"of width {cfg.moe.d_expert}, capacity factor {cfg.moe.capacity_factor}); layers: "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}{experts}; {cfg.norm}, {cfg.activation}, "
+        f"QKV bias {cfg.qkv_bias}); layers: "
         f"{n_attn} attention, {count('mamba')} mamba, {n_moe} MoE, {count('dense')} dense; "
         f"{cfg.param_count() / 1e9:.3f} B of {full.param_count() / 1e9:.3f} B parameters "
         f"by the config's count")
@@ -999,12 +1071,74 @@ def serve_cut(arch: str, n_layers: int) -> int:
         fail(f"{arch}: flash launches {launches['flash_attention']} != prefills x "
              f"attention layers {stats['prefills'] * n_attn}")
 
-    # profiled second run, with every MoE dispatch plan recorded on the card
-    plans = []
-    with recorded(moe_mod, "dispatch_plan", lambda args, out: plans.append(
-            (args[0].shape[0], args[0].shape[1], args[2], (~out[2]).sum(),
-             out[2].numel(), out[3].sum()))):
+    if n_moe:
+        # run-to-run determinism: apply_moe adds the expert outputs back with
+        # a bf16 index_add_, atomic on the card and in no fixed order. A
+        # measurement, not a gate: greedy decode carries a first difference on.
+        again = [Request(r.rid, list(r.prompt), MAX_NEW) for r in reqs]
+        serve(model, params, again, slots=SLOTS, cap=cap, scheduler="continuous")
+        differ = [sum(a != b for a, b in zip(r.out, r2.out)) for r, r2 in zip(reqs, again)]
+        first = [next((i for i, (a, b) in enumerate(zip(r.out, r2.out)) if a != b), None)
+                 for r, r2 in zip(reqs, again)]
+        log(f"determinism {arch}: the same {len(reqs)} requests served again: "
+            f"{sum(differ)} of {sum(len(r.out) for r in reqs)} tokens differ (per "
+            f"request {differ}; first differing position {first})")
+        # profiled second run, with every MoE dispatch plan recorded on the card
+        plans = []
+        with recorded(moe_mod, "dispatch_plan", lambda args, out: plans.append(
+                (args[0].shape[0], args[0].shape[1], args[2], (~out[2]).sum(),
+                 out[2].numel(), out[3].sum()))):
+            _profile_serve(model, params, requests(), cap, serve, stats["wall_s"])
+        log_moe_plans(arch, plans, n_moe)
+    else:
         _profile_serve(model, params, requests(), cap, serve, stats["wall_s"])
+
+    # parity: with MoE layers the routing of the kernel prefill is recorded
+    # and pinned in the plain prefill. Routing is a discontinuous function of
+    # the hidden state: an ulp of difference in attention can move a near-tie
+    # assignment to another expert, a different computation rather than an
+    # error of the kernel, so the limit is held with the kernel run's
+    # routing; the plain prefill's own routing is reported beside it.
+    prompt = torch.tensor([[int(t) for t in rng.integers(0, cfg.vocab, 513)]],
+                          dtype=torch.int32, device=model.device)
+    if not n_moe:
+        _, _, got = model.prefill(params, {"tokens": prompt}, 513)
+        with plain_flash():
+            _, _, want = model.prefill(params, {"tokens": prompt}, 513)
+        check_logits(arch, cfg, got, want)
+    else:
+        routes = []
+        with recorded(moe_mod, "route", lambda args, out: routes.append(out[0])):
+            _, _, got = model.prefill(params, {"tokens": prompt}, 513)
+        with plain_flash():
+            _, _, free = model.prefill(params, {"tokens": prompt}, 513)
+            moved, it = [], iter(routes)
+
+            def pin(args, out):
+                (_, p, x), want = args, next(it)
+                moved.append(int((out[0].sort(-1).values != want.sort(-1).values)
+                                 .any(-1).sum()))
+                probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+                g = probs.gather(-1, want)
+                return want, (g / g.sum(-1, keepdim=True).clamp_min(1e-9)).to(x.dtype), out[2]
+
+            with recorded(moe_mod, "route", pin):
+                _, _, want = model.prefill(params, {"tokens": prompt}, 513)
+        free_diff = float((got.float() - free.float()).abs().max())
+        check_logits(arch, cfg, got, want,
+                     f", routing of the kernel run pinned (tokens whose top-k set the plain "
+                     f"attention would move, per MoE layer: {moved}; unpinned max "
+                     f"|kernel-plain| {free_diff:.4e})")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+def log_moe_plans(arch, plans, n_moe) -> None:
+    """The share of MoE assignments dropped per prefill and per MoE layer,
+    and whether slot (0, 0) was emptied, from the recorded dispatch plans;
+    fail on a drop at decode."""
     prefill_plans = [p for p in plans if p[1] > 1]
     decode_drops = sum(int(p[3]) for p in plans if p[1] == 1)
     if len(prefill_plans) != len(PROMPT_LENS) * n_moe:
@@ -1024,40 +1158,6 @@ def serve_cut(arch: str, n_layers: int) -> int:
         f"{decode_drops} assignments dropped")
     if decode_drops:
         fail(f"{arch}: a decode step dropped an assignment (its top-k experts are distinct)")
-
-    # parity: the routing of the kernel prefill is recorded and pinned in the
-    # plain prefill. Routing is a discontinuous function of the hidden state:
-    # an ulp of difference in attention can move a near-tie assignment to
-    # another expert, a different computation rather than an error of the
-    # kernel, so the limit is held with the kernel run's routing; the plain
-    # prefill's own routing is reported beside it.
-    prompt = torch.tensor([[int(t) for t in rng.integers(0, cfg.vocab, 513)]],
-                          dtype=torch.int32, device=model.device)
-    routes = []
-    with recorded(moe_mod, "route", lambda args, out: routes.append(out[0])):
-        _, _, got = model.prefill(params, {"tokens": prompt}, 513)
-    with plain_flash():
-        _, _, free = model.prefill(params, {"tokens": prompt}, 513)
-        moved, it = [], iter(routes)
-
-        def pin(args, out):
-            (_, p, x), want = args, next(it)
-            moved.append(int((out[0].sort(-1).values != want.sort(-1).values).any(-1).sum()))
-            probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
-            g = probs.gather(-1, want)
-            return want, (g / g.sum(-1, keepdim=True).clamp_min(1e-9)).to(x.dtype), out[2]
-
-        with recorded(moe_mod, "route", pin):
-            _, _, want = model.prefill(params, {"tokens": prompt}, 513)
-    free_diff = float((got.float() - free.float()).abs().max())
-    check_logits(arch, cfg, got, want,
-                 f", routing of the kernel run pinned (tokens whose top-k set the plain "
-                 f"attention would move, per MoE layer: {moved}; unpinned max "
-                 f"|kernel-plain| {free_diff:.4e})")
-    del model, params
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches["flash_attention"]
 
 
 if __name__ == "__main__":

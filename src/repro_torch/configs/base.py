@@ -245,6 +245,9 @@ ARCH_IDS = (
     "qwen3_moe_235b_a22b",
     "jamba_v01_52b",
     "llama4_maverick_400b_a17b",
+    "nemotron_4_15b",
+    "qwen25_14b",
+    "stablelm_3b",
 )
 
 _ALIASES = {
@@ -252,6 +255,9 @@ _ALIASES = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "jamba-v0.1-52b": "jamba_v01_52b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "qwen2.5-14b": "qwen25_14b",
+    "stablelm-3b": "stablelm_3b",
 }
 
 

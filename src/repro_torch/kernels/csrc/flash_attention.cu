@@ -25,8 +25,17 @@
 //   each V, so K is refilled as soon as its scores are out and the next
 //   tile lands while the current one is multiplied. The tensor maps are 3-D
 //   [B*H, S, D], so rows past S within a head read as zeros and never the
-//   next head's rows. Tiles are unpadded and 128-byte swizzled, a 128-wide
-//   row stored as two 64-column swizzle atoms.
+//   next head's rows. Tiles are 128-byte swizzled, a 128-wide row stored
+//   as two 64-column swizzle atoms.
+// - Head dim 80 (stablelm-3b) is not a multiple of the 64-column atom. Its
+//   tiles and accumulator are padded to 128 columns (two atoms) while the
+//   tensor maps cover the real 80: the second box of each row reads columns
+//   64-127, and TMA fills 80-127, out of bounds, with zeros (the barriers
+//   count the whole box, fill included). Zero columns of Q and K add nothing
+//   to Q K^T, which stops after 5 of the 8 k-steps (80 = 5 x 16); zero
+//   columns of V keep the accumulator's columns 80-127 at zero, so they are
+//   neither rescaled nor stored. P V does D=128's product work, 1.6x the
+//   unpadded work: right and simple first.
 // - Softmax overlaps the tensor cores twice over. Inside a warpgroup, step
 //   i issues tile i's Q K^T and tile i-1's P V back to back and runs tile
 //   i's softmax while P V is still running. With BQ = 128 two consumer
@@ -44,7 +53,7 @@
 //
 // Layout: q [B*Hq, S, D], k/v [B*Hkv, S, D], o [B*Hq, S, D], all contiguous.
 // Block (h, .) reads KV row (h / Hq) * Hkv + (h % Hq) / (Hq / Hkv).
-// Built for D in {64, 128}, BQ in {64, 128}, BK in {64, 128}.
+// Built for D in {64, 80, 128}, BQ in {64, 128}, BK in {64, 128}.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -69,12 +78,14 @@ template <int BQ, int BK, int D>
 struct Cfg {
   static_assert(BQ == 64 || BQ == 128, "BQ is one or two warpgroups of 64 rows");
   static_assert(BK == 64 || BK == 128, "BK is the N of an m64nBKk16 wgmma");
-  static_assert(D == 64 || D == 128, "D is a multiple of the 64-column atom");
+  static_assert(D == 64 || D == 80 || D == 128, "D is a built head dim");
   static constexpr int kConsumers = BQ / 64;              // consumer warpgroups
   static constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
-  static constexpr int kCols = D / 64;                     // atoms per row
-  static constexpr int kQBytes = BQ * D * 2;
-  static constexpr int kKVBytes = BK * D * 2;  // one K or one V tile
+  static constexpr int kDP = (D + 63) / 64 * 64;  // D padded to whole atoms
+  static constexpr int kCols = kDP / 64;           // atoms per row
+  // whole boxes, out-of-bounds fill included: what TMA completes per tile
+  static constexpr int kQBytes = BQ * kDP * 2;
+  static constexpr int kKVBytes = BK * kDP * 2;  // one K or one V tile
   static constexpr int kKOff = kQBytes;        // stage st: K, then V
   static constexpr int kBarOff = kQBytes + kStages * 2 * kKVBytes;
   // barriers at kBarOff: q_full and a full and an empty barrier for each
@@ -192,14 +203,15 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D>::kThreads, 1)
     const int wg_row_min = q0 + wg * 64;
     const uint32_t q_wg = q_s + wg * 64 * kAtomBytes;
 
-    float acc[D / 2];
+    float acc[C::kDP / 2];  // columns D..kDP-1 stay zero (V's fill)
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < C::kDP / 2; ++i) acc[i] = 0.f;
     uint32_t pf[BK / 16][4];           // P of the previous tile as bf16 A fragments
     float m0 = kNegInf, m1 = kNegInf;  // running max (log2 domain) of row0, row0+8
     float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
 
-    // S = Q K^T of tile i: D/16 k-steps, step kk 32 bytes into column atom kk/4
+    // S = Q K^T of tile i: D/16 k-steps (the zero fill past D adds nothing),
+    // step kk 32 bytes into column atom kk/4
     auto issue_s = [&](int i, float (&sc)[BK / 2]) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -214,7 +226,7 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D>::kThreads, 1)
     auto issue_pv = [&](int i) {
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        wgmma_rs<D, 1>(acc, pf[kk],
+        wgmma_rs<C::kDP, 1>(acc, pf[kk],
                        smem_desc_sw128(v_s(i % kStages) + kk * 16 * kAtomBytes,
                                        BK * kAtomBytes, 1024),
                        1);
@@ -260,7 +272,8 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D>::kThreads, 1)
       l0 = l0 * c0 + ps0;
       l1 = l1 * c1 + ps1;
     };
-    // once no P V is in flight: rescale the accumulator and pack P
+    // once no P V is in flight: rescale the accumulator (its columns below
+    // D; the rest are zero) and pack P
     auto rescale_and_pack = [&](const float (&sc)[BK / 2], float c0, float c1) {
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
@@ -280,7 +293,7 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D>::kThreads, 1)
     };
     auto fence_acc_and_p = [&]() {
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) fence_operand(acc[j]);
+      for (int j = 0; j < C::kDP / 2; ++j) fence_operand(acc[j]);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
@@ -352,6 +365,7 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D>::kThreads, 1)
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float d0 = fmaxf(l0, 1e-30f);
     const float d1 = fmaxf(l1, 1e-30f);
+    // the real D columns only, at row stride D
     bf16* oh = o + (size_t)h * s * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -400,6 +414,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
 
 #define FLASH_BUILT(X) \
   X(64, 64, 64) X(64, 128, 64) X(128, 64, 64) X(128, 128, 64) \
+  X(64, 64, 80) X(64, 128, 80) X(128, 64, 80) X(128, 128, 80) \
   X(64, 64, 128) X(64, 128, 128) X(128, 64, 128) X(128, 128, 128)
 
 }  // namespace
@@ -415,7 +430,7 @@ extern "C" int flash_attention_smem_bytes(int d, int block_q, int block_k) {
 }
 
 // q, o: [b, hq, s, d]; k, v: [b, hkv, s, d]; bf16, contiguous, 16-byte
-// aligned. Built for d in {64, 128} and block_q, block_k in {64, 128};
+// aligned. Built for d in {64, 80, 128} and block_q, block_k in {64, 128};
 // anything else returns cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                                         void* o, int b, int hq, int hkv, int s, int d,

@@ -6,8 +6,9 @@ Replaces the TPU kernel ``_flash_kernel`` of
 kernel is ``csrc/flash_attention.cu``: one thread block per (batch*q-head,
 q-tile), a producer warp that streams K/V tiles with TMA through a ring of
 two shared-memory stages, and one or two consumer warpgroups of 64 query
-rows whose products are ``wgmma`` (bf16 in, f32 accumulation). Its source
-says what bounds it on the H100 and what the design does about it.
+rows whose products are ``wgmma`` (bf16 in, f32 accumulation). Head dim 80
+is staged padded to 128 columns (``padded_head_dim``). Its source says what
+bounds it on the H100 and what the design does about it.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors, and for nothing else: on a CUDA
@@ -26,7 +27,7 @@ import torch
 from repro_torch.kernels import build
 
 _NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # head dims the kernel is built for
+HEAD_DIMS = (64, 80, 128)  # head dims the kernel is built for
 BLOCKS = (64, 128)  # block_q / block_k values the kernel is built for
 
 # kernel launches in this process (the main-path witness); reset via
@@ -34,12 +35,18 @@ BLOCKS = (64, 128)  # block_q / block_k values the kernel is built for
 LAUNCHES = 0
 
 
+def padded_head_dim(d: int) -> int:
+    """The width the kernel stages a head dim at: whole 64-column swizzle
+    atoms (80 -> 128; the columns past ``d`` are TMA's zero fill)."""
+    return -(-d // 64) * 64
+
+
 def smem_bytes(block_q: int, block_k: int, d: int) -> int:
     """Dynamic shared memory of the kernel at these blocks, as its ``Cfg``
-    computes it: the Q tile, two stages of K and V tiles (bf16, unpadded),
-    128 bytes of barriers and 1024 bytes of slack to align the tiles to the
-    1024-byte swizzle period."""
-    return 2 * d * (block_q + 2 * 2 * block_k) + 128 + 1024
+    computes it: the Q tile, two stages of K and V tiles (bf16, at the
+    padded head dim), 128 bytes of barriers and 1024 bytes of slack to align
+    the tiles to the 1024-byte swizzle period."""
+    return 2 * padded_head_dim(d) * (block_q + 2 * 2 * block_k) + 128 + 1024
 
 
 def _check_shapes(q, k, v) -> None:
@@ -71,7 +78,8 @@ def flash_attention_plain(
     dtype before the p·v product, which accumulates in f32. Tile slices stop
     at S (the kernel's tail mask: keys past S weigh nothing and query rows
     past S are never written), and with ``causal`` KV tiles wholly above
-    the diagonal are skipped."""
+    the diagonal are skipped. It takes any head dim, the kernel's 64, 80
+    (stablelm-3b's, which the kernel pads to 128) and 128 among them."""
     _check_shapes(q, k, v)
     b, hq, s, d = q.shape
     hkv = k.shape[1]

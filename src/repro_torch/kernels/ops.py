@@ -23,7 +23,8 @@ from repro_torch.core.tuner import tuned_matmul_blocks
 from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.kernels import flash_attention as _flash_mod
 from repro_torch.kernels import matmul as _matmul_mod
-from repro_torch.kernels.flash_attention import BLOCKS, flash_attention, smem_bytes
+from repro_torch.kernels.flash_attention import (BLOCKS, flash_attention,
+                                                padded_head_dim, smem_bytes)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -63,11 +64,13 @@ def tuned_flash_blocks(s: int, d: int, dtype_bytes: int = 2) -> Tuple[int, int]:
     The score is the reference pick's (``repro/kernels/ops.py``): per KV step
     a fixed matrix-unit cost plus the staged q/k/v bytes over the memory
     rate, times the number of (q-tile, kv-tile) steps, with ragged tiles
-    counted whole. Candidates whose shared memory (``smem_bytes``: the q
-    tile and two stages of k and v tiles; the softmax statistics and the
-    accumulator stay in registers) exceeds what one H100 block may use are
-    pruned."""
+    counted whole, and the head dim at the width the kernel stages it
+    (``padded_head_dim``). Candidates whose shared memory (``smem_bytes``:
+    the q tile and two stages of k and v tiles; the softmax statistics and
+    the accumulator stay in registers) exceeds what one H100 block may use
+    are pruned."""
     target = GPU_H100
+    d = padded_head_dim(d)
     best, best_score = None, float("inf")
     for bq in BLOCKS:
         for bk in BLOCKS:

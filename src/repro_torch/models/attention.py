@@ -14,17 +14,33 @@ NEG_INF = -1e30
 
 
 def init_attention(cfg, gen, lead: Tuple[int, ...] = ()) -> Dict:
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv bias is not ported yet")
+    """``wq/wk/wv/wo``, and with ``cfg.qkv_bias`` the biases ``bq/bk/bv``
+    (zeros, as the reference draws them)."""
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.torch_param_dtype()
     sc = d ** -0.5
-    return {
+    p = {
         "wq": L.normal(gen, lead + (d, h * dh), sc, dt),
         "wk": L.normal(gen, lead + (d, hkv * dh), sc, dt),
         "wv": L.normal(gen, lead + (d, hkv * dh), sc, dt),
         "wo": L.normal(gen, lead + (h * dh, d), (h * dh) ** -0.5, dt),
     }
+    if cfg.qkv_bias:
+        dev = gen.device
+        p["bq"] = torch.zeros(lead + (h * dh,), dtype=dt, device=dev)
+        p["bk"] = torch.zeros(lead + (hkv * dh,), dtype=dt, device=dev)
+        p["bv"] = torch.zeros(lead + (hkv * dh,), dtype=dt, device=dev)
+    return p
+
+
+def _qkv_products(p, xc):
+    """x @ wq, x @ wk, x @ wv in the compute dtype, each plus its bias where
+    the layer has one (before the reshape into heads and RoPE)."""
+    cd = xc.dtype
+    q, k, v = (xc @ p[w].to(cd) for w in ("wq", "wk", "wv"))
+    if "bq" in p:
+        q, k, v = q + p["bq"].to(cd), k + p["bk"].to(cd), v + p["bv"].to(cd)
+    return q, k, v
 
 
 def _project_qkv(cfg, p, x):
@@ -32,10 +48,10 @@ def _project_qkv(cfg, p, x):
     cd = cfg.torch_compute_dtype()
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    xc = x.to(cd)
-    q = (xc @ p["wq"].to(cd)).reshape(b, s, h, dh).transpose(1, 2)
-    k = (xc @ p["wk"].to(cd)).reshape(b, s, hkv, dh).transpose(1, 2)
-    v = (xc @ p["wv"].to(cd)).reshape(b, s, hkv, dh).transpose(1, 2)
+    q, k, v = _qkv_products(p, x.to(cd))
+    q = q.reshape(b, s, h, dh).transpose(1, 2)
+    k = k.reshape(b, s, hkv, dh).transpose(1, 2)
+    v = v.reshape(b, s, hkv, dh).transpose(1, 2)
     return q, k, v
 
 
@@ -128,10 +144,10 @@ def decode_attention(
     g = h // hkv
     cap = cache_k.shape[2]
     vector_pos = pos.ndim == 1
-    xc = x.to(cd)
-    q = (xc @ p["wq"].to(cd)).reshape(b, h, 1, dh)
-    knew = (xc @ p["wk"].to(cd)).reshape(b, hkv, 1, dh)
-    vnew = (xc @ p["wv"].to(cd)).reshape(b, hkv, 1, dh)
+    q, knew, vnew = _qkv_products(p, x.to(cd))
+    q = q.reshape(b, h, 1, dh)
+    knew = knew.reshape(b, hkv, 1, dh)
+    vnew = vnew.reshape(b, hkv, 1, dh)
     if vector_pos:
         # per-row tables [B, 1, dh/2], lifted to [B, 1, 1, dh/2] so they
         # broadcast over the head axis

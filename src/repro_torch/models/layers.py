@@ -46,14 +46,26 @@ def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> tor
 
 
 def init_norm(cfg, device, lead: Tuple[int, ...] = ()) -> Dict:
-    if cfg.norm != "rmsnorm":
+    """RMSNorm keeps a scale ``w`` (ones); layernorm a scale ``w`` (ones)
+    and a shift ``b`` (zeros)."""
+    shape, dt = lead + (cfg.d_model,), cfg.torch_param_dtype()
+    p = {"w": torch.ones(shape, dtype=dt, device=device)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros(shape, dtype=dt, device=device)
+    elif cfg.norm != "rmsnorm":
         raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
-    return {"w": torch.ones(lead + (cfg.d_model,), dtype=cfg.torch_param_dtype(),
-                            device=device)}
+    return p
 
 
 def apply_norm(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Layernorm where ``p`` has a shift ``b``, else RMSNorm; statistics in
+    f32, the result cast back to ``x``'s dtype."""
     xf = x.float()
+    if "b" in p:  # layernorm
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).pow(2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        return (y * p["w"].float() + p["b"].float()).to(x.dtype)
     ms = (xf * xf).mean(-1, keepdim=True)
     y = xf * torch.rsqrt(ms + cfg.norm_eps)
     return (y * p["w"].float()).to(x.dtype)
@@ -89,25 +101,37 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
 
 def init_dense_mlp(cfg, gen, lead: Tuple[int, ...] = (),
                    d_ff: Optional[int] = None) -> Dict:
-    """A SwiGLU MLP of width ``d_ff`` (default ``cfg.d_ff``; an MoE's shared
-    expert passes ``d_expert``)."""
-    if cfg.activation != "swiglu":
+    """A dense MLP of width ``d_ff`` (default ``cfg.d_ff``; an MoE's shared
+    expert passes ``d_expert``): ``w1``/``w2``, and the gate ``w3`` for
+    SwiGLU only."""
+    if cfg.activation not in ("swiglu", "sq_relu"):
         raise NotImplementedError(f"activation {cfg.activation!r} is not ported yet")
     d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = cfg.torch_param_dtype()
-    return {
+    p = {
         "w1": normal(gen, lead + (d, f), d ** -0.5, dt),
         "w2": normal(gen, lead + (f, d), f ** -0.5, dt),
-        "w3": normal(gen, lead + (d, f), d ** -0.5, dt),
     }
+    if cfg.activation == "swiglu":
+        p["w3"] = normal(gen, lead + (d, f), d ** -0.5, dt)
+    return p
+
+
+def _act(cfg, h: torch.Tensor, g: Optional[torch.Tensor]) -> torch.Tensor:
+    if cfg.activation == "swiglu":
+        return F.silu(h) * g
+    if cfg.activation == "sq_relu":
+        r = F.relu(h)
+        return r * r
+    raise NotImplementedError(f"activation {cfg.activation!r} is not ported yet")
 
 
 def apply_dense_mlp(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
     cd = cfg.torch_compute_dtype()
     xc = x.to(cd)
     h = xc @ p["w1"].to(cd)
-    g = xc @ p["w3"].to(cd)
-    return ((F.silu(h) * g) @ p["w2"].to(cd)).to(x.dtype)
+    g = xc @ p["w3"].to(cd) if "w3" in p else None
+    return (_act(cfg, h, g) @ p["w2"].to(cd)).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

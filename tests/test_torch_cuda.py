@@ -54,6 +54,24 @@ def test_kernel_matches_plain(card, s, d, blocks, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 77, 513, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_head_dim_80_mha(card, s, causal):
+    """stablelm-3b's attention shape (32 heads of 80, MHA) with the picked
+    blocks: the padded second column atom carries columns 64-79."""
+    q, k, v = _qkv(1, 32, 32, s, 80, card)
+    got = ops.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    bq, bk = ops.tuned_flash_blocks(s, 80, 2)
+    want = flash_attention_plain(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    assert got.shape == (1, 32, s, 80)
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    atol = ATOL_RMS * float(np.sqrt(np.mean(want ** 2)))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol)
+    assert np.abs(got[..., 64:]).max() > 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 16), (torch.float32, 64)])
 def test_kernel_refuses_what_it_was_not_built_for(card, dtype, d):
     q, k, v = (t.to(dtype) for t in _qkv(1, 2, 1, 8, d, card))

@@ -19,7 +19,8 @@ from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels.flash_attention import (BLOCKS, HEAD_DIMS, flash_attention,
-                                                 flash_attention_plain, smem_bytes)
+                                                 flash_attention_plain, padded_head_dim,
+                                                 smem_bytes)
 from repro_torch.models.attention import chunked_attention
 
 RNG = np.random.default_rng(42)
@@ -106,6 +107,33 @@ def test_flash_ragged_lengths_at_built_blocks(s, causal):
         *map(jnp.asarray, arrs), causal=causal)), **F32_TOL)
 
 
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_head_dim_80(s, causal):
+    """stablelm-3b's head dim (MHA, which the kernel stages padded to 128
+    columns) through ops.attention with the picked blocks: against the
+    Pallas kernel at the same blocks and the oracle."""
+    arrs = _qkv(1, 4, 4, s, 80)
+    bq, bk = ops.tuned_flash_blocks(s, 80, 2)
+    got = ops.attention(*_torch(arrs), causal=causal)
+    assert got.shape == (1, 4, s, 80)
+    want_pallas = flash_attention_pallas(*map(jnp.asarray, arrs), causal=causal,
+                                         block_q=bq, block_k=bk, interpret=True)
+    want_ref = jref.attention(*map(jnp.asarray, arrs), causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want_pallas), **F32_TOL)
+    np.testing.assert_allclose(_np(got), _np(want_ref), **F32_TOL)
+
+
+@pytest.mark.parametrize("s", [1, 77])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_head_dim_80_ragged(s, causal):
+    """Ragged S at head dim 80 and blocks (64, 128) against the oracle."""
+    arrs = _qkv(1, 4, 4, s, 80)
+    got = flash_attention_plain(*_torch(arrs), causal=causal, block_q=64, block_k=128)
+    np.testing.assert_allclose(_np(got), _np(jref.attention(
+        *map(jnp.asarray, arrs), causal=causal)), **F32_TOL)
+
+
 def test_flash_bf16():
     arrs = _qkv(1, 4, 2, 128, 64)
     got = ops.attention(*_torch(arrs, torch.bfloat16), causal=True,
@@ -135,7 +163,7 @@ def test_chunked_attention_matches_reference(s, chunk):
 
 
 @pytest.mark.parametrize("s", [1, 16, 77, 513, 1024, 2047, 4095])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
 def test_tuned_flash_blocks_fit_the_kernel(s, d):
     bq, bk = ops.tuned_flash_blocks(s, d, 2)
     assert bq in BLOCKS and bk in BLOCKS
@@ -157,9 +185,12 @@ def test_tuned_flash_blocks_shrink_for_short_prompts():
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_built_flash_blocks_fit_shared_memory(bq, bk, d):
     """Every built instantiation fits the 232,448 bytes one H100 block may
-    use, at one block per SM: Q, two K/V stages, barriers, alignment."""
+    use, at one block per SM: Q, two K/V stages at the padded head dim
+    (whole 64-column atoms: 80 is staged as 128), barriers, alignment."""
+    dp = {64: 64, 80: 128, 128: 128}[d]
+    assert padded_head_dim(d) == dp
     assert smem_bytes(bq, bk, d) <= 232_448 == GPU_H100.fast_mem_bytes
-    assert smem_bytes(bq, bk, d) == 2 * d * (bq + 4 * bk) + 128 + 1024
+    assert smem_bytes(bq, bk, d) == 2 * dp * (bq + 4 * bk) + 128 + 1024
 
 
 def test_flash_source_instantiates_exactly_the_built_blocks():
@@ -169,7 +200,10 @@ def test_flash_source_instantiates_exactly_the_built_blocks():
     macro = re.search(r"#define FLASH_BUILT\(X\)(.*?)\n\n", src, re.S).group(1)
     built = {tuple(map(int, t)) for t in re.findall(r"X\((\d+), (\d+), (\d+)\)", macro)}
     assert built == {(bq, bk, d) for bq in BLOCKS for bk in BLOCKS for d in HEAD_DIMS}
+    assert HEAD_DIMS == (64, 80, 128)
     assert "wgmma_ss" in src and "wgmma_rs" in src and "mma.sync" not in src
+    # tiles and accumulator at the padded width, the store at the real one
+    assert "kDP = (D + 63) / 64 * 64" in src and "wgmma_rs<C::kDP, 1>" in src
 
 
 def test_wrapper_has_no_fallback_off_cpu():

@@ -1,7 +1,7 @@
 """The port's reduced models held against the reference model on converted
-weights (yi-6b, and as parametrised cases the MoE qwen3-moe and llama4 and
-the attention/mamba/MoE hybrid jamba), plus the port's isolation from jax
-and from ``repro``."""
+weights (yi-6b, and as parametrised cases the MoE qwen3-moe and llama4, the
+attention/mamba/MoE hybrid jamba and the dense nemotron-4-15b, qwen2.5-14b
+and stablelm-3b), plus the port's isolation from jax and from ``repro``."""
 import dataclasses
 import os
 import subprocess
@@ -25,13 +25,36 @@ RNG = np.random.default_rng(3)
 SRC = Path(__file__).resolve().parents[1] / "src"
 # the architectures ported after yi-6b: every block pattern the port serves
 NEW_ARCHS = ("qwen3_moe_235b_a22b", "jamba_v01_52b", "llama4_maverick_400b_a17b")
+# the dense decoders with layernorm (nemotron, stablelm), the squared-ReLU MLP
+# (nemotron) and QKV bias (qwen2.5)
+DENSE_ARCHS = ("nemotron_4_15b", "qwen25_14b", "stablelm_3b")
 
 
-def _make_pair(arch):
-    jcfg = jget_config(arch).reduced()
+def nonzero_norms_and_biases(jparams, seed: int = 11):
+    """The reference tree with every norm leaf (``norm*``: ``w``, and
+    layernorm's ``b``) and every QKV bias (``bq/bk/bv``) redrawn from a
+    numpy seed: the reference initialises them to ones and zeros, values at
+    which a port that never added a bias or a shift would still agree."""
+    rng = np.random.default_rng(seed)
+
+    def redraw(path, leaf):
+        keys = [getattr(k, "key", None) for k in path]
+        if keys[-1] in ("bq", "bk", "bv") or any(
+                isinstance(k, str) and k.startswith("norm") for k in keys):
+            draw = rng.standard_normal(leaf.shape) * 0.5
+            return jnp.asarray(draw + (1.0 if keys[-1] == "w" else 0.0), leaf.dtype)
+        return leaf
+
+    return jax.tree_util.tree_map_with_path(redraw, jparams)
+
+
+def _make_pair(arch, jcfg=None, cfg=None):
+    jcfg = jcfg or jget_config(arch).reduced()
     jmodel = JModel(jcfg)
     jparams = jmodel.init(jax.random.key(0))
-    model = Model(get_config(arch).reduced(), device="cpu")
+    if arch in DENSE_ARCHS:
+        jparams = nonzero_norms_and_biases(jparams)
+    model = Model(cfg or get_config(arch).reduced(), device="cpu")
     params = from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     return jmodel, jparams, model, params
 
@@ -43,6 +66,13 @@ def pair():
 
 @pytest.fixture(scope="module", params=NEW_ARCHS)
 def arch_pair(request):
+    return _make_pair(request.param)
+
+
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
+def dense_pair(request):
+    """A dense arch on reference weights whose norms and QKV biases were
+    redrawn nonzero (``nonzero_norms_and_biases``)."""
     return _make_pair(request.param)
 
 
@@ -183,6 +213,171 @@ def test_stack_aux_loss_matches_reference(arch_pair):
     assert float(aux) > 0
 
 
+def test_init_matches_reference_tree_dense_archs(dense_pair):
+    """Layernorm's ``{w, b}``, the squared-ReLU MLP without ``w3`` and the
+    QKV biases ``bq/bk/bv`` (``from_jax`` copies them leaf by leaf)."""
+    _check_init_tree(dense_pair)
+    _, jparams, model, params = dense_pair
+    mine = model.init(torch.Generator().manual_seed(0))
+    cfg = model.cfg
+    layer = mine["layers"][0]
+    assert ("b" in layer["norm1"]) == ("b" in mine["norm_f"]) == (cfg.norm == "layernorm")
+    assert ("w3" in layer["mlp"]) == (cfg.activation == "swiglu")
+    assert ("bq" in layer["mixer"]) == cfg.qkv_bias
+    # the reference's initial values, before the tests redraw them
+    assert torch.equal(layer["norm1"]["w"], torch.ones_like(layer["norm1"]["w"]))
+    for key in ("b", "bq", "bk", "bv"):
+        for leaf in (layer["norm1"].get(key), layer["mixer"].get(key)):
+            assert leaf is None or not leaf.any()
+    # the converted leaves are the redrawn ones
+    jl = jparams["layers"][0]
+    for key, leaf in list(params["layers"][0]["norm1"].items()) + [
+            (k, v) for k, v in params["layers"][0]["mixer"].items() if k.startswith("b")]:
+        src = jl["norm1"] if key in ("w", "b") else jl["mixer"]
+        np.testing.assert_array_equal(leaf.numpy(), np.asarray(src[key]))
+        assert leaf.abs().min() > 0 or key == "w"
+
+
+def test_logits_match_dense_archs(dense_pair):
+    _check_logits(dense_pair)
+
+
+@pytest.mark.parametrize("b,s,cap", [(1, 7, 12), (2, 12, 16)])
+def test_prefill_matches_dense_archs(dense_pair, b, s, cap):
+    _check_prefill(dense_pair, b, s, cap)
+
+
+@pytest.mark.parametrize("vector", [False, True])
+def test_decode_step_matches_dense_archs(dense_pair, vector):
+    _check_decode_step(dense_pair, vector)
+
+
+@pytest.mark.parametrize("arch,path", [
+    ("nemotron_4_15b", ("layers", 0, "norm2", "b")),
+    ("nemotron_4_15b", ("norm_f", "b")),
+    ("qwen25_14b", ("layers", 0, "mixer", "bq")),
+    ("qwen25_14b", ("layers", 0, "mixer", "bk")),
+    ("qwen25_14b", ("layers", 0, "mixer", "bv")),
+    ("stablelm_3b", ("layers", 0, "norm1", "b")),
+])
+def test_parity_catches_an_ignored_bias(arch, path):
+    """Zeroing one bias or layernorm shift on the port's side only, as a port
+    that never added it would behave, breaks the logits' parity: the
+    redrawn leaves are not at values that hide it."""
+    jmodel, jparams, model, params = _make_pair(arch)
+    _check_logits((jmodel, jparams, model, params))
+    node = params
+    for key in path[:-1]:
+        node = node[key]
+    node[path[-1]] = torch.zeros_like(node[path[-1]])
+    with pytest.raises(AssertionError):
+        _check_logits((jmodel, jparams, model, params))
+
+
+def _widened_stablelm(cfg):
+    """Reduced stablelm-3b at head dim 80, the full config's (d_model 2560
+    over 32 heads): d_model 160 over 2 heads."""
+    return dataclasses.replace(cfg, d_model=160, n_heads=2, n_kv_heads=2, d_head=80)
+
+
+@pytest.fixture(scope="module")
+def head_dim_80_pair():
+    return _make_pair("stablelm_3b",
+                      jcfg=_widened_stablelm(jget_config("stablelm_3b").reduced()),
+                      cfg=_widened_stablelm(get_config("stablelm_3b").reduced()))
+
+
+@pytest.mark.parametrize("b,s,cap", [(1, 7, 12), (2, 12, 16)])
+def test_prefill_matches_at_head_dim_80(head_dim_80_pair, b, s, cap):
+    """Prefill attention at head dim 80 (the flash kernel's plain version on
+    the CPU), last logits and the k/v cache."""
+    assert head_dim_80_pair[2].cfg.head_dim == 80
+    _check_prefill(head_dim_80_pair, b, s, cap)
+
+
+@pytest.mark.parametrize("vector", [False, True])
+def test_decode_step_matches_at_head_dim_80(head_dim_80_pair, vector):
+    _check_decode_step(head_dim_80_pair, vector)
+
+
+# bf16 against f32 with every MoE layer's routing pinned to the f32
+# reference's: the port's max |bf16 - f32| logit error may be at most this
+# multiple of the reference's own. Both run the same function in bf16 but
+# round at other places (the port casts where torch's kernels do, the
+# reference where XLA's do), so their errors have the same size and
+# neither bounds the other; twice the reference's own error leaves room
+# for that without passing a port whose bf16 path lost a cast or a term.
+BF16_ERR_MULTIPLE = 2.0
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_bf16_error_within_reference_own_with_routing_pinned(arch, monkeypatch):
+    """In bf16 an ulp moves a near-tie top-k set, so the MoE archs are
+    compared with routing pinned, as chip_smoke.py pins it: the f32
+    reference (run eagerly, so that each MoE layer's routing is concrete)
+    records its top-k experts per layer; the bf16 reference and the bf16
+    port take those experts with gates from their own router
+    probabilities."""
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe as tmoe
+
+    jcfg = dataclasses.replace(jget_config(arch).reduced(), remat_stack=False)
+    jparams = JModel(jcfg).init(jax.random.key(0))
+    to16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    jcfg16 = dataclasses.replace(jcfg, **to16)
+    jparams16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jparams)
+    cfg16 = dataclasses.replace(get_config(arch).reduced(), **to16)
+    params16 = from_jax(jax.tree.map(np.asarray, jparams16), device="cpu")
+    toks = _tokens(2, 16)
+
+    routes = []
+    jroute = jmoe.route
+
+    def record(cfg, p, x):
+        out = jroute(cfg, p, x)
+        routes.append(np.asarray(out[0]))
+        return out
+
+    def pinned_jax():
+        it = iter(routes)
+
+        def pin(cfg, p, x):
+            idx, (_, _, aux) = jnp.asarray(next(it)), jroute(cfg, p, x)
+            probs = jax.nn.softmax(x.astype(jnp.float32) @ p["router"].astype(jnp.float32), -1)
+            g = jnp.take_along_axis(probs, idx, -1)
+            return idx, (g / jnp.maximum(g.sum(-1, keepdims=True), 1e-9)).astype(x.dtype), aux
+        return pin
+
+    troute = tmoe.route
+
+    def pinned_torch():
+        it = iter(routes)
+
+        def pin(cfg, p, x):
+            idx, (_, _, aux) = torch.tensor(next(it)).long(), troute(cfg, p, x)
+            probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+            g = probs.gather(-1, idx)
+            return idx, (g / g.sum(-1, keepdim=True).clamp_min(1e-9)).to(x.dtype), aux
+        return pin
+
+    with jax.disable_jit():
+        monkeypatch.setattr(jmoe, "route", record)
+        want = np.asarray(JModel(jcfg).logits(jparams, {"tokens": jnp.asarray(toks)}),
+                          np.float32)
+        monkeypatch.setattr(jmoe, "route", pinned_jax())
+        ref16 = np.asarray(JModel(jcfg16).logits(
+            jparams16, {"tokens": jnp.asarray(toks)}).astype(jnp.float32))
+    monkeypatch.setattr(tmoe, "route", pinned_torch())
+    got = Model(cfg16, device="cpu").logits(params16, {"tokens": torch.from_numpy(toks)})
+    n_moe = sum(jcfg.mlp_kind(i) == "moe" for i in range(jcfg.n_layers))
+    assert len(routes) == n_moe > 0
+    assert got.dtype == torch.bfloat16
+    err_port = float(np.abs(got.float().numpy() - want).max())
+    err_ref = float(np.abs(ref16 - want).max())
+    assert 0 < err_ref and np.isfinite(err_port)
+    assert err_port <= BF16_ERR_MULTIPLE * err_ref, (err_port, err_ref)
+
+
 def test_moe_prefill_with_drops_matches_reference():
     """Reduced qwen3-moe at capacity factor 0.25 (most assignments dropped,
     slot (0, 0) emptied as the reference empties it)."""
@@ -287,11 +482,12 @@ def test_config_fields_match_reference(reduced):
     assert mine.torch_compute_dtype() == getattr(torch, ref.compute_dtype)
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + DENSE_ARCHS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_match_reference_new_archs(arch, reduced):
-    """Fields, pattern and parameter counts (total and active) of the MoE
-    and hybrid configs; the aliases resolve to the same config."""
+    """Fields, pattern and parameter counts (total and active) of the MoE,
+    hybrid and later dense configs; the aliases resolve to the same
+    config."""
     mine, ref = get_config(arch), jget_config(arch)
     assert get_config(ref.name) == mine
     if reduced:

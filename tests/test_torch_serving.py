@@ -1,6 +1,9 @@
 """The port's serving stack held against the reference's on reduced yi-6b
-(and, as parametrised cases, reduced qwen3-moe, jamba and llama4) with
-converted weights: greedy tokens and slot accounting."""
+(and, as parametrised cases, reduced qwen3-moe, jamba, llama4, nemotron-4-15b,
+qwen2.5-14b and stablelm-3b) with converted weights: greedy tokens and slot
+accounting."""
+import functools
+
 import numpy as np
 import jax
 import pytest
@@ -16,6 +19,7 @@ from repro_torch.launch.engine import (Request, greedy_decode_reference,
 from repro_torch.launch.serve import group_into_waves, serve
 from repro_torch.models.model import Model
 from repro_torch.weights import from_jax
+from test_torch_models import DENSE_ARCHS, nonzero_norms_and_biases
 
 # (prompt_len, max_new): mixed lengths and budgets, as in test_serving.py
 SPEC = [(4, 3), (8, 6), (4, 5), (8, 2), (12, 4), (4, 6), (12, 7)]
@@ -25,6 +29,8 @@ CAP = max(p + m for p, m in SPEC) + 2
 def _make_setup(arch):
     jmodel = JModel(jget_config(arch).reduced())
     jparams = jmodel.init(jax.random.key(0))
+    if arch in DENSE_ARCHS:
+        jparams = nonzero_norms_and_biases(jparams)
     model = Model(get_config(arch).reduced(), device="cpu")
     params = from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     rng = np.random.default_rng(7)
@@ -44,6 +50,13 @@ def setup():
                         "llama4_maverick_400b_a17b"])
 def arch_setup(request):
     return _make_setup(request.param)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_setup(arch):
+    """One setup per dense arch, shared by its scheduler cases (a module
+    fixture would be set up again for a case parametrised apart)."""
+    return _make_setup(arch)
 
 
 def _requests(cls, prompts):
@@ -69,6 +82,22 @@ def test_scheduler_matches_reference_greedy_new_archs(arch_setup, scheduler, slo
 
 def test_port_greedy_reference_matches_new_archs(arch_setup):
     _, _, model, params, prompts, want = arch_setup
+    for i, (pr, (_, m)) in enumerate(zip(prompts, SPEC)):
+        assert greedy_decode_reference(model, params, pr, m, CAP) == want[i]
+
+
+@pytest.mark.parametrize("arch,scheduler", [(a, "continuous") for a in DENSE_ARCHS]
+                         + [("qwen25_14b", "wave")])
+def test_scheduler_matches_reference_greedy_dense_archs(arch, scheduler):
+    """Layernorm, squared ReLU and QKV bias (redrawn nonzero) through the
+    continuous engine, where the biases enter every decode step's k/v; the
+    wave scheduler (lockstep positions) for the arch with QKV bias only."""
+    _check_scheduler(_dense_setup(arch), scheduler, 3)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_port_greedy_reference_matches_dense_archs(arch):
+    _, _, model, params, prompts, want = _dense_setup(arch)
     for i, (pr, (_, m)) in enumerate(zip(prompts, SPEC)):
         assert greedy_decode_reference(model, params, pr, m, CAP) == want[i]
 
