@@ -48,6 +48,19 @@ Phases, in order; any failure exits non-zero before the last line:
              generator: 8 requests of mixed prompt lengths through the
              continuous engine; every request gets its tokens and the flash
              kernel launches once per layer per prefill.
+   schedule-store — the same model, weights and requests with the block
+             picks served from the schedule store: cold, an empty DB takes
+             one record per distinct signature (flash at every prompt
+             length, matmul at every yi-6b shape), each the pick the
+             earlier phases made with no store; a snapshot built by
+             ``python -m repro_torch.tuna snapshot`` in a subprocess, its
+             sha1 checked, installed with the DB off; the 8 requests served
+             again with the cost model counted, the flash blocks per S
+             recorded and the snapshot republished (one more record) by the
+             refresh hook after the first admission: zero evaluations, the
+             cold blocks, 32 flash launches per prefill, the earlier
+             serve's tokens, at least one hot reload, the new record
+             served.
 7. parity  — the last logits of one prefill through the kernel and through
              the plain version agree within a stated bf16 tolerance; then
              yi-6b's weights are freed.
@@ -65,11 +78,12 @@ Phases, in order; any failure exits non-zero before the last line:
              profiled second run split into MoE routing and ranks,
              gather/scatter, expert products, attention, mamba and the rest,
              with the share of MoE assignments dropped per prefill and
-             whether slot (0, 0) was emptied; the parity of phase 7 with the
-             kernel run's MoE routing pinned in the plain run. Both also
-             serve the same 8 requests a second time and log how many tokens
-             differ (the bf16 index_add_ combine's run-to-run determinism; a
-             measurement, not a gate).
+             whether slot (0, 0) was emptied, and the device time of the
+             MoE gather/scatter span (dispatch gather and combine); the
+             parity of phase 7 with the kernel run's MoE routing pinned in
+             the plain run. Both also serve the same 8 requests a second
+             time and fail unless every token equals the first serve's (the
+             MoE combine sums in a fixed order, with no atomics).
 10. dense-serve — nemotron-4-15b (32 layers), qwen2.5-14b (48) and
              stablelm-3b (32), uncut, one after another, each freed before
              the next: the same 8 requests, every request gets its tokens,
@@ -87,7 +101,9 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -687,6 +703,9 @@ def main() -> None:
 
     _profile_serve(model, params, requests(), cap, serve, stats["wall_s"])
 
+    # -------------------------------------------------------- schedule-store
+    check_schedule_store(cfg, model, params, reqs, cap)
+
     # --------------------------------------------------------------- parity
     prompt = torch.tensor([[int(t) for t in rng.integers(0, cfg.vocab, 513)]],
                           dtype=torch.int32, device=dev)
@@ -773,6 +792,163 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def check_schedule_store(cfg, model, params, served, cap) -> None:
+    """The yi-6b serve with its block picks served from the schedule store
+    (the ``schedule-store`` phase): cold search into an empty DB, a snapshot
+    built by the CLI in a subprocess, then the same requests served warm
+    through the snapshot, republished by the refresh hook mid-serve. Fails
+    on any gate; logs one ``schedule-store`` line. The store lives under
+    ``build/schedule_store`` and the defaults are off again at the end."""
+    import torch
+    from repro_torch.benchmarks.topk_ratio import YI6B_SHAPES
+    from repro_torch.core import cost_model, op_registry, tuner
+    from repro_torch.core.spaces import MatmulSpace
+    from repro_torch.hw.gpu_h100 import GPU_H100
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import Request
+    from repro_torch.launch.serve import serve
+    from repro_torch.tuna.cache import ScheduleCache, SnapshotManager, read_snapshot_header
+    from repro_torch.tuna.db import ScheduleDatabase, ScheduleRecord
+
+    d = cfg.head_dim
+    shapes = tuple(YI6B_SHAPES)
+    # the picks the earlier phases made with no store (memoised there)
+    plain_flash = {s: ops.tuned_flash_blocks(s, d, 2) for s in PROMPT_LENS}
+    plain_mm = {m: ops.tuned_matmul_blocks(*m, 2) for m in shapes}
+    flash_sig = {s: op_registry.make_space("flash", {"s": s, "d": d, "dtype_bytes": 2},
+                                           GPU_H100.kind).signature() for s in PROMPT_LENS}
+    mm_sig = {m: MatmulSpace(*m, 2, target_kind=GPU_H100.kind).signature() for m in shapes}
+    # the record the republish adds: a shape the serve never uses, ranked
+    # here, before the evaluations are counted
+    space = MatmulSpace(4096, 4096, 4096, 2, target_kind=GPU_H100.kind)
+    best, score = tuner.best_schedule(space, GPU_H100, db=False)
+    extra = ScheduleRecord(op=space.signature(), target=GPU_H100.name, config=best,
+                           score=score, evaluations=space.size(),
+                           meta={"strategy": "exhaustive"})
+
+    store = ROOT / "build" / "schedule_store"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    db_path, snaps = str(store / "db.jsonl"), store / "snaps"
+
+    # cold: an empty DB, the memos cleared; every pick searches and writes back
+    ops.use_schedule_db(db_path)
+    t0 = time.perf_counter()
+    cold_flash = {s: ops.tuned_flash_blocks(s, d, 2) for s in PROMPT_LENS}
+    cold_mm = {m: ops.tuned_matmul_blocks(*m, 2) for m in shapes}
+    cold_s = time.perf_counter() - t0
+    db = ScheduleDatabase(db_path)
+    sigs = set(flash_sig.values()) | set(mm_sig.values())
+    if len(db) != len(sigs) or db.lines_read != len(sigs) or \
+            {r.op for r in db.records()} != sigs:
+        fail(f"schedule-store: the cold DB holds {len(db)} keys in {db.lines_read} "
+             f"lines for {len(sigs)} distinct signatures")
+    for s in PROMPT_LENS:
+        rec = db.best(flash_sig[s], GPU_H100.name)
+        got = (rec.config["block_q"], rec.config["block_k"])
+        if got != plain_flash[s] or cold_flash[s] != plain_flash[s]:
+            fail(f"schedule-store: flash record at S={s} {rec.config} is not the "
+                 f"store-less pick {plain_flash[s]}")
+    for m in shapes:
+        rec = db.best(mm_sig[m], GPU_H100.name)
+        got = tuple(rec.config[x] for x in ("bm", "bn", "bk", "double_buffer"))
+        if got != plain_mm[m] or cold_mm[m] != plain_mm[m]:
+            fail(f"schedule-store: matmul record at {m} {got} is not the store-less "
+                 f"pick {plain_mm[m]}")
+
+    # snapshot: the CLI in its own process, the sha1 checked, the DB off
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.tuna", "snapshot", "--db",
+                          db_path, "--dir", str(snaps)], env=env, capture_output=True,
+                         text=True, timeout=300)
+    snap_s = time.perf_counter() - t0
+    if res.returncode:
+        fail(f"schedule-store: python -m repro_torch.tuna snapshot exited "
+             f"{res.returncode}: {res.stderr[-2000:]}")
+    latest = str(snaps / "schedule_cache.latest.json")
+    want_sha = ScheduleCache.from_db(ScheduleDatabase(db_path)).payload_sha1()
+    if read_snapshot_header(latest)["sha1"] != want_sha:
+        fail("schedule-store: the snapshot's sha1 is not the DB's payload digest")
+    ops.use_schedule_db(None)
+    ops.use_schedule_cache(latest)
+    first = tuner.get_default_cache()
+    if first.sha1 != want_sha or len(first) != len(sigs):
+        fail(f"schedule-store: the installed snapshot holds {len(first)} records, "
+             f"sha1 {first.sha1}")
+
+    # warm: the cost model counted, the flash blocks recorded, the snapshot
+    # republished by the refresh hook after the first admission
+    evals, seen, republished = [0], {}, []
+    evaluate, flash = cost_model.evaluate, ops.flash_attention
+
+    def counting(*a, **kw):
+        evals[0] += 1
+        return evaluate(*a, **kw)
+
+    def recording(q, k, v, **kw):
+        seen.setdefault(q.shape[2], set()).add((kw["block_q"], kw["block_k"]))
+        return flash(q, k, v, **kw)
+
+    def refresh():
+        if not republished:
+            ScheduleDatabase(db_path).add(extra)
+            republished.append(SnapshotManager(db_path, str(snaps)).ensure())
+        return ops.refresh_schedule_cache()
+
+    cost_model.evaluate, ops.flash_attention = counting, recording
+    try:
+        t0 = time.perf_counter()
+        warm_flash = {s: ops.tuned_flash_blocks(s, d, 2) for s in PROMPT_LENS}
+        warm_mm = {m: ops.tuned_matmul_blocks(*m, 2) for m in shapes}
+        warm_s = time.perf_counter() - t0
+        ops.use_schedule_cache(latest)  # the same instance; the memos cleared
+        again = [Request(r.rid, list(r.prompt), MAX_NEW) for r in served]
+        ops.reset_launch_counts()
+        stats = serve(model, params, again, slots=SLOTS, cap=cap, refresh=refresh,
+                      scheduler="continuous")
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        served_extra = tuner.lookup_best(extra.op, GPU_H100.name)
+    finally:
+        cost_model.evaluate, ops.flash_attention = evaluate, flash
+    swapped = tuner.get_default_cache()
+    hits, misses = first.hits + swapped.hits, first.misses + swapped.misses
+    ops.use_schedule_cache(None)  # the later phases pick with no store
+
+    differ = sum(a != b for r, r2 in zip(served, again) for a, b in zip(r.out, r2.out))
+    summary = {
+        "records": len(sigs), "flash_records": len(set(flash_sig.values())),
+        "matmul_records": len(shapes), "snapshot_sha1": want_sha,
+        "evaluations_warm": evals[0], "cache_reloads": stats["cache_reloads"],
+        "republished_records": republished[0].count if republished else None,
+        "hits": hits, "misses": misses, "tokens_differ": differ,
+        "tokens": sum(len(r.out) for r in again),
+        "flash_launches": launches["flash_attention"], "prefills": stats["prefills"],
+        "cold_search_s": cold_s, "warm_lookup_s": warm_s, "snapshot_cli_s": snap_s,
+        "serve_wall_s": stats["wall_s"], "card": nvidia_smi("name,power.limit"),
+    }
+    log("schedule-store " + json.dumps(summary))
+    if evals[0]:
+        fail(f"schedule-store: {evals[0]} cost-model evaluations with a warm snapshot")
+    if warm_flash != cold_flash or warm_mm != cold_mm:
+        fail("schedule-store: the warm picks are not the cold ones")
+    if any(seen.get(s) != {cold_flash[s]} for s in PROMPT_LENS):
+        fail(f"schedule-store: flash blocks per S {seen} are not the cold picks {cold_flash}")
+    if stats["prefills"] != len(PROMPT_LENS) or \
+            launches["flash_attention"] != stats["prefills"] * cfg.n_layers:
+        fail(f"schedule-store: {launches['flash_attention']} flash launches for "
+             f"{stats['prefills']} prefills x {cfg.n_layers} layers")
+    if differ or any(len(r.out) != MAX_NEW for r in again):
+        fail(f"schedule-store: {differ} tokens differ from the serve with no store")
+    if stats["cache_reloads"] < 1 or swapped is first:
+        fail(f"schedule-store: {stats['cache_reloads']} hot reloads after the republish")
+    if served_extra != extra or misses:
+        fail(f"schedule-store: the republished record is served as {served_extra}; "
+             f"{misses} snapshot misses")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -790,10 +966,10 @@ SPANS = {"moe.route": "MoE routing and ranks", "moe.gather_scatter": "MoE gather
          "mamba": "mamba mixer"}
 
 
-def _profile_serve(model, params, reqs, cap, serve, wall_unprofiled: float) -> None:
+def _profile_serve(model, params, reqs, cap, serve, wall_unprofiled: float) -> dict:
     """Device time by kernel over a second, profiled run of the same serve,
     and by the port's profiler ranges (``SPANS``), each the device time of
-    the kernels launched inside it."""
+    the kernels launched inside it. Returns the ranges' device ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -836,6 +1012,7 @@ def _profile_serve(model, params, reqs, cap, serve, wall_unprofiled: float) -> N
     for key, ms in sorted(spans.items(), key=lambda kv: -kv[1]) + [("rest", rest)]:
         log(f"profile split {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  "
             f"{SPANS.get(key, 'the rest (norms, MLPs, embed, unembed, cache copies)')}")
+    return spans
 
 
 @contextlib.contextmanager
@@ -1072,9 +1249,9 @@ def serve_arch(arch: str, n_layers: int) -> int:
              f"attention layers {stats['prefills'] * n_attn}")
 
     if n_moe:
-        # run-to-run determinism: apply_moe adds the expert outputs back with
-        # a bf16 index_add_, atomic on the card and in no fixed order. A
-        # measurement, not a gate: greedy decode carries a first difference on.
+        # run-to-run determinism: the combine gathers each token's k slot
+        # outputs and sums them in f32 in top-k order, with no atomics, so
+        # the same requests must give the same tokens
         again = [Request(r.rid, list(r.prompt), MAX_NEW) for r in reqs]
         serve(model, params, again, slots=SLOTS, cap=cap, scheduler="continuous")
         differ = [sum(a != b for a, b in zip(r.out, r2.out)) for r, r2 in zip(reqs, again)]
@@ -1083,12 +1260,17 @@ def serve_arch(arch: str, n_layers: int) -> int:
         log(f"determinism {arch}: the same {len(reqs)} requests served again: "
             f"{sum(differ)} of {sum(len(r.out) for r in reqs)} tokens differ (per "
             f"request {differ}; first differing position {first})")
+        if sum(differ):
+            fail(f"{arch}: a second serve of the same requests gave other tokens")
         # profiled second run, with every MoE dispatch plan recorded on the card
         plans = []
         with recorded(moe_mod, "dispatch_plan", lambda args, out: plans.append(
                 (args[0].shape[0], args[0].shape[1], args[2], (~out[2]).sum(),
                  out[2].numel(), out[3].sum()))):
-            _profile_serve(model, params, requests(), cap, serve, stats["wall_s"])
+            spans = _profile_serve(model, params, requests(), cap, serve, stats["wall_s"])
+        log(f"combine {arch}: moe.gather_scatter span (the dispatch gather and the "
+            f"f32 gather-and-reduce combine) {spans.get('moe.gather_scatter', 0.0):.3f} ms "
+            f"of device time over the profiled serve ({nvidia_smi('name,power.limit')})")
         log_moe_plans(arch, plans, n_moe)
     else:
         _profile_serve(model, params, requests(), cap, serve, stats["wall_s"])

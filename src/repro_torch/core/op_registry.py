@@ -10,9 +10,10 @@ double-buffer choices per target kind), a TIR builder template, optional
 kernel-bundle reconstruction, learned-ranker knob features, and named tuning
 presets.  In the reference the presets, the learned ranker's feature
 columns, the kernel-bundle hook and the block-spec pickers all derive from
-the registry; the port so far reads it from ``core/spaces.py`` and
-``core/tuner.py``, and keeps the rest of the schema so that signatures and
-records stay interchangeable with the reference's.
+the registry; the port reads it from ``core/spaces.py``, ``core/zoo.py``,
+``core/tuner.py`` and the flash block picker, and keeps the rest of the
+schema so that signatures and records stay interchangeable with the
+reference's.
 
 The canonical signature grammar is ``family[k1=v1,k2=v2,...]`` with keys
 sorted lexicographically; values may be int, bool (``True``/``False``) or a
@@ -328,14 +329,15 @@ def register(opdef: OpDef) -> OpDef:
 def _ensure_definitions() -> None:
     """Import the modules that register op families, exactly once.
 
-    ``core.spaces`` registers the four legacy families (their knob features
-    pin the historical learned-ranker column prefix). The reference's
-    model-zoo families (``repro.core.zoo``) are not ported yet."""
+    ``core.spaces`` registers the four legacy families first (their knob
+    features pin the historical learned-ranker column prefix), then
+    ``core.zoo`` adds the ``flash`` and ``flash_gqa`` families."""
     global _DEFINITIONS_LOADED
     if _DEFINITIONS_LOADED:
         return
     _DEFINITIONS_LOADED = True
     import repro_torch.core.spaces  # noqa: F401  (registers legacy ops)
+    import repro_torch.core.zoo  # noqa: F401  (registers the flash families)
 
 
 def families() -> Tuple[str, ...]:

@@ -23,7 +23,7 @@ shims over those defs:
     over (kh, kw, ic); CPU + TPU (im2col-style MXU mapping).
   * ``DepthwiseConv2dSpace`` — per-channel conv (VPU-only on TPU).
 
-The reference's model-zoo families (``repro.core.zoo``) are not ported yet.
+The attention families of the reference's model zoo are in ``core.zoo``.
 Signatures of the four legacy families are byte-identical to the
 pre-registry format.
 """

@@ -15,3 +15,16 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+# the targets the port's tuner and schedule store know, by record name
+TARGET_NAMES = ("gpu_h100",)
+
+
+def get_target(name: str):
+    """The port's ``HardwareTarget`` named ``name`` (a record's ``target``)."""
+    from repro_torch.hw.gpu_h100 import GPU_H100
+
+    if name != GPU_H100.name:
+        raise KeyError(f"unknown target {name!r}; have {list(TARGET_NAMES)}")
+    return GPU_H100

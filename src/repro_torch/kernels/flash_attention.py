@@ -24,29 +24,24 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.zoo import (SM90_FLASH_BLOCKS, sm90_flash_smem_bytes,
+                                  sm90_padded_head_dim)
 from repro_torch.kernels import build
 
 _NEG_INF = -1e30
 HEAD_DIMS = (64, 80, 128)  # head dims the kernel is built for
-BLOCKS = (64, 128)  # block_q / block_k values the kernel is built for
+# block_q / block_k values the kernel is built for (the knobs of the
+# ``flash`` family's ``sm90`` space)
+BLOCKS = SM90_FLASH_BLOCKS
 
 # kernel launches in this process (the main-path witness); reset via
 # ``ops.reset_launch_counts``
 LAUNCHES = 0
 
-
-def padded_head_dim(d: int) -> int:
-    """The width the kernel stages a head dim at: whole 64-column swizzle
-    atoms (80 -> 128; the columns past ``d`` are TMA's zero fill)."""
-    return -(-d // 64) * 64
-
-
-def smem_bytes(block_q: int, block_k: int, d: int) -> int:
-    """Dynamic shared memory of the kernel at these blocks, as its ``Cfg``
-    computes it: the Q tile, two stages of K and V tiles (bf16, at the
-    padded head dim), 128 bytes of barriers and 1024 bytes of slack to align
-    the tiles to the 1024-byte swizzle period."""
-    return 2 * padded_head_dim(d) * (block_q + 2 * 2 * block_k) + 128 + 1024
+# the width the kernel stages a head dim at, and its dynamic shared memory
+# at given blocks (the block picker's pruning): one definition, in core
+padded_head_dim = sm90_padded_head_dim
+smem_bytes = sm90_flash_smem_bytes
 
 
 def _check_shapes(q, k, v) -> None:

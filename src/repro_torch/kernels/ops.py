@@ -8,9 +8,11 @@ Block sizes are static, device-free choices made once per shape and
 memoised: ``matmul``'s come from the Tuna tuner
 (``core.tuner.tuned_matmul_blocks``: the cost model ranks the Hopper matmul
 space on the ``gpu_h100`` target), ``attention``'s from
-``tuned_flash_blocks`` below. The schedule-DB, snapshot and kernel-bundle
-tiers of the reference pickers arrive with the port of the schedule
-database.
+``tuned_flash_blocks`` below. Both pickers consult the serving snapshot
+(``use_schedule_cache(path)`` or ``$REPRO_TUNA_CACHE``) and then the warm
+schedule DB (``use_schedule_db(path)`` or ``$REPRO_TUNA_DB``) first: on a
+warm store a pick is a dict lookup, not a search. The reference's
+kernel-bundle tier waits for ROADMAP Queue A 4.
 """
 from __future__ import annotations
 
@@ -19,12 +21,32 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import op_registry, tuner
 from repro_torch.core.tuner import tuned_matmul_blocks
 from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.kernels import flash_attention as _flash_mod
 from repro_torch.kernels import matmul as _matmul_mod
-from repro_torch.kernels.flash_attention import (BLOCKS, flash_attention,
+from repro_torch.kernels.flash_attention import (flash_attention,
                                                 padded_head_dim, smem_bytes)
+
+
+def use_schedule_db(path) -> None:
+    """Point the block pickers at a warm schedule database (``None``: off)."""
+    tuner.set_default_db(path)  # clears all registered block-pick memos
+
+
+def use_schedule_cache(path) -> None:
+    """Serve block picks from an immutable snapshot (``python -m
+    repro_torch.tuna snapshot``), consulted before the DB, O(1) and
+    lock-free (``None``: off)."""
+    tuner.set_default_cache(path)  # clears all registered block-pick memos
+
+
+def refresh_schedule_cache() -> bool:
+    """Hot-swap the installed snapshot if it was republished (revalidated
+    by the snapshot's content digest, not file stat). Clears the
+    block-pick memos on a swap; True iff swapped."""
+    return tuner.refresh_default_cache()
 
 
 def launch_counts() -> Dict[str, int]:
@@ -59,32 +81,57 @@ def matmul(
 @functools.lru_cache(maxsize=256)
 def tuned_flash_blocks(s: int, d: int, dtype_bytes: int = 2) -> Tuple[int, int]:
     """Static block_q/block_k choice for flash attention over the block
-    sizes the CUDA kernel is built for.
+    sizes the CUDA kernel is built for (the ``flash`` family's ``sm90``
+    space, whose signature keys the stored record by S, the real head dim
+    and the dtype width).
 
-    The score is the reference pick's (``repro/kernels/ops.py``): per KV step
-    a fixed matrix-unit cost plus the staged q/k/v bytes over the memory
-    rate, times the number of (q-tile, kv-tile) steps, with ragged tiles
-    counted whole, and the head dim at the width the kernel stages it
+    A stored record (snapshot, then DB) is returned as it is. On a miss
+    the score is the reference pick's (``repro/kernels/ops.py``): per KV
+    step a fixed matrix-unit cost plus the staged q/k/v bytes over the
+    memory rate, times the number of (q-tile, kv-tile) steps, with ragged
+    tiles counted whole, and the head dim at the width the kernel stages it
     (``padded_head_dim``). Candidates whose shared memory (``smem_bytes``:
     the q tile and two stages of k and v tiles; the softmax statistics and
     the accumulator stay in registers) exceeds what one H100 block may use
-    are pruned."""
+    are pruned. The pick is written back to a writable default DB under
+    strategy ``flash_grid``."""
     target = GPU_H100
-    d = padded_head_dim(d)
-    best, best_score = None, float("inf")
-    for bq in BLOCKS:
-        for bk in BLOCKS:
-            if smem_bytes(bq, bk, d) > target.fast_mem_bytes:
-                continue
-            tiles = (bq // 128 or 1) * (bk // 128 or 1) * max(1, d // 128)
-            dma = (bq * d + 2 * bk * d) * dtype_bytes
-            t = 2 * tiles * 20 / target.clock_hz + dma / target.hbm_bandwidth
-            score = t * (-(-s // bq)) * (-(-s // bk))
-            if score < best_score:
-                best, best_score = (bq, bk), score
+    space = op_registry.make_space(
+        "flash", {"s": s, "d": d, "dtype_bytes": dtype_bytes}, target.kind)
+    sig = space.signature()
+    rec = tuner.lookup_best(sig, target.name)  # snapshot cache, then DB
+    if rec is not None:
+        return rec.config["block_q"], rec.config["block_k"]
+    dp = padded_head_dim(d)
+    best, best_score, evals = None, float("inf"), 0
+    for cfg in space.enumerate(None):
+        bq, bk = cfg["block_q"], cfg["block_k"]
+        evals += 1
+        if smem_bytes(bq, bk, dp) > target.fast_mem_bytes:
+            continue
+        tiles = (bq // 128 or 1) * (bk // 128 or 1) * max(1, dp // 128)
+        dma = (bq * dp + 2 * bk * dp) * dtype_bytes
+        t = 2 * tiles * 20 / target.clock_hz + dma / target.hbm_bandwidth
+        score = t * (-(-s // bq)) * (-(-s // bk))
+        if score < best_score:
+            best, best_score = (bq, bk), score
     if best is None:
         raise ValueError(f"no flash block fits shared memory at d={d}")
+    db = tuner.get_default_db()
+    if tuner._writable(db):
+        from repro_torch.tuna.db import ScheduleRecord
+
+        db.add(ScheduleRecord(
+            op=sig, target=target.name,
+            config={"block_q": best[0], "block_k": best[1]},
+            score=best_score, evaluations=evals,
+            meta={"strategy": "flash_grid"}))
     return best
+
+
+# installing a store must invalidate this memo too (it lives here, not in
+# core.tuner, which does not import the kernels)
+tuner.register_memo_clearer(tuned_flash_blocks.cache_clear)
 
 
 def attention(

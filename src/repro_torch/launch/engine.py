@@ -11,6 +11,11 @@ decoding (the batch shape is fixed) but are masked out of every report:
 
 Per-request measurement: TTFT (submit -> first token) and end-to-end
 latency, aggregated to p50/p95/p99 by ``latency_summary``.
+
+``refresh`` (nullary, True on change) is the schedule-snapshot hot-reload
+hook, polled at admission boundaries after the first admission (the
+snapshot in force at the first batch was just installed);
+``cache_reloads`` counts the swaps it reports.
 """
 from __future__ import annotations
 
@@ -115,11 +120,12 @@ class ContinuousEngine:
         deadline, then the slot frees on the same engine step.
     """
 
-    def __init__(self, model, params, slots: int, cap: int):
+    def __init__(self, model, params, slots: int, cap: int, refresh=None):
         self.model = model
         self.params = params
         self.slots = slots
         self.cap = cap
+        self.refresh = refresh
         self.cache = model.init_cache(slots, cap)
         self.pos = np.zeros(slots, np.int32)   # next write index per slot
         self.tok = np.zeros(slots, np.int32)   # last emitted token per slot
@@ -129,7 +135,9 @@ class ContinuousEngine:
         self.slot_steps = 0          # slot-steps doing live work
         self.wasted_slot_steps = 0   # slot-steps on free slots
         self.prefills = 0
+        self.cache_reloads = 0
         self.deadline_truncations = 0
+        self._admitted = 0
 
     # ---------------------------------------------------------------- admit
     def _insert(self, one, slot_i: int) -> None:
@@ -155,6 +163,7 @@ class ContinuousEngine:
         self.tok[slot_i] = tok0
         req.out.append(tok0)
         req.t_first = time.perf_counter() - self._t0
+        self._admitted += 1
         self._maybe_finish(slot_i)
 
     def _maybe_finish(self, slot_i: int) -> None:
@@ -183,7 +192,12 @@ class ContinuousEngine:
         )
         queue.reverse()  # pop() from the tail = earliest deadline
         while queue or any(not s.free for s in self._slots):
-            # refill every free slot
+            # refill every free slot; the snapshot poll rides the admission
+            # boundary (not the very first batch)
+            admitting = queue and any(s.free for s in self._slots)
+            if admitting and self.refresh is not None and self._admitted:
+                if self.refresh():
+                    self.cache_reloads += 1
             for i, s in enumerate(self._slots):
                 if s.free and queue:
                     self._admit(i, queue.pop())
@@ -209,5 +223,5 @@ class ContinuousEngine:
                 "slot_steps": self.slot_steps,
                 "wasted_slot_steps": self.wasted_slot_steps,
                 "prefills": self.prefills,
-                "cache_reloads": 0,  # no schedule cache to reload yet
+                "cache_reloads": self.cache_reloads,
                 "deadline_truncations": self.deadline_truncations}

@@ -13,10 +13,15 @@ Both report per-request TTFT / end-to-end latency percentiles and
 On the card:  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b
 On the CPU:   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
     --reduced --device cpu --requests 6 --slots 2 --max-new 16
+
+``--schedule-cache F`` serves the kernel block picks from a snapshot
+(``python -m repro_torch.tuna snapshot``), polled for republishes at
+admission or wave boundaries; ``--schedule-db F`` from a warm DB.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, List
 
@@ -24,6 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import get_config
+from repro_torch.core import tuner
+from repro_torch.kernels import ops
 from repro_torch.launch.engine import ContinuousEngine, Request, request_stats
 from repro_torch.models.model import Model
 
@@ -97,22 +104,30 @@ class ServeEngine:
 
 
 def serve(model: Model, params, requests: List[Request], slots: int,
-          cap: int, scheduler: str = "continuous") -> Dict:
-    """Serve ``requests`` with the chosen scheduler."""
+          cap: int, refresh=None, scheduler: str = "continuous") -> Dict:
+    """Serve ``requests`` with the chosen scheduler.
+
+    ``refresh`` (nullary, returns True on change) is the schedule-snapshot
+    hot-reload hook: a republish lands in a long-running serve process with
+    no restart. The wave scheduler polls it *between* waves (never
+    mid-wave); the continuous engine polls at *admission* boundaries."""
     t0 = time.perf_counter()
     if scheduler == "continuous":
-        engine = ContinuousEngine(model, params, slots, cap)
+        engine = ContinuousEngine(model, params, slots, cap, refresh=refresh)
         engine.run(requests)
         stats = engine.stats()
     elif scheduler == "wave":
         engine = ServeEngine(model, params, slots, cap)
-        for wave in group_into_waves(requests, slots):
+        reloads = 0
+        for i, wave in enumerate(group_into_waves(requests, slots)):
+            if refresh is not None and i and refresh():
+                reloads += 1
             engine.run_wave(wave)
         stats = {"engine_steps": engine.engine_steps,
                  "slot_steps": engine.slot_steps,
                  "wasted_slot_steps": engine.wasted_slot_steps,
                  "prefills": engine.prefills,
-                 "cache_reloads": 0}  # no schedule cache to reload yet
+                 "cache_reloads": reloads}
     else:
         raise ValueError(f"unknown scheduler: {scheduler!r}")
     if model.device.type == "cuda":
@@ -139,7 +154,25 @@ def main(argv=None) -> None:
                          "wave = lockstep fallback for parity comparison")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--schedule-db", default=None,
+                    help="warm schedule DB (JSONL) so the kernel block picks "
+                         "are lookups, not searches")
+    ap.add_argument("--schedule-cache", default=None,
+                    help="immutable schedule snapshot (python -m "
+                         "repro_torch.tuna snapshot), consulted before the "
+                         "DB. Accepts a versioned snapshot or a "
+                         "SnapshotManager `latest` pointer; polled at "
+                         "admission/wave boundaries, so a republish lands "
+                         "without restart")
+    ap.add_argument("--no-schedule-refresh", action="store_true",
+                    help="do not poll the snapshot while serving (pin the "
+                         "instance loaded at startup)")
     args = ap.parse_args(argv)
+
+    if args.schedule_db:
+        ops.use_schedule_db(args.schedule_db)
+    if args.schedule_cache:
+        ops.use_schedule_cache(args.schedule_cache)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -151,8 +184,22 @@ def main(argv=None) -> None:
                     args.max_new)
             for i in range(args.requests)]
     cap = args.prompt_len + args.max_new + 2
+    # --schedule-cache or $REPRO_TUNA_CACHE both install a snapshot; either
+    # way the serve loop polls for republishes (a stale or unbuilt env
+    # snapshot resolves to OFF at startup and heals through the poll)
+    cache_installed = bool(args.schedule_cache
+                           or os.environ.get("REPRO_TUNA_CACHE"))
+    refresh = None
+    if cache_installed and not args.no_schedule_refresh:
+        def refresh():
+            swapped = ops.refresh_schedule_cache()
+            if swapped:
+                print("[serve] schedule snapshot republish observed — "
+                      "hot-reloaded (hit counters reset)")
+            return swapped
+
     stats = serve(model, params, reqs, slots=args.slots, cap=cap,
-                  scheduler=args.scheduler)
+                  refresh=refresh, scheduler=args.scheduler)
     print(f"[serve] {stats['scheduler']}: {stats['tokens']} tokens in "
           f"{stats['wall_s']:.2f}s ({stats['tok_per_s']:.1f} tok/s, "
           f"{stats['engine_steps']} engine steps, "
@@ -162,6 +209,16 @@ def main(argv=None) -> None:
           f"{stats['ttft_s']['p95']:.3f}/{stats['ttft_s']['p99']:.3f}s; "
           f"latency p50/p95/p99 = {stats['latency_s']['p50']:.3f}/"
           f"{stats['latency_s']['p95']:.3f}/{stats['latency_s']['p99']:.3f}s")
+
+    if cache_installed:
+        cache = tuner.get_default_cache()
+        if cache is None:
+            print("[serve] schedule cache: none installed (snapshot "
+                  "missing or stale; republish to hot-load it)")
+        else:
+            print(f"[serve] schedule cache: {cache.hits} hits / "
+                  f"{cache.misses} misses ({len(cache)} records, "
+                  f"{stats['cache_reloads']} hot reloads)")
 
 
 if __name__ == "__main__":

@@ -1,11 +1,14 @@
 """Mixture-of-Experts MLP: top-k routing, capacity-bounded gather dispatch
-and a scatter-add combine (the port of ``repro.models.moe``).
+and a gather-and-reduce combine (the port of ``repro.models.moe``).
 
 Per batch row, each expert receives a capacity-``C`` gather of token vectors
 (no ``[T, E, C]`` one-hot); the expert products are two batched einsums over
-the expert axis (cuBLAS); the combine adds each slot's weighted output back
-to its token. Assignments ranked past the capacity are dropped (Switch
-style), bounded by ``capacity_factor``.
+the expert axis (cuBLAS); the combine gathers each token's k weighted slot
+outputs back and sums them in f32, in the order of the token's top-k, then
+rounds once to the compute dtype. It has no atomics, so it gives the same
+bits on every run, as the reference's XLA scatter-add does. Assignments
+ranked past the capacity are dropped (Switch style), bounded by
+``capacity_factor``.
 
 The reference's expert-parallel pins (``pctx.moe_pin()`` and its sharding
 constraints) place tensors over a device mesh; on one device they do
@@ -84,7 +87,8 @@ def dispatch_plan(idx: torch.Tensor, gates: torch.Tensor, cap: int,
     idx/gates [B, S, k] -> (dispatch_idx [B, E, C] source token of each
     capacity slot (0 if unused), slot_w [B, E, C] its gate (0 if unused),
     keep [B, S*k] which assignments got a slot, emptied [B] whether slot
-    (0, 0) was emptied as the reference empties it)."""
+    (0, 0) was emptied as the reference empties it, slot [B, S*k] each
+    assignment's flat slot ``e * C + min(pos, C - 1)``, valid where kept)."""
     b, s, k = idx.shape
     e = n_experts
     flat_e = idx.reshape(b, s * k)
@@ -113,7 +117,43 @@ def dispatch_plan(idx: torch.Tensor, gates: torch.Tensor, cap: int,
     emptied = last_drop > first0
     dispatch_idx[:, 0, 0] = torch.where(emptied, 0, dispatch_idx[:, 0, 0])
     slot_w[:, 0, 0] = torch.where(emptied, 0, slot_w[:, 0, 0])
-    return dispatch_idx, slot_w, keep, emptied
+    slot = flat_e * cap + pos.clamp_max(cap - 1)
+    return dispatch_idx, slot_w, keep, emptied, slot
+
+
+def expert_outputs(cfg, p: Dict, x: torch.Tensor, dispatch_idx: torch.Tensor,
+                   slot_w: torch.Tensor) -> torch.Tensor:
+    """The gate-weighted expert output of every capacity slot, [B, E, C, D]
+    in the compute dtype; 0 in an unused or emptied slot."""
+    cd = cfg.torch_compute_dtype()
+    with L.span("moe.gather_scatter"):
+        rows = torch.arange(x.shape[0], device=x.device)[:, None, None]
+        xin = x[rows, dispatch_idx]  # [B,E,C,D]
+        xin = xin * (slot_w[..., None] != 0)  # zero out unused slots
+    with L.span("moe.experts"):
+        xc = xin.to(cd)
+        h = torch.einsum("becd,edf->becf", xc, p["w1"].to(cd))
+        g = torch.einsum("becd,edf->becf", xc, p["w3"].to(cd))
+        out = torch.einsum("becf,efd->becd", F.silu(h) * g, p["w2"].to(cd))
+        return out * slot_w[..., None]
+
+
+def combine(out: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+            k: int) -> torch.Tensor:
+    """out [B, E, C, D], slot/keep [B, S*k] -> y [B, S, D] in out's dtype.
+
+    Gathers each assignment's slot output (0 where it was dropped), then
+    sums a token's k contributions in f32 from the first to the last of its
+    top-k and rounds once. A token whose slot the reference emptied gathers
+    the 0 that ``dispatch_plan`` left there."""
+    b, e, c, d = out.shape
+    rows = torch.arange(b, device=out.device)[:, None]
+    picked = out.reshape(b, e * c, d)[rows, slot]  # [B, S*k, D]
+    picked = torch.where(keep[..., None], picked, 0).view(b, -1, k, d)
+    y = picked[:, :, 0].float()
+    for j in range(1, k):
+        y = y + picked[:, :, j].float()
+    return y.to(out.dtype)
 
 
 def apply_moe(cfg, p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -126,27 +166,10 @@ def apply_moe(cfg, p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
 
     idx, gates, aux = route(cfg, p, x)
     with L.span("moe.route"):
-        dispatch_idx, slot_w, _, _ = dispatch_plan(idx, gates, cap, e, cd)
-
-    # ---- gather -> expert compute --------------------------------------
+        dispatch_idx, slot_w, keep, _, slot = dispatch_plan(idx, gates, cap, e, cd)
+    out = expert_outputs(cfg, p, x, dispatch_idx, slot_w)
     with L.span("moe.gather_scatter"):
-        rows = torch.arange(b, device=x.device)[:, None, None]
-        xin = x[rows, dispatch_idx]  # [B,E,C,D]
-        xin = xin * (slot_w[..., None] != 0)  # zero out unused slots
-    with L.span("moe.experts"):
-        xc = xin.to(cd)
-        h = torch.einsum("becd,edf->becf", xc, p["w1"].to(cd))
-        g = torch.einsum("becd,edf->becf", xc, p["w3"].to(cd))
-        out = torch.einsum("becf,efd->becd", F.silu(h) * g, p["w2"].to(cd))
-        out = out * slot_w[..., None]
-
-    # ---- scatter-add combine -------------------------------------------
-    with L.span("moe.gather_scatter"):
-        flat = (torch.arange(b, device=x.device)[:, None, None] * s
-                + dispatch_idx).reshape(-1)
-        y = torch.zeros((b * s, d), dtype=cd, device=x.device)
-        y.index_add_(0, flat, out.reshape(-1, d))
-        y = y.view(b, s, d)
+        y = combine(out, slot, keep, k)
 
     if moe.shared_expert:
         with L.span("moe.experts"):

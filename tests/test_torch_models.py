@@ -430,8 +430,9 @@ def test_long_prompt_takes_chunked_path(pair, monkeypatch):
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Importing every module of the port, then registering its op families
-    and running the static matmul pick, loads no jax and no ``repro`` module
+    """Importing every module of the port (the schedule store and the
+    flash families included), then registering its op families and running
+    the static matmul and flash picks, loads no jax and no ``repro`` module
     (a subprocess: this test process has jax loaded already)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -445,6 +446,12 @@ def test_port_imports_no_jax_and_no_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "assert len(mods) >= 15, mods\n"
+        "want = {'repro_torch.core.zoo', 'repro_torch.configs.tuna_ops'} | "
+        "{'repro_torch.tuna.' + m for m in ('db', 'cache', 'transport', "
+        "'orchestrator', 'fleet', 'cli', '__main__')}\n"
+        "assert want <= set(mods), sorted(want - set(mods))\n"
+        "from repro_torch.kernels import ops\n"
+        "ops.tuned_flash_blocks(77, 80)  # the flash family's signature\n"
         "print(len(mods)); assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(SRC))

@@ -140,12 +140,19 @@ def test_dispatch_plan_matches_reference_scatter(case):
     else:
         idx = np.asarray([rows[case]])
     gates = rng.uniform(0.1, 1.0, idx.shape).astype(np.float32)
-    d_idx, w, keep, emptied = moe.dispatch_plan(
+    d_idx, w, keep, emptied, slot = moe.dispatch_plan(
         torch.from_numpy(idx), torch.from_numpy(gates), cap, e, torch.float32)
     want_idx, want_w, want_keep = _reference_plan(idx, gates, cap, e)
     np.testing.assert_array_equal(keep.numpy(), want_keep)
     np.testing.assert_array_equal(d_idx.numpy(), want_idx)
     np.testing.assert_array_equal(w.numpy(), want_w)
+    # every kept assignment's slot holds its token (but an emptied (0, 0))
+    tokens = np.broadcast_to(np.repeat(np.arange(idx.shape[1]), idx.shape[2]),
+                             keep.shape)
+    held = np.take_along_axis(d_idx.reshape(len(idx), -1).numpy(), slot.numpy(), 1)
+    owner = keep.numpy() & (w.reshape(len(idx), -1).numpy()[
+        np.arange(len(idx))[:, None], slot.numpy()] != 0)
+    np.testing.assert_array_equal(held[owner], tokens[owner])
     first0 = {"drop-after-expert-0": True, "drops-before-expert-0": False,
               "no-expert-0": False, "no-drop": False}
     if case in first0:
@@ -169,7 +176,7 @@ def test_apply_moe_matches_reference(cf):
     s, k, e = 16, cfg.moe.top_k, cfg.moe.n_experts
     cap = max(1, int(s * k * cfg.moe.capacity_factor / e))
     idx, gates, _ = moe.route(cfg, p, torch.from_numpy(x))
-    _, _, keep, emptied = moe.dispatch_plan(idx, gates, cap, e, torch.float32)
+    _, _, keep, emptied, _ = moe.dispatch_plan(idx, gates, cap, e, torch.float32)
     jidx, _, _ = jmoe.route(jcfg, jp, jnp.asarray(x))
     np.testing.assert_array_equal(keep.numpy(), _bruteforce_keep(np.asarray(jidx), cap))
     if cf == 8.0:
@@ -288,3 +295,135 @@ def test_slot_00_defect_of_the_reference_is_reproduced():
     assert sum(seen.values()) - sum(min(n, cap) for n in seen.values()) == 16
     wrong = np.abs(np.asarray(jy)[0] - loop).max(-1) > 1e-3
     assert list(np.flatnonzero(wrong)) == [int(np.argmax((idx == 0).any(-1)))]
+
+
+# --------------------------------------------------------------------------
+# the combine: a gather and an f32 sum in a fixed order
+# --------------------------------------------------------------------------
+
+
+def _loop_combine(cfg, p, x, idx, gates, cap):
+    """The MoE output of x [B, S, D] as a per-token loop over the kept
+    assignments in f64, with the reference's slot-(0, 0) overwrite: the
+    first assignment of a row to expert 0 is lost when a drop follows it."""
+    w = {n: p[n].double().numpy() for n in ("w1", "w2", "w3")}
+    b, s, k = idx.shape
+    y = np.zeros((b, s, cfg.d_model))
+    for r in range(b):
+        flat = idx[r].reshape(-1)
+        keep = _bruteforce_keep(idx[r:r + 1], cap)[0]
+        first0 = next((j for j, e in enumerate(flat) if e == 0), None)
+        if first0 is not None and (~keep[first0 + 1:]).any():
+            keep[first0] = False
+        for j in np.flatnonzero(keep):
+            t, e = j // k, flat[j]
+            xt = x[r, t].astype(np.float64)
+            h, g = xt @ w["w1"][e], xt @ w["w3"][e]
+            y[r, t] += gates[r, t, j % k] * ((h / (1 + np.exp(-h)) * g) @ w["w2"][e])
+    return y
+
+
+@pytest.mark.parametrize("cf,seed", [(8.0, 0), (2.0, 1), (0.5, 0), (0.5, 2), (0.25, 3)])
+def test_combine_equals_a_loop_over_kept_assignments(cf, seed):
+    """f32 apply_moe against the per-token loop: no drops, the reduced
+    default and heavy drops, where slot (0, 0) is emptied and the token
+    that owned it gets nothing from expert 0, as in the reference."""
+    cfg, jcfg = _cfgs("qwen3_moe_235b_a22b", cf)
+    _, p = _moe_params(jcfg, seed)
+    x = _x(2, 16, cfg.d_model, seed=seed)
+    y, _ = moe.apply_moe(cfg, p, torch.from_numpy(x))
+    idx, gates, _ = moe.route(cfg, p, torch.from_numpy(x))
+    cap = max(1, int(16 * cfg.moe.top_k * cf / cfg.moe.n_experts))
+    want = _loop_combine(cfg, p, x, idx.numpy(), gates.double().numpy(), cap)
+    _close(y, want)
+    if cf <= 0.5:
+        _, _, keep, emptied, _ = moe.dispatch_plan(idx, gates, cap,
+                                                   cfg.moe.n_experts, torch.float32)
+        assert (~keep).any() and emptied.any()
+
+
+@pytest.mark.parametrize("cf", [8.0, 0.5, 0.25])
+def test_combine_matches_reference_with_routing_pinned(cf, monkeypatch):
+    """The reference's routing (idx and gates) fed to both layers: the
+    outputs agree within the f32 parity tolerance, drops and the emptied
+    slot (0, 0) included."""
+    cfg, jcfg = _cfgs("qwen3_moe_235b_a22b", cf)
+    jp, p = _moe_params(jcfg, 4)
+    x = _x(2, 16, cfg.d_model, seed=4)
+    jidx, jgates, jaux = jmoe.route(jcfg, jp, jnp.asarray(x))
+    idx = torch.from_numpy(np.asarray(jidx).astype(np.int64))
+    gates = torch.from_numpy(np.array(jgates))
+    monkeypatch.setattr(jmoe, "route", lambda *a: (jidx, jgates, jaux))
+    monkeypatch.setattr(moe, "route", lambda *a: (idx, gates, torch.tensor(0.0)))
+    y, _ = moe.apply_moe(cfg, p, torch.from_numpy(x))
+    jy, _ = jmoe.apply_moe(jcfg, jp, jnp.asarray(x))
+    _close(y, jy)
+
+
+@pytest.mark.parametrize("arch,experts,seed", [("qwen3_moe_235b_a22b", (16, 8), 0),
+                                               ("qwen3_moe_235b_a22b", (16, 8), 5),
+                                               ("jamba_v01_52b", (16, 2), 0)])
+def test_bf16_combine_rounds_once(arch, experts, seed):
+    """In bf16 the routed output equals, bit for bit, each token's kept
+    slot outputs summed in f32 in top-k order and cast to bf16 once. An
+    add that rounds to bf16 after every contribution (the index_add_ this
+    combine replaced) misses it once a token has more than two: the
+    published top-k of each arch (8 of 128 for qwen3-moe, 2 of 16 for
+    jamba) over 16 experts at the reduced width."""
+    cfg, jcfg = _cfgs(arch, 0.5)
+    n, top = experts
+    cfg, jcfg = (dataclasses.replace(c, moe=dataclasses.replace(c.moe, n_experts=n, top_k=top))
+                 for c in (cfg, jcfg))
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16", compute_dtype="bfloat16")
+    _, p = _moe_params(jcfg, seed)
+    p = {n: v.to(torch.bfloat16) for n, v in p.items()}
+    x = torch.from_numpy(_x(2, 24, cfg.d_model, seed=seed)).to(torch.bfloat16)
+    y, _ = moe.apply_moe(cfg, p, x)
+
+    b, s, k, e = 2, 24, cfg.moe.top_k, cfg.moe.n_experts
+    cap = max(1, int(s * k * 0.5 / e))
+    idx, gates, _ = moe.route(cfg, p, x)
+    d_idx, slot_w, keep, _, _ = moe.dispatch_plan(idx, gates, cap, e, torch.bfloat16)
+    out = moe.expert_outputs(cfg, p, x, d_idx, slot_w)
+    want = torch.zeros((b, s, cfg.d_model))
+    kept = _bruteforce_keep(idx.numpy(), cap)
+    for r in range(b):
+        seen = {}
+        for j, ex in enumerate(idx[r].reshape(-1).tolist()):
+            pos = seen.get(ex, 0)
+            seen[ex] = pos + 1
+            if kept[r, j]:
+                want[r, j // k] += out[r, ex, pos].float()
+    assert not keep.all()
+    assert y.dtype == torch.bfloat16 and torch.equal(y, want.to(torch.bfloat16))
+
+
+def test_bf16_combine_sums_in_top_k_order():
+    """Bit for bit on contributions whose f32 sum depends on the order: 16
+    tokens, each routed to experts (1, 2, 0) in that top-k order (experts 1
+    and 2 tie, so the lower index leads), contributing +B, -B and a small
+    s. Summed in top-k order and rounded once the output is s. The
+    index_add_ this combine replaced accumulates the slots in expert order
+    (on the CPU in f32, on the card as bf16 atomics in no fixed order):
+    (s + B) - B, which loses s."""
+    cfg, _ = _cfgs("qwen3_moe_235b_a22b", 8.0)
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16", compute_dtype="bfloat16",
+                              moe=dataclasses.replace(cfg.moe, top_k=3))
+    d, f, e = cfg.d_model, cfg.moe.d_expert, cfg.moe.n_experts
+    bf = dict(dtype=torch.bfloat16)
+    p = {"router": torch.zeros((d, e), **bf), "w1": torch.zeros((e, d, f), **bf),
+         "w3": torch.zeros((e, d, f), **bf), "w2": torch.zeros((e, f, d), **bf)}
+    p["router"][0] = torch.tensor([0.0, 1.0, 1.0, -10.0])
+    p["w1"][:, 0, 0], p["w3"][:, 0, 0] = 8.0, 1.0
+    p["w2"][:, 0, :] = torch.tensor([0.125, 2.0**24, -2.0**24, 0.0])[:, None]
+    x = torch.zeros((1, 16, d), **bf)
+    x[..., 0] = 1.0
+    y, _ = moe.apply_moe(cfg, p, x)
+
+    idx, gates, _ = moe.route(cfg, p, x)
+    assert idx[0, 0].tolist() == [1, 2, 0]
+    d_idx, slot_w, keep, _, _ = moe.dispatch_plan(idx, gates, 16, e, torch.bfloat16)
+    out = moe.expert_outputs(cfg, p, x, d_idx, slot_w)
+    v1, v2, s = out[0, 1, 0, 0].float(), out[0, 2, 0, 0].float(), out[0, 0, 0, 0].float()
+    assert v1 == -v2 and v1 + s == v1 and 0 < s
+    assert keep.all() and torch.equal(y[..., 0], torch.full((1, 16), float(s), **bf))

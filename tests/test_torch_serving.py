@@ -1,7 +1,8 @@
 """The port's serving stack held against the reference's on reduced yi-6b
 (and, as parametrised cases, reduced qwen3-moe, jamba, llama4, nemotron-4-15b,
 qwen2.5-14b and stablelm-3b) with converted weights: greedy tokens and slot
-accounting."""
+accounting; and a serve whose block picks come from a schedule snapshot
+republished while it runs (``tests/test_system.py::TestServeHotReload``)."""
 import functools
 
 import numpy as np
@@ -14,6 +15,8 @@ from repro.launch.engine import Request as JRequest
 from repro.launch.serve import serve as jserve
 from repro.models.model import Model as JModel
 from repro_torch.configs.base import get_config
+from repro_torch.core import tuner
+from repro_torch.kernels import ops
 from repro_torch.launch.engine import (Request, greedy_decode_reference,
                                        latency_summary)
 from repro_torch.launch.serve import group_into_waves, serve
@@ -24,6 +27,18 @@ from test_torch_models import DENSE_ARCHS, nonzero_norms_and_biases
 # (prompt_len, max_new): mixed lengths and budgets, as in test_serving.py
 SPEC = [(4, 3), (8, 6), (4, 5), (8, 2), (12, 4), (4, 6), (12, 7)]
 CAP = max(p + m for p, m in SPEC) + 2
+
+
+@pytest.fixture(autouse=True)
+def _port_store_off(monkeypatch):
+    """The port's default schedule DB and snapshot off around every test."""
+    monkeypatch.delenv("REPRO_TUNA_DB", raising=False)
+    monkeypatch.delenv("REPRO_TUNA_CACHE", raising=False)
+    tuner.set_default_db(None)
+    tuner.set_default_cache(None)
+    yield
+    tuner.set_default_db(None)
+    tuner.set_default_cache(None)
 
 
 def _make_setup(arch):
@@ -177,3 +192,53 @@ def test_unknown_scheduler_rejected(setup):
     with pytest.raises(ValueError):
         serve(model, params, [Request(0, [1, 2], 1)], slots=1, cap=8,
               scheduler="fifo")
+
+
+@pytest.mark.parametrize("scheduler", ["continuous", "wave"])
+def test_republished_snapshot_lands_while_serving(setup, scheduler, tmp_path):
+    """The block picks of a cold serve land in an empty DB, which becomes a
+    snapshot installed by its ``latest`` pointer. Serving the same requests
+    again, the refresh hook republishes the snapshot with one more record
+    from inside the serve: the continuous engine sees it at an admission,
+    the wave scheduler between waves. The swap is counted, the new record
+    is served, every pick is a snapshot hit, and the tokens equal those of
+    a serve with no store."""
+    from repro_torch.tuna.cache import SnapshotManager
+    from repro_torch.tuna.db import ScheduleDatabase, ScheduleRecord
+
+    _, _, model, params, prompts, want = setup
+    bare = _requests(Request, prompts)
+    serve(model, params, bare, slots=2, cap=CAP, scheduler=scheduler)
+    assert {r.rid: r.out for r in bare} == want
+
+    path = str(tmp_path / "db.jsonl")
+    ops.use_schedule_db(path)
+    serve(model, params, _requests(Request, prompts), slots=2, cap=CAP,
+          scheduler=scheduler)
+    lens = sorted({len(p) for p in prompts})
+    assert len(ScheduleDatabase(path)) == len(lens)
+    mgr = SnapshotManager(path, str(tmp_path / "snaps"))
+    mgr.ensure()
+    ops.use_schedule_db(None)
+    ops.use_schedule_cache(mgr.latest_path)
+    first = tuner.get_default_cache()
+    extra = ScheduleRecord(op="matmul[K=8192,M=64,N=64,dtype_bytes=2]",
+                           target="gpu_h100", config={"bm": 64, "bn": 64, "bk": 128,
+                                                      "double_buffer": True},
+                           score=1e-6, meta={"strategy": "exhaustive"})
+
+    def refresh():
+        if tuner.get_default_cache() is first:  # republish once, mid-serve
+            ScheduleDatabase(path).add(extra)
+            mgr.ensure()
+        return ops.refresh_schedule_cache()
+
+    reqs = _requests(Request, prompts)
+    stats = serve(model, params, reqs, slots=2, cap=CAP, refresh=refresh,
+                  scheduler=scheduler)
+    assert stats["cache_reloads"] >= 1
+    assert {r.rid: r.out for r in reqs} == {r.rid: r.out for r in bare}
+    swapped = tuner.get_default_cache()
+    assert swapped is not first and swapped.misses == 0
+    assert first.hits >= 1 and first.misses == 0
+    assert tuner.lookup_best(extra.op, "gpu_h100") == extra
