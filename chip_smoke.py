@@ -61,6 +61,24 @@ Phases, in order; any failure exits non-zero before the last line:
              cold blocks, 32 flash launches per prefill, the earlier
              serve's tokens, at least one hot reload, the new record
              served.
+   golden-bundle — the store's DB promoted into a golden release under
+             build/golden: re-promoting identical content is a no-op, a
+             record made slower is refused by the regression gate and then
+             promoted under a waiver recorded in the release; a kernel
+             bundle built by ``python -m repro_torch.tuna golden --bundle``
+             in a subprocess (its size, library sha1s and skips logged); a
+             torn, a stale, a CPU and a source-edited bundle each refused
+             at load; then two cold starts, each a fresh process running a
+             copy of src/repro_torch whose build/kernels is empty: one with
+             the snapshot installed, one with the bundle. Each makes one
+             ops.matmul call at a bundled yi-6b shape without blocks, then
+             serves full-width yi-6b (the phase-6 seed) on the same 8
+             requests; seconds to the first token and to the end, nvcc
+             runs, cost-model evaluations, bundle hits and launches are
+             logged. The unbundled start must run nvcc, the bundled one
+             none, with no evaluation and at least one bundled hit; both
+             give the phase-6 tokens; the bundled matmul equals the
+             explicit-blocks launch and the unbundled start's bit for bit.
 7. parity  — the last logits of one prefill through the kernel and through
              the plain version agree within a stated bf16 tolerance; then
              yi-6b's weights are freed.
@@ -93,7 +111,8 @@ Phases, in order; any failure exits non-zero before the last line:
 Prints a ``topk`` JSON line (ratio@1/5 per shape), a ``kernels`` JSON line,
 then the card's name and power limit, then ``{"ok": true, "device": {...}}``
 as the last line. Needs one card; imports no jax and nothing of the
-reference package.
+reference package. ``python3 chip_smoke.py --cold-start-arm SPEC`` is one
+cold start of the golden-bundle phase, which runs it in a subprocess.
 """
 from __future__ import annotations
 
@@ -706,6 +725,9 @@ def main() -> None:
     # -------------------------------------------------------- schedule-store
     check_schedule_store(cfg, model, params, reqs, cap)
 
+    # --------------------------------------------------------- golden-bundle
+    check_golden_bundle(reqs, cap)
+
     # --------------------------------------------------------------- parity
     prompt = torch.tensor([[int(t) for t in rng.integers(0, cfg.vocab, 513)]],
                           dtype=torch.int32, device=dev)
@@ -947,6 +969,237 @@ def check_schedule_store(cfg, model, params, served, cap) -> None:
     if served_extra != extra or misses:
         fail(f"schedule-store: the republished record is served as {served_extra}; "
              f"{misses} snapshot misses")
+
+
+COLD_MM_SHAPE = (2048, 4096, 4096)   # a bundled yi-6b shape (the store's)
+
+
+def check_golden_bundle(served, cap) -> None:
+    """The ``golden-bundle`` phase: the schedule-store phase's DB promoted
+    into a golden release (no-op re-promotion, the regression gate, a
+    waiver), a kernel bundle built by the CLI in a subprocess and refused
+    when torn, stale, for the CPU or from other sources, then the two cold
+    starts of yi-6b. Fails on any gate; logs one ``golden-bundle`` line.
+    Everything lives under ``build/golden`` and ``build/cold_start``."""
+    from repro_torch.core.spaces import MatmulSpace
+    from repro_torch.hw.gpu_h100 import GPU_H100
+    from repro_torch.tuna.cache import StaleSnapshotError
+    from repro_torch.tuna.db import ScheduleDatabase
+    from repro_torch.tuna.golden import (BundleError, GoldenManager,
+                                         GoldenRegressionError, KernelBundle)
+
+    t_phase = time.perf_counter()
+    store = ROOT / "build" / "schedule_store"
+    db_path, snapshot = str(store / "db.jsonl"), str(store / "snaps" / "schedule_cache.latest.json")
+    gdir = ROOT / "build" / "golden"
+    shutil.rmtree(gdir, ignore_errors=True)
+    records = ScheduleDatabase(db_path).records()
+    target = GPU_H100.name
+    mm_sig = MatmulSpace(*COLD_MM_SHAPE, 2, target_kind=GPU_H100.kind).signature()
+    mm_rec = next((r for r in records if r.op == mm_sig), None)
+    if mm_rec is None:
+        fail(f"golden-bundle: the store holds no record for {mm_sig}")
+
+    # promote: a lineage of its own for the gate's checks
+    mgr = GoldenManager(str(gdir / "gate"))
+    first = mgr.promote(records, target, source=db_path)
+    again = mgr.promote(records, target, source=db_path)
+    if again.rebuilt or again.repointed or again.name != first.name:
+        fail(f"golden-bundle: re-promoting the same records was not a no-op: {again}")
+    slower = [dataclasses.replace(r, score=r.score * 2) if r.op == mm_sig else r
+              for r in records]
+    try:
+        mgr.promote(slower, target, source="slower")
+        fail("golden-bundle: a slower record was promoted past the gate")
+    except GoldenRegressionError as e:
+        regs = [(r.op, r.kind) for r in e.regressions]
+        if regs != [(mm_sig, "slower")]:
+            fail(f"golden-bundle: the gate refused {regs}, want [({mm_sig!r}, 'slower')]")
+    if mgr.current(target)["release"] != first.name:
+        fail("golden-bundle: a refused promotion moved the latest pointer")
+    spec = f"{mm_sig}@{target}"
+    waived = mgr.promote(slower, target, waive=[spec], source="slower")
+    hdr, _ = mgr.load_release(waived.latest)
+    if [w["waived_by"] for w in hdr["waivers"]] != [spec] or hdr["predecessor"] != first.name:
+        fail(f"golden-bundle: the waiver is not in the release: {hdr['waivers']}")
+
+    # the bundle: the CLI in its own process, on the card
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.tuna", "golden", "--db", db_path,
+                          "--dir", str(gdir / "release"), "--bundle"], env=env,
+                         capture_output=True, text=True, timeout=300)
+    bundle_cli_s = time.perf_counter() - t0
+    if res.returncode:
+        fail(f"golden-bundle: python -m repro_torch.tuna golden --bundle exited "
+             f"{res.returncode}: {res.stderr[-2000:]}")
+    for line in res.stdout.splitlines():
+        log(f"golden-bundle cli: {line}")
+    latest = gdir / "release" / f"bundle.{target}.latest.json"
+    bundle = KernelBundle.load(str(latest))
+    path = Path(bundle.source)
+    obj = json.loads(path.read_text())
+    log(f"golden-bundle: {bundle.describe()}; {path.stat().st_size} B; libraries "
+        + ", ".join(f"{n} {lib['bytes']} B sha1 {lib['sha1']}"
+                    for n, lib in sorted(obj["libraries"].items()))
+        + f"; skipped {obj['skipped'] or 'none'}")
+    if len(bundle) != len(records) or bundle.golden is None:
+        fail(f"golden-bundle: {len(bundle)} entries for {len(records)} bf16 records")
+
+    # refusals at load: torn, stale, another device, other kernel sources
+    refused = {}
+    cases = {"torn": (lambda o: None, path.read_text()[: path.stat().st_size // 2], "cuda"),
+             "stale": (lambda o: o.update(cost_model_version="cm0"), None, "cuda"),
+             "cpu": (lambda o: None, None, "cpu"),
+             "sources": (lambda o: o.update(source_digest="0" * 12), None, "cuda")}
+    for name, (edit, text, device) in cases.items():
+        bad = gdir / f"refused-{name}.json"
+        o = json.loads(path.read_text())
+        edit(o)
+        bad.write_text(text if text is not None else json.dumps(o))
+        try:
+            KernelBundle.load(str(bad), device=device)
+            fail(f"golden-bundle: a {name} bundle loaded")
+        except (BundleError, StaleSnapshotError) as e:
+            refused[name] = f"{type(e).__name__}: {str(e)[len(str(bad)) + 2:][:90]}"
+        bad.unlink()
+    log(f"golden-bundle refusals: {refused}")
+    want_words = {"torn": "not JSON", "stale": "cost-model version", "cpu": "backend",
+                  "sources": "kernel sources"}
+    if any(want_words[n] not in refused[n] for n in cases):
+        fail(f"golden-bundle: a refusal did not name its cause: {refused}")
+
+    # the two cold starts, each in a fresh process over a copy of the port
+    prompts = [list(r.prompt) for r in served]
+    arms = {}
+    for arm in ("unbundled", "bundled"):
+        home = ROOT / "build" / "cold_start" / arm
+        shutil.rmtree(home, ignore_errors=True)
+        shutil.copytree(SRC / "repro_torch", home / "src" / "repro_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        spec = {"arm": arm, "root": str(home), "prompts": prompts, "cap": cap,
+                "cache": snapshot if arm == "unbundled" else None,
+                "bundle": str(latest) if arm == "bundled" else None,
+                "mm_shape": list(COLD_MM_SHAPE),
+                "mm_blocks": [mm_rec.config[k] for k in ("bm", "bn", "bk", "double_buffer")]}
+        spec_path = home / "spec.json"
+        spec_path.write_text(json.dumps(spec))
+        arm_env = {k: v for k, v in os.environ.items()
+                   if k not in ("REPRO_TUNA_DB", "REPRO_TUNA_CACHE", "REPRO_TUNA_BUNDLE")}
+        arm_env["PYTHONPATH"] = str(home / "src")
+        launched = time.time()
+        res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--cold-start-arm",
+                              str(spec_path)], env=arm_env, capture_output=True, text=True,
+                             timeout=600)
+        done = [l for l in res.stdout.splitlines() if l.startswith("cold-start-arm ")]
+        if res.returncode or not done:
+            fail(f"golden-bundle: the {arm} cold start exited {res.returncode}: "
+                 f"{res.stdout[-1500:]} {res.stderr[-1500:]}")
+        r = json.loads(done[-1][len("cold-start-arm "):])
+        for key in ("imported", "first_token", "end"):
+            r[f"{key}_s"] = r.pop(key) - launched
+        arms[arm] = r
+        shutil.rmtree(home, ignore_errors=True)
+
+    want = [list(r.out) for r in served]
+    summary = {"records": len(records), "release": first.name, "waived_release": waived.name,
+               "bundle": path.name, "bundle_bytes": path.stat().st_size,
+               "libraries": {n: lib["sha1"] for n, lib in obj["libraries"].items()},
+               "entries": len(bundle), "skipped": len(obj["skipped"]),
+               "bundle_cli_s": bundle_cli_s, "phase_s": time.perf_counter() - t_phase,
+               "card": nvidia_smi("name,power.limit")}
+    for arm, r in arms.items():
+        same = sum(a == b for got, ref in zip(r.pop("tokens"), want) for a, b in zip(got, ref))
+        r["tokens_equal"] = same
+        summary[arm] = r
+    log("golden-bundle " + json.dumps(summary))
+    un, bu = arms["unbundled"], arms["bundled"]
+    total = sum(len(t) for t in want)
+    if sum(un["nvcc"].values()) < 1:
+        fail(f"golden-bundle: the unbundled cold start ran no nvcc: {un['nvcc']}")
+    if sum(bu["nvcc"].values()) or bu["evaluations"] or bu["exec_hits"] < 1:
+        fail(f"golden-bundle: the bundled cold start ran nvcc {bu['nvcc']}, made "
+             f"{bu['evaluations']} evaluations, {bu['exec_hits']} bundled hits")
+    if un["tokens_equal"] != total or bu["tokens_equal"] != total:
+        fail(f"golden-bundle: tokens equal to the phase-6 serve: unbundled "
+             f"{un['tokens_equal']}, bundled {bu['tokens_equal']} of {total}")
+    if not bu["mm_equals_explicit"] or bu["mm_sha1"] != un["mm_sha1"]:
+        fail("golden-bundle: the bundled matmul differs from the explicit-blocks launch "
+             "or from the unbundled start's")
+
+
+def cold_start_arm(spec_path: str) -> None:
+    """One cold start of the golden-bundle phase, in its own process over a
+    copy of the port (``$PYTHONPATH``) whose build/kernels is empty: the
+    snapshot or the bundle installed, one ops.matmul at a bundled shape
+    without blocks, then yi-6b served on the given prompts. Prints one
+    ``cold-start-arm {...}`` line with wall-clock stamps (``time.time()``)."""
+    import hashlib
+
+    import torch
+
+    import repro_torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import cost_model, tuner
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.engine import Request
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Model
+
+    imported = time.time()
+    spec = json.loads(Path(spec_path).read_text())
+    home = Path(spec["root"]).resolve()
+    if home not in Path(repro_torch.__file__).resolve().parents or \
+            home not in build.BUILD_DIR.parents:
+        fail(f"cold start: repro_torch from {repro_torch.__file__}, not the copy under {home}")
+    if build.BUILD_DIR.exists() and any(build.BUILD_DIR.iterdir()):
+        fail(f"cold start: {build.BUILD_DIR} is not empty")
+    evals = [0]
+    evaluate = cost_model.evaluate
+
+    def counting(*a, **kw):
+        evals[0] += 1
+        return evaluate(*a, **kw)
+
+    cost_model.evaluate = counting
+    if spec["bundle"]:
+        ops.use_kernel_bundle(spec["bundle"])
+    else:
+        ops.use_schedule_cache(spec["cache"])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    m, n, k = spec["mm_shape"]
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    y = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+    out = ops.matmul(x, y)
+    explicit = ops.matmul(x, y, blocks=tuple(spec["mm_blocks"]))
+    torch.cuda.synchronize()
+    mm_sha1 = hashlib.sha1(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    mm_equal = bool(torch.equal(out, explicit))
+    del x, y, out, explicit
+
+    cfg = get_config(ARCH)
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    reqs = [Request(i, list(p), MAX_NEW) for i, p in enumerate(spec["prompts"])]
+    t_serve = time.time()
+    stats = serve(model, params, reqs, slots=SLOTS, cap=spec["cap"], scheduler="continuous")
+    end = time.time()
+    # t_first counts from the start of the engine's run, a few ms after t_serve
+    first = t_serve + min(r.t_first for r in reqs)
+    bundle = ops.get_kernel_bundle()
+    picks = bundle if bundle is not None else tuner.get_default_cache()
+    print("cold-start-arm " + json.dumps({
+        "imported": imported, "first_token": first, "end": end,
+        "nvcc": ops.kernel_build_counts(), "evaluations": evals[0],
+        "exec_hits": bundle.exec_hits if bundle else 0,
+        "exec_misses": bundle.exec_misses if bundle else 0,
+        "schedule_hits": picks.hits, "schedule_misses": picks.misses,
+        "launches": ops.launch_counts(), "installed": {n: str(p) for n, p in build.installed().items()},
+        "mm_sha1": mm_sha1, "mm_equals_explicit": mm_equal, "prefills": stats["prefills"],
+        "tokens": [list(r.out) for r in reqs], "serve_wall_s": stats["wall_s"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
 
 
 def _leaves(tree):
@@ -1343,4 +1596,7 @@ def log_moe_plans(arch, plans, n_moe) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cold-start-arm"]:
+        cold_start_arm(sys.argv[2])
+    else:
+        main()

@@ -241,8 +241,8 @@ class BundleSkip(Exception):
 
 @dataclasses.dataclass(frozen=True)
 class BundleSpec:
-    """Kernel-bundle reconstruction for one schedule record: which Pallas
-    kernel family to compile, its input avals ``((shape, dtype_name), ...)``
+    """Kernel-bundle reconstruction for one schedule record: which kernel
+    family serves it, its input avals ``((shape, dtype_name), ...)``
     and non-knob call params (e.g. ``causal``/``scale``)."""
 
     kernel: str
@@ -444,9 +444,9 @@ def bundle_for(sig: str, config: Mapping[str, Any]) -> BundleSpec:
         raise BundleSkip(str(e)) from None
     opdef = lookup(name)
     if opdef is None:
-        raise BundleSkip("no Pallas kernel for this op family")
+        raise BundleSkip("no kernel for this op family")
     if opdef.bundle_fn is None:
-        raise BundleSkip("no Pallas kernel for this op family")
+        raise BundleSkip("no kernel for this op family")
     try:
         coerced = opdef.coerce_attrs(attrs)
     except ValueError as e:

@@ -18,16 +18,18 @@ searching and write back on a miss. ``db`` arguments accept a
 used by the orchestrator, which manages its own store). An immutable
 serving snapshot (``repro_torch.tuna.cache.ScheduleCache``, installed via
 ``set_default_cache`` / ``$REPRO_TUNA_CACHE``) is consulted before the DB
-on every read — the lock-free hot path for serving processes. The files
+on every read — the lock-free hot path for serving processes. A golden
+kernel bundle (``repro_torch.tuna.golden.KernelBundle``, installed via
+``set_default_bundle`` / ``$REPRO_TUNA_BUNDLE``) is consulted before both:
+the blessed-release tier (bundle → snapshot → DB → cost model). The files
 and env variables are the reference's; records are keyed by target, so a
 store shared with the reference is harmless.
 
-Not ported yet: the reference's kernel-bundle tier (``set_default_bundle``,
-ROADMAP Queue A 4), its learned re-ranker (``set_default_learned``) and
-calibrated coefficients (Queue A 9); with no calibration every record the
-port writes is the datasheet ``cm1`` version, so the reference's
-``record_version`` (the calibrated-coefficient fingerprint) comes with
-calibration.
+Not ported yet: the reference's learned re-ranker
+(``set_default_learned``) and calibrated coefficients (ROADMAP Queue A 9);
+with no calibration every record the port writes is the datasheet ``cm1``
+version, so the reference's ``record_version`` (the calibrated-coefficient
+fingerprint) comes with calibration.
 """
 from __future__ import annotations
 
@@ -48,6 +50,10 @@ from repro_torch.hw.target import HardwareTarget
 _UNSET = object()
 _DEFAULT_DB = _UNSET  # _UNSET = fall back to $REPRO_TUNA_DB; None = off
 _DEFAULT_CACHE = _UNSET  # _UNSET = fall back to $REPRO_TUNA_CACHE
+_DEFAULT_BUNDLE = _UNSET  # _UNSET = fall back to $REPRO_TUNA_BUNDLE
+# the device a bundle named by $REPRO_TUNA_BUNDLE is loaded for (the card,
+# as every entry point defaults to it)
+BUNDLE_DEVICE = "cuda"
 _DEFAULT_CACHE_PATH: Optional[str] = None  # where the default snapshot was
 #                                   installed from — what hot reload rechecks
 _PATH_DBS: Dict[str, object] = {}  # abspath -> ScheduleDatabase (one load
@@ -219,10 +225,75 @@ def refresh_default_cache() -> bool:
     return True
 
 
+def _swap_bundle(bundle) -> None:
+    """Make ``bundle`` the default: its libraries installed in
+    ``kernels.build`` before anything launches (a CPU bundle has none),
+    the previous bundle's removed, the block-pick memos cleared."""
+    global _DEFAULT_BUNDLE
+    old = None if _DEFAULT_BUNDLE is _UNSET else _DEFAULT_BUNDLE
+    if bundle is not None and bundle is not old:
+        bundle.install()
+    if old is not None and old is not bundle:
+        old.uninstall()
+    _DEFAULT_BUNDLE = bundle
+    _clear_memos()
+
+
+def set_default_bundle(bundle, device: str = "cuda") -> None:
+    """Install the process-wide golden kernel bundle
+    (``repro_torch.tuna.golden.KernelBundle``, or a path/`latest` pointer
+    to one, loaded for ``device``), consulted before the snapshot cache
+    *and* the DB on every read — the blessed-release tier — and by
+    ``kernels.ops`` before it picks blocks. A CUDA bundle's verified
+    libraries are installed at once, so no launch builds. ``None``
+    switches it OFF, including the ``$REPRO_TUNA_BUNDLE`` fallback, and
+    removes its libraries. Clears the block-pick memos. A missing, torn,
+    stale or foreign bundle raises."""
+    if isinstance(bundle, (str, os.PathLike)):
+        from repro_torch.tuna.golden import KernelBundle
+
+        bundle = KernelBundle.load(bundle, device=device)
+    _swap_bundle(bundle)
+
+
+def get_default_bundle():
+    """The installed kernel bundle, else one loaded from
+    ``$REPRO_TUNA_BUNDLE`` for ``BUNDLE_DEVICE``. Mirrors
+    ``get_default_cache``'s env handling: a path that does not exist
+    resolves to OFF; a stale bundle (different ``COST_MODEL_VERSION``)
+    resolves to OFF with a ``StaleSnapshotWarning``; both degrade paths
+    clear the block-pick memos. Any other refusal raises."""
+    if _DEFAULT_BUNDLE is _UNSET:
+        path = os.environ.get("REPRO_TUNA_BUNDLE")
+        bundle = None
+        if path:
+            from repro_torch.tuna.cache import (StaleSnapshotError,
+                                                StaleSnapshotWarning)
+            from repro_torch.tuna.golden import KernelBundle
+
+            try:
+                bundle = KernelBundle.load(path, device=BUNDLE_DEVICE)
+            except FileNotFoundError:
+                pass
+            except StaleSnapshotError as e:
+                import warnings
+
+                warnings.warn(f"$REPRO_TUNA_BUNDLE disabled: {e}",
+                              StaleSnapshotWarning, stacklevel=2)
+        _swap_bundle(bundle)
+    return _DEFAULT_BUNDLE
+
+
 def _lookup(op: str, target_name: str, version: str, db):
     """Read path shared by tune/best_schedule/the block pickers: the
-    snapshot cache (O(1), lock-free), then the schedule DB. Returns
-    ``(record or None, "cache"|"db"|"")`` and never searches."""
+    golden kernel bundle, the snapshot cache (O(1), lock-free), then the
+    schedule DB. Returns ``(record or None, "bundle"|"cache"|"db"|"")`` and
+    never searches."""
+    bundle = get_default_bundle()
+    if bundle is not None:
+        rec = bundle.best(op, target_name, version)
+        if rec is not None:
+            return rec, "bundle"
     cache = get_default_cache()
     if cache is not None:
         rec = cache.best(op, target_name, version)
@@ -238,8 +309,9 @@ def _lookup(op: str, target_name: str, version: str, db):
 
 def lookup_best(op: str, target_name: str,
                 version: str = COST_MODEL_VERSION, db=None):
-    """Best stored record for a key — serving cache first, then the DB
-    (``db`` follows ``resolve_db`` semantics). None on a full miss."""
+    """Best stored record for a key — the kernel bundle, the serving cache,
+    then the DB (``db`` follows ``resolve_db`` semantics). None on a full
+    miss."""
     return _lookup(op, target_name, version, db)[0]
 
 
@@ -253,6 +325,7 @@ class TuneResult:
     default_score: float  # score of the space's centre config (no tuning)
     from_db: bool = False  # True when served from the schedule store
     from_cache: bool = False  # True when the hit came from a ScheduleCache
+    #   or a KernelBundle (both immutable release artifacts)
     default_score_missing: bool = False  # True on warm hits whose stored
     #   record carries no default_score (written by rank_space with the
     #   centre config outside the enumeration limit): default_score is NaN
@@ -292,7 +365,7 @@ def tune(
                 default_score=float(
                     rec.meta.get("default_score", float("nan"))),
                 from_db=True,
-                from_cache=source == "cache",
+                from_cache=source in ("cache", "bundle"),
                 default_score_missing=not has_default,
             )
 

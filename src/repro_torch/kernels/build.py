@@ -6,6 +6,15 @@ the checkout (a directory ``.gitignore`` lists), then loaded with ``ctypes``.
 Sources that need building are compiled in parallel, one ``nvcc`` each.
 The digest covers the sources and the flags, so an edited kernel is rebuilt
 and an unchanged one is reused.
+
+A prebuilt library can be installed for a source name (``install``: a
+kernel bundle's copy, verified and written under ``build/``); ``load`` then
+opens it and builds nothing. ``NVCC_RUNS`` counts the ``nvcc`` processes
+this process started, per source: the witness that a start served from a
+bundle compiled nothing (a launch count cannot say whether a build came
+first). Installing or removing a library clears ``load``'s memo and the
+kernel wrappers' handles (``register_load_clearer``), so the next launch
+opens the library now in place.
 """
 from __future__ import annotations
 
@@ -17,7 +26,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -26,6 +35,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# nvcc processes started in this process, per source
+NVCC_RUNS: Dict[str, int] = {n: 0 for n in SOURCES}
+# prebuilt libraries installed per source name; load() opens these unbuilt
+_INSTALLED: Dict[str, Path] = {}
+# memo clearers of the handles onto load()'s libraries (the kernel wrappers')
+_LOAD_CLEARERS: List[Callable[[], None]] = []
 
 
 def _nvcc() -> str:
@@ -40,12 +56,19 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def source_digest() -> str:
+    """The digest of every kernel source (``csrc/*.cu*``) and the flags:
+    what a built library's file name carries, and what a kernel bundle
+    records so that a binary built from other sources never serves."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+    return h.hexdigest()[:12]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{source_digest()}.so"
 
 
 def log_path(name: str) -> Path:
@@ -69,6 +92,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
+        NVCC_RUNS[n] = NVCC_RUNS.get(n, 0) + 1
         running[n] = (proc, tmp, lib, time.perf_counter())
     failed = []
     for n, (proc, tmp, lib, t0) in running.items():
@@ -84,8 +108,42 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return secs
 
 
+def register_load_clearer(fn: Callable[[], None]) -> None:
+    _LOAD_CLEARERS.append(fn)
+
+
+def _clear_loaded() -> None:
+    load.cache_clear()
+    for fn in _LOAD_CLEARERS:
+        fn()
+
+
+def install(name: str, path) -> None:
+    """Serve ``csrc/<name>.cu`` from the prebuilt library at ``path``: the
+    next ``load(name)`` opens it and builds nothing."""
+    if name not in SOURCES:
+        raise ValueError(f"no kernel source {name!r}; have {SOURCES}")
+    _INSTALLED[name] = Path(path)
+    _clear_loaded()
+
+
+def uninstall(name: str) -> None:
+    """Back to the library built from this checkout's sources."""
+    if _INSTALLED.pop(name, None) is not None:
+        _clear_loaded()
+
+
+def installed() -> Dict[str, Path]:
+    """The prebuilt libraries installed, by source name."""
+    return dict(_INSTALLED)
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it first if needed."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    """The library for ``csrc/<name>.cu``: the installed prebuilt one, else
+    the one built from the sources, building it first if needed."""
+    path = _INSTALLED.get(name)
+    if path is None:
+        build([name])
+        path = library_path(name)
+    return ctypes.CDLL(str(path))

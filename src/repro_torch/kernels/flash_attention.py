@@ -120,6 +120,11 @@ def _kernel():
     return fn
 
 
+# installing or removing a prebuilt library (a kernel bundle's) drops this
+# handle, so the next launch runs the library now in place
+build.register_load_clearer(_kernel.cache_clear)
+
+
 def kernel_smem_bytes(block_q: int, block_k: int, d: int) -> int:
     """The built library's own count of the shared memory it launches the
     (d, block_q, block_k) instantiation with; -1 where none is built. Loads

@@ -82,6 +82,11 @@ def _kernel():
     return fn
 
 
+# installing or removing a prebuilt library (a kernel bundle's) drops this
+# handle, so the next launch runs the library now in place
+build.register_load_clearer(_kernel.cache_clear)
+
+
 def kernel_smem_bytes(bm: int, bn: int, bk: int, double_buffer: bool) -> int:
     """The built library's own count of the shared memory the (bm, bn, bk)
     instantiation stages for A and B over its one or two stages; -1 where

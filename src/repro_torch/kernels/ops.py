@@ -11,8 +11,15 @@ space on the ``gpu_h100`` target), ``attention``'s from
 ``tuned_flash_blocks`` below. Both pickers consult the serving snapshot
 (``use_schedule_cache(path)`` or ``$REPRO_TUNA_CACHE``) and then the warm
 schedule DB (``use_schedule_db(path)`` or ``$REPRO_TUNA_DB``) first: on a
-warm store a pick is a dict lookup, not a search. The reference's
-kernel-bundle tier waits for ROADMAP Queue A 4.
+warm store a pick is a dict lookup, not a search.
+
+Before any of that, a call without ``blocks`` asks the installed golden
+kernel bundle (``use_kernel_bundle(path)`` or ``$REPRO_TUNA_BUNDLE``;
+``repro_torch.tuna.golden``): a hit launches the bundled kernel at the
+release's blocks, from the library the bundle carries, and never calls a
+picker; the bundle's schedule index is also the pickers' first tier.
+``kernel_build_counts`` counts the nvcc runs of this process: zero on a
+start served from a bundle.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch
 from repro_torch.core import op_registry, tuner
 from repro_torch.core.tuner import tuned_matmul_blocks
 from repro_torch.hw.gpu_h100 import GPU_H100
+from repro_torch.kernels import build as _build
 from repro_torch.kernels import flash_attention as _flash_mod
 from repro_torch.kernels import matmul as _matmul_mod
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -49,6 +57,33 @@ def refresh_schedule_cache() -> bool:
     return tuner.refresh_default_cache()
 
 
+def use_kernel_bundle(path, device: str = "cuda") -> None:
+    """Install a golden kernel bundle (``python -m repro_torch.tuna golden
+    --bundle``; a versioned bundle or its ``latest`` pointer) for
+    ``device``: its libraries are verified and installed before the first
+    launch, and calls without ``blocks`` dispatch to its entries first
+    (``None``: off, its libraries removed)."""
+    tuner.set_default_bundle(path, device=device)  # clears the memos
+
+
+def get_kernel_bundle():
+    """The installed kernel bundle (or None)."""
+    return tuner.get_default_bundle()
+
+
+def kernel_build_counts() -> Dict[str, int]:
+    """How many nvcc runs this process started, per kernel source."""
+    return dict(_build.NVCC_RUNS)
+
+
+def _bundle_executable(kernel: str, args, params: Optional[Dict] = None):
+    """The installed bundle's kernel for this call, or None."""
+    bundle = tuner.get_default_bundle()
+    if bundle is None:
+        return None
+    return bundle.executable(kernel, args, params)
+
+
 def launch_counts() -> Dict[str, int]:
     """How many times each hand-written kernel has launched in this process."""
     return {"flash_attention": _flash_mod.LAUNCHES,
@@ -68,9 +103,13 @@ def matmul(
 ) -> torch.Tensor:
     """Tuna-tuned blocked matmul. ``blocks`` is (bm, bn, bk) or (bm, bn,
     bk, double_buffer), the latter defaulting to two stages; without it the
+    installed kernel bundle's entry for this call serves it, else the
     static tuner picks all four for this shape."""
     _matmul_mod.check_shapes(x, y)
     if blocks is None:
+        fn = _bundle_executable("matmul", (x, y))
+        if fn is not None:
+            return fn(x, y)
         blocks = tuned_matmul_blocks(x.shape[0], y.shape[1], x.shape[1],
                                      x.element_size())
     bm, bn, bk, *rest = blocks
@@ -143,8 +182,15 @@ def attention(
     scale: Optional[float] = None,
     blocks: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """Flash attention with statically picked blocks."""
+    """Flash attention with statically picked blocks (the installed kernel
+    bundle's entry for this call first, when ``blocks`` is not given)."""
     if blocks is None:
+        fn = _bundle_executable(
+            "flash", (q, k, v),
+            {"causal": causal,
+             "scale": scale if scale is not None else q.shape[-1] ** -0.5})
+        if fn is not None:
+            return fn(q, k, v)
         blocks = tuned_flash_blocks(q.shape[-2], q.shape[-1], q.element_size())
     bq, bk = blocks
     return flash_attention(q, k, v, causal=causal, scale=scale,

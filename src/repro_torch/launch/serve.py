@@ -17,6 +17,10 @@ On the CPU:   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
 ``--schedule-cache F`` serves the kernel block picks from a snapshot
 (``python -m repro_torch.tuna snapshot``), polled for republishes at
 admission or wave boundaries; ``--schedule-db F`` from a warm DB.
+``--kernel-bundle B`` installs a golden kernel bundle (``python -m
+repro_torch.tuna golden --bundle``) before the model's first launch: the
+kernels run from the libraries it carries, so a cold start runs no nvcc,
+and its schedule index is the pickers' first tier.
 """
 from __future__ import annotations
 
@@ -167,12 +171,21 @@ def main(argv=None) -> None:
     ap.add_argument("--no-schedule-refresh", action="store_true",
                     help="do not poll the snapshot while serving (pin the "
                          "instance loaded at startup)")
+    ap.add_argument("--kernel-bundle", default=None,
+                    help="golden kernel bundle (python -m repro_torch.tuna "
+                         "golden --bundle, or its `latest` pointer), loaded "
+                         "for --device: the first schedule-lookup tier, and "
+                         "on the card the compiled kernel libraries, so a "
+                         "cold start runs nvcc zero times")
     args = ap.parse_args(argv)
 
     if args.schedule_db:
         ops.use_schedule_db(args.schedule_db)
     if args.schedule_cache:
         ops.use_schedule_cache(args.schedule_cache)
+    if args.kernel_bundle:
+        ops.use_kernel_bundle(args.kernel_bundle, device=args.device)
+        print(f"[serve] kernel bundle: {ops.get_kernel_bundle().describe()}")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -219,6 +232,12 @@ def main(argv=None) -> None:
             print(f"[serve] schedule cache: {cache.hits} hits / "
                   f"{cache.misses} misses ({len(cache)} records, "
                   f"{stats['cache_reloads']} hot reloads)")
+    if args.kernel_bundle:
+        bundle = ops.get_kernel_bundle()
+        print(f"[serve] kernel bundle: {bundle.hits} schedule hits / "
+              f"{bundle.misses} misses, {bundle.exec_hits} bundled kernel "
+              f"hits / {bundle.exec_misses} misses; nvcc runs this process: "
+              f"{ops.kernel_build_counts()}; launches: {ops.launch_counts()}")
 
 
 if __name__ == "__main__":

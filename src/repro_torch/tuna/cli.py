@@ -27,9 +27,16 @@ Subcommands:
            a fail-fast error unless --ignore-shards
   export   dump best records as a JSON array (same --transport/shard
            discipline as compact)
+  golden   freeze the store's best records for one target into a
+           regression-gated golden release (--waive OP[@TARGET] accepts a
+           regression, recorded in the release); --bundle adds a kernel
+           bundle with the compiled Hopper libraries (--device cpu: a
+           bundle of plain-version entries, no nvcc); --publish pushes
+           release and bundle over a transport. Exit 1 when the gate
+           refuses, 2 when there is nothing to promote
 
-The reference's controller, golden, train and eval subcommands wait for
-ROADMAP Queue A 4 and 9.
+The reference's controller, train and eval subcommands wait for ROADMAP
+Queue A 9.
 
 ``--db`` defaults to ``$REPRO_TUNA_DB``; without either it is required.
 
@@ -42,6 +49,7 @@ Examples:
   python -m repro_torch.tuna query --db db.jsonl --op flash --target gpu_h100
   python -m repro_torch.tuna snapshot --db db.jsonl --dir snapshots/
   python -m repro_torch.tuna query --snapshot snapshots/schedule_cache.latest.json
+  python -m repro_torch.tuna golden --db db.jsonl --bundle --device cpu
 """
 from __future__ import annotations
 
@@ -320,6 +328,64 @@ def cmd_export(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_golden(args: argparse.Namespace) -> int:
+    from repro_torch.core.cost_model import COST_MODEL_VERSION
+    from repro_torch.tuna.golden import (
+        GoldenError,
+        GoldenManager,
+        GoldenRegressionError,
+        build_kernel_bundle,
+    )
+
+    records = ScheduleDatabase(args.db).records()
+    if not any(r.version == COST_MODEL_VERSION for r in records):
+        print(f"error: {args.db}: no records under cost-model version "
+              f"{COST_MODEL_VERSION!r} — tune first", file=sys.stderr)
+        return 2
+    mgr = GoldenManager(args.dir)
+    try:
+        info = mgr.promote(records, args.target, waive=args.waive or (),
+                           force=args.force, source=args.db)
+    except GoldenRegressionError as e:
+        print(f"[tuna] REFUSED golden promotion for {args.target}: {e}",
+              file=sys.stderr)
+        return 1
+    except GoldenError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    state = "promoted" if info.rebuilt else "up to date"
+    gate = (f"gated against {info.predecessor}, "
+            f"{info.gated_against} schedules checked"
+            if info.predecessor else "first release in this lineage")
+    print(f"[tuna] golden {info.name}: {info.count} schedules "
+          f"({state}; {gate}; latest -> {info.name})")
+    for w in info.waived:
+        print(f"[tuna]   WAIVED (--waive {w.waived_by!r}): {w.describe()}",
+              file=sys.stderr)
+    bundle = None
+    if args.bundle:
+        _, release = mgr.load_release(info.path)
+        bundle = build_kernel_bundle(release, args.dir, args.target,
+                                     golden_name=info.name,
+                                     device=args.device)
+        print(f"[tuna] bundle {bundle.name}: {bundle.entries} bundled "
+              f"kernel(s) over {bundle.schedules} schedules, "
+              f"{bundle.bytes} B")
+        for name, lib in sorted(bundle.libraries.items()):
+            print(f"[tuna]   library {name}: {lib['file']}, "
+                  f"{lib['bytes']} B, sha1 {lib['sha1']}")
+        for op, why in bundle.skipped:
+            print(f"[tuna]   no bundled kernel for {op}: {why}")
+    if args.publish:
+        from repro_torch.tuna.transport import resolve_transport
+
+        t = resolve_transport(args.publish)
+        for man in mgr.publish(t, info, bundle=bundle):
+            print(f"[tuna] published {man.name} ({man.size}B, "
+                  f"sha1 {man.sha1[:12]}) -> {t.describe()}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.tuna", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -434,6 +500,42 @@ def build_parser() -> argparse.ArgumentParser:
                    help="export just the base store even when per-shard "
                         "stores sit next to it (default: fail fast)")
     p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser(
+        "golden",
+        help="freeze the store into a regression-gated golden release "
+             "(+ optional kernel bundle)")
+    _add_db(p)
+    p.add_argument("--target", default=TARGET_NAMES[0],
+                   help="the target whose records are promoted")
+    p.add_argument("--dir", default=os.path.join("build", "golden"),
+                   metavar="OUT_DIR",
+                   help="golden release directory (default build/golden "
+                        "under the working directory, which .gitignore "
+                        "lists): versioned releases "
+                        "(golden.<target>.<cm-version>-<digest>.json), "
+                        "bundles, and their `latest` pointers")
+    p.add_argument("--waive", action="append", default=None,
+                   metavar="OP[@TARGET]",
+                   help="accept a specific regression vs the previous "
+                        "golden; repeatable, recorded in the release "
+                        "manifest")
+    p.add_argument("--force", action="store_true",
+                   help="rewrite the release file even if its "
+                        "content-addressed name already exists")
+    p.add_argument("--bundle", action="store_true",
+                   help="bundle the release's kernels with the compiled "
+                        "sm_90a libraries (bundle.<target>.<cm-version>-"
+                        "<digest>.json): what `launch/serve.py "
+                        "--kernel-bundle` loads")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda (default): the bundle carries the libraries "
+                        "(needs nvcc, not a card); cpu: entries run the "
+                        "plain versions, for a process on the CPU")
+    p.add_argument("--publish", default=None, metavar="SPEC",
+                   help="push the release (+ bundle) and their `latest` "
+                        "pointers over this transport")
+    p.set_defaults(fn=cmd_golden)
     return ap
 
 

@@ -311,3 +311,84 @@ def test_mamba_forward_on_the_card_matches_stepped_decode(card, s, chunk):
                                       (st["conv"], cache["conv"], 2**-7, 0.0)):
         bad, worst = _within(got, want, rtol, atol_rms)
         assert bad == 0, f"{bad} outside, worst at {worst:.3f} of the limit"
+
+
+@pytest.fixture
+def bundle_records():
+    """A bf16 matmul and a bf16 flash record the Hopper kernels run, and
+    an f32 matmul record a CUDA bundle keeps in its schedule index only."""
+    from repro_torch.core import op_registry
+    from repro_torch.core.spaces import MatmulSpace
+    from repro_torch.tuna.db import ScheduleRecord
+
+    mm = MatmulSpace(256, 256, 512, 2, target_kind="sm90").signature()
+    mm32 = MatmulSpace(256, 256, 512, 4, target_kind="sm90").signature()
+    fl = op_registry.make_space("flash", {"s": 256, "d": 128, "dtype_bytes": 2},
+                                "sm90").signature()
+    cfg = {"bm": 128, "bn": 128, "bk": 64, "double_buffer": True}
+    return [ScheduleRecord(op=mm, target="gpu_h100", score=1e-6, config=cfg),
+            ScheduleRecord(op=mm32, target="gpu_h100", score=1e-6, config=cfg),
+            ScheduleRecord(op=fl, target="gpu_h100", score=1e-6,
+                           config={"block_q": 128, "block_k": 64})]
+
+
+@pytest.mark.gpu
+def test_cuda_bundle_launches_its_library_with_no_build(card, tmp_path, bundle_records):
+    """A CUDA bundle built from this checkout's libraries, installed: the
+    calls without blocks launch from the bundled library (written under
+    build/kernels/bundled) at the record's blocks, with no nvcc run, bit
+    for bit the launches of the built library; removing the bundle puts
+    the built library back."""
+    from repro_torch.kernels import build
+    from repro_torch.tuna.golden import build_kernel_bundle
+
+    info = build_kernel_bundle(bundle_records, str(tmp_path), "gpu_h100")
+    assert (info.entries, len(info.skipped)) == (2, 1)
+    assert "bfloat16" in info.skipped[0][1]
+    assert sorted(info.libraries) == sorted(build.SOURCES)
+    rng = np.random.default_rng(0)
+    x, y = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(card, torch.bfloat16) for s in ((256, 512), (512, 256)))
+    q = torch.from_numpy(rng.standard_normal((1, 1, 256, 128)).astype(np.float32))
+    q = q.to(card, torch.bfloat16)
+    base_mm = ops.matmul(x, y, blocks=(128, 128, 64, True))
+    base_att = ops.attention(q, q, q, blocks=(128, 64))
+    assert build.load("matmul")._name == str(build.library_path("matmul"))
+    ops.use_kernel_bundle(info.path)
+    try:
+        installed = build.installed()
+        assert {n: p.parent.name for n, p in installed.items()} == \
+            {n: "bundled" for n in build.SOURCES}
+        builds, launches = ops.kernel_build_counts(), ops.launch_counts()
+        got_mm, got_att = ops.matmul(x, y), ops.attention(q, q, q)
+        torch.cuda.synchronize()
+        assert build.load("matmul")._name == str(installed["matmul"])
+        assert build.load("flash_attention")._name == str(installed["flash_attention"])
+        assert ops.get_kernel_bundle().exec_hits == 2
+        assert ops.kernel_build_counts() == builds
+        assert ops.launch_counts() == {k: v + 1 for k, v in launches.items()}
+        assert torch.equal(got_mm, base_mm) and torch.equal(got_att, base_att)
+    finally:
+        ops.use_kernel_bundle(None)
+    assert build.installed() == {}
+    assert build.load("matmul")._name == str(build.library_path("matmul"))
+
+
+@pytest.mark.gpu
+def test_cuda_bundle_refuses_a_corrupt_library(card, tmp_path, bundle_records):
+    import json
+
+    from repro_torch.tuna.golden import BundleError, KernelBundle, build_kernel_bundle
+
+    info = build_kernel_bundle(bundle_records, str(tmp_path), "gpu_h100")
+    bundle = KernelBundle.load(info.latest)
+    assert bundle.arch == "sm_90a" and bundle.backend == "torch-cuda"
+    obj = json.load(open(info.path))
+    blob = obj["libraries"]["matmul"]["b64"]
+    obj["libraries"]["matmul"]["b64"] = ("A" if blob[0] != "A" else "B") + blob[1:]
+    bad = tmp_path / "bad.json"
+    bad.write_text(json.dumps(obj))
+    with pytest.raises(BundleError, match="sha1"):
+        KernelBundle.load(str(bad))
+    with pytest.raises(BundleError, match="backend"):
+        KernelBundle.load(info.path, device="cpu")
