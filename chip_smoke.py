@@ -85,9 +85,14 @@ Phases, in order; any failure exits non-zero before the last line:
 8. groups  — the flash kernel against its plain version and the oracle at
              the head groups of the later serves, (Hq, Hkv) = (64, 4),
              (48, 8), (40, 8) and (32, 8), D=128, causal, at every prompt
-             length they prefill; the kernel, SDPA and the plain version at
-             S=1024 at those groups and at (32, 32) with D=80 (the bound
-             from the unpadded work).
+             length they prefill; at whisper-large-v3's 20/20 heads of 64,
+             non-causal over its encoder's 1500 frames (a ragged last tile)
+             and causal at its decoder's prompts; at internvl2-1b's 14/2
+             heads of 64 (group 7), causal over its 256 patches and each
+             prompt; the kernel, SDPA and the plain version at S=1024 at
+             the first groups and at (32, 32) with D=80 (the bound from the
+             unpadded work), at S=1500 non-causal (whisper's encoder) and at
+             S=256+1024 (internvl2).
 9. moe-serve, hybrid-serve — qwen3-moe-235b-a22b (8 of 94 layers) and
              jamba-v0.1-52b (one period, 8 of 32 layers) at full width with
              seeded random weights, the same 8 requests through the
@@ -107,6 +112,30 @@ Phases, in order; any failure exits non-zero before the last line:
              the next: the same 8 requests, every request gets its tokens,
              flash launches = prefills x layers, a profiled second run, the
              parity of phase 7.
+11. recurrent-serve — xlstm-1.3b uncut (48 layers: 42 mLSTM, 6 sLSTM, no
+             attention) through the same serve: the first mLSTM layer's
+             chunkwise prefill at S=300 (4 tokens per chunk) and S=77 (one)
+             and the first sLSTM layer's scan against their decode stepped
+             in f32 (in f32, output and final state; in bf16, the output
+             error against the bf16 stepped decode's own); the same 8
+             requests (the 1024-token prompt is the mLSTM head dim, where
+             the reference's prefill breaks its own decode), every request
+             gets its tokens, no flash launch; a profiled second run of one
+             of them (S=77: the whole serve launches about 6 M kernels)
+             split into mlstm, slstm and the rest. The parity of phase 7
+             compares attention, which this arch has none of: skipped, and
+             logged.
+12. encdec-vision — whisper-large-v3 (32 encoder and 32 decoder layers)
+             and internvl2-1b (24 layers), uncut, one after the other, each
+             freed before the next, through ``Model.prefill`` and
+             ``Model.decode_step`` (the reference's only entry for them: its
+             serve takes tokens only), B=1, with seeded stub frames or
+             patches at 0.1 N(0, 1): a greedy decode of 16 tokens per prompt
+             (whisper at the prompts that fit its 448-token decoder context,
+             internvl2 at all 8 after its 256 patches); every request gets
+             its tokens, flash launches = prefills x 64 (encoder and decoder)
+             and x 24; a profiled second run split into attention,
+             cross-attention and the rest; the parity of phase 7.
 
 Prints a ``topk`` JSON line (ratio@1/5 per shape), a ``kernels`` JSON line,
 then the card's name and power limit, then ``{"ok": true, "device": {...}}``
@@ -195,6 +224,27 @@ MOE_RTOL, MOE_ATOL_RMS = 2**-5, 0.05
 # run): 2^-5*|f32| + 0.05*rms(f32).
 MAMBA_RTOL, MAMBA_ATOL_RMS = 2**-6, 0.05
 STATE_RTOL = 2**-5
+# The xLSTM mixers at full width, against their decode stepped in f32 on f32
+# copies of the weights and input. In f32 the prefill (chunkwise for the
+# mLSTM) and the stepped decode compute one function summed in another
+# order: output and final state (mLSTM C, n, m; sLSTM c, n, h, m) within
+# 2^-10*|f32| + 2^-10*rms(f32) (a rehearsal on the CPU at full width: the
+# mLSTM at S=300 within 9.2e-5, with rms(f32) 1.45). In bf16 the mLSTM is
+# ill-conditioned at a few positions (h = num / max(|den|, exp(-m)), with
+# q, k, v rounded to bf16): in that rehearsal its bf16 prefill and its bf16
+# stepped decode both erred by 0.369 at one position, 2.5 times the mamba
+# output limit. So the bf16 prefill's max |bf16 - f32| output error is held
+# to at most XLSTM_BF16_MULTIPLE times the bf16 stepped decode's own (two
+# bf16 computations of one function, rounding at other places, as the CPU
+# tests bound the port's bf16 error by twice the reference's), and its final
+# state to STATE_RTOL*|f32| + MAMBA_ATOL_RMS*rms(f32), as the mamba state.
+XLSTM_F32_RTOL, XLSTM_F32_ATOL_RMS = 2**-10, 2**-10
+XLSTM_BF16_MULTIPLE = 2.0
+MLSTM_S = (300, 77)   # 4 tokens per chunk, and one (77 is odd)
+RECURRENT_SERVES = (("xlstm-1.3b", 48),)
+# whisper-large-v3's published decoder context (max_target_positions): its
+# prompts are the PROMPT_LENS whose 16 new tokens fit in it
+WHISPER_CONTEXT = 448
 
 
 def fail(msg: str) -> None:
@@ -751,32 +801,57 @@ def main() -> None:
     max_err = max(max_err, check_flash(
         [(1, hq, hkv, s, d, True) for hq, hkv, d in checked for s in sorted(set(PROMPT_LENS))],
         qkv, rtol=GROUP_RTOL))
-    for hq, hkv, d in groups:
-        q, k, v = qkv(1, hq, hkv, TIMED_S, d)
-        bq, bk = ops.tuned_flash_blocks(TIMED_S, d, 2)
-        ms = graph_ms(lambda: fa.flash_attention(q, k, v, causal=True, block_q=bq,
+
+    def time_flash(hq, hkv, d, s, causal):
+        q, k, v = qkv(1, hq, hkv, s, d)
+        bq, bk = ops.tuned_flash_blocks(s, d, 2)
+        ms = graph_ms(lambda: fa.flash_attention(q, k, v, causal=causal, block_q=bq,
                                                  block_k=bk), iters=50)
         sdpa = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), iters=50)
-        plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
+            q, k, v, is_causal=causal, enable_gqa=True), iters=50)
+        plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal,
                                                          block_q=bq, block_k=bk),
                         iters=3, warmup=1)
         # at D=80 the bound is the unpadded work: the padding is the kernel's
-        flops, nbytes = flash_work(1, hq, hkv, TIMED_S, d, True)
+        flops, nbytes = flash_work(1, hq, hkv, s, d, causal)
         t_ops, t_bytes = flops / GPU_H100.peak_flops_bf16, nbytes / GPU_H100.hbm_bandwidth
         bound = max(t_ops, t_bytes) * 1e3
-        entry = {"S": TIMED_S, "Hq": hq, "Hkv": hkv, "D": d, "blocks": [bq, bk], "ms": ms,
-                 "sdpa_ms": sdpa, "plain_ms": plain, "bound_ms": bound,
-                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        entry = {"S": s, "Hq": hq, "Hkv": hkv, "D": d, "causal": causal,
+                 "blocks": [bq, bk], "ms": ms, "sdpa_ms": sdpa, "plain_ms": plain,
+                 "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                  "tflops": flops / ms / 1e9}
         sweep.append(entry)
+        log(f"timing Hq={hq} Hkv={hkv} (group {hq // hkv}) D={d} S={s} "
+            f"{'causal' if causal else 'non-causal'} blocks=({bq},{bk}), graph replay: "
+            f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), sdpa (yardstick) "
+            f"{sdpa:.4f} ms ({ms / sdpa:.2f}x); plain {plain:.4f} ms; bound {bound:.4f} ms "
+            f"by {entry['bound_by']}")
+        return entry
+
+    for hq, hkv, d in groups:
+        entry = time_flash(hq, hkv, d, TIMED_S, True)
         if (hq, hkv, d) == D80_HEADS:
             d80 = entry
-        log(f"timing Hq={hq} Hkv={hkv} (group {hq // hkv}) D={d} S={TIMED_S} causal "
-            f"blocks=({bq},{bk}), graph replay: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), sdpa (yardstick) {sdpa:.4f} ms "
-            f"({ms / sdpa:.2f}x); plain {plain:.4f} ms; bound {bound:.4f} ms")
-    del q, k, v
+
+    # the ninth slice's configurations: whisper's encoder, non-causal over
+    # its frames (1500: a ragged last tile at either block_k), and its
+    # decoder, MHA; internvl2's group 7 over its patches and each prompt
+    t_new = time.perf_counter()
+    whisper, intern = get_config("whisper-large-v3"), get_config("internvl2-1b")
+    wh = (whisper.n_heads, whisper.n_kv_heads, whisper.head_dim)
+    iv = (intern.n_heads, intern.n_kv_heads, intern.head_dim)
+    frames, patches = whisper.n_frontend_tokens, intern.n_frontend_tokens
+    new_cases = ([(1, wh[0], wh[1], frames, wh[2], False)]
+                 + [(1, wh[0], wh[1], s, wh[2], True) for s in whisper_lens()]
+                 + [(1, iv[0], iv[1], patches + s, iv[2], True) for s in PROMPT_LENS])
+    log(f"kernel at the encoder-decoder's and the vision prefix's configurations: "
+        f"(Hq, Hkv, D) = {wh} non-causal at S={frames} and causal at "
+        f"{list(whisper_lens())}; {iv} causal at {patches} + each prompt length; limit "
+        f"{GROUP_RTOL}*|plain| (the two-ulp argument of GROUP_RTOL)")
+    max_err = max(max_err, check_flash(new_cases, qkv, rtol=GROUP_RTOL))
+    time_flash(*wh, frames, False)
+    time_flash(*iv, patches + TIMED_S, True)
+    log(f"groups: the new configurations took {time.perf_counter() - t_new:.1f} s")
 
     # ------------------------------------------- moe-serve and hybrid-serve
     for arch, n_layers in NEW_SERVES:
@@ -785,6 +860,18 @@ def main() -> None:
     # ------------------------------------------------------- dense-serve
     for arch, n_layers in DENSE_SERVES:
         serve_launches[arch] = serve_arch(arch, n_layers)
+
+    # -------------------------------------------------------- recurrent-serve
+    for arch, n_layers in RECURRENT_SERVES:
+        t_phase = time.perf_counter()
+        serve_launches[arch] = serve_arch(arch, n_layers)
+        log(f"recurrent-serve {arch}: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---------------------------------------------------------- encdec-vision
+    for arch, lens in (("whisper-large-v3", whisper_lens()), ("internvl2-1b", PROMPT_LENS)):
+        t_phase = time.perf_counter()
+        serve_launches[arch] = serve_prefixed(arch, lens)
+        log(f"encdec-vision {arch}: {time.perf_counter() - t_phase:.1f} s")
     log(f"flash launches per serve: {serve_launches}")
 
     # -------------------------------------------------------------- results
@@ -812,6 +899,11 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def whisper_lens():
+    """The serve's prompt lengths whose new tokens fit whisper's decoder."""
+    return tuple(s for s in PROMPT_LENS if s + MAX_NEW <= WHISPER_CONTEXT)
 
 
 def check_schedule_store(cfg, model, params, served, cap) -> None:
@@ -1216,37 +1308,87 @@ def _leaves(tree):
 # record_function ranges the port's blocks open: the profile's split
 SPANS = {"moe.route": "MoE routing and ranks", "moe.gather_scatter": "MoE gather/scatter",
          "moe.experts": "MoE expert products", "attention": "attention (prefill + decode)",
-         "mamba": "mamba mixer"}
+         "cross_attention": "cross-attention (prefill + decode)", "mamba": "mamba mixer",
+         "mlstm": "mLSTM mixer", "slstm": "sLSTM mixer"}
+
+
+def trace_device_time(path) -> tuple:
+    """Device time from a Chrome trace that ``torch.profiler`` wrote (its
+    C++ export, which skips the Python post-processing of ``key_averages``,
+    minutes at a million launches): every kernel, memcpy and memset as
+    (name, ms), and the device ms of each ``SPANS`` range, the sum of the
+    kernels whose launch (the CUDA API call with the kernel's correlation
+    id) lies inside it on the same thread."""
+    import bisect
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    launches, spans, kernels = {}, {}, []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat", "")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            kernels.append((e["name"], e["dur"] / 1e3, e.get("args", {}).get("correlation")))
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            corr = e.get("args", {}).get("correlation")
+            if corr is not None:
+                launches[corr] = (e["tid"], e["ts"])
+        elif cat == "user_annotation" and e["name"] in SPANS:
+            spans.setdefault(e["tid"], []).append((e["ts"], e["ts"] + e["dur"], e["name"]))
+    starts = {}
+    for tid, ranges in spans.items():
+        ranges.sort()
+        starts[tid] = [r[0] for r in ranges]
+    span_ms = {}
+    for _, ms, corr in kernels:
+        tid, ts = launches.get(corr, (None, None))
+        if tid not in spans:
+            continue
+        i = bisect.bisect_right(starts[tid], ts) - 1
+        if i >= 0 and ts <= spans[tid][i][1]:
+            name = spans[tid][i][2]
+            span_ms[name] = span_ms.get(name, 0.0) + ms
+    return [(name, ms) for name, ms, _ in kernels], span_ms
 
 
 def _profile_serve(model, params, reqs, cap, serve, wall_unprofiled: float) -> dict:
     """Device time by kernel over a second, profiled run of the same serve,
     and by the port's profiler ranges (``SPANS``), each the device time of
-    the kernels launched inside it. Returns the ranges' device ms."""
-    import torch
+    the kernels launched inside it (``trace_device_time``). Returns the
+    ranges' device ms."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    trace = ROOT / "build" / "profile" / "trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         serve(model, params, reqs, slots=SLOTS, cap=cap, scheduler="continuous")
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in events
-            if e.device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA
-            and e.key not in SPANS]
+    t0 = time.perf_counter()
+    prof.export_chrome_trace(str(trace))
+    kernels, spans = trace_device_time(trace)
+    trace_mb = trace.stat().st_size / 1e6
+    trace.unlink()
+    by_name = {}
+    for key, ms in kernels:
+        acc = by_name.setdefault(key, [0.0, 0])
+        acc[0] += ms
+        acc[1] += 1
+    rows = [(key, ms, n) for key, (ms, n) in by_name.items()]
     total = sum(r[1] for r in rows)
     log(f"profile (second serve run, profiler on): wall {wall * 1e3:.1f} ms, device "
-        f"busy {total:.1f} ms; against the unprofiled run's wall "
-        f"{wall_unprofiled * 1e3:.1f} ms the device is idle "
-        f"{100 * (1 - total / (wall_unprofiled * 1e3)):.1f}% of the time")
+        f"busy {total:.1f} ms over {len(kernels)} kernels; against the unprofiled run's "
+        f"wall {wall_unprofiled * 1e3:.1f} ms the device is idle "
+        f"{100 * (1 - total / (wall_unprofiled * 1e3)):.1f}% of the time (trace "
+        f"{trace_mb:.0f} MB, read in {time.perf_counter() - t0:.1f} s)")
     groups = {}
     for key, ms, n in rows:
         if "flash_fwd_wgmma_kernel" in key:
             g = "flash kernel (prefill attention)"
         elif any(w in key for w in ("gemm", "gemv", "nvjet", "xmma", "Gemv")):
             g = "cuBLAS matrix products"
-        elif "copy" in key:
+        elif "copy" in key or "Memcpy" in key:
             g = "copies and casts"
         else:
             g = "other elementwise/reduction"
@@ -1257,10 +1399,6 @@ def _profile_serve(model, params, reqs, cap, serve, wall_unprofiled: float) -> d
         log(f"profile group {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  x{n:<6} {g}")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"profile  {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  x{n:<6} {key[:90]}")
-    spans = {}
-    for e in events:
-        if e.key in SPANS and e.device_type == torch.autograd.DeviceType.CPU:
-            spans[e.key] = spans.get(e.key, 0.0) + e.device_time_total / 1e3
     rest = total - sum(spans.values())
     for key, ms in sorted(spans.items(), key=lambda kv: -kv[1]) + [("rest", rest)]:
         log(f"profile split {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  "
@@ -1289,15 +1427,15 @@ def plain_flash():
         tattn.kops.attention = kernel_attention
 
 
-def check_logits(arch, cfg, got, want, note: str = "") -> None:
+def check_logits(arch, cfg, got, want, note: str = "", s: int = 513) -> None:
     """Fail unless the kernel prefill's last logits are finite, [1, 1, V] and
-    within LOGIT_TOL of the plain prefill's."""
+    within LOGIT_TOL of the plain prefill's (a prompt of ``s`` tokens)."""
     import torch
 
     got, want = got.float(), want.float()
     diff = float((got - want).abs().max())
     cos = float(torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0))
-    log(f"parity {arch} S=513 last logits {tuple(got.shape)}{note}: "
+    log(f"parity {arch} S={s} last logits {tuple(got.shape)}{note}: "
         f"max|kernel-plain|={diff:.4e} (tol {LOGIT_TOL}), cosine {cos:.6f}, |logits| max "
         f"{float(want.abs().max()):.3f}, argmax {int(got.argmax())} vs {int(want.argmax())}")
     if not torch.isfinite(got).all() or got.shape != (1, 1, cfg.vocab) or diff > LOGIT_TOL:
@@ -1355,53 +1493,107 @@ def moe_loop(cfg, p, x):
 
 def check_mixers(arch, cfg, layers) -> None:
     """At full width on the card, where the pattern has one: the first MoE
-    layer against ``moe_loop`` at S=77 (capacity drops included), and the
-    first mamba layer's chunked prefill at S=300 (a whole chunk and a
-    ragged one) against its decode stepped token by token."""
+    layer against ``moe_loop`` at S=77 (capacity drops included), the first
+    mamba layer's chunked prefill at S=300 (a whole chunk and a ragged one)
+    against its decode stepped token by token, and the first mLSTM and
+    sLSTM layers' prefill against their decode stepped in f32."""
     import torch
-    from repro_torch.models import ssm
+    from repro_torch.models import ssm, xlstm
     from repro_torch.models.transformer import group_slice
 
     dev = layers[0]["norm1"]["w"].device
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     pattern = cfg.pattern()
-    moe_at = [i for i, (_, mlp) in enumerate(pattern) if mlp == "moe"]
-    mamba_at = [i for i, (mixer, _) in enumerate(pattern) if mixer == "mamba"]
-    if moe_at:
-        check_moe_layer(arch, cfg, group_slice(layers[moe_at[0]], 0)["mlp"], moe_at[0],
-                        gen)
-    if not mamba_at:
-        return
-    pp = mamba_at[0]
-    p = group_slice(layers[pp], 0)["mixer"]
-    x = torch.randn((1, 300, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    first = lambda kind: next((i for i, kinds in enumerate(pattern) if kind in kinds), None)
+    mixer = lambda pp: group_slice(layers[pp], 0)["mixer"]
+    if first("moe") is not None:
+        check_moe_layer(arch, cfg, group_slice(layers[first("moe")], 0)["mlp"],
+                        first("moe"), gen)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    randn = lambda s: torch.randn((1, s, cfg.d_model), generator=gen,
+                                  device=dev).to(torch.bfloat16)
+    if first("mlstm") is not None:
+        pp = first("mlstm")
+        for s in MLSTM_S:
+            r = min(cfg.mlstm_chunk, s)
+            while s % r:
+                r //= 2
+            check_recurrent(arch, f"mLSTM layer {pp} at S={s} (chunks of {r})",
+                            cfg, cfg32, mixer(pp), randn(s), xlstm.mlstm_forward,
+                            xlstm.mlstm_decode,
+                            lambda c, dt: xlstm.init_mlstm_cache(c, 1, dev),
+                            f32_prefill=True)
+    if first("slstm") is not None:
+        pp = first("slstm")
+        check_recurrent(arch, f"sLSTM layer {pp} at S=300", cfg, cfg32, mixer(pp),
+                        randn(300), xlstm.slstm_forward, xlstm.slstm_decode,
+                        lambda c, dt: xlstm.init_slstm_cache(c, 1, dev),
+                        f32_prefill=True)
+    if first("mamba") is not None:
+        pp = first("mamba")
+        check_recurrent(arch, f"mamba layer {pp} at S=300 (chunk {cfg.ssm_chunk}: one "
+                        f"whole, one ragged)", cfg, cfg32, mixer(pp), randn(300),
+                        ssm.mamba_forward, ssm.mamba_decode,
+                        lambda c, dt: ssm.init_mamba_cache(c, 1, dt, dev), state=("h",))
+
+
+def check_recurrent(arch, what, cfg, cfg32, p, x, forward, decode, init_cache,
+                    state=None, f32_prefill=False) -> None:
+    """A recurrent mixer's bf16 prefill of ``x`` against its decode stepped
+    token by token in f32 (on f32 copies of the weights and input): each
+    final state leaf (``state``, default all) within STATE_RTOL*|f32| +
+    MAMBA_ATOL_RMS*rms(f32); the output within MAMBA_RTOL*|f32| +
+    MAMBA_ATOL_RMS*rms(f32), or with ``f32_prefill`` (the xLSTM mixers) with
+    a max error at most XLSTM_BF16_MULTIPLE times the bf16 stepped decode's
+    own, and then also the f32 prefill's output and state within
+    XLSTM_F32_RTOL*|f32| + XLSTM_F32_ATOL_RMS*rms(f32)."""
+    import torch
 
     def stepped(cfg_, p_, x_, dtype):
-        cache = ssm.init_mamba_cache(cfg_, 1, dtype, dev)
+        cache = init_cache(cfg_, dtype)
         steps = []
         for t in range(x_.shape[1]):
-            yt, cache = ssm.mamba_decode(cfg_, p_, x_[:, t:t + 1], cache)
+            yt, cache = decode(cfg_, p_, x_[:, t:t + 1], cache)
             steps.append(yt)
-        return torch.cat(steps, dim=1), cache["h"]
+        return torch.cat(steps, dim=1), cache
 
-    want, want_h = stepped(cfg32, {k: v.float() for k, v in p.items()}, x.float(),
-                           torch.float32)
-    y, st = ssm.mamba_forward(cfg, p, x, return_state=True)
-    y_dec, h_dec = stepped(cfg, p, x, torch.bfloat16)
+    p32 = {k: v.float() for k, v in p.items()}
+    want, want_st = stepped(cfg32, p32, x.float(), torch.float32)
+    y, st = forward(cfg, p, x, return_state=True)
+    y_dec, st_dec = stepped(cfg, p, x, torch.bfloat16)
+    keys = state or sorted(st)
+    err = float((y.float() - want).abs().max())
+    err_dec = float((y_dec.float() - want).abs().max())
     bad, worst = outside(y, want, MAMBA_RTOL, MAMBA_ATOL_RMS)
-    bad_h, worst_h = outside(st["h"], want_h, STATE_RTOL, MAMBA_ATOL_RMS)
     _, worst_dec = outside(y_dec, want, MAMBA_RTOL, MAMBA_ATOL_RMS)
-    _, worst_dec_h = outside(h_dec, want_h, STATE_RTOL, MAMBA_ATOL_RMS)
-    log(f"mixers {arch}: mamba layer {pp} at S=300 (chunk {cfg.ssm_chunk}: one whole, one "
-        f"ragged) in bf16 against the decode stepped in f32: prefill output "
-        f"max|bf16-f32|={float((y.float() - want).abs().max()):.3e}, rms(f32) "
-        f"{float(want.pow(2).mean().sqrt()):.3e}, {bad} outside {MAMBA_RTOL}*|f32| + "
-        f"{MAMBA_ATOL_RMS}*rms, worst at {worst:.3f}; final state {bad_h} outside "
-        f"{STATE_RTOL}*|f32| + {MAMBA_ATOL_RMS}*rms, worst at {worst_h:.3f}; the bf16 "
-        f"stepped decode's own worst: output {worst_dec:.3f}, state {worst_dec_h:.3f}")
-    if bad or bad_h or not torch.isfinite(y).all():
-        fail(f"{arch}: the mamba prefill disagrees with the f32 stepped decode")
+    states = {key: outside(st[key], want_st[key], STATE_RTOL, MAMBA_ATOL_RMS) for key in keys}
+    states_dec = {key: outside(st_dec[key], want_st[key], STATE_RTOL, MAMBA_ATOL_RMS)[1]
+                  for key in keys}
+    line = (f"mixers {arch}: {what} in bf16 against the decode stepped in f32: prefill "
+            f"output max|bf16-f32|={err:.3e} (the bf16 stepped decode's {err_dec:.3e}), "
+            f"rms(f32) {float(want.pow(2).mean().sqrt()):.3e}, {bad} outside "
+            f"{MAMBA_RTOL}*|f32| + {MAMBA_ATOL_RMS}*rms, worst at {worst:.3f}; final state "
+            f"(outside {STATE_RTOL}*|f32| + {MAMBA_ATOL_RMS}*rms, worst): "
+            + ", ".join(f"{k} {n} ({w:.3f})" for k, (n, w) in states.items())
+            + f"; the bf16 stepped decode's own worst: output {worst_dec:.3f}, state "
+            + ", ".join(f"{k} {w:.3f}" for k, w in states_dec.items()))
+    failed = any(n for n, _ in states.values()) or not torch.isfinite(y).all()
+    if f32_prefill:
+        y32, st32 = forward(cfg32, p32, x.float(), return_state=True)
+        exact = {key: outside(val, ref, XLSTM_F32_RTOL, XLSTM_F32_ATOL_RMS)
+                 for key, val, ref in [("output", y32, want)]
+                 + [(k, st32[k], want_st[k]) for k in keys]}
+        line += (f"; the f32 prefill (outside {XLSTM_F32_RTOL:.3g}*|f32| + "
+                 f"{XLSTM_F32_ATOL_RMS:.3g}*rms, worst): "
+                 + ", ".join(f"{k} {n} ({w:.3f})" for k, (n, w) in exact.items())
+                 + f"; bf16 output error {err / max(err_dec, 1e-30):.3f} of the stepped "
+                 f"decode's (limit {XLSTM_BF16_MULTIPLE})")
+        failed |= any(n for n, _ in exact.values()) or err > XLSTM_BF16_MULTIPLE * err_dec
+    else:
+        failed |= bool(bad)
+    log(line)
+    if failed:
+        fail(f"{arch}: the {what} prefill disagrees with the f32 stepped decode")
 
 
 def check_moe_layer(arch, cfg, p, pp, gen) -> None:
@@ -1455,7 +1647,8 @@ def serve_arch(arch: str, n_layers: int) -> int:
         f"(d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab}{experts}; {cfg.norm}, {cfg.activation}, "
         f"QKV bias {cfg.qkv_bias}); layers: "
-        f"{n_attn} attention, {count('mamba')} mamba, {n_moe} MoE, {count('dense')} dense; "
+        f"{n_attn} attention, {count('mamba')} mamba, {count('mlstm')} mLSTM, "
+        f"{count('slstm')} sLSTM, {n_moe} MoE, {count('dense')} dense; "
         f"{cfg.param_count() / 1e9:.3f} B of {full.param_count() / 1e9:.3f} B parameters "
         f"by the config's count")
     torch.cuda.reset_peak_memory_stats()
@@ -1525,8 +1718,20 @@ def serve_arch(arch: str, n_layers: int) -> int:
             f"f32 gather-and-reduce combine) {spans.get('moe.gather_scatter', 0.0):.3f} ms "
             f"of device time over the profiled serve ({nvidia_smi('name,power.limit')})")
         log_moe_plans(arch, plans, n_moe)
-    else:
+    elif n_attn:
         _profile_serve(model, params, requests(), cap, serve, stats["wall_s"])
+    else:
+        # the recurrent serve launches about 6 M kernels (the mLSTM runs one
+        # token per chunk at 77, 513 and 2047 tokens): too many to trace in
+        # the smoke's time. Its profile is one of those requests, S=77,
+        # against the same request served unprofiled
+        one = lambda: [Request(0, list(reqs[PROMPT_LENS.index(77)].prompt), MAX_NEW)]
+        t0 = time.perf_counter()
+        serve(model, params, one(), slots=SLOTS, cap=cap, scheduler="continuous")
+        wall_one = time.perf_counter() - t0
+        log(f"profile {arch}: the second run is cut to one request (S=77, chunks of 1, "
+            f"{MAX_NEW} tokens): unprofiled {wall_one:.3f} s")
+        _profile_serve(model, params, one(), cap, serve, wall_one)
 
     # parity: with MoE layers the routing of the kernel prefill is recorded
     # and pinned in the plain prefill. Routing is a discontinuous function of
@@ -1536,7 +1741,10 @@ def serve_arch(arch: str, n_layers: int) -> int:
     # routing; the plain prefill's own routing is reported beside it.
     prompt = torch.tensor([[int(t) for t in rng.integers(0, cfg.vocab, 513)]],
                           dtype=torch.int32, device=model.device)
-    if not n_moe:
+    if not n_attn:
+        log(f"parity {arch}: skipped: the kernel-vs-plain prefill parity compares "
+            f"attention, and {arch} has no attention layer (its flash launches are 0)")
+    elif not n_moe:
         _, _, got = model.prefill(params, {"tokens": prompt}, 513)
         with plain_flash():
             _, _, want = model.prefill(params, {"tokens": prompt}, 513)
@@ -1565,6 +1773,99 @@ def serve_arch(arch: str, n_layers: int) -> int:
                      f"attention would move, per MoE layer: {moved}; unpinned max "
                      f"|kernel-plain| {free_diff:.4e})")
     del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+def serve_prefixed(arch: str, lens) -> int:
+    """The encdec-vision phase for one arch, uncut: init from a seeded
+    generator, then per prompt length in ``lens`` one request (B=1, with a
+    seeded stub of frames or patches at 0.1 N(0, 1)) greedily decoded to
+    MAX_NEW tokens through ``Model.prefill`` and ``Model.decode_step``, the
+    reference's only entry for these archs (checked and counted); a
+    profiled second run; the parity of phase 7 at the longest prompt (513
+    where it fits). Frees the weights. Returns the flash launches of the
+    counted run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import latency_summary
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    n_attn = cfg.n_layers + cfg.n_encoder_layers
+    n_prefix = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    stub = "frames" if cfg.frontend == "audio" else "patches"
+    log(f"{arch}: uncut ({cfg.n_layers} decoder layers, {cfg.n_encoder_layers} encoder "
+        f"layers), every width as published (d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{cfg.norm}, {cfg.activation}, QKV bias {cfg.qkv_bias}, tied embeddings "
+        f"{cfg.tie_embeddings}); {cfg.frontend} stub of {cfg.n_frontend_tokens} "
+        f"{stub}; {cfg.param_count() / 1e9:.3f} B parameters by the config's count; "
+        f"prompts {list(lens)}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    log(f"init {arch}: {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
+        f"{time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(SEED)
+    stub_gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cap = max(lens) + n_prefix + MAX_NEW + 2
+
+    def batch(n):
+        tokens = torch.tensor([[int(t) for t in rng.integers(0, cfg.vocab, n)]],
+                              dtype=torch.int32, device=dev)
+        return {"tokens": tokens, stub: 0.1 * torch.randn(
+            (1, cfg.n_frontend_tokens, cfg.d_model), generator=stub_gen, device=dev)}
+
+    def greedy(b, max_new=MAX_NEW):
+        """(tokens, seconds to the first token)."""
+        t_start = time.perf_counter()
+        cache, pos, last = model.prefill(params, b, cap)
+        out = [int(torch.argmax(last[0, 0]))]
+        ttft = time.perf_counter() - t_start
+        for t in range(max_new - 1):
+            logits, cache = model.decode_step(
+                params, cache, torch.tensor([out[-1]], dtype=torch.int32), pos + t)
+            out.append(int(torch.argmax(logits[0])))
+        return out, ttft
+
+    greedy(batch(min(lens)), 2)  # warm-up (library handles, first launches); not counted
+    batches = [batch(n) for n in lens]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    runs = [greedy(b) for b in batches]
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    tokens = sum(len(out) for out, _ in runs)
+    ttft = latency_summary([t for _, t in runs])
+    log(f"serve {arch} (prefill + decode_step, B=1, one request after another): {tokens} "
+        f"tokens in {wall:.3f} s ({tokens / wall:.1f} tok/s), TTFT p50 {ttft['p50']:.4f} s "
+        f"p99 {ttft['p99']:.4f} s, {len(runs)} prefills, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
+    if any(len(out) != MAX_NEW for out, _ in runs):
+        fail(f"{arch}: a request got too few tokens: {[len(out) for out, _ in runs]}")
+    if any(not 0 <= t < cfg.vocab for out, _ in runs for t in out):
+        fail(f"{arch}: a token outside the vocabulary")
+    if launches["flash_attention"] != len(runs) * n_attn:
+        fail(f"{arch}: flash launches {launches['flash_attention']} != prefills x "
+             f"attention layers {len(runs) * n_attn}")
+    _profile_serve(model, params, batches, cap,
+                   lambda m, p, reqs, **kw: [greedy(b) for b in reqs], wall)
+    s = max(n for n in lens if n <= 513)
+    b = batch(s)
+    _, _, got = model.prefill(params, b, cap)
+    with plain_flash():
+        _, _, want = model.prefill(params, b, cap)
+    check_logits(arch, cfg, got, want, s=s)
+    del model, params, got, want
     gc.collect()
     torch.cuda.empty_cache()
     return launches["flash_attention"]

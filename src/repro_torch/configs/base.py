@@ -2,8 +2,8 @@
 
 A copy of ``repro.configs.base`` with torch dtype accessors in place of the
 ``jax.numpy`` ones; every field, the block pattern and ``reduced()`` are the
-same, so a test can pin field equality against the reference. Only the
-configs whose slice has been ported are registered here.
+same, so a test can pin field equality against the reference. Every
+config of the reference's registry is registered here.
 """
 from __future__ import annotations
 
@@ -237,7 +237,7 @@ def _count_params(cfg: ArchConfig, active_only: bool = False) -> int:
 
 
 # ---------------------------------------------------------------------------
-# registry: the configs whose slice has been ported
+# registry: the reference's ten archs
 # ---------------------------------------------------------------------------
 
 ARCH_IDS = (
@@ -248,6 +248,9 @@ ARCH_IDS = (
     "nemotron_4_15b",
     "qwen25_14b",
     "stablelm_3b",
+    "xlstm_13b",
+    "whisper_large_v3",
+    "internvl2_1b",
 )
 
 _ALIASES = {
@@ -258,12 +261,15 @@ _ALIASES = {
     "nemotron-4-15b": "nemotron_4_15b",
     "qwen2.5-14b": "qwen25_14b",
     "stablelm-3b": "stablelm_3b",
+    "xlstm-1.3b": "xlstm_13b",
+    "whisper-large-v3": "whisper_large_v3",
+    "internvl2-1b": "internvl2_1b",
 }
 
 
 def get_config(name: str) -> ArchConfig:
     mod_name = _ALIASES.get(name, name.replace("-", "_").replace(".", ""))
     if mod_name not in ARCH_IDS:
-        raise ValueError(f"arch {name!r} is not ported (ported: {ARCH_IDS})")
+        raise ValueError(f"unknown arch {name!r} (known: {ARCH_IDS})")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

@@ -14,6 +14,10 @@ On the card:  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b
 On the CPU:   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
     --reduced --device cpu --requests 6 --slots 2 --max-new 16
 
+It serves the token-only archs (all but whisper-large-v3 and internvl2-1b,
+whose prefill needs stub frames or patches and which, as in the reference,
+run through ``Model.prefill`` and ``Model.decode_step`` only).
+
 ``--schedule-cache F`` serves the kernel block picks from a snapshot
 (``python -m repro_torch.tuna snapshot``), polled for republishes at
 admission or wave boundaries; ``--schedule-db F`` from a warm DB.
@@ -188,6 +192,9 @@ def main(argv=None) -> None:
         print(f"[serve] kernel bundle: {ops.get_kernel_bundle().describe()}")
 
     cfg = get_config(args.arch)
+    if cfg.frontend:
+        ap.error(f"{args.arch} needs {cfg.frontend} inputs besides tokens; it runs "
+                 f"through Model.prefill and Model.decode_step, not this serve")
     if args.reduced:
         cfg = cfg.reduced()
     model = Model(cfg, device=args.device)

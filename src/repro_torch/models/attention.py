@@ -1,9 +1,12 @@
 """GQA attention: prefill (the flash kernel below ``chunked_threshold``,
 chunked plain torch at or above it) and single-token decode over a KV cache.
+Cross-attention (keys and values from the encoder's output) goes through
+the chunked plain path at any length, as in the reference, and decodes over
+the encoder's projections with no cache write.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,25 +36,35 @@ def init_attention(cfg, gen, lead: Tuple[int, ...] = ()) -> Dict:
     return p
 
 
-def _qkv_products(p, xc):
-    """x @ wq, x @ wk, x @ wv in the compute dtype, each plus its bias where
-    the layer has one (before the reshape into heads and RoPE)."""
+def _product(p, w: str, xc):
+    """xc @ p[w] in xc's (the compute) dtype, plus the bias ``b<w[1]>``
+    where the layer has one."""
     cd = xc.dtype
-    q, k, v = (xc @ p[w].to(cd) for w in ("wq", "wk", "wv"))
-    if "bq" in p:
-        q, k, v = q + p["bq"].to(cd), k + p["bk"].to(cd), v + p["bv"].to(cd)
-    return q, k, v
+    y = xc @ p[w].to(cd)
+    bias = "b" + w[1]
+    return y + p[bias].to(cd) if bias in p else y
 
 
-def _project_qkv(cfg, p, x):
-    """x [B,S,D] -> q [B,H,S,dh], k/v [B,Hkv,S,dh]."""
+def _qkv_products(p, xc, kv_xc=None):
+    """x @ wq and kv_x @ wk, kv_x @ wv (kv_x defaults to x) in the compute
+    dtype, each plus its bias where the layer has one (before the reshape
+    into heads and RoPE)."""
+    kv_xc = xc if kv_xc is None else kv_xc
+    return _product(p, "wq", xc), _product(p, "wk", kv_xc), _product(p, "wv", kv_xc)
+
+
+def _project_qkv(cfg, p, x, kv_x=None):
+    """x [B,S,D] (and kv_x [B,Skv,D], default x) -> q [B,H,S,dh], k/v
+    [B,Hkv,Skv,dh]."""
     cd = cfg.torch_compute_dtype()
     b, s, _ = x.shape
+    kv_x = x if kv_x is None else kv_x
+    skv = kv_x.shape[1]
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = _qkv_products(p, x.to(cd))
+    q, k, v = _qkv_products(p, x.to(cd), kv_x.to(cd))
     q = q.reshape(b, s, h, dh).transpose(1, 2)
-    k = k.reshape(b, s, hkv, dh).transpose(1, 2)
-    v = v.reshape(b, s, hkv, dh).transpose(1, 2)
+    k = k.reshape(b, skv, hkv, dh).transpose(1, 2)
+    v = v.reshape(b, skv, hkv, dh).transpose(1, 2)
     return q, k, v
 
 
@@ -101,17 +114,22 @@ def attention_forward(
     x: torch.Tensor,
     positions: torch.Tensor,
     causal: bool = True,
+    kv_x: Optional[torch.Tensor] = None,
+    use_rope: bool = True,
     chunked_threshold: int = 4096,
 ):
-    """Self attention for prefill. Returns (output [B,S,D], (k, v) for the
-    cache)."""
-    q, k, v = _project_qkv(cfg, p, x)
-    sin, cos = L.rope_tables(cfg, positions)  # [S, dh/2] — broadcasts
-    q = L.apply_rope(q, sin, cos).contiguous()
-    k = L.apply_rope(k, sin, cos).contiguous()
-    v = v.contiguous()
+    """Self (or, with ``kv_x``, cross) attention for prefill. RoPE applies
+    to self attention with ``use_rope`` only. Returns (output [B,S,D],
+    (k, v) for the cache)."""
+    q, k, v = _project_qkv(cfg, p, x, kv_x)
+    if use_rope and kv_x is None:
+        sin, cos = L.rope_tables(cfg, positions)  # [S, dh/2] — broadcasts
+        q, k = L.apply_rope(q, sin, cos), L.apply_rope(k, sin, cos)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     s = q.shape[2]
-    if s >= chunked_threshold:
+    if kv_x is not None:
+        out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    elif s >= chunked_threshold:
         out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
     else:
         out = kops.attention(q, k, v, causal=causal)
@@ -129,6 +147,7 @@ def decode_attention(
     cache_k: torch.Tensor,  # [B, Hkv, CAP, dh]
     cache_v: torch.Tensor,
     pos: torch.Tensor,  # 0-dim (lockstep) or [B] (per-slot depths), < CAP
+    cross: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token attention over the cache; returns (y, cache_k, cache_v).
 
@@ -137,12 +156,15 @@ def decode_attention(
     tensors are returned. A 0-dim ``pos`` puts every row at one depth; a
     ``[B]`` ``pos`` gives each row its own RoPE angle, cache write index and
     validity mask. ``pos < CAP`` is the caller's precondition
-    (``Model.decode_step`` checks it)."""
+    (``Model.decode_step`` checks it). With ``cross`` the cache is the
+    encoder's projections: no RoPE, no write, every position valid."""
     cd = cfg.torch_compute_dtype()
     b = x.shape[0]
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // hkv
-    cap = cache_k.shape[2]
+    if cross:
+        q = _product(p, "wq", x.to(cd)).reshape(b, hkv, g, dh)
+        return _attend(cfg, p, q, cache_k, cache_v, None).to(x.dtype), cache_k, cache_v
     vector_pos = pos.ndim == 1
     q, knew, vnew = _qkv_products(p, x.to(cd))
     q = q.reshape(b, h, 1, dh)
@@ -165,16 +187,24 @@ def decode_attention(
         idx = pos.reshape(1).long()
         cache_k.index_copy_(2, idx, knew.to(cache_k.dtype))
         cache_v.index_copy_(2, idx, vnew.to(cache_v.dtype))
-
-    qg = q.reshape(b, hkv, g, dh).float() * (dh ** -0.5)
-    logits = torch.einsum("bhgd,bhkd->bhgk", qg, cache_k.float())
-    idx = torch.arange(cap, device=x.device)
+    idx = torch.arange(cache_k.shape[2], device=x.device)
     if vector_pos:
         valid = (idx[None, :] <= pos[:, None])[:, None, None]  # [B,1,1,cap]
     else:
         valid = idx <= pos
-    logits = logits.masked_fill(~valid, NEG_INF)
+    y = _attend(cfg, p, q.reshape(b, hkv, g, dh), cache_k, cache_v, valid)
+    return y.to(x.dtype), cache_k, cache_v
+
+
+def _attend(cfg, p, q, cache_k, cache_v, valid):
+    """q [B, Hkv, G, dh] over the cache (positions outside ``valid`` masked;
+    ``None``: all valid), in f32, then the output projection -> [B, 1, D]
+    in the compute dtype."""
+    cd = cfg.torch_compute_dtype()
+    b, hkv, g, dh = q.shape
+    logits = torch.einsum("bhgd,bhkd->bhgk", q.float() * (dh ** -0.5), cache_k.float())
+    if valid is not None:
+        logits = logits.masked_fill(~valid, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", w, cache_v.float())
-    y = out.reshape(b, 1, h * dh).to(cd) @ p["wo"].to(cd)
-    return y.to(x.dtype), cache_k, cache_v
+    return out.reshape(b, 1, hkv * g * dh).to(cd) @ p["wo"].to(cd)

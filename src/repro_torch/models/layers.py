@@ -99,31 +99,40 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
 # --------------------------------------------------------------------------
 
 
+ACTIVATIONS = ("swiglu", "geglu", "sq_relu", "gelu")
+
+
 def init_dense_mlp(cfg, gen, lead: Tuple[int, ...] = (),
                    d_ff: Optional[int] = None) -> Dict:
     """A dense MLP of width ``d_ff`` (default ``cfg.d_ff``; an MoE's shared
-    expert passes ``d_expert``): ``w1``/``w2``, and the gate ``w3`` for
-    SwiGLU only."""
-    if cfg.activation not in ("swiglu", "sq_relu"):
-        raise NotImplementedError(f"activation {cfg.activation!r} is not ported yet")
+    expert passes ``d_expert``): ``w1``/``w2``, and the gate ``w3`` for the
+    gated activations (SwiGLU, GeGLU) only."""
+    if cfg.activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {cfg.activation!r}")
     d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = cfg.torch_param_dtype()
     p = {
         "w1": normal(gen, lead + (d, f), d ** -0.5, dt),
         "w2": normal(gen, lead + (f, d), f ** -0.5, dt),
     }
-    if cfg.activation == "swiglu":
+    if cfg.activation in ("swiglu", "geglu"):
         p["w3"] = normal(gen, lead + (d, f), d ** -0.5, dt)
     return p
 
 
 def _act(cfg, h: torch.Tensor, g: Optional[torch.Tensor]) -> torch.Tensor:
+    """The MLP's activation; GELU is the tanh form (``jax.nn.gelu``'s
+    default)."""
     if cfg.activation == "swiglu":
         return F.silu(h) * g
+    if cfg.activation == "geglu":
+        return F.gelu(h, approximate="tanh") * g
     if cfg.activation == "sq_relu":
         r = F.relu(h)
         return r * r
-    raise NotImplementedError(f"activation {cfg.activation!r} is not ported yet")
+    if cfg.activation == "gelu":
+        return F.gelu(h, approximate="tanh")
+    raise ValueError(f"unknown activation {cfg.activation!r}")
 
 
 def apply_dense_mlp(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,17 @@
 """Heterogeneous block stacking.
 
 Parameters keep the reference's layout: a tuple with one dict per position
-of the config's block pattern, each leaf stacked over the
-``G = n_layers / period`` groups (``[G, ...]``). Layer ``i`` is group
-``i // period`` at position ``i % period``. The reference's ``lax.scan`` over
-groups is a Python loop. Cache leaves carry the batch on axis 1:
-``{k, v}`` ``[G, B, Hkv, cap, dh]`` for attention, ``{conv, h}``
-``[G, B, K-1, d_inner]`` / ``[G, B, d_inner, N]`` for mamba.
+of the block pattern, each leaf stacked over the ``G = n_layers / period``
+groups (``[G, ...]``). Layer ``i`` is group ``i // period`` at position
+``i % period``. The reference's ``lax.scan`` over groups is a Python loop.
+Cache leaves carry the batch on axis 1: ``{k, v}`` ``[G, B, Hkv, cap, dh]``
+for attention, ``{conv, h}`` for mamba, ``{C, n, m}`` for mLSTM and ``{c,
+n, h, m}`` for sLSTM; a block with cross-attention adds ``{xk, xv}``
+``[G, B, Hkv, cross_len, dh]``.
 
-Mixers: ``attention`` and ``mamba``; MLPs: ``dense``, ``moe`` and ``none``.
-The xLSTM mixers and cross-attention come with later slices.
+Mixers: ``attention``, ``mamba``, ``mlstm`` and ``slstm``; MLPs: ``dense``,
+``moe`` and ``none``. The stack's pattern is the config's unless a caller
+passes one (the encoder's is ``(("attention", "dense"),)``).
 """
 from __future__ import annotations
 
@@ -21,19 +23,26 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 
-MIXERS = ("attention", "mamba")
+MIXERS = ("attention", "mamba", "mlstm", "slstm")
 MLPS = ("dense", "moe", "none")
 
 
-def _check_pattern(cfg) -> Tuple[Tuple[str, str], ...]:
-    pattern = cfg.pattern()
+# each mixer's parameter init, and the recurrent mixers' prefill and decode
+_INIT = {"attention": attn.init_attention, "mamba": ssm_mod.init_mamba,
+         "mlstm": xlstm_mod.init_mlstm, "slstm": xlstm_mod.init_slstm}
+_FORWARD = {"mamba": ssm_mod.mamba_forward, "mlstm": xlstm_mod.mlstm_forward,
+            "slstm": xlstm_mod.slstm_forward}
+_DECODE = {"mamba": ssm_mod.mamba_decode, "mlstm": xlstm_mod.mlstm_decode,
+           "slstm": xlstm_mod.slstm_decode}
+
+
+def _check_pattern(cfg, pattern=None) -> Tuple[Tuple[str, str], ...]:
+    pattern = pattern or cfg.pattern()
     for mixer, mlp in pattern:
         if mixer not in MIXERS or mlp not in MLPS:
-            raise NotImplementedError(
-                f"block ({mixer}, {mlp}) is not ported yet; got {pattern}")
-    if cfg.encoder_decoder:
-        raise NotImplementedError("cross-attention is not ported yet")
+            raise ValueError(f"unknown block ({mixer}, {mlp}) in {pattern}")
     return pattern
 
 
@@ -48,31 +57,44 @@ def group_slice(tree, g: int):
 # ---------------------------------------------------------------------------
 
 
-def init_block(cfg, gen, kinds: Tuple[str, str], lead: Tuple[int, ...] = ()) -> Dict:
+def init_block(cfg, gen, kinds: Tuple[str, str], lead: Tuple[int, ...] = (),
+               cross: bool = False) -> Dict:
+    """One block's parameters; ``cross`` adds the cross-attention's
+    ``norm_x`` and ``xattn``."""
     mixer_kind, mlp_kind = kinds
-    p: Dict = {"norm1": L.init_norm(cfg, gen.device, lead)}
-    if mixer_kind == "attention":
-        p["mixer"] = attn.init_attention(cfg, gen, lead)
-    else:
-        p["mixer"] = ssm_mod.init_mamba(cfg, gen, lead)
+    dev = gen.device
+    p: Dict = {"norm1": L.init_norm(cfg, dev, lead),
+               "mixer": _INIT[mixer_kind](cfg, gen, lead)}
+    if cross:
+        p["norm_x"] = L.init_norm(cfg, dev, lead)
+        p["xattn"] = attn.init_attention(cfg, gen, lead)
     if mlp_kind == "dense":
-        p["norm2"] = L.init_norm(cfg, gen.device, lead)
+        p["norm2"] = L.init_norm(cfg, dev, lead)
         p["mlp"] = L.init_dense_mlp(cfg, gen, lead)
     elif mlp_kind == "moe":
-        p["norm2"] = L.init_norm(cfg, gen.device, lead)
+        p["norm2"] = L.init_norm(cfg, dev, lead)
         p["mlp"] = moe_mod.init_moe(cfg, gen, lead)
     return p
 
 
 def init_block_cache(cfg, mixer_kind: str, batch: int, cap: int, device,
-                     lead: Tuple[int, ...] = ()) -> Dict:
-    """Zeroed decode cache for one block (stacked over ``lead``)."""
+                     lead: Tuple[int, ...] = (), cross_len: int = 0) -> Dict:
+    """Zeroed decode cache for one block (stacked over ``lead``); with
+    ``cross_len`` also the cross-attention's ``{xk, xv}``."""
     dt = cfg.torch_compute_dtype()
+    kv = lambda n: torch.zeros(lead + (batch, cfg.n_kv_heads, n, cfg.head_dim),
+                               dtype=dt, device=device)
     if mixer_kind == "attention":
-        shape = lead + (batch, cfg.n_kv_heads, cap, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
-    return ssm_mod.init_mamba_cache(cfg, batch, dt, device, lead)
+        c = {"k": kv(cap), "v": kv(cap)}
+    elif mixer_kind == "mamba":
+        c = ssm_mod.init_mamba_cache(cfg, batch, dt, device, lead)
+    elif mixer_kind == "mlstm":
+        c = xlstm_mod.init_mlstm_cache(cfg, batch, device, lead)
+    else:
+        c = xlstm_mod.init_slstm_cache(cfg, batch, device, lead)
+    if cross_len:
+        c.update(xk=kv(cross_len), xv=kv(cross_len))
+    return c
 
 
 def _apply_mlp(cfg, p, mlp_kind, x):
@@ -88,41 +110,56 @@ def _apply_mlp(cfg, p, mlp_kind, x):
 
 
 def apply_block(cfg, p: Dict, kinds: Tuple[str, str], x: torch.Tensor,
-                positions: torch.Tensor, causal: bool = True):
+                positions: torch.Tensor, causal: bool = True,
+                enc_out: Optional[torch.Tensor] = None):
     """Prefill through one block. Returns (x, cache_contrib, MoE aux loss or
-    None):
-    attention's ``{k, v}`` ``[B, Hkv, S, dh]`` or mamba's final
-    ``{conv, h}``."""
+    None): attention's ``{k, v}`` ``[B, Hkv, S, dh]`` or a recurrent
+    mixer's final state, and with ``enc_out`` (and cross-attention
+    parameters) the encoder's projections ``{xk, xv}``."""
     mixer_kind, mlp_kind = kinds
     h = L.apply_norm(cfg, p["norm1"], x)
-    if mixer_kind == "attention":
-        with L.span("attention"):
+    with L.span(mixer_kind):
+        if mixer_kind == "attention":
             y, (k, v) = attn.attention_forward(cfg, p["mixer"], h, positions,
                                                causal=causal)
-        contrib = {"k": k, "v": v}
-    else:
-        with L.span("mamba"):
-            y, contrib = ssm_mod.mamba_forward(cfg, p["mixer"], h,
-                                               return_state=True)
-    x, aux = _apply_mlp(cfg, p, mlp_kind, x + y)
+            contrib = {"k": k, "v": v}
+        else:
+            y, contrib = _FORWARD[mixer_kind](cfg, p["mixer"], h, return_state=True)
+    x = x + y
+    if enc_out is not None and "xattn" in p:
+        hx = L.apply_norm(cfg, p["norm_x"], x)
+        with L.span("cross_attention"):
+            y, (xk, xv) = attn.attention_forward(cfg, p["xattn"], hx, positions,
+                                                 causal=False, kv_x=enc_out,
+                                                 use_rope=False)
+        contrib = dict(contrib, xk=xk, xv=xv)
+        x = x + y
+    x, aux = _apply_mlp(cfg, p, mlp_kind, x)
     return x, contrib, aux
 
 
 def apply_block_decode(cfg, p: Dict, kinds: Tuple[str, str], x: torch.Tensor,
                        cache: Dict, pos: torch.Tensor) -> torch.Tensor:
-    """One decode step through one block; writes the cache in place."""
+    """One decode step through one block; writes the cache in place (the
+    cross-attention's ``{xk, xv}`` are read, never written)."""
     mixer_kind, mlp_kind = kinds
     h = L.apply_norm(cfg, p["norm1"], x)
-    if mixer_kind == "attention":
-        with L.span("attention"):
+    with L.span(mixer_kind):
+        if mixer_kind == "attention":
             y, _, _ = attn.decode_attention(cfg, p["mixer"], h, cache["k"],
                                             cache["v"], pos)
-    else:
-        with L.span("mamba"):
-            y, st = ssm_mod.mamba_decode(cfg, p["mixer"], h, cache)
-            cache["conv"].copy_(st["conv"])
-            cache["h"].copy_(st["h"])
-    x, _ = _apply_mlp(cfg, p, mlp_kind, x + y)
+        else:
+            y, st = _DECODE[mixer_kind](cfg, p["mixer"], h, cache)
+            for key, val in st.items():
+                cache[key].copy_(val)
+    x = x + y
+    if "xattn" in p:
+        hx = L.apply_norm(cfg, p["norm_x"], x)
+        with L.span("cross_attention"):
+            y, _, _ = attn.decode_attention(cfg, p["xattn"], hx, cache["xk"],
+                                            cache["xv"], pos, cross=True)
+        x = x + y
+    x, _ = _apply_mlp(cfg, p, mlp_kind, x)
     return x
 
 
@@ -131,41 +168,56 @@ def apply_block_decode(cfg, p: Dict, kinds: Tuple[str, str], x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def init_stack(cfg, gen) -> Tuple[Dict, ...]:
-    pattern = _check_pattern(cfg)
-    lead = (cfg.n_layers // len(pattern),)
-    return tuple(init_block(cfg, gen, kinds, lead) for kinds in pattern)
+def init_stack(cfg, gen, n_layers: Optional[int] = None, cross: bool = False,
+               pattern: Optional[Tuple[Tuple[str, str], ...]] = None) -> Tuple[Dict, ...]:
+    """A tuple with one parameter dict per pattern position, each leaf
+    stacked over ``G = n_layers / period`` groups (``n_layers`` defaults to
+    the config's, ``pattern`` to the config's)."""
+    pattern = _check_pattern(cfg, pattern)
+    n_layers = n_layers or cfg.n_layers
+    if n_layers % len(pattern):
+        raise ValueError(f"{n_layers} layers do not split into periods of {len(pattern)}")
+    lead = (n_layers // len(pattern),)
+    return tuple(init_block(cfg, gen, kinds, lead, cross=cross) for kinds in pattern)
 
 
-def init_stack_cache(cfg, batch: int, cap: int, device) -> Tuple[Dict, ...]:
-    pattern = _check_pattern(cfg)
-    lead = (cfg.n_layers // len(pattern),)
-    return tuple(init_block_cache(cfg, mixer, batch, cap, device, lead)
+def init_stack_cache(cfg, batch: int, cap: int, device, n_layers: Optional[int] = None,
+                     cross_len: int = 0,
+                     pattern: Optional[Tuple[Tuple[str, str], ...]] = None) -> Tuple[Dict, ...]:
+    pattern = _check_pattern(cfg, pattern)
+    lead = ((n_layers or cfg.n_layers) // len(pattern),)
+    return tuple(init_block_cache(cfg, mixer, batch, cap, device, lead,
+                                  cross_len=cross_len)
                  for mixer, _ in pattern)
 
 
 def apply_stack(cfg, stack_params: Tuple[Dict, ...], x: torch.Tensor,
                 positions: torch.Tensor, causal: bool = True,
-                cache: Optional[Tuple[Dict, ...]] = None):
-    """Prefill through every layer. Returns (x, summed MoE aux loss). With
-    ``cache`` (from ``init_stack_cache``, attention cap >= S), each
-    attention layer's k/v are written in place into ``[:, :, :, :S]`` of its
-    group and each mamba layer's final state into its group, with no
-    stacked copy."""
-    pattern = _check_pattern(cfg)
+                cache: Optional[Tuple[Dict, ...]] = None,
+                enc_out: Optional[torch.Tensor] = None,
+                pattern: Optional[Tuple[Tuple[str, str], ...]] = None):
+    """Prefill through every layer of the stack (its depth is the
+    parameters' group count). Returns (x, summed MoE aux loss). With
+    ``cache`` (from ``init_stack_cache``, attention cap >= S), each layer's
+    contribution is written in place into its group, with no stacked copy:
+    self-attention's k/v into ``[:, :, :, :S]`` of the ``k``/``v`` leaves,
+    every other leaf (recurrent states, cross-attention's ``xk``/``xv``)
+    whole."""
+    pattern = _check_pattern(cfg, pattern)
     s = x.shape[1]
     aux = torch.zeros((), device=x.device)
-    for g in range(cfg.n_layers // len(pattern)):
+    for g in range(stack_params[0]["norm1"]["w"].shape[0]):
         for pp, kinds in enumerate(pattern):
             x, contrib, a = apply_block(cfg, group_slice(stack_params[pp], g),
-                                        kinds, x, positions, causal=causal)
+                                        kinds, x, positions, causal=causal,
+                                        enc_out=enc_out)
             if a is not None:
                 aux = aux + a
             if cache is None:
                 continue
             for key, val in contrib.items():
                 leaf = cache[pp][key][g]
-                if kinds[0] == "attention":
+                if key in ("k", "v"):
                     leaf = leaf[:, :, :s]
                 leaf.copy_(val)
     return x, aux
@@ -174,10 +226,10 @@ def apply_stack(cfg, stack_params: Tuple[Dict, ...], x: torch.Tensor,
 def apply_stack_decode(cfg, stack_params: Tuple[Dict, ...], x: torch.Tensor,
                        cache: Tuple[Dict, ...], pos: torch.Tensor) -> torch.Tensor:
     """One decode step through every layer; ``pos`` is 0-dim or ``[B]``
-    (mamba layers are position-free recurrences). The cache is updated in
+    (the recurrent mixers are position-free). The cache is updated in
     place."""
     pattern = _check_pattern(cfg)
-    for g in range(cfg.n_layers // len(pattern)):
+    for g in range(stack_params[0]["norm1"]["w"].shape[0]):
         for pp, kinds in enumerate(pattern):
             x = apply_block_decode(cfg, group_slice(stack_params[pp], g), kinds,
                                    x, group_slice(cache[pp], g), pos)

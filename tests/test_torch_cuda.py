@@ -392,3 +392,37 @@ def test_cuda_bundle_refuses_a_corrupt_library(card, tmp_path, bundle_records):
         KernelBundle.load(str(bad))
     with pytest.raises(BundleError, match="backend"):
         KernelBundle.load(info.path, device="cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mixer,s", [("mlstm", 16), ("mlstm", 13), ("slstm", 16)])
+def test_xlstm_mixer_on_the_card_matches_the_cpu(card, mixer, s):
+    """The reduced xlstm-1.3b mixers in f32 (TF32 off) on the card against
+    the same code on the CPU, on the same weights and input: the chunkwise
+    mLSTM (chunk 8, and one token per chunk at S=13) or the sLSTM scan,
+    output and final state, then three decode steps from that state.
+    Limit 1e-4 absolute and relative: f32 on both sides, summed in
+    another order (each mixer alone is well conditioned; the CPU tests
+    hold it to the reference at the same limit)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import xlstm
+
+    cfg = get_config("xlstm_13b").reduced()
+    init = xlstm.init_mlstm if mixer == "mlstm" else xlstm.init_slstm
+    forward = xlstm.mlstm_forward if mixer == "mlstm" else xlstm.slstm_forward
+    decode = xlstm.mlstm_decode if mixer == "mlstm" else xlstm.slstm_decode
+    p = init(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(s)
+    x = torch.from_numpy(0.5 * rng.standard_normal((2, s + 3, cfg.d_model)).astype(np.float32))
+    outs = []
+    for dev in ("cpu", card):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        y, state = forward(cfg, pd, x[:, :s].to(dev), return_state=True)
+        steps = []
+        for t in range(s, s + 3):
+            yt, state = decode(cfg, pd, x[:, t:t + 1].to(dev), state)
+            steps.append(yt)
+        outs.append([y, torch.cat(steps, dim=1)] + [state[k] for k in sorted(state)])
+    for want, got in zip(*outs):
+        assert got.device.type == "cuda"
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)

@@ -1,8 +1,15 @@
 """The port's reduced models held against the reference model on converted
 weights (yi-6b, and as parametrised cases the MoE qwen3-moe and llama4, the
-attention/mamba/MoE hybrid jamba and the dense nemotron-4-15b, qwen2.5-14b
-and stablelm-3b), plus the port's isolation from jax and from ``repro``."""
+attention/mamba/MoE hybrid jamba, the dense nemotron-4-15b, qwen2.5-14b and
+stablelm-3b, the xLSTM stack xlstm-1.3b, the encoder-decoder
+whisper-large-v3 and the vision-prefixed internvl2-1b), plus the port's
+isolation from jax and from ``repro``.
+
+Tolerance: ``TOL``, f32 on both sides; the xLSTM stack, which amplifies
+rounding at a few ill-conditioned positions, holds to ``STACK_TOL``
+(argued in test_torch_xlstm.py, where each xLSTM mixer holds to TOL)."""
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -19,6 +26,7 @@ from repro.models.model import Model as JModel
 from repro_torch.configs.base import get_config
 from repro_torch.models.model import Model
 from repro_torch.weights import from_jax
+from test_torch_xlstm import STACK_TOL
 
 TOL = dict(atol=1e-4, rtol=1e-4)  # f32 on both sides: summation order only
 RNG = np.random.default_rng(3)
@@ -28,6 +36,9 @@ NEW_ARCHS = ("qwen3_moe_235b_a22b", "jamba_v01_52b", "llama4_maverick_400b_a17b"
 # the dense decoders with layernorm (nemotron, stablelm), the squared-ReLU MLP
 # (nemotron) and QKV bias (qwen2.5)
 DENSE_ARCHS = ("nemotron_4_15b", "qwen25_14b", "stablelm_3b")
+# the xLSTM stack, the encoder-decoder (fed stub frames) and the vision
+# prefix (fed stub patches)
+LATE_ARCHS = ("xlstm_13b", "whisper_large_v3", "internvl2_1b")
 
 
 def nonzero_norms_and_biases(jparams, seed: int = 11):
@@ -69,6 +80,11 @@ def arch_pair(request):
     return _make_pair(request.param)
 
 
+@pytest.fixture(scope="module", params=LATE_ARCHS)
+def late_pair(request):
+    return _make_pair(request.param)
+
+
 @pytest.fixture(scope="module", params=DENSE_ARCHS)
 def dense_pair(request):
     """A dense arch on reference weights whose norms and QKV biases were
@@ -80,18 +96,40 @@ def _tokens(b, s, vocab=256):
     return RNG.integers(0, vocab, (b, s)).astype(np.int32)
 
 
-def _close(got, want):
+def _batches(cfg, toks):
+    """Tokens [B, S] -> (the port's batch, the reference's), with stub
+    frames or patches, 0.1 N(0, 1) from the numpy seed as
+    tests/test_models.py draws them, where the arch has a frontend."""
+    batch = {"tokens": toks}
+    if cfg.frontend:
+        key = "frames" if cfg.frontend == "audio" else "patches"
+        batch[key] = (0.1 * RNG.standard_normal(
+            (toks.shape[0], cfg.n_frontend_tokens, cfg.d_model))).astype(np.float32)
+    return ({k: torch.from_numpy(v) for k, v in batch.items()},
+            {k: jnp.asarray(v) for k, v in batch.items()})
+
+
+def _prefix(cfg):
+    """Positions the vision prefix takes before the tokens."""
+    return cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+
+
+def _tol(cfg):
+    return STACK_TOL if cfg.family == "ssm" else TOL
+
+
+def _close(got, want, tol=TOL):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               **TOL)
+                               **tol)
 
 
-def _close_cache(cache, jcache):
+def _close_cache(cache, jcache, tol=TOL):
     leaves = [d[key] for d in cache for key in sorted(d)]
     jleaves = [d[key] for d in jcache for key in sorted(d)]
     assert len(leaves) == len(jleaves) == len(jax.tree.leaves(jcache))
     for a, b in zip(leaves, jleaves):
         assert tuple(a.shape) == b.shape
-        _close(a, b)
+        _close(a, b, tol)
 
 
 def test_init_matches_reference_tree(pair):
@@ -129,10 +167,11 @@ def test_logits_match(pair):
 
 def _check_logits(pair):
     jmodel, jparams, model, params = pair
-    toks = _tokens(2, 12)
-    got = model.logits(params, {"tokens": torch.from_numpy(toks)})
-    want = jmodel.logits(jparams, {"tokens": jnp.asarray(toks)})
-    _close(got, want)
+    batch, jbatch = _batches(model.cfg, _tokens(2, 12))
+    got = model.logits(params, batch)
+    want = jmodel.logits(jparams, jbatch)
+    assert tuple(got.shape) == want.shape == (2, 12, model.cfg.vocab)
+    _close(got, want, _tol(model.cfg))
 
 
 @pytest.mark.parametrize("b,s,cap", [(1, 7, 12), (2, 12, 16)])
@@ -141,15 +180,16 @@ def test_prefill_matches(pair, b, s, cap):
 
 
 def _check_prefill(pair, b, s, cap):
+    """``cap`` counts the prompt's positions; the vision prefix's are added."""
     jmodel, jparams, model, params = pair
-    toks = _tokens(b, s)
-    cache, pos, last = model.prefill(params, {"tokens": torch.from_numpy(toks)},
-                                     cap)
-    jcache, jpos, jlast = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)},
-                                         cap)
-    assert int(pos) == int(jpos) == s
-    _close(last, jlast)
-    _close_cache(cache, jcache)
+    cfg = model.cfg
+    batch, jbatch = _batches(cfg, _tokens(b, s))
+    cap += _prefix(cfg)
+    cache, pos, last = model.prefill(params, batch, cap)
+    jcache, jpos, jlast = jmodel.prefill(jparams, jbatch, cap)
+    assert int(pos) == int(jpos) == s + _prefix(cfg)
+    _close(last, jlast, _tol(cfg))
+    _close_cache(cache, jcache, _tol(cfg))
 
 
 @pytest.mark.parametrize("vector", [False, True])
@@ -157,20 +197,21 @@ def test_decode_step_matches(pair, vector):
     _check_decode_step(pair, vector)
 
 
-def _check_decode_step(pair, vector):
+def _check_decode_step(pair, vector, s=8):
     jmodel, jparams, model, params = pair
-    b, s, cap = 3, 8, 12
-    toks = _tokens(b, s)
-    cache, _, _ = model.prefill(params, {"tokens": torch.from_numpy(toks)}, cap)
-    jcache, _, _ = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, cap)
+    cfg = model.cfg
+    b, cap = 3, s + 4 + _prefix(cfg)
+    batch, jbatch = _batches(cfg, _tokens(b, s))
+    cache, _, _ = model.prefill(params, batch, cap)
+    jcache, _, _ = jmodel.prefill(jparams, jbatch, cap)
     new = _tokens(1, b)[0]
-    pos = np.array([2, 7, 0], np.int32) if vector else np.int32(s)
+    pos = np.array([2, 7, 0], np.int32) if vector else np.int32(s + _prefix(cfg))
     got, cache = model.decode_step(params, cache, torch.from_numpy(new),
                                    torch.tensor(pos))
     want, jcache = jmodel.decode_step(jparams, jcache, jnp.asarray(new),
                                       jnp.asarray(pos))
-    _close(got, want)
-    _close_cache(cache, jcache)
+    _close(got, want, _tol(cfg))
+    _close_cache(cache, jcache, _tol(cfg))
 
 
 def test_init_matches_reference_tree_new_archs(arch_pair):
@@ -211,6 +252,87 @@ def test_stack_aux_loss_matches_reference(arch_pair):
     _close(y, jy)
     _close(aux, jaux)
     assert float(aux) > 0
+
+
+def test_init_matches_reference_tree_late_archs(late_pair):
+    """The mLSTM and sLSTM trees; the encoder (``encoder``, ``enc_norm_f``,
+    ``enc_pos``) and each decoder block's cross-attention (``norm_x``,
+    ``xattn``); ``vis_proj``."""
+    _check_init_tree(late_pair)
+    cfg = late_pair[2].cfg
+    mine = late_pair[2].init(torch.Generator().manual_seed(0))
+    assert ("encoder" in mine) == ("xattn" in mine["layers"][0]) == cfg.encoder_decoder
+    assert ("vis_proj" in mine) == (cfg.frontend == "vision")
+
+
+def test_logits_match_late_archs(late_pair):
+    _check_logits(late_pair)
+
+
+@pytest.mark.parametrize("b,s,cap", [(1, 7, 12), (2, 12, 16)])
+def test_prefill_matches_late_archs(late_pair, b, s, cap):
+    """Last logits and every cache leaf: mLSTM ``{C, n, m}``, sLSTM ``{c,
+    n, h, m}``, the encoder's ``{xk, xv}`` written whole, k/v after the
+    vision prefix."""
+    _check_prefill(late_pair, b, s, cap)
+
+
+@pytest.mark.parametrize("vector", [False, True])
+def test_decode_step_matches_late_archs(late_pair, vector):
+    """At S=9: at S=8, reduced whisper's frame count, the reference's
+    prefill pads the cross-attention cache as if it were k/v (pinned by
+    ``test_reference_decodes_wrong_at_prompt_length_equal_to_frame_count``)."""
+    _check_decode_step(late_pair, vector, s=9)
+
+
+@functools.lru_cache(maxsize=None)
+def _whisper_pair():
+    return _make_pair("whisper_large_v3")
+
+
+def test_reference_decodes_wrong_at_prompt_length_equal_to_frame_count():
+    """Reduced whisper, S = n_frontend_tokens = 8, cap 12: the reference's
+    ``prefill`` pads every 5-d cache leaf whose axis 3 is S, so the
+    cross-attention's ``xk``/``xv`` [G, B, Hkv, 8, dh] grow to cap
+    positions and its decode attends over 4 zero keys: its logits leave its
+    own full forward's, with no error. The port writes ``xk``/``xv`` whole
+    by key and decodes to the full forward's logits."""
+    jmodel, jparams, model, params = _whisper_pair()
+    s, cap = model.cfg.n_frontend_tokens, 12
+    batch, jbatch = _batches(model.cfg, _tokens(1, s + 1))
+    want = jmodel.logits(jparams, jbatch)[:, s]
+    head = lambda bt: {**bt, "tokens": bt["tokens"][:, :s]}
+    jcache, jpos, _ = jmodel.prefill(jparams, head(jbatch), cap)
+    assert jcache[0]["xk"].shape[3] == cap
+    jgot, _ = jmodel.decode_step(jparams, jcache, jbatch["tokens"][:, s], jpos)
+    assert np.abs(np.asarray(jgot) - np.asarray(want)).max() > 0.05
+    cache, pos, _ = model.prefill(params, head(batch), cap)
+    assert cache[0]["xk"].shape[3] == s
+    got, _ = model.decode_step(params, cache, batch["tokens"][:, s], pos)
+    _close(got, want)
+
+
+def test_whisper_encoder_runs_non_causal_attention_through_the_kernel_path(monkeypatch):
+    """The encoder's self-attention is non-causal and goes through
+    ``ops.attention`` (the flash kernel on the card); the decoder's is
+    causal through the same path; cross-attention takes the chunked plain
+    path, as in the reference."""
+    from repro_torch.models import attention as tattn
+
+    model, params = _whisper_pair()[2:]
+    calls, chunked = [], []
+    kernel, plain = tattn.kops.attention, tattn.chunked_attention
+    monkeypatch.setattr(tattn.kops, "attention",
+                        lambda q, k, v, **kw: calls.append((q.shape[2], kw["causal"]))
+                        or kernel(q, k, v, **kw))
+    monkeypatch.setattr(tattn, "chunked_attention",
+                        lambda q, k, v, **kw: chunked.append(k.shape[2]) or plain(q, k, v, **kw))
+    batch, _ = _batches(model.cfg, _tokens(1, 5))
+    model.prefill(params, batch, 8)
+    cfg = model.cfg
+    assert calls == ([(cfg.n_frontend_tokens, False)] * cfg.n_encoder_layers
+                     + [(5, True)] * cfg.n_layers)
+    assert chunked == [cfg.n_frontend_tokens] * cfg.n_layers
 
 
 def test_init_matches_reference_tree_dense_archs(dense_pair):
@@ -378,6 +500,30 @@ def test_bf16_error_within_reference_own_with_routing_pinned(arch, monkeypatch):
     assert err_port <= BF16_ERR_MULTIPLE * err_ref, (err_port, err_ref)
 
 
+@pytest.mark.parametrize("arch", LATE_ARCHS)
+def test_bf16_error_within_reference_own_late_archs(arch):
+    """The xLSTM stack, the encoder-decoder (stub frames) and the vision
+    prefix (stub patches) in bf16 against the f32 reference, which has no
+    routing to pin: the port's max |bf16 - f32| logit error is at most
+    ``BF16_ERR_MULTIPLE`` times the reference's own."""
+    jcfg = jget_config(arch).reduced()
+    jparams = JModel(jcfg).init(jax.random.key(0))
+    to16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    jparams16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jparams)
+    cfg16 = dataclasses.replace(get_config(arch).reduced(), **to16)
+    params16 = from_jax(jax.tree.map(np.asarray, jparams16), device="cpu")
+    batch, jbatch = _batches(cfg16, _tokens(2, 16))
+    want = np.asarray(JModel(jcfg).logits(jparams, jbatch), np.float32)
+    ref16 = np.asarray(JModel(dataclasses.replace(jcfg, **to16)).logits(
+        jparams16, jbatch).astype(jnp.float32))
+    got = Model(cfg16, device="cpu").logits(params16, batch)
+    assert got.dtype == torch.bfloat16
+    err_port = float(np.abs(got.float().numpy() - want).max())
+    err_ref = float(np.abs(ref16 - want).max())
+    assert 0 < err_ref and np.isfinite(err_port)
+    assert err_port <= BF16_ERR_MULTIPLE * err_ref, (err_port, err_ref)
+
+
 def test_moe_prefill_with_drops_matches_reference():
     """Reduced qwen3-moe at capacity factor 0.25 (most assignments dropped,
     slot (0, 0) emptied as the reference empties it)."""
@@ -446,7 +592,9 @@ def test_port_imports_no_jax_and_no_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "assert len(mods) >= 15, mods\n"
-        "want = {'repro_torch.core.zoo', 'repro_torch.configs.tuna_ops'} | "
+        "want = {'repro_torch.core.zoo', 'repro_torch.configs.tuna_ops', "
+        "'repro_torch.models.xlstm'} | {'repro_torch.configs.' + m for m in "
+        "('xlstm_13b', 'whisper_large_v3', 'internvl2_1b')} | "
         "{'repro_torch.tuna.' + m for m in ('db', 'cache', 'transport', "
         "'orchestrator', 'fleet', 'cli', '__main__')}\n"
         "assert want <= set(mods), sorted(want - set(mods))\n"
@@ -489,12 +637,12 @@ def test_config_fields_match_reference(reduced):
     assert mine.torch_compute_dtype() == getattr(torch, ref.compute_dtype)
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS + DENSE_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + DENSE_ARCHS + LATE_ARCHS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_match_reference_new_archs(arch, reduced):
     """Fields, pattern and parameter counts (total and active) of the MoE,
-    hybrid and later dense configs; the aliases resolve to the same
-    config."""
+    hybrid, later dense, xLSTM, encoder-decoder and vision configs; the
+    aliases resolve to the same config."""
     mine, ref = get_config(arch), jget_config(arch)
     assert get_config(ref.name) == mine
     if reduced:
@@ -505,19 +653,39 @@ def test_config_fields_match_reference_new_archs(arch, reduced):
     assert mine.active_param_count() == ref.active_param_count()
 
 
-@pytest.mark.parametrize("change", [dict(slstm_every=2, slstm_offset=1),
-                                    dict(encoder_decoder=True, n_encoder_layers=2)])
-def test_unported_blocks_raise(change):
-    """The xLSTM mixers and cross-attention come with later slices: a
-    pattern that needs them is refused, not run as something else."""
-    cfg = dataclasses.replace(get_config("yi_6b").reduced(), **change)
+def test_unknown_mixer_kind_raises():
+    """A block pattern with a mixer the reference does not have is refused,
+    not run as something else."""
+    cfg = dataclasses.replace(get_config("yi_6b").reduced(), default_mixer="retnet")
     model = Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="retnet"):
         model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="retnet"):
         model.init_cache(1, 8)
 
 
-def test_unported_config_is_refused():
-    with pytest.raises(ValueError):
-        get_config("xlstm_13b")
+def test_unknown_activation_raises():
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(get_config("whisper_large_v3").reduced(), activation="relu6")
+    with pytest.raises(ValueError, match="relu6"):
+        Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="relu6"):
+        L._act(cfg, torch.zeros(2), None)
+
+
+@pytest.mark.parametrize("name", ["gpt2", "xlstm-7b", "whisper_large_v2"])
+def test_arch_outside_the_registry_is_refused(name):
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config(name)
+
+
+def test_registry_holds_every_reference_arch():
+    """``get_config`` accepts all ten of the reference's ``ARCH_IDS``, by id
+    and by published name."""
+    from repro.configs.base import ARCH_IDS as REF_IDS
+    from repro_torch.configs.base import ARCH_IDS
+
+    assert sorted(ARCH_IDS) == sorted(REF_IDS) and len(ARCH_IDS) == 10
+    for arch in REF_IDS:
+        assert get_config(arch) == get_config(jget_config(arch).name)

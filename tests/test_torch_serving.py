@@ -1,7 +1,7 @@
 """The port's serving stack held against the reference's on reduced yi-6b
 (and, as parametrised cases, reduced qwen3-moe, jamba, llama4, nemotron-4-15b,
-qwen2.5-14b and stablelm-3b) with converted weights: greedy tokens and slot
-accounting; and a serve whose block picks come from a schedule snapshot
+qwen2.5-14b, stablelm-3b and xlstm-1.3b) with converted weights: greedy
+tokens and slot accounting; and a serve whose block picks come from a schedule snapshot
 republished while it runs (``tests/test_system.py::TestServeHotReload``)."""
 import functools
 
@@ -41,7 +41,7 @@ def _port_store_off(monkeypatch):
     tuner.set_default_cache(None)
 
 
-def _make_setup(arch):
+def _make_setup(arch, spec=SPEC):
     jmodel = JModel(jget_config(arch).reduced())
     jparams = jmodel.init(jax.random.key(0))
     if arch in DENSE_ARCHS:
@@ -49,9 +49,9 @@ def _make_setup(arch):
     model = Model(get_config(arch).reduced(), device="cpu")
     params = from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     rng = np.random.default_rng(7)
-    prompts = [[int(t) for t in rng.integers(0, 256, p)] for p, _ in SPEC]
+    prompts = [[int(t) for t in rng.integers(0, 256, p)] for p, _ in spec]
     want = {i: jgreedy(jmodel, jparams, pr, m, CAP)
-            for i, (pr, (_, m)) in enumerate(zip(prompts, SPEC))}
+            for i, (pr, (_, m)) in enumerate(zip(prompts, spec))}
     return jmodel, jparams, model, params, prompts, want
 
 
@@ -74,8 +74,8 @@ def _dense_setup(arch):
     return _make_setup(arch)
 
 
-def _requests(cls, prompts):
-    return [cls(i, list(pr), m) for i, (pr, (_, m)) in enumerate(zip(prompts, SPEC))]
+def _requests(cls, prompts, spec=SPEC):
+    return [cls(i, list(pr), m) for i, (pr, (_, m)) in enumerate(zip(prompts, spec))]
 
 
 @pytest.mark.parametrize("scheduler,slots", [("continuous", 3), ("wave", 3),
@@ -117,19 +117,37 @@ def test_port_greedy_reference_matches_dense_archs(arch):
         assert greedy_decode_reference(model, params, pr, m, CAP) == want[i]
 
 
-def _check_scheduler(setup, scheduler, slots):
+# xlstm-1.3b: two short prompts (the reference's greedy decode compiles per
+# prompt length, and its xLSTM stack is the slowest to compile)
+XLSTM_SPEC = [(4, 5), (8, 4)]
+
+
+@functools.lru_cache(maxsize=None)
+def _xlstm_setup():
+    return _make_setup("xlstm_13b", XLSTM_SPEC)
+
+
+@pytest.mark.parametrize("scheduler", ["continuous", "wave"])
+def test_scheduler_matches_reference_greedy_xlstm(scheduler):
+    """The mLSTM and sLSTM states copied into slots and stepped per slot,
+    token for token in f32 against the reference's greedy decode, with
+    its scheduler's accounting."""
+    _check_scheduler(_xlstm_setup(), scheduler, 2, XLSTM_SPEC)
+
+
+def _check_scheduler(setup, scheduler, slots, spec=SPEC):
     jmodel, jparams, model, params, prompts, want = setup
-    reqs = _requests(Request, prompts)
+    reqs = _requests(Request, prompts, spec)
     stats = serve(model, params, reqs, slots=slots, cap=CAP, scheduler=scheduler)
     assert {r.rid: r.out for r in reqs} == want
-    jreqs = _requests(JRequest, prompts)
+    jreqs = _requests(JRequest, prompts, spec)
     jstats = jserve(jmodel, jparams, jreqs, slots=slots, cap=CAP,
                     scheduler=scheduler)
     for key in ("engine_steps", "slot_steps", "wasted_slot_steps", "prefills",
                 "tokens"):
         assert stats[key] == jstats[key], key
     assert set(stats["ttft_s"]) == {"p50", "p95", "p99", "mean"}
-    assert len(stats["requests"]) == len(SPEC)
+    assert len(stats["requests"]) == len(spec)
 
 
 def test_port_greedy_reference_matches(setup):
@@ -242,3 +260,16 @@ def test_republished_snapshot_lands_while_serving(setup, scheduler, tmp_path):
     assert swapped is not first and swapped.misses == 0
     assert first.hits >= 1 and first.misses == 0
     assert tuner.lookup_best(extra.op, "gpu_h100") == extra
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-1b"])
+def test_serve_cli_refuses_archs_with_a_frontend(arch, capsys):
+    """The serve takes tokens only, as the reference's does; the archs whose
+    prefill needs stub frames or patches are refused with the entry they
+    run through, not failed inside a prefill."""
+    from repro_torch.launch import serve as serve_mod
+
+    with pytest.raises(SystemExit) as exc:
+        serve_mod.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "Model.prefill" in capsys.readouterr().err
