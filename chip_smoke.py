@@ -125,6 +125,34 @@ Phases, in order; any failure exits non-zero before the last line:
              split into mlstm, slstm and the rest. The parity of phase 7
              compares attention, which this arch has none of: skipped, and
              logged.
+7b. train — the flash kernel under autograd on the card: dq, dk, dv through
+             ``ops.attention`` (the kernel's forward, then
+             ``flash_attention_backward``) in bf16 against autograd through
+             the plain version on f32 copies, at yi-6b's heads (S=77, 513,
+             2048 causal), whisper's encoder (20/20 of 64, S=1500,
+             non-causal) and stablelm's head dim 80, with the forward's
+             limit, which must catch a backward that drops the last key
+             block, and the forward's output against the plain version's;
+             the forward kernel held against its plain version at the
+             training shape (B=2), then it and the backward timed there.
+             Then yi-6b uncut (32 layers) through
+             ``launch.train.train``: B=2 x 2048 tokens, bf16 moments, 4
+             steps, per-group remat; each step's loss and gradient norm
+             finite, flash launches = 4 x 32 x 2 (forward and recompute),
+             the first step within stated limits of the same step with
+             attention through the plain version (loss, gradient norm, each
+             parameter's gradient norm), limits that must catch the same
+             step with a backward whose dq is halved (a second control, a
+             backward that drops the last key block, is logged); the median
+             step seconds, tokens/s, peak memory, and a profiled fifth
+             step's device idle share (against its own wall time) and
+             device time by span (attention forward, attention
+             backward, cross-entropy, optimizer, the rest). Then a resume at
+             yi-6b's widths with 2 layers: ``train_with_recovery`` with int8
+             moments, two microbatches, int8 gradient compression, a
+             checkpoint every 2 steps and a failure at step 3 must end
+             bit-equal to an uninterrupted run, and two uninterrupted runs
+             must be bit-equal to each other.
 12. encdec-vision — whisper-large-v3 (32 encoder and 32 decoder layers)
              and internvl2-1b (24 layers), uncut, one after the other, each
              freed before the next, through ``Model.prefill`` and
@@ -137,7 +165,8 @@ Phases, in order; any failure exits non-zero before the last line:
              and x 24; a profiled second run split into attention,
              cross-attention and the rest; the parity of phase 7.
 
-Prints a ``topk`` JSON line (ratio@1/5 per shape), a ``kernels`` JSON line,
+Prints a ``train`` JSON line, a ``topk`` JSON line (ratio@1/5 per shape), a
+``kernels`` JSON line,
 then the card's name and power limit, then ``{"ok": true, "device": {...}}``
 as the last line. Needs one card; imports no jax and nothing of the
 reference package. ``python3 chip_smoke.py --cold-start-arm SPEC`` is one
@@ -245,6 +274,39 @@ RECURRENT_SERVES = (("xlstm-1.3b", 48),)
 # whisper-large-v3's published decoder context (max_target_positions): its
 # prompts are the PROMPT_LENS whose 16 new tokens fit in it
 WHISPER_CONTEXT = 448
+# The train phase: yi-6b uncut (32 layers), B=2 x 2048 tokens (under 4096, so
+# every attention layer takes the flash kernel), bf16 moments, 4 steps.
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 4
+# Its first step through the kernel against the same step with attention
+# through the plain version (autograd through ``flash_attention_plain``),
+# both in bf16: the loss (about ln(64000) = 11.07 at random init, a mean over
+# 4096 tokens) within TRAIN_LOSS_TOL absolute, the global gradient norm
+# within TRAIN_GNORM_RTOL relative and each parameter leaf's gradient norm
+# within TRAIN_LEAF_RTOL relative. The two differ in where attention rounds
+# to bf16 (the plain backward rounds dP at its p cast), not in what they
+# compute. The limits must catch the same step with a kernel that lost its
+# batch offset and with a backward whose dq is halved (``faulty_attention``;
+# a faulty backward leaves the loss bit-equal, as it is computed before any
+# backward). On the card (H100 80GB HBM3, 700 W; yi-6b uncut; the readings
+# repeat bit for bit) the sound step read |d loss| 2.460e-4, relative d norm
+# 3.282e-4 and largest relative d leaf norm 6.856e-4; the lost batch offset
+# 7.648e-4 / 4.972e-3 / 8.363e-2, the halved dq - / 2.603e-2 / 5.079e-1.
+# Each limit lies between the sound reading and the nearest control's.
+TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_RTOL = 5e-4, 3e-3, 1e-2
+# The flash gradient check: dq, dk, dv through ``ops.attention`` (the
+# kernel's forward, then ``flash_attention_backward``) in bf16 against
+# autograd through the plain version on f32 copies of the same inputs (in
+# bf16 the plain version's own backward rounds dP to bf16 before dP - rowsum
+# cancels, erring by up to 0.14 rms(dq) at S=2048 in a CPU rehearsal), held
+# to the forward's limit KERNEL_RTOL*|plain| + KERNEL_ATOL_RMS*rms(plain):
+# the gradients are rounded to bf16 once. yi-6b's heads at three lengths,
+# whisper's encoder and stablelm's head dim 80.
+GRAD_CASES = ([(1, 32, 4, s, 128, True) for s in (77, 513, TRAIN_S)]
+              + [(1, 20, 20, 1500, 64, False), (1, 32, 32, 513, 80, True)])
+# The resume check: yi-6b's widths at 2 layers, int8 moments, two
+# microbatches of one row of 1024 tokens, int8 gradient compression, a
+# checkpoint every 2 steps, a failure injected at step 3.
+RESUME_LAYERS, RESUME_B, RESUME_S, RESUME_STEPS = 2, 2, 1024, 4
 
 
 def fail(msg: str) -> None:
@@ -304,6 +366,13 @@ def drop_tail(q, k, v, causal: bool, keep: int):
     p = torch.softmax(logits.masked_fill(~seen, float("-inf")), dim=-1).nan_to_num(0.0)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def tail_keep(s: int, bk: int) -> int:
+    """The keys a dropped-last-key-block control keeps: all but the last
+    (ragged or whole) block of ``bk`` keys, or where one block holds every
+    key (S <= bk), all but the last min(bk, S // 4)."""
+    return (s - 1) // bk * bk if s > bk else s - min(bk, s // 4)
 
 
 def flash_work(b, hq, hkv, s, d, causal):
@@ -386,8 +455,8 @@ def check_flash(cases, qkv, rtol: float = KERNEL_RTOL) -> float:
                 f"{float(got.flatten()[at]):.5f}, plain {float(want.flatten()[at]):.5f}, "
                 f"oracle {float(oracle.flatten()[at]):.5f}); oracle: {bad_o} outside, worst "
                 f"at {worst_o:.3f} (the plain version's own worst {plain_o:.3f})")
-        if s % bk:
-            keep = s - s % bk
+        keep = tail_keep(s, bk)
+        if s % bk and keep < s:
             dropped = drop_tail(q, k, v, causal, keep)
             n_drop, worst_drop = outside(dropped, want, rtol, KERNEL_ATOL_RMS)
             line += (f"; a dropped tail tile ({s - keep} of {s} keys) would give "
@@ -790,6 +859,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---------------------------------------------------------------- train
+    t_phase = time.perf_counter()
+    train = train_phase(qkv)
+    log(f"train: {time.perf_counter() - t_phase:.1f} s")
+
     # ------------------------------------------------- the new head groups
     groups = sorted({(c.n_heads, c.n_kv_heads, c.head_dim)
                      for c in (get_config(a) for a, _ in NEW_SERVES + DENSE_SERVES)},
@@ -882,8 +956,10 @@ def main() -> None:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",
-        "launches": sum(serve_launches.values()),
-        "launches_by_serve": serve_launches, "max_abs_err": max_err,
+        "launches": sum(serve_launches.values()) + sum(train["launches"].values()),
+        "launches_by_serve": serve_launches,
+        "launches_by_train": train["launches"], "train_shape": train["kernel"],
+        "max_abs_err": max_err,
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms, "head_dims": list(fa.HEAD_DIMS),
         "d80": d80, "sass": sass,
@@ -1309,7 +1385,14 @@ def _leaves(tree):
 SPANS = {"moe.route": "MoE routing and ranks", "moe.gather_scatter": "MoE gather/scatter",
          "moe.experts": "MoE expert products", "attention": "attention (prefill + decode)",
          "cross_attention": "cross-attention (prefill + decode)", "mamba": "mamba mixer",
-         "mlstm": "mLSTM mixer", "slstm": "sLSTM mixer"}
+         "mlstm": "mLSTM mixer", "slstm": "sLSTM mixer",
+         "flash.backward": "attention backward", "cross_entropy": "cross-entropy",
+         "optimizer": "optimizer"}
+# the train profile's split: the attention mixer's forward (run twice under
+# remat: the forward and its recompute), the flash backward, the
+# cross-entropy chunks (forward and recompute) and the optimizer
+TRAIN_SPANS = {"attention": "attention forward", "flash.backward": "attention backward",
+               "cross_entropy": "cross-entropy", "optimizer": "optimizer"}
 
 
 def trace_device_time(path) -> tuple:
@@ -1499,15 +1582,15 @@ def check_mixers(arch, cfg, layers) -> None:
     sLSTM layers' prefill against their decode stepped in f32."""
     import torch
     from repro_torch.models import ssm, xlstm
-    from repro_torch.models.transformer import group_slice
+    from repro_torch.models.transformer import group_views
 
     dev = layers[0]["norm1"]["w"].device
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     pattern = cfg.pattern()
     first = lambda kind: next((i for i, kinds in enumerate(pattern) if kind in kinds), None)
-    mixer = lambda pp: group_slice(layers[pp], 0)["mixer"]
+    mixer = lambda pp: group_views(layers[pp])[0]["mixer"]
     if first("moe") is not None:
-        check_moe_layer(arch, cfg, group_slice(layers[first("moe")], 0)["mlp"],
+        check_moe_layer(arch, cfg, group_views(layers[first("moe")])[0]["mlp"],
                         first("moe"), gen)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
     randn = lambda s: torch.randn((1, s, cfg.d_model), generator=gen,
@@ -1894,6 +1977,380 @@ def log_moe_plans(arch, plans, n_moe) -> None:
         f"{decode_drops} assignments dropped")
     if decode_drops:
         fail(f"{arch}: a decode step dropped an assignment (its top-k experts are distinct)")
+
+
+
+def check_flash_grad(cases, qkv) -> float:
+    """Hold dq, dk, dv through ``ops.attention`` (one kernel launch, then
+    ``flash_attention_backward``) in bf16 against autograd through the plain
+    version on f32 copies of the same inputs, per element within
+    KERNEL_RTOL*|plain| + KERNEL_ATOL_RMS*rms(plain), and the forward's
+    output against the plain version's in bf16 (``check_flash``'s limit,
+    since the backward recomputes P and never reads it); log how far autograd
+    through the plain version in bf16 is from the same f32 gradient, and
+    fail unless the limit would catch a backward that drops the last key
+    block (where that block holds 5% of the keys or more). Returns max
+    |got - plain|."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    def grads(fn, inputs, do):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        return out.detach(), torch.autograd.grad(out, leaves, do)
+
+    max_err = 0.0
+    for b, hq, hkv, s, d, causal in cases:
+        q, k, v = qkv(b, hq, hkv, s, d)
+        do = qkv(b, hq, hkv, s, d)[0]
+        bq, bk = ops.tuned_flash_blocks(s, d, 2)
+        plain = lambda q, k, v: fa.flash_attention_plain(q, k, v, causal=causal,
+                                                         block_q=bq, block_k=bk)
+        out, got = grads(lambda q, k, v: ops.attention(q, k, v, causal=causal), (q, k, v), do)
+        f32 = [t.float() for t in (q, k, v)]
+        want = grads(plain, f32, do.float())[1]
+        out_plain, plain_bf16 = grads(plain, (q, k, v), do)
+        keep = tail_keep(s, bk)
+        dropped = [g.nan_to_num(0.0) for g in grads(
+            lambda q, k, v: drop_tail(q, k, v, causal, keep), f32, do.float())[1]]
+        bad_out, worst_out = outside(out, out_plain, KERNEL_RTOL, KERNEL_ATOL_RMS)
+        parts, caught = [f"output {bad_out} outside, worst {worst_out:.3f} of the limit"], False
+        if bad_out or not torch.isfinite(out).all():
+            log(f"grad B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal}: {parts[0]}")
+            fail(f"the flash forward under autograd disagrees at Hq={hq} Hkv={hkv} S={s} D={d}")
+        for name, g, w, pb, dr in zip(("dq", "dk", "dv"), got, want, plain_bf16, dropped):
+            bad, worst = outside(g, w, KERNEL_RTOL, KERNEL_ATOL_RMS)
+            _, worst_pb = outside(pb, w, KERNEL_RTOL, KERNEL_ATOL_RMS)
+            n_drop, worst_drop = outside(dr, w, KERNEL_RTOL, KERNEL_ATOL_RMS)
+            caught = caught or n_drop > 0
+            err = float((g.float() - w).abs().max())
+            max_err = max(max_err, err)
+            parts.append(f"{name} max err {err:.3e}, {bad} outside, worst {worst:.3f} of "
+                         f"the limit (bf16 autograd through plain: {worst_pb:.3f}); a "
+                         f"dropped last key block: {n_drop} outside, worst {worst_drop:.1f}")
+            if bad or g.dtype != q.dtype or not torch.isfinite(g).all():
+                log(f"grad B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal}: "
+                    + "; ".join(parts))
+                fail(f"the flash gradient {name} disagrees at Hq={hq} Hkv={hkv} S={s} D={d}")
+        log(f"grad B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal} blocks=({bq},{bk}), "
+            f"limit {KERNEL_RTOL}*|plain f32| + {KERNEL_ATOL_RMS}*rms: " + "; ".join(parts)
+            + f" (keys {keep}..{s - 1} dropped)")
+        if not caught and (s - keep) * 20 >= s:
+            fail(f"the gradient limit would miss a dropped last key block at S={s}")
+    return max_err
+
+
+@contextlib.contextmanager
+def step_metrics(record: list):
+    """Inside the block, every train step built by ``make_train_step``
+    appends its metrics (as floats) to ``record``."""
+    from repro_torch.launch import steps as steps_mod
+
+    make = steps_mod.make_train_step
+
+    def recording(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def wrapped(params, opt_state, batch):
+            params, opt_state, metrics = step(params, opt_state, batch)
+            record.append({k: float(v) for k, v in metrics.items()})
+            return params, opt_state, metrics
+
+        return wrapped
+
+    steps_mod.make_train_step = recording
+    try:
+        yield
+    finally:
+        steps_mod.make_train_step = make
+
+
+@contextlib.contextmanager
+def leaf_grad_norms(record: list):
+    """Inside the block, every optimizer update first appends the f32 norm
+    of each parameter leaf's gradient to ``record``, keyed by its path (the
+    leaves walked in slices of 2^26 elements, a bounded transient)."""
+    from repro_torch import tree
+    from repro_torch.optim import adamw
+
+    apply = adamw.apply_updates
+
+    def norm(g):
+        return sum(float(c.float().square().sum()) for c in g.reshape(-1).split(2**26)) ** 0.5
+
+    def recording(cfg, params, grads, *args, **kwargs):
+        record.append(dict(zip(tree.paths(grads), map(norm, tree.leaves(grads)))))
+        return apply(cfg, params, grads, *args, **kwargs)
+
+    adamw.apply_updates = recording
+    try:
+        yield
+    finally:
+        adamw.apply_updates = apply
+
+
+@contextlib.contextmanager
+def faulty_attention(kind: str):
+    """Inside the block attention is wrong, the controls of the train
+    parity: ``"batch_offset"`` attends every batch row to row 0's keys and
+    values (a kernel that lost its batch offset), ``"half_dq"`` halves the
+    backward's dq, and ``"drop_last_block"`` gives the backward of an
+    attention that skips the last key block (``tail_keep``), by autograd
+    through ``drop_tail`` in f32."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as tattn
+
+    backward, kernel_attention = fa.flash_attention_backward, tattn.kops.attention
+
+    def batch_offset(q, k, v, **kwargs):
+        first = lambda t: t[:1].expand_as(t).contiguous()
+        return kernel_attention(q, first(k), first(v), **kwargs)
+
+    def half_dq(q, k, v, do, **kwargs):
+        dq, dk, dv = backward(q, k, v, do, **kwargs)
+        return dq * 0.5, dk, dv
+
+    def drop_last_block(q, k, v, do, *, causal, scale):
+        s, d = q.shape[2], q.shape[3]
+        keep = tail_keep(s, ops.tuned_flash_blocks(s, d, 2)[1])
+        with torch.enable_grad():
+            leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            grads = torch.autograd.grad(drop_tail(*leaves, causal, keep), leaves, do.float())
+        return tuple(g.nan_to_num(0.0).to(t.dtype) for g, t in zip(grads, (q, k, v)))
+
+    if kind == "batch_offset":
+        tattn.kops.attention = batch_offset
+    else:
+        fa.flash_attention_backward = {"half_dq": half_dq,
+                                       "drop_last_block": drop_last_block}[kind]
+    try:
+        yield
+    finally:
+        fa.flash_attention_backward, tattn.kops.attention = backward, kernel_attention
+
+
+def _train_state(out):
+    """The leaves of a train run's (params, opt_state) in the reference's
+    order (dict keys sorted: a restored tree's dicts are built in that
+    order, a drawn one's in insertion order)."""
+    from repro_torch import tree
+
+    return tree.leaves((out["params"], out["opt_state"]))
+
+
+def _bit_diff(a, b) -> list:
+    """Leaves (by index) whose dtype or bits differ between two train runs."""
+    import torch
+
+    return [i for i, (x, y) in enumerate(zip(_train_state(a), _train_state(b)))
+            if x.dtype != y.dtype or not torch.equal(x, y)]
+
+
+def train_phase(qkv) -> dict:
+    """The train phase (phase 7b of the docstring). Returns the flash
+    launches of the uncut run and the kernel's times at its shape."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticTokens
+    from repro_torch.hw.gpu_h100 import GPU_H100
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.failure import FailureInjector
+
+    # -- the flash gradient, and the kernel and the backward at the train shape
+    t0 = time.perf_counter()
+    grad_err = check_flash_grad(GRAD_CASES, qkv)
+    cfg = get_config(ARCH)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = qkv(TRAIN_B, hq, hkv, TRAIN_S, d)
+    do = qkv(TRAIN_B, hq, hkv, TRAIN_S, d)[0]
+    bq, bk = ops.tuned_flash_blocks(TRAIN_S, d, 2)
+    check_flash([(TRAIN_B, hq, hkv, TRAIN_S, d, True)], qkv)
+    fwd_ms = graph_ms(lambda: fa.flash_attention(q, k, v, causal=True, block_q=bq,
+                                                 block_k=bk), iters=20)
+    bwd_ms = cuda_ms(lambda: fa.flash_attention_backward(q, k, v, do, causal=True),
+                     iters=5, warmup=1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    sdpa_ms = cuda_ms(lambda: torch.autograd.grad(
+        torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                         enable_gqa=True), leaves, do),
+        iters=5, warmup=1)
+    flops, nbytes = flash_work(TRAIN_B, hq, hkv, TRAIN_S, d, True)
+    bwd_bound = max(2.5 * flops / GPU_H100.peak_flops_bf16,
+                    2 * nbytes / GPU_H100.hbm_bandwidth) * 1e3
+    fwd_bound = max(flops / GPU_H100.peak_flops_bf16, nbytes / GPU_H100.hbm_bandwidth) * 1e3
+    kernel = {"B": TRAIN_B, "S": TRAIN_S, "Hq": hq, "Hkv": hkv, "D": d, "blocks": [bq, bk],
+              "fwd_ms": fwd_ms, "fwd_bound_ms": fwd_bound, "bwd_ms": bwd_ms,
+              "bwd_bound_ms": bwd_bound, "sdpa_fwd_bwd_ms": sdpa_ms, "grad_max_abs_err": grad_err}
+    log(f"train kernel at B={TRAIN_B} S={TRAIN_S} causal blocks=({bq},{bk}): forward "
+        f"kernel {fwd_ms:.4f} ms (graph replay; bound {fwd_bound:.4f}), backward "
+        f"(plain torch, eager) {bwd_ms:.4f} ms (bound {bwd_bound:.4f} at bf16 rates); "
+        f"SDPA forward + backward (yardstick) {sdpa_ms:.4f} ms; checks "
+        f"{time.perf_counter() - t0:.1f} s")
+    del q, k, v, do, leaves
+    torch.cuda.empty_cache()
+
+    # -- yi-6b uncut through train()
+    opts = train_mod.TrainOptions(steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                                  state_dtype="bfloat16", log_every=1, seed=SEED)
+    kernel_steps = []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with step_metrics(kernel_steps):
+        out = train_mod.train(cfg, opts)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(t.numel() for t in _leaves(out["params"]))
+    secs = [dt for _, _, dt in out["history"]]
+    med = statistics.median(secs)
+    log(f"train {ARCH} uncut: {n_params / 1e9:.3f} B parameters, {TRAIN_STEPS} steps "
+        f"of B={TRAIN_B} x S={TRAIN_S} in {wall:.1f} s (init included); step seconds "
+        f"{[round(x, 4) for x in secs]}, median {med:.4f} s, "
+        f"{TRAIN_B * TRAIN_S / med:.1f} tokens/s; peak {peak:.2f} GiB; flash launches "
+        f"{launches}; per step {kernel_steps}")
+    want = TRAIN_STEPS * cfg.n_layers * 2
+    if launches != want:
+        fail(f"train flash launches {launches} != steps x layers x 2 = {want}")
+    if len(kernel_steps) != TRAIN_STEPS or not all(
+            np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in kernel_steps):
+        fail(f"a train step's loss or gradient norm is not finite: {kernel_steps}")
+
+    # a fifth step, profiled: device time by span against the median step
+    model = Model(cfg)
+    step_fn = steps_mod.make_train_step(model, AdamWConfig(lr=opts.lr, state_dtype="bfloat16"))
+    batch = SyntheticTokens(SyntheticConfig(cfg.vocab, TRAIN_S, TRAIN_B, seed=SEED)).batch(
+        TRAIN_STEPS)
+    trace = ROOT / "build" / "profile" / "train_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(out["params"], out["opt_state"], batch)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    prof.export_chrome_trace(str(trace))
+    kernels, spans = trace_device_time(trace)
+    trace.unlink()
+    busy = sum(ms for _, ms in kernels)
+    idle = 1 - busy / (prof_wall * 1e3)
+    split = {name: spans.get(key, 0.0) for key, name in TRAIN_SPANS.items()}
+    split["the rest"] = busy - sum(split.values())
+    log(f"train profile (a fifth step, profiler on): device busy {busy:.1f} ms over "
+        f"{len(kernels)} kernels in the step's own wall {prof_wall * 1e3:.1f} ms: the device "
+        f"is idle {100 * idle:.1f}% of it (against the unprofiled median step "
+        f"{med * 1e3:.1f} ms, a different run: {100 * (1 - busy / (med * 1e3)):.1f}%); "
+        f"by span: " + ", ".join(
+            f"{name} {ms:.1f} ms ({100 * ms / busy:.1f}%)" for name, ms in split.items()))
+    del out, model, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first step again, with each parameter leaf's gradient norm: through
+    # the kernel, through the plain version, and through the kernel with a
+    # faulty forward or backward (the controls)
+    t0 = time.perf_counter()
+    first_step = {}
+    for name, ctx in (("kernel", contextlib.nullcontext()), ("plain", plain_flash()),
+                      ("batch_offset", faulty_attention("batch_offset")),
+                      ("half_dq", faulty_attention("half_dq")),
+                      ("drop_last_block", faulty_attention("drop_last_block"))):
+        metrics, norms = [], []
+        with ctx, step_metrics(metrics), leaf_grad_norms(norms):
+            gc.collect()
+            train_mod.train(cfg, dataclasses.replace(opts, steps=1))
+        gc.collect()
+        torch.cuda.empty_cache()
+        first_step[name] = dict(metrics[0], leaves=norms[0])
+    p1 = first_step["plain"]
+
+    def gaps(run):
+        """(|d loss|, relative d gradient norm, the largest relative d leaf
+        gradient norm, that leaf) of a first step against the plain one."""
+        rel = {key: abs(n - p1["leaves"][key]) / max(p1["leaves"][key], 1e-30)
+               for key, n in run["leaves"].items()}
+        worst = max(rel, key=rel.get)
+        return (abs(run["loss"] - p1["loss"]),
+                abs(run["grad_norm"] - p1["grad_norm"]) / p1["grad_norm"], rel[worst], worst)
+
+    limits = (TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_RTOL)
+    within = lambda g: all(x <= lim for x, lim in zip(g, limits))
+    readings = {name: gaps(run) for name, run in first_step.items() if name != "plain"}
+    for name, (d_loss, d_norm, d_leaf, leaf) in readings.items():
+        run = first_step[name]
+        log(f"train parity, first step {name}: loss {run['loss']:.6f} grad norm "
+            f"{run['grad_norm']:.6f} against plain {p1['loss']:.6f} / "
+            f"{p1['grad_norm']:.6f}: |d loss| {d_loss:.3e} (limit {TRAIN_LOSS_TOL}), "
+            f"relative d norm {d_norm:.3e} (limit {TRAIN_GNORM_RTOL}), largest relative d "
+            f"leaf norm {d_leaf:.3e} at {leaf} (limit {TRAIN_LEAF_RTOL}): "
+            f"{'within' if within(readings[name]) else 'outside'}")
+    log(f"train parity: the main run's first step loss {kernel_steps[0]['loss']:.6f} grad "
+        f"norm {kernel_steps[0]['grad_norm']:.6f}, the rerun's {first_step['kernel']['loss']:.6f} / "
+        f"{first_step['kernel']['grad_norm']:.6f}; {time.perf_counter() - t0:.1f} s")
+    if not within(readings["kernel"]):
+        fail("the first train step through the kernel disagrees with the plain version's")
+    if within(readings["half_dq"]):
+        fail("the train parity limits would miss a backward whose dq is halved")
+    if within(readings["batch_offset"]):
+        fail("the train parity limits would miss a kernel that lost its batch offset")
+
+    # -- the resume: bit-equal to an uninterrupted run
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
+    kw = dict(steps=RESUME_STEPS, batch=RESUME_B, seq=RESUME_S, state_dtype="int8",
+              accum_steps=2, grad_compression="int8", log_every=1, seed=SEED)
+    first = train_mod.train(cfg2, train_mod.TrainOptions(**kw))
+    second = train_mod.train(cfg2, train_mod.TrainOptions(**kw))
+    differ = _bit_diff(first, second)
+    log(f"resume: two uninterrupted runs ({RESUME_LAYERS} layers, int8 moments, 2 "
+        f"microbatches, int8 compression): {len(differ)} of "
+        f"{len(list(_train_state(first)))} leaves differ {differ[:8]}")
+    if differ:
+        fail("two uninterrupted train runs differ: a step is not deterministic")
+    del second
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        recovered = train_mod.train_with_recovery(
+            cfg2, train_mod.TrainOptions(ckpt_dir=str(ckpt), ckpt_every=2, **kw),
+            injector=FailureInjector(fail_at_steps={3}))
+        ckpt_mb = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file()) / 1e6
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    differ = _bit_diff(first, recovered)
+    log(f"resume: failure at step 3, restored from step 2, ended at step "
+        f"{recovered['final_step']}: {len(differ)} leaves differ from the uninterrupted "
+        f"run {differ[:8]}; checkpoints {ckpt_mb:.0f} MB on disk at the end; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if recovered["final_step"] != RESUME_STEPS or differ:
+        fail("the resumed run is not bit-equal to the uninterrupted one")
+    del first, recovered
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    result = {"arch": ARCH, "layers": cfg.n_layers, "params_b": n_params / 1e9,
+              "batch": TRAIN_B, "seq": TRAIN_S, "steps": kernel_steps,
+              "step_s": secs, "median_step_s": med, "tokens_per_s": TRAIN_B * TRAIN_S / med,
+              "peak_gib": peak, "device_busy_ms": busy, "idle": idle, "spans_ms": split,
+              "profiled_step_s": prof_wall, "first_step": {
+                  name: {"loss": run["loss"], "grad_norm": run["grad_norm"]}
+                  for name, run in first_step.items()},
+              "first_step_gaps": {name: list(g[:3]) for name, g in readings.items()},
+              "launches": {ARCH: launches}, "kernel": kernel}
+    print("train " + json.dumps(result), flush=True)
+    return result
 
 
 if __name__ == "__main__":

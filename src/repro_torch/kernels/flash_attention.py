@@ -15,18 +15,25 @@ bounds it on the H100 and what the design does about it.
 tensor it launches or raises. The plain version walks the same q/k blocks
 with the same tail handling, causal tile skip and GQA head map, so the CPU
 tests exercise the kernel's tiling logic through it.
+
+Training differentiates the forward through ``FlashAttention``, an autograd
+function whose forward is the kernel (or, for CPU tensors, the plain
+version) and whose backward is ``flash_attention_backward``: plain torch
+from the softmax-attention formulas. The reference has no backward kernel
+(its Pallas call has no VJP), so neither has the port.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core.zoo import (SM90_FLASH_BLOCKS, sm90_flash_smem_bytes,
                                   sm90_padded_head_dim)
 from repro_torch.kernels import build
+from repro_torch.spans import span
 
 _NEG_INF = -1e30
 HEAD_DIMS = (64, 80, 128)  # head dims the kernel is built for
@@ -118,6 +125,91 @@ def _kernel():
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+# The backward walks blocks of query rows, each against every key it sees, so
+# one [B, Hq, rows, S] f32 block is the largest transient: rows are chosen to
+# keep a block at most this many elements (128 MiB in f32).
+BWD_BLOCK_ELEMS = 2**25
+
+
+def flash_attention_backward(
+    q: torch.Tensor,  # [B, Hq, S, D]
+    k: torch.Tensor,  # [B, Hkv, S, D]
+    v: torch.Tensor,  # [B, Hkv, S, D]
+    do: torch.Tensor,  # [B, Hq, S, D], the gradient of the output
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+):
+    """(dq, dk, dv) of O = softmax(scale·QKᵀ, causal mask)·V, each in its
+    input's dtype, computed in f32 from the formulas over blocks of query
+    rows (as many as keep a block within ``BWD_BLOCK_ELEMS``):
+
+        P = softmax(scale·QKᵀ);  dV = Pᵀ·dO;  dP = dO·Vᵀ;
+        dS = P ∘ (dP − rowsum(dO ∘ O));  dQ = scale·dS·K;  dK = scale·dSᵀ·Q,
+
+    with rowsum(dO ∘ O) taken as rowsum(P ∘ dP), the same sum with O = P·V
+    exact in f32 (the reference's softmax VJP computes it so). From the
+    forward's output instead, rounded to bf16, it errs by up to 0.11 of
+    rms(dQ) at head dim 80, where dS cancels. Each block takes every key it
+    can see (all of them, or with ``causal`` those up to its last row), so
+    the row max and row sum of P are exact in one pass. dK and dV sum over
+    each key head's group of query heads, the kernel's GQA head map."""
+    _check_shapes(q, k, v)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    rows = max(1, min(s, BWD_BLOCK_ELEMS // (b * hq * s)))
+    grouped = lambda t: t.reshape(b, hkv, g, s, d)
+    qg, dog = grouped(q), grouped(do)
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((b, hkv, g, s, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, hkv, s, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for r0 in range(0, s, rows):
+        r1 = min(r0 + rows, s)
+        n = r1 if causal else s  # the keys this block sees
+        qi = qg[:, :, :, r0:r1].float()
+        doi = dog[:, :, :, r0:r1].float()
+        sc = torch.einsum("bhgqd,bhkd->bhgqk", qi, kf[:, :, :n]) * scale
+        if causal:
+            above = (torch.arange(n, device=q.device)[None, :]
+                     > torch.arange(r0, r1, device=q.device)[:, None])
+            sc = sc.masked_fill(above, float("-inf"))
+        p = torch.softmax(sc, dim=-1)
+        del sc
+        dv[:, :, :n] += torch.einsum("bhgqk,bhgqd->bhkd", p, doi)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", doi, vf[:, :, :n])
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        del p, dp
+        dq[:, :, :, r0:r1] = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf[:, :, :n]) * scale
+        dk[:, :, :n] += torch.einsum("bhgqk,bhgqd->bhkd", ds, qi) * scale
+    return (dq.reshape(b, hq, s, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd: ``apply(q, k, v, causal, scale,
+    forward)`` returns ``forward(q, k, v)`` (the kernel, or a kernel
+    bundle's entry, with ``causal`` and ``scale`` bound) and saves q, k and
+    v; its backward is ``flash_attention_backward``, which recomputes P and
+    so needs no output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float,
+                forward: Callable[..., torch.Tensor]):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        with span("flash.backward"):
+            dq, dk, dv = flash_attention_backward(q, k, v, do, causal=ctx.causal,
+                                                  scale=ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 # installing or removing a prebuilt library (a kernel bundle's) drops this

@@ -34,7 +34,7 @@ from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import flash_attention as _flash_mod
 from repro_torch.kernels import matmul as _matmul_mod
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention,
                                                 padded_head_dim, smem_bytes)
 
 
@@ -183,15 +183,17 @@ def attention(
     blocks: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Flash attention with statically picked blocks (the installed kernel
-    bundle's entry for this call first, when ``blocks`` is not given)."""
+    bundle's entry for this call first, when ``blocks`` is not given),
+    differentiable: both go through ``FlashAttention``, whose backward is
+    ``flash_attention_backward``."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    fn = None
     if blocks is None:
-        fn = _bundle_executable(
-            "flash", (q, k, v),
-            {"causal": causal,
-             "scale": scale if scale is not None else q.shape[-1] ** -0.5})
-        if fn is not None:
-            return fn(q, k, v)
-        blocks = tuned_flash_blocks(q.shape[-2], q.shape[-1], q.element_size())
-    bq, bk = blocks
-    return flash_attention(q, k, v, causal=causal, scale=scale,
-                           block_q=bq, block_k=bk)
+        fn = _bundle_executable("flash", (q, k, v), {"causal": causal, "scale": scale})
+        if fn is None:
+            blocks = tuned_flash_blocks(q.shape[-2], q.shape[-1], q.element_size())
+    if fn is None:
+        bq, bk = blocks
+        fn = functools.partial(flash_attention, causal=causal, scale=scale,
+                               block_q=bq, block_k=bk)
+    return FlashAttention.apply(q, k, v, causal, scale, fn)

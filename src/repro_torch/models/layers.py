@@ -5,21 +5,30 @@ Parameters of a layer stack carry a leading group dimension ``lead`` (see
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
+
+from repro_torch.spans import span
 
 
-def span(name: str):
-    """A named range for ``torch.profiler`` (its device time is the time of
-    the kernels launched inside it); nothing while no profiler runs, so the
-    serving path pays a flag check, not a profiler call."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+def _needs_grad(args) -> bool:
+    return any(_needs_grad(a) if isinstance(a, (tuple, list))
+               else torch.is_tensor(a) and a.requires_grad for a in args)
+
+
+def remat(fn, *args):
+    """``fn(*args)``; under autograd, when a tensor among ``args`` needs a
+    gradient, with its activations dropped and recomputed in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``). The
+    serving path, where nothing needs a gradient, calls ``fn`` directly."""
+    if not (torch.is_grad_enabled() and _needs_grad(args)):
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 # A leaf of more elements than this is drawn one slice of its first axis at a
@@ -164,3 +173,28 @@ def unembed(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
     cd = cfg.torch_compute_dtype()
     w = p["head"] if "head" in p else p["tok"].T
     return x.to(cd) @ w.to(cd)
+
+
+def cross_entropy_loss(cfg, p: Dict, x: torch.Tensor, labels: torch.Tensor,
+                       seq_chunk: int = 1024) -> torch.Tensor:
+    """Mean softmax cross-entropy of the unembedded ``x`` [B, S, D] against
+    ``labels`` [B, S], over sequence chunks of ``seq_chunk`` (halved until
+    it divides S); each chunk's logits [B, c, V] are recomputed in the
+    backward, so no [B, S, V] tensor lives (the reference's chunked scan)."""
+    b, s, _ = x.shape
+    c = min(seq_chunk, s)
+    while s % c:
+        c //= 2
+    labels = labels.to(x.device).long()
+
+    def chunk_loss(xi, yi):
+        with span("cross_entropy"):  # the forward, and its recompute
+            logits = unembed(cfg, p, xi).float()  # [B, c, V]
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, yi[..., None])[..., 0]
+            return torch.sum(lse - gold)
+
+    total = torch.zeros((), device=x.device)
+    for c0 in range(0, s, c):
+        total = total + remat(chunk_loss, x[:, c0:c0 + c], labels[:, c0:c0 + c])
+    return total / (b * s)

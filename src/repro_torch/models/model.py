@@ -2,7 +2,8 @@
 the reference: decoder-only (dense, MoE, the attention/mamba hybrid and the
 xLSTM stack), the encoder-decoder and the vision prefix.
 
-Batch schema: ``{"tokens": [B, S] int}`` on the model's device; the audio
+Batch schema: ``{"tokens": [B, S] int}`` (``Model.loss`` adds ``"labels"``
+[B, S] int) on the model's device; the audio
 family adds ``"frames"`` ``[B, n_frontend_tokens, D]`` (the encoder's input)
 and the vision family ``"patches"`` ``[B, n_frontend_tokens, D]`` (a prefix
 before the tokens). Both frontends are stubs, as in the reference: the
@@ -87,6 +88,29 @@ class Model:
             x = torch.cat([patches, x], dim=1)
             n_prefix = patches.shape[1]
         return x, torch.arange(x.shape[1], device=x.device), n_prefix
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total, metrics): the mean next-token cross-entropy over the
+        tokens (the vision prefix's positions cut before it), plus for MoE
+        ``router_aux_weight`` times the summed Switch aux loss; metrics
+        ``ce``, ``loss`` and for MoE ``aux``, as the reference returns them."""
+        cfg = self.cfg
+        enc_out = self._enc_out(params, batch)
+        x, pos, n_prefix = self._embed_inputs(params, batch)
+        x, aux = T.apply_stack(cfg, params["layers"], x, pos, causal=True,
+                               enc_out=enc_out)
+        x = L.apply_norm(cfg, params["norm_f"], x)
+        if n_prefix:
+            x = x[:, n_prefix:]
+        ce = L.cross_entropy_loss(cfg, params["embed"], x, batch["labels"])
+        total = ce
+        metrics = {"ce": ce}
+        if cfg.moe is not None:
+            total = total + cfg.moe.router_aux_weight * aux
+            metrics["aux"] = aux
+        metrics["loss"] = total
+        return total, metrics
 
     def forward_hidden(self, params, batch) -> torch.Tensor:
         enc_out = self._enc_out(params, batch)

@@ -8,8 +8,9 @@ bounded. Decode carries (conv_state [B, K-1, d_inner], ssm_state
 
 The reference halves the chunk until it divides S, so an odd S scans one
 token at a time; the port keeps the chunk and lets the last one be ragged,
-which computes the same function. The reference's ``jax.checkpoint`` serves
-only the backward pass, which serving does not run.
+which computes the same function. Under autograd each chunk's discretised
+tensors are recomputed in the backward (``layers.remat``, the reference's
+``jax.checkpoint`` per chunk).
 """
 from __future__ import annotations
 
@@ -97,11 +98,16 @@ def mamba_forward(cfg, p: Dict, x: torch.Tensor, chunk: int = 0,
 
     c = min(chunk, s)
     h = torch.zeros((b, di, cfg.ssm_state), dtype=torch.float32, device=x.device)
+
+    def scan_chunk(h, u_i):
+        dA, dBx, c_t = _discretise(p, u_i)  # [B, c, di, N]
+        hs, h = _chunk_scan(h, dA, dBx)
+        return h, torch.einsum("bcdn,bcn->bcd", hs, c_t)  # [B, c, di]
+
     ys = []
     for c0 in range(0, s, c):
-        dA, dBx, c_t = _discretise(p, u[:, c0:c0 + c])  # [B, c, di, N]
-        hs, h = _chunk_scan(h, dA, dBx)
-        ys.append(torch.einsum("bcdn,bcn->bcd", hs, c_t))  # [B, c, di]
+        h, y = L.remat(scan_chunk, h, u[:, c0:c0 + c])
+        ys.append(y)
     y = torch.cat(ys, dim=1)
     y = y + u.float() * p["D"].float()
     y = y.to(cd) * F.silu(z)

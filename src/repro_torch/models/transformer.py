@@ -15,7 +15,7 @@ passes one (the encoder's is ``(("attention", "dense"),)``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -46,10 +46,17 @@ def _check_pattern(cfg, pattern=None) -> Tuple[Tuple[str, str], ...]:
     return pattern
 
 
-def group_slice(tree, g: int):
-    """One layer group's view of a stacked parameter or cache dict."""
-    return {k: group_slice(v, g) if isinstance(v, dict) else v[g]
-            for k, v in tree.items()}
+def group_views(tree) -> List[Dict]:
+    """Every layer group's view of a stacked parameter or cache dict, taken
+    with one ``unbind(0)`` per leaf. Under autograd a leaf's ``unbind``
+    stacks its group gradients once in the backward, where a select per
+    group would allocate a zero tensor the size of the whole leaf for each
+    group. The views share the leaf's storage, so a cache written in place
+    through them is written in the stacked leaf."""
+    split = {k: group_views(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    n = len(next(iter(split.values())))
+    return [{k: split[k][g] for k in split} for g in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -196,25 +203,40 @@ def apply_stack(cfg, stack_params: Tuple[Dict, ...], x: torch.Tensor,
                 cache: Optional[Tuple[Dict, ...]] = None,
                 enc_out: Optional[torch.Tensor] = None,
                 pattern: Optional[Tuple[Tuple[str, str], ...]] = None):
-    """Prefill through every layer of the stack (its depth is the
-    parameters' group count). Returns (x, summed MoE aux loss). With
-    ``cache`` (from ``init_stack_cache``, attention cap >= S), each layer's
-    contribution is written in place into its group, with no stacked copy:
-    self-attention's k/v into ``[:, :, :, :S]`` of the ``k``/``v`` leaves,
-    every other leaf (recurrent states, cross-attention's ``xk``/``xv``)
-    whole."""
+    """Prefill (or the training forward) through every layer of the stack
+    (its depth is the parameters' group count). Returns (x, summed MoE aux
+    loss). With ``cache`` (from ``init_stack_cache``, attention cap >= S),
+    each layer's contribution is written in place into its group, with no
+    stacked copy: self-attention's k/v into ``[:, :, :, :S]`` of the
+    ``k``/``v`` leaves, every other leaf (recurrent states,
+    cross-attention's ``xk``/``xv``) whole. Under autograd with
+    ``cfg.remat_stack`` each group's activations are recomputed in the
+    backward, as the reference's ``nothing_saveable`` policy does."""
     pattern = _check_pattern(cfg, pattern)
     s = x.shape[1]
     aux = torch.zeros((), device=x.device)
-    for g in range(stack_params[0]["norm1"]["w"].shape[0]):
+    views = [group_views(sp) for sp in stack_params]
+
+    def run_group(g, x):
+        aux_g, contribs = None, []
         for pp, kinds in enumerate(pattern):
-            x, contrib, a = apply_block(cfg, group_slice(stack_params[pp], g),
-                                        kinds, x, positions, causal=causal,
-                                        enc_out=enc_out)
+            x, contrib, a = apply_block(cfg, views[pp][g], kinds, x, positions,
+                                        causal=causal, enc_out=enc_out)
             if a is not None:
-                aux = aux + a
-            if cache is None:
-                continue
+                aux_g = a if aux_g is None else aux_g + a
+            contribs.append(contrib)
+        return x, aux_g, contribs
+
+    for g in range(len(views[0])):
+        if cfg.remat_stack and cache is None:
+            x, a = L.remat(lambda x, g=g: run_group(g, x)[:2], x)
+        else:
+            x, a, contribs = run_group(g, x)
+        if a is not None:
+            aux = aux + a
+        if cache is None:
+            continue
+        for pp, contrib in enumerate(contribs):
             for key, val in contrib.items():
                 leaf = cache[pp][key][g]
                 if key in ("k", "v"):
@@ -229,8 +251,9 @@ def apply_stack_decode(cfg, stack_params: Tuple[Dict, ...], x: torch.Tensor,
     (the recurrent mixers are position-free). The cache is updated in
     place."""
     pattern = _check_pattern(cfg)
-    for g in range(stack_params[0]["norm1"]["w"].shape[0]):
+    views = [group_views(sp) for sp in stack_params]
+    caches = [group_views(c) for c in cache]
+    for g in range(len(views[0])):
         for pp, kinds in enumerate(pattern):
-            x = apply_block_decode(cfg, group_slice(stack_params[pp], g), kinds,
-                                   x, group_slice(cache[pp], g), pos)
+            x = apply_block_decode(cfg, views[pp][g], kinds, x, caches[pp][g], pos)
     return x

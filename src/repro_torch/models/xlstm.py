@@ -8,8 +8,9 @@ state (C [dh, dh], n [dh], m) is carried, so decode keeps O(1) state per
 head. R follows the reference's rule: ``min(mlstm_chunk, S)``, halved until
 it divides S, so an odd S runs one token per chunk. The loop over chunks
 and the sLSTM's loop over tokens are Python loops, as ``transformer.py``
-does for ``lax.scan``; the reference's ``jax.checkpoint`` serves only the
-backward pass, which serving does not run.
+does for ``lax.scan``. Under autograd each mLSTM chunk's intra-chunk
+matrices are recomputed in the backward (``layers.remat``, the reference's
+``jax.checkpoint`` per chunk).
 
 The reference maps each mixer over the data-parallel mesh axes
 (``_shard_map_mixer``) and runs it as a plain call where there is no mesh.
@@ -125,8 +126,8 @@ def _mlstm_core(cfg, p: Dict, x: torch.Tensor, init_state: Dict):
     hs = []
     for c0 in range(0, s, r):
         part = slice(c0, c0 + r)
-        h, carry = _mlstm_chunk(q[:, :, part], k[:, :, part], v[:, :, part],
-                                li[..., part], lf[..., part], carry)
+        h, carry = L.remat(_mlstm_chunk, q[:, :, part], k[:, :, part],
+                           v[:, :, part], li[..., part], lf[..., part], carry)
         hs.append(h)
     c1, n1, m1 = carry
     return _mlstm_out(cfg, p, torch.cat(hs, dim=2), o, x), {"C": c1, "n": n1, "m": m1}

@@ -426,3 +426,28 @@ def test_xlstm_mixer_on_the_card_matches_the_cpu(card, mixer, s):
     for want, got in zip(*outs):
         assert got.device.type == "cuda"
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,s,d,causal", [(8, 2, 77, 128, True), (8, 2, 513, 128, True),
+                                               (4, 4, 300, 64, False), (4, 4, 200, 80, True)])
+def test_flash_gradients_on_the_card(card, hq, hkv, s, d, causal):
+    """dq, dk, dv through ``ops.attention`` (the kernel's forward, one
+    launch, then ``flash_attention_backward``) in bf16 against autograd
+    through the plain version on f32 copies of the same inputs, within the
+    forward's limit RTOL*|plain| + ATOL_RMS*rms(plain) (the gradients are
+    rounded to bf16 once)."""
+    q, k, v = _qkv(2, hq, hkv, s, d, card)
+    do = _qkv(2, hq, hkv, s, d, card)[0].flip(2).contiguous()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = ops.launch_counts()["flash_attention"]
+    got = torch.autograd.grad(ops.attention(*leaves, causal=causal), leaves, do)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(*ref, causal=causal), ref, do.float())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        g, w = g.float().cpu().numpy(), w.cpu().numpy()
+        atol = ATOL_RMS * float(np.sqrt(np.mean(w ** 2)))
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=atol)

@@ -576,10 +576,11 @@ def test_long_prompt_takes_chunked_path(pair, monkeypatch):
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Importing every module of the port (the schedule store and the
-    flash families included), then registering its op families and running
-    the static matmul and flash picks, loads no jax and no ``repro`` module
-    (a subprocess: this test process has jax loaded already)."""
+    """Importing every module of the port (the schedule store, the flash
+    families and the training path included), then registering its op
+    families and running the static matmul and flash picks, loads no jax and
+    no ``repro`` module (a subprocess: this test process has jax loaded
+    already)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -596,7 +597,11 @@ def test_port_imports_no_jax_and_no_reference():
         "'repro_torch.models.xlstm'} | {'repro_torch.configs.' + m for m in "
         "('xlstm_13b', 'whisper_large_v3', 'internvl2_1b')} | "
         "{'repro_torch.tuna.' + m for m in ('db', 'cache', 'transport', "
-        "'orchestrator', 'fleet', 'cli', '__main__')}\n"
+        "'orchestrator', 'fleet', 'cli', '__main__')} | "
+        "{'repro_torch.' + m for m in ('tree', 'optim.adamw', 'optim.schedule', "
+        "'parallel.collectives', 'launch.steps', 'launch.train', 'data.synthetic', "
+        "'data.loader', 'runtime.failure', 'runtime.straggler', "
+        "'checkpoint.store')}\n"
         "assert want <= set(mods), sorted(want - set(mods))\n"
         "from repro_torch.kernels import ops\n"
         "ops.tuned_flash_blocks(77, 80)  # the flash family's signature\n"
