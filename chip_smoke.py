@@ -36,11 +36,24 @@ Phases, in order; any failure exits non-zero before the last line:
              the reference's matmul_{1024,2048,4096}_bf16 presets, with every
              configuration of the Hopper space (the tuner's pick among them);
              show that the limit would catch a dropped last K block.
-5. tuner   — the slice's main path, counted: at each yi-6b shape the ES
-             search (tune, seed 0) against the exhaustive best, ops.matmul
-             with the statically picked blocks, and the paper's top-k ratio
-             (static ranking vs every configuration timed on the card, as
-             device time by CUDA-graph replay); then, at every yi-6b shape,
+5. tuner   — the slice's main path, counted: first the calibration, the
+             gpu_h100 fit of the static features to seconds at the probe
+             4096x2048x4096 (16 configurations, seed 123, timed by CUDA-graph
+             replay; finite and non-negative coefficients, r2 logged), its
+             measurements kept as cm1-meas rows; then at each yi-6b shape
+             the ES search (tune, seed 0) against the exhaustive best,
+             ops.matmul with the statically picked blocks, and the paper's
+             top-k ratio (every configuration timed on the card, as device
+             time by CUDA-graph replay, kept as cm1-meas rows); then those
+             same times ranked three ways with no launch: static (data
+             sheet), calibrated (the fit) and hybrid (the static top 12
+             re-ranked by a learned ranker trained with ``train_from_store``
+             on the cm1-meas rows of the probe and the other four shapes,
+             never its own, and round-tripped through its artifact), each a
+             permutation of the measured configurations; top1, ratio@5 and
+             rank_corr per ranking, and topk --check as a reading. The
+             matmul launches must equal the probe's 16 x (3 + iters) plus,
+             per shape, 1 + configs x (3 + iters). Then, at every yi-6b shape,
              the kernel and torch.matmul (a yardstick the port never calls)
              by graph replay and as back-to-back eager calls, and the
              data-sheet bound; the plain version at 2048x4096x4096.
@@ -165,7 +178,8 @@ Phases, in order; any failure exits non-zero before the last line:
              and x 24; a profiled second run split into attention,
              cross-attention and the rest; the parity of phase 7.
 
-Prints a ``train`` JSON line, a ``topk`` JSON line (ratio@1/5 per shape), a
+Prints a ``train`` JSON line, a ``topk`` JSON line (top1, ratio@5 and rank_corr
+per shape for the static, calibrated and hybrid rankings, the check, the fit), a
 ``kernels`` JSON line,
 then the card's name and power limit, then ``{"ok": true, "device": {...}}``
 as the last line. Needs one card; imports no jax and nothing of the
@@ -498,10 +512,9 @@ def main() -> None:
         fail(f"the port's sources are missing under {SRC}")
     sys.path.insert(0, str(SRC))
 
-    from repro_torch.benchmarks.topk_ratio import YI6B_SHAPES, topk_ratio_matmul
+    from repro_torch.benchmarks.topk_ratio import YI6B_SHAPES
     from repro_torch.configs.base import get_config
     from repro_torch.core.spaces import MatmulSpace
-    from repro_torch.core.tuner import best_schedule, tune
     from repro_torch.hw.gpu_h100 import GPU_H100
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
@@ -708,60 +721,9 @@ def main() -> None:
     del x, y, got, want, dropped
 
     # ---------------------------------------------------------------- tuner
-    ops.reset_launch_counts()
-    expected, topk = 0, {}
-    for m, n, k in YI6B_SHAPES:
-        space = MatmulSpace(m, n, k, 2, target_kind=GPU_H100.kind)
-        res = tune(space, GPU_H100, seed=SEED)
-        best, best_score = best_schedule(space, GPU_H100)
-        log(f"tune {m}x{n}x{k}: ES {res.config} score {res.score * 1e3:.4f} ms "
-            f"({res.evaluations} evaluations, {res.wall_seconds:.3f} s); "
-            f"exhaustive best {best} {best_score * 1e3:.4f} ms; "
-            f"{'equal' if res.config == best else 'differs'}")
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        y = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
-        out = ops.matmul(x, y)
-        torch.cuda.synchronize()
-        expected += 1
-        if out.shape != (m, n) or not torch.isfinite(out).all():
-            fail(f"ops.matmul at {m}x{n}x{k} gave {tuple(out.shape)} or non-finite values")
-        r = topk_ratio_matmul(m, n, k, iters=TOPK_ITERS, seed=SEED)
-        # measure's eager warm-up + the calls captured in its graph (a replay
-        # runs the kernel without calling the wrapper, so it is not counted)
-        expected += r["n_configs"] * (3 + TOPK_ITERS)
-        ratios = {key: v for key, v in r.items()
-                  if key.startswith(("ratio@", "top1", "rank_corr"))}
-        if not all(np.isfinite(v) and (v > 0 or key == "rank_corr")
-                   for key, v in ratios.items()):
-            fail(f"non-finite top-k ratio at {m}x{n}x{k}: {ratios}")
-        measured = [e["config"] for e in r["ranking"]]
-        if sorted(map(str, measured)) != sorted(map(str, mm_spaces[(m, n, k)])):
-            fail(f"top-k at {m}x{n}x{k} measured configurations the check did not")
-        by_ms = sorted(r["ranking"], key=lambda e: e["ms"])
-        short = lambda e: (f"({e['config']['bm']},{e['config']['bn']},{e['config']['bk']},"
-                           f"{int(e['config']['double_buffer'])}) {e['ms']:.4f}")
-        log(f"topk {m}x{n}x{k}: " + ", ".join(f"{key}={v:.4f}" for key, v in ratios.items())
-            + f"; best static {r['best_static_ms']:.4f} ms, best measured "
-            f"{r['best_oracle_ms']:.4f} ms; static {r['static_s']:.3f} s vs measure "
-            f"{r['measure_s']:.3f} s over {r['n_configs']}/{r['space_size']} configs")
-        twins = {}
-        for e in r["ranking"]:
-            c = e["config"]
-            twins.setdefault((c["bm"], c["bn"], c["bk"]), {})[c["double_buffer"]] = e
-        static2 = sum(v[True]["score"] < v[False]["score"] for v in twins.values())
-        card2 = sum(v[True]["ms"] < v[False]["ms"] for v in twins.values())
-        log(f"topk {m}x{n}x{k}: two stages preferred over one by the model in "
-            f"{static2}/{len(twins)} tiles, on the card in {card2}/{len(twins)}; "
-            "overflow-penalised: "
-            + str([e["config"] for e in r["ranking"] if e["score"] > 1.0]))
-        log(f"topk {m}x{n}x{k} static top5 [ms]: "
-            + ", ".join(short(e) for e in r["ranking"][:5])
-            + " | measured top5: " + ", ".join(short(e) for e in by_ms[:5]))
-        topk[f"{m}x{n}x{k}"] = r
-    mm_launches = ops.launch_counts()["matmul"]
-    log(f"tuner path launches: {ops.launch_counts()} (expected matmul {expected})")
-    if mm_launches != expected or mm_launches == 0:
-        fail(f"matmul launches {mm_launches} != {expected} on the tuner path")
+    tuner = tuner_phase(gen, mm_spaces)
+    topk, topk_check, fit, mm_launches = (tuner[key] for key in (
+        "topk", "check", "fit", "launches"))
     mm_sweep = []
     for m, n, k in YI6B_SHAPES:
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
@@ -949,9 +911,9 @@ def main() -> None:
     log(f"flash launches per serve: {serve_launches}")
 
     # -------------------------------------------------------------- results
-    print(json.dumps({"topk": {s: {"top1_ratio": r["top1_ratio"],
-                                    "ratio@5": r["ratio@5"]}
-                               for s, r in topk.items()}}), flush=True)
+    print(json.dumps({"topk": {s: {how: row[how] for how in ("static", "calibrated", "hybrid")}
+                               for s, row in topk.items()},
+                      "check": topk_check, "fit": fit}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -975,6 +937,118 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def tuner_phase(gen, mm_spaces) -> dict:
+    """Phase 5, counted: the calibration, then per yi-6b shape the ES
+    search, ops.matmul and the top-k measurement, then the three-way
+    rankings. ``mm_spaces`` maps each shape to the configurations the
+    matmul phase checked. Returns the three-way ``topk``, ``check``,
+    ``fit`` and the matmul ``launches``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.benchmarks.topk_ratio import YI6B_SHAPES, three_way, topk_ratio_matmul
+    from repro_torch.core import calibrate
+    from repro_torch.core.spaces import MatmulSpace
+    from repro_torch.core.tuner import best_schedule, record_version, tune
+    from repro_torch.hw.gpu_h100 import GPU_H100
+    from repro_torch.kernels import ops
+    from repro_torch.tuna.learned import iter_log_records
+
+    dev = gen.device
+    ops.reset_launch_counts()
+    topk_dir = ROOT / "build" / "topk"
+    shutil.rmtree(topk_dir, ignore_errors=True)
+    store = str(topk_dir / "measured.jsonl")
+    t0 = time.perf_counter()
+    fit = calibrate.cached_coeffs(GPU_H100.name, dev, refit=True, iters=TOPK_ITERS,
+                                  db=store)
+    # measure's eager warm-up + the calls captured in its graph, per config
+    expected = fit["_n_configs"] * (3 + TOPK_ITERS)
+    coef = {name: fit[name] for name in calibrate.FEATURES + ("intercept",)}
+    if not all(np.isfinite(v) and v >= 0 for v in coef.values()) or \
+            not np.isfinite(fit["_r2_on_probe"]):
+        fail(f"the gpu_h100 fit is not finite and non-negative: {fit}")
+    log(f"calibrate {GPU_H100.name} on {fit['_card']}: probe {fit['_probe']} bf16, "
+        f"{fit['_n_configs']} configs (seed {fit['_seed']}) by graph replay; "
+        f"coefficients {coef}; r2 on the probe {fit['_r2_on_probe']:.4f}; "
+        f"lineage {record_version(calibrate.coeffs_for_scoring(fit))}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    log("calibrate probe times [ms]: " + ", ".join(
+        f"({c['bm']},{c['bn']},{c['bk']},{int(c['double_buffer'])}) {r.score * 1e3:.4f}"
+        for r in iter_log_records(store) for c in (r.config,)))
+    measured = {}
+    for m, n, k in YI6B_SHAPES:
+        space = MatmulSpace(m, n, k, 2, target_kind=GPU_H100.kind)
+        res = tune(space, GPU_H100, seed=SEED)
+        best, best_score = best_schedule(space, GPU_H100)
+        log(f"tune {m}x{n}x{k}: ES {res.config} score {res.score * 1e3:.4f} ms "
+            f"({res.evaluations} evaluations, {res.wall_seconds:.3f} s); "
+            f"exhaustive best {best} {best_score * 1e3:.4f} ms; "
+            f"{'equal' if res.config == best else 'differs'}")
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        y = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+        out = ops.matmul(x, y)
+        torch.cuda.synchronize()
+        expected += 1
+        if out.shape != (m, n) or not torch.isfinite(out).all():
+            fail(f"ops.matmul at {m}x{n}x{k} gave {tuple(out.shape)} or non-finite values")
+        r = topk_ratio_matmul(m, n, k, iters=TOPK_ITERS, seed=SEED, device=dev,
+                              db=store, collect=True)
+        measured[(m, n, k)] = r
+        # measure's eager warm-up + the calls captured in its graph (a replay
+        # runs the kernel without calling the wrapper, so it is not counted)
+        expected += r["n_configs"] * (3 + TOPK_ITERS)
+        ratios = {key: v for key, v in r.items()
+                  if key.startswith(("ratio@", "top1", "rank_corr"))}
+        if not all(np.isfinite(v) and (v > 0 or key == "rank_corr")
+                   for key, v in ratios.items()):
+            fail(f"non-finite top-k ratio at {m}x{n}x{k}: {ratios}")
+        if sorted(str(e["config"]) for e in r["ranking"]) != \
+                sorted(map(str, mm_spaces[(m, n, k)])):
+            fail(f"top-k at {m}x{n}x{k} measured configurations the check did not")
+        by_ms = sorted(r["ranking"], key=lambda e: e["ms"])
+        short = lambda e: (f"({e['config']['bm']},{e['config']['bn']},{e['config']['bk']},"
+                           f"{int(e['config']['double_buffer'])}) {e['ms']:.4f}")
+        log(f"topk {m}x{n}x{k}: " + ", ".join(f"{key}={v:.4f}" for key, v in ratios.items())
+            + f"; best static {r['best_static_ms']:.4f} ms, best measured "
+            f"{r['best_oracle_ms']:.4f} ms; static {r['static_s']:.3f} s vs measure "
+            f"{r['measure_s']:.3f} s over {r['n_configs']}/{r['space_size']} configs")
+        twins = {}
+        for e in r["ranking"]:
+            c = e["config"]
+            twins.setdefault((c["bm"], c["bn"], c["bk"]), {})[c["double_buffer"]] = e
+        static2 = sum(v[True]["score"] < v[False]["score"] for v in twins.values())
+        card2 = sum(v[True]["ms"] < v[False]["ms"] for v in twins.values())
+        log(f"topk {m}x{n}x{k}: two stages preferred over one by the model in "
+            f"{static2}/{len(twins)} tiles, on the card in {card2}/{len(twins)}; "
+            "overflow-penalised: "
+            + str([e["config"] for e in r["ranking"] if e["score"] > 1.0]))
+        log(f"topk {m}x{n}x{k} static top5 [ms]: "
+            + ", ".join(short(e) for e in r["ranking"][:5])
+            + " | measured top5: " + ", ".join(short(e) for e in by_ms[:5]))
+    # the same times ranked three ways: no launch
+    t0 = time.perf_counter()
+    try:
+        topk, check = three_way(measured, store, topk_dir, device=dev)
+    except AssertionError as e:
+        fail(f"three-way top-k: {e}")
+    for shape, row in topk.items():
+        log(f"topk {shape} three ways: " + "; ".join(
+            f"{how} " + ", ".join(f"{key}={v:.4f}" for key, v in row[how].items())
+            for how in ("static", "calibrated", "hybrid"))
+            + f"; hybrid {row['learned_version']} trained on {row['train_rows']} "
+            f"cm1-meas rows of {len(row['train_ops'])} other ops")
+    log(f"topk --check (a reading, not a gate): {check}; three-way ranking "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = ops.launch_counts()["matmul"]
+    log(f"tuner path launches: {ops.launch_counts()} (expected matmul {expected}: "
+        f"the probe's {fit['_n_configs']} x (3 + {TOPK_ITERS}), then per shape 1 + "
+        f"configs x (3 + {TOPK_ITERS}))")
+    if launches != expected or launches == 0:
+        fail(f"matmul launches {launches} != {expected} on the tuner path")
+    return {"topk": topk, "check": check, "fit": fit, "launches": launches}
 
 
 def whisper_lens():

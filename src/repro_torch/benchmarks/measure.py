@@ -11,6 +11,11 @@ good the static ranking was.
 
 On a CPU tensor the same call times the plain version with the host clock
 (for the tests of this plumbing: such a time says nothing about the card).
+A config of the reference's ``cpu`` kind (block sizes the kernel is not
+built for, a loop ``order`` and ``unroll_i``) runs the plain version's K
+loop at its ``bk``: the reference realises every knob as an XLA loop of
+block dots, the port's plain version only the K slices, so on the CPU such
+a time depends on ``bk`` alone.
 """
 from __future__ import annotations
 
@@ -65,7 +70,15 @@ def time_fn(fn: Callable[[], object], device: torch.device, warmup: int = 3,
 
 def measure_config(a: torch.Tensor, b: torch.Tensor, cfg: Dict,
                    warmup: int = 3, iters: int = 10) -> float:
-    """Median seconds of ``A @ B`` with the kernel at schedule ``cfg``."""
+    """Median seconds of ``A @ B`` with the kernel at schedule ``cfg`` (a
+    ``cpu``-kind config: ``matmul.k_slices`` at its ``bk``, CPU tensors
+    only)."""
+    if "order" in cfg:
+        if a.device.type != "cpu":
+            raise ValueError(f"a cpu-kind config {cfg} has no kernel on "
+                             f"{a.device}")
+        return time_fn(lambda: kmatmul.k_slices(a, b, cfg["bk"]), a.device,
+                       warmup=warmup, iters=iters)
     return time_fn(
         lambda: kmatmul.matmul(a, b, bm=cfg["bm"], bn=cfg["bn"], bk=cfg["bk"],
                                double_buffer=cfg["double_buffer"]),

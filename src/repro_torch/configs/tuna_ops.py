@@ -29,5 +29,5 @@ OPERATORS: Dict[str, Callable[..., Space]] = {
 # (one matmul + one batched space, seconds to tune)
 SMOKE_OPERATORS = ("dense_256", "batch_matmul")
 
-# one preset per model-zoo family the port registers
-ZOO_OPERATORS = ("flash_gqa",)
+# one preset per model-zoo family (a zoo smoke tunes these on every target)
+ZOO_OPERATORS = ("moe_dispatch", "ssm_scan", "mlstm_chunk", "flash_gqa")

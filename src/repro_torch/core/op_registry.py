@@ -331,13 +331,14 @@ def _ensure_definitions() -> None:
 
     ``core.spaces`` registers the four legacy families first (their knob
     features pin the historical learned-ranker column prefix), then
-    ``core.zoo`` adds the ``flash`` and ``flash_gqa`` families."""
+    ``core.zoo`` adds ``moe_dispatch``, ``ssm_scan``, ``mlstm_chunk``,
+    ``flash`` and ``flash_gqa``, in the reference's order."""
     global _DEFINITIONS_LOADED
     if _DEFINITIONS_LOADED:
         return
     _DEFINITIONS_LOADED = True
     import repro_torch.core.spaces  # noqa: F401  (registers legacy ops)
-    import repro_torch.core.zoo  # noqa: F401  (registers the flash families)
+    import repro_torch.core.zoo  # noqa: F401  (registers the zoo families)
 
 
 def families() -> Tuple[str, ...]:

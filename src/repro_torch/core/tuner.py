@@ -25,16 +25,20 @@ the blessed-release tier (bundle → snapshot → DB → cost model). The files
 and env variables are the reference's; records are keyed by target, so a
 store shared with the reference is harmless.
 
-Not ported yet: the reference's learned re-ranker
-(``set_default_learned``) and calibrated coefficients (ROADMAP Queue A 9);
-with no calibration every record the port writes is the datasheet ``cm1``
-version, so the reference's ``record_version`` (the calibrated-coefficient
-fingerprint) comes with calibration.
+Calibrated coefficients (``core.calibrate``) pass through ``coeffs``:
+their records go under ``record_version(coeffs)`` = ``cm1-cal-<fp>``. A
+learned ranker (``core.learned``, installed via ``set_default_learned`` /
+``$REPRO_TUNA_LEARNED``) makes ``rank_space``/``best_schedule`` hybrid:
+the static score prunes, the ranker re-orders the top ``rerank_top``
+candidates, and the winner is written under ``<base>+lr<fp>``;
+``best_schedule`` reads that lineage first and the static one after it.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
+import json
 import os
 import time
 from typing import Dict, List, Optional, Tuple
@@ -51,6 +55,7 @@ _UNSET = object()
 _DEFAULT_DB = _UNSET  # _UNSET = fall back to $REPRO_TUNA_DB; None = off
 _DEFAULT_CACHE = _UNSET  # _UNSET = fall back to $REPRO_TUNA_CACHE
 _DEFAULT_BUNDLE = _UNSET  # _UNSET = fall back to $REPRO_TUNA_BUNDLE
+_DEFAULT_LEARNED = _UNSET  # _UNSET = fall back to $REPRO_TUNA_LEARNED
 # the device a bundle named by $REPRO_TUNA_BUNDLE is loaded for (the card,
 # as every entry point defaults to it)
 BUNDLE_DEVICE = "cuda"
@@ -284,6 +289,71 @@ def get_default_bundle():
     return _DEFAULT_BUNDLE
 
 
+def set_default_learned(model) -> None:
+    """Install the process-wide learned ranker
+    (``repro_torch.core.learned.LearnedRanker``, or a path/`latest`
+    pointer to a saved artifact) used by ``rank_space``/``best_schedule``
+    to re-rank the statically pruned top candidates. ``None`` switches it
+    OFF, including the ``$REPRO_TUNA_LEARNED`` fallback. Clears the
+    block-pick memos so shapes already picked re-resolve under the hybrid
+    version. An explicit install of a missing, corrupt, tampered or stale
+    artifact raises."""
+    global _DEFAULT_LEARNED
+    if isinstance(model, (str, os.PathLike)):
+        from repro_torch.core.learned import load_ranker
+
+        model = load_ranker(model)
+    _DEFAULT_LEARNED = model
+    _clear_memos()
+
+
+def get_default_learned():
+    """The installed learned ranker, else one loaded from
+    ``$REPRO_TUNA_LEARNED``. Mirrors ``get_default_cache``'s env handling:
+    a path that does not exist (not trained yet) resolves to OFF; a stale
+    artifact (another ``COST_MODEL_VERSION``) resolves to OFF with a
+    ``StaleSnapshotWarning``; both degrade paths clear the block-pick
+    memos."""
+    global _DEFAULT_LEARNED
+    if _DEFAULT_LEARNED is _UNSET:
+        path = os.environ.get("REPRO_TUNA_LEARNED")
+        if not path:
+            _DEFAULT_LEARNED = None
+        else:
+            from repro_torch.core.learned import load_ranker
+            from repro_torch.tuna.cache import (StaleSnapshotError,
+                                                StaleSnapshotWarning)
+
+            try:
+                _DEFAULT_LEARNED = load_ranker(path)
+            except FileNotFoundError:
+                _DEFAULT_LEARNED = None  # not trained yet
+                _clear_memos()
+            except StaleSnapshotError as e:
+                import warnings
+
+                warnings.warn(f"$REPRO_TUNA_LEARNED disabled: {e}",
+                              StaleSnapshotWarning, stacklevel=2)
+                _DEFAULT_LEARNED = None
+                _clear_memos()
+    return _DEFAULT_LEARNED
+
+
+def resolve_learned(learned):
+    """Coerce a ``learned`` argument: ``False`` → off, ``None`` → the
+    process default, a path → a loaded (and verified) artifact, an
+    instance → itself."""
+    if learned is False:
+        return None
+    if learned is None:
+        return get_default_learned()
+    if isinstance(learned, (str, os.PathLike)):
+        from repro_torch.core.learned import load_ranker
+
+        return load_ranker(learned)
+    return learned
+
+
 def _lookup(op: str, target_name: str, version: str, db):
     """Read path shared by tune/best_schedule/the block pickers: the
     golden kernel bundle, the snapshot cache (O(1), lock-free), then the
@@ -315,6 +385,19 @@ def lookup_best(op: str, target_name: str,
     return _lookup(op, target_name, version, db)[0]
 
 
+def record_version(coeffs: Optional[Dict[str, float]] = None) -> str:
+    """Cost-model version tag for a schedule record. Data-sheet
+    coefficients → plain ``cm1``. Calibrated coefficients are specific to
+    one card, so their scores compare only with records of the same fit:
+    the coefficient fingerprint becomes part of the key
+    (``cm1-cal-<fp>``), keeping merged stores from mixing score scales."""
+    if coeffs is None:
+        return COST_MODEL_VERSION
+    blob = json.dumps(coeffs, sort_keys=True, default=float)
+    fp = hashlib.sha1(blob.encode()).hexdigest()[:8]
+    return f"{COST_MODEL_VERSION}-cal-{fp}"
+
+
 @dataclasses.dataclass
 class TuneResult:
     config: Dict
@@ -332,9 +415,10 @@ class TuneResult:
     #   then, and JSON emitters must treat it as absent
 
 
-def _score_config(space: Space, target: HardwareTarget, cfg: Dict) -> float:
+def _score_config(space: Space, target: HardwareTarget, cfg: Dict,
+                  coeffs: Optional[Dict[str, float]] = None) -> float:
     prog, meta = space.instantiate(cfg)
-    return cost_model.evaluate(prog, target, meta)
+    return cost_model.evaluate(prog, target, meta, coeffs=coeffs)
 
 
 def tune(
@@ -414,21 +498,36 @@ def tune(
 
 
 def rank_space(space: Space, target: HardwareTarget, limit: int = 4096,
-               db=False) -> List[Tuple[Dict, float]]:
+               coeffs: Optional[Dict[str, float]] = None, db=False,
+               learned=False, rerank_top: int = 32) -> List[Tuple[Dict, float]]:
     """Static exhaustive ranking (ascending score = predicted fastest first).
 
     Callers need the full ranking, which the store does not hold, so this
     is a *write-back* integration: when a store resolves, the winning
     record is appended under strategy ``exhaustive`` (``best_schedule`` is
-    the read path)."""
-    scored = [(cfg, _score_config(space, target, cfg))
+    the read path), under ``record_version(coeffs)``.
+
+    ``learned`` (``resolve_learned`` semantics; default OFF) makes the
+    ranking hybrid: the static score prunes, the learned ranker re-orders
+    the statically best ``rerank_top`` candidates (scores stay the static
+    ones), still with no measurement. Hybrid write-backs go under the
+    model's version (``<base>+lr<fp>``, strategy ``hybrid``)."""
+    scored = [(cfg, _score_config(space, target, cfg, coeffs))
               for cfg in space.enumerate(limit)]
     scored.sort(key=lambda cs: cs[1])
+    model = resolve_learned(learned)
+    if model is not None:
+        scored = model.rerank(space, target, scored, top=rerank_top)
     store = resolve_db(db)
     if _writable(store) and scored:
         from repro_torch.tuna.db import ScheduleRecord, stamp_tuned_at
 
+        version = record_version(coeffs)
         meta = {"strategy": "exhaustive", "limit": limit}
+        if model is not None:
+            version = model.hybrid_version(version)
+            meta["strategy"] = "hybrid"
+            meta["rerank_top"] = rerank_top
         dflt = space.default_config()
         default_score = next((s for c, s in scored if c == dflt), None)
         if default_score is not None:  # centre config inside the limit
@@ -440,22 +539,42 @@ def rank_space(space: Space, target: HardwareTarget, limit: int = 4096,
             score=scored[0][1],
             evaluations=len(scored),
             meta=stamp_tuned_at(meta),
+            version=version,
         ))
     return scored
 
 
 def best_schedule(space: Space, target: HardwareTarget, limit: int = 1024,
-                  db=None) -> Tuple[Dict, float]:
-    """Best (config, score) for a space: a snapshot-cache or DB hit costs
-    zero evaluations; a miss ranks the space exhaustively and writes the
-    winner back (to a writable store only). The block pickers sit on this."""
+                  db=None, coeffs: Optional[Dict[str, float]] = None,
+                  version: Optional[str] = None, learned=None,
+                  rerank_top: int = 32) -> Tuple[Dict, float]:
+    """Best (config, score) for a space: a bundle, snapshot-cache or DB hit
+    costs zero evaluations; a miss ranks the space exhaustively and writes
+    the winner back (to a writable store only). The block pickers sit on
+    this.
+
+    ``version`` pins the record version consulted (and nothing else is
+    tried). Without it the version is derived: ``record_version(coeffs)``,
+    and when a learned ranker resolves (``learned``; default = the process
+    default) the hybrid lineage ``<base>+lr<fp>`` is consulted first, the
+    static one as the fallback."""
+    model = resolve_learned(learned) if version is None else None
     if db is not False:
-        rec = lookup_best(space.signature(), target.name, db=db)
-        if rec is not None:
-            return dict(rec.config), rec.score
+        if version is not None:
+            versions = [version]
+        else:
+            base = record_version(coeffs)
+            versions = ([model.hybrid_version(base), base]
+                        if model is not None else [base])
+        for v in versions:
+            rec = lookup_best(space.signature(), target.name, version=v, db=db)
+            if rec is not None:
+                return dict(rec.config), rec.score
     store = resolve_db(db)  # miss path only, like tune()
-    ranked = rank_space(space, target, limit=limit,
-                        db=store if _writable(store) else False)
+    ranked = rank_space(space, target, limit=limit, coeffs=coeffs,
+                        db=store if _writable(store) else False,
+                        learned=model if model is not None else False,
+                        rerank_top=rerank_top)
     if not ranked:
         raise ValueError(f"{space.signature()}: the schedule space on "
                          f"{target.name} is empty")

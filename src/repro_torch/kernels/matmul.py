@@ -66,10 +66,16 @@ def matmul_plain(x: torch.Tensor, y: torch.Tensor, bm: int, bn: int,
     the result is cast to x's dtype once."""
     check_shapes(x, y)
     m, k = x.shape
-    n = y.shape[1]
-    bm, bn, bk = resolve_blocks(m, n, k, bm, bn, bk)
-    acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
-    for k0 in range(0, k, bk):
+    bm, bn, bk = resolve_blocks(m, y.shape[1], k, bm, bn, bk)
+    return k_slices(x, y, bk)
+
+
+def k_slices(x: torch.Tensor, y: torch.Tensor, bk: int) -> torch.Tensor:
+    """The plain version's K loop at any ``bk`` (no built-tile check): an
+    f32 accumulator advances one bk slice of K at a time, cast to x's dtype
+    once."""
+    acc = torch.zeros((x.shape[0], y.shape[1]), dtype=torch.float32, device=x.device)
+    for k0 in range(0, x.shape[1], bk):
         acc += x[:, k0:k0 + bk].float() @ y[k0:k0 + bk].float()
     return acc.to(x.dtype)
 

@@ -27,8 +27,8 @@ from repro_torch.models import layers as L
 
 
 def init_moe(cfg, gen, lead: Tuple[int, ...] = ()) -> Dict:
-    if cfg.activation != "swiglu":
-        raise NotImplementedError(f"activation {cfg.activation!r} is not ported yet")
+    """The router, the experts' ``w1``/``w2`` and, for the gated activations
+    (``swiglu``, ``geglu``), ``w3``, drawn from ``gen`` in that order."""
     moe = cfg.moe
     d, fe, e = cfg.d_model, moe.d_expert, moe.n_experts
     dt = cfg.torch_param_dtype()
@@ -37,8 +37,9 @@ def init_moe(cfg, gen, lead: Tuple[int, ...] = ()) -> Dict:
         "router": L.normal(gen, lead + (d, e), sc_in, dt),
         "w1": L.normal(gen, lead + (e, d, fe), sc_in, dt),
         "w2": L.normal(gen, lead + (e, fe, d), sc_out, dt),
-        "w3": L.normal(gen, lead + (e, d, fe), sc_in, dt),
     }
+    if cfg.activation in ("swiglu", "geglu"):
+        p["w3"] = L.normal(gen, lead + (e, d, fe), sc_in, dt)
     if moe.shared_expert:
         p["shared"] = L.init_dense_mlp(cfg, gen, lead, d_ff=fe)
     return p
@@ -133,8 +134,9 @@ def expert_outputs(cfg, p: Dict, x: torch.Tensor, dispatch_idx: torch.Tensor,
     with L.span("moe.experts"):
         xc = xin.to(cd)
         h = torch.einsum("becd,edf->becf", xc, p["w1"].to(cd))
-        g = torch.einsum("becd,edf->becf", xc, p["w3"].to(cd))
-        out = torch.einsum("becf,efd->becd", F.silu(h) * g, p["w2"].to(cd))
+        g = (torch.einsum("becd,edf->becf", xc, p["w3"].to(cd))
+             if "w3" in p else None)
+        out = torch.einsum("becf,efd->becd", L._act(cfg, h, g), p["w2"].to(cd))
         return out * slot_w[..., None]
 
 

@@ -1,7 +1,7 @@
 """repro_torch.tuna — persistent schedule database + distributed tuning fleet.
 
 The port's own copy of ``repro.tuna``, over the port's targets
-(``gpu_h100``): ``db`` persists ``cm1`` schedule records keyed by (op
+(``gpu_h100``, and the reference's three): ``db`` persists ``cm1`` schedule records keyed by (op
 signature, target, cost-model version); ``orchestrator`` fans tuning jobs
 over a process pool; ``fleet`` shards the job matrix across hosts and
 reconciles per-shard stores; ``transport`` moves shard stores and
@@ -10,15 +10,18 @@ compiles the store into an immutable serving-time snapshot and manages its
 lifecycle (``SnapshotManager``: versioned names, a ``latest`` pointer,
 publish); ``golden`` freezes the store into regression-gated golden
 releases and builds kernel bundles that carry the compiled Hopper
-libraries; ``cli`` drives it (``python -m repro_torch.tuna``).
+libraries; ``learned`` trains the learned ranker from the store's log
+(``train_from_store``) and keeps its artifacts (``LearnedManager``);
+``cli`` drives it (``python -m repro_torch.tuna``).
 ``core.tuner`` consults an installed bundle, the snapshot and the DB
 transparently and hot-reloads republished snapshots via
 ``refresh_default_cache``. The store, snapshot and golden-release files
 are the reference's: either package reads what the other writes. Kernel
 bundles are not: each package refuses the other's by its backend tag.
+Learned-ranker artifacts are: a ranker trained by either package on the
+same store has the same fingerprint.
 
-The reference's fleet controller and learned ranker wait for ROADMAP
-Queue A 9.
+The reference's fleet controller waits for ROADMAP Queue A 4.
 
 Only ``db``, ``cache``, ``golden`` and ``transport`` are imported eagerly
 (``orchestrator``/``fleet`` pull in the operator registry; ``golden``

@@ -34,9 +34,15 @@ Subcommands:
            bundle of plain-version entries, no nvcc); --publish pushes
            release and bundle over a transport. Exit 1 when the gate
            refuses, 2 when there is nothing to promote
+  train    fit the learned ranker from the store's log into a versioned
+           artifact + `latest` pointer under --dir (default build/learned);
+           retrains only when the training rows or the cost-model version
+           changed. Exit 1 when the store has too few usable rows
+  eval     per-group Spearman rank correlation of an artifact against the
+           store; --check exits 1 below --min-spearman. Exit 1 on a
+           missing, torn, tampered or stale artifact
 
-The reference's controller, train and eval subcommands wait for ROADMAP
-Queue A 9.
+The reference's controller subcommand waits for ROADMAP Queue A 4.
 
 ``--db`` defaults to ``$REPRO_TUNA_DB``; without either it is required.
 
@@ -50,6 +56,8 @@ Examples:
   python -m repro_torch.tuna snapshot --db db.jsonl --dir snapshots/
   python -m repro_torch.tuna query --snapshot snapshots/schedule_cache.latest.json
   python -m repro_torch.tuna golden --db db.jsonl --bundle --device cpu
+  python -m repro_torch.tuna train --db db.jsonl
+  python -m repro_torch.tuna eval --db db.jsonl --check
 """
 from __future__ import annotations
 
@@ -60,12 +68,13 @@ import sys
 from typing import List, Optional
 
 from repro_torch.configs.tuna_ops import OPERATORS, SMOKE_OPERATORS
-from repro_torch.hw import TARGET_NAMES
+from repro_torch.hw import DEFAULT_TARGET, TARGET_NAMES
 from repro_torch.tuna import orchestrator
 from repro_torch.tuna.db import ScheduleDatabase
 
-DEFAULT_TARGETS = ",".join(TARGET_NAMES)
-
+# where `train` writes and `eval` reads by default (never the reference's
+# experiments/learned)
+LEARNED_DIR = os.path.join("build", "learned")
 
 def _add_db(p: argparse.ArgumentParser, help: Optional[str] = None,
             required: bool = True) -> None:
@@ -83,7 +92,7 @@ def _csv(s: str) -> List[str]:
 def cmd_tune(args: argparse.Namespace) -> int:
     if args.smoke:
         ops = list(SMOKE_OPERATORS)
-        targets = list(TARGET_NAMES)
+        targets = [DEFAULT_TARGET]
         workers = min(args.workers, 2)
         limit = min(args.limit, 256)
     else:
@@ -328,6 +337,82 @@ def cmd_export(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_train(args: argparse.Namespace) -> int:
+    rc = _pull_fleet_or_fail(args, "train")
+    if rc:
+        return rc
+    from repro_torch.tuna.learned import LearnedManager
+
+    mgr = LearnedManager(args.db, args.dir, augment=args.augment,
+                         seed=args.seed, l2=args.l2)
+    try:
+        info = mgr.ensure(force=args.force)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    state = "retrained" if info.retrained else "up to date"
+    print(f"[tuna] learned {info.path}: version {info.version}, "
+          f"{info.samples} samples ({info.skipped} rows skipped; {state}; "
+          f"latest -> {info.name})")
+    if args.publish:
+        from repro_torch.tuna.transport import resolve_transport
+
+        t = resolve_transport(args.publish)
+        for man in mgr.publish(t, info=info):
+            print(f"[tuna] published {man.name} ({man.size}B, "
+                  f"sha1 {man.sha1[:12]}) -> {t.describe()}")
+    return 0
+
+
+def cmd_eval(args: argparse.Namespace) -> int:
+    import math
+
+    import numpy as np
+
+    from repro_torch.core.learned import load_ranker, spearman
+    from repro_torch.tuna.cache import StaleSnapshotError
+    from repro_torch.tuna.learned import (build_dataset, iter_log_records,
+                                          training_rows)
+
+    try:
+        model = load_ranker(args.model)
+    except (StaleSnapshotError, ValueError, FileNotFoundError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    rows = training_rows(iter_log_records(args.db))
+    X, y, groups, skipped = build_dataset(rows)
+    if len(y) < 3:
+        print(f"error: {args.db}: only {len(y)} usable eval sample(s) "
+              f"({skipped} skipped)", file=sys.stderr)
+        return 1
+    preds = model.predict(X)
+    logy = np.log(np.maximum(y, 1e-30))
+    per_group = {}
+    for g in sorted(set(groups)):
+        m = np.asarray([gi == g for gi in groups])
+        if m.sum() >= 3:
+            per_group[g] = spearman(preds[m], logy[m])
+    print(f"[tuna] eval {args.model}: version {model.version}, "
+          f"{len(y)} samples, {len(per_group)} group(s)")
+    for g, rho in sorted(per_group.items()):
+        print(f"  spearman={rho:+.3f}  {g}")
+    if not per_group:
+        print("error: no group has >= 3 samples to rank", file=sys.stderr)
+        return 1
+    mean_rho = sum(per_group.values()) / len(per_group)
+    print(f"[tuna] mean spearman {mean_rho:+.3f} "
+          f"(rank correlation, 1.0 = perfect ordering)")
+    if args.check and (math.isnan(mean_rho)
+                       or mean_rho < args.min_spearman):
+        print(f"CHECK FAILED: mean spearman {mean_rho:.3f} < "
+              f"{args.min_spearman}", file=sys.stderr)
+        return 1
+    if args.check:
+        print(f"CHECK OK: mean spearman {mean_rho:.3f} >= "
+              f"{args.min_spearman}")
+    return 0
+
+
 def cmd_golden(args: argparse.Namespace) -> int:
     from repro_torch.core.cost_model import COST_MODEL_VERSION
     from repro_torch.tuna.golden import (
@@ -395,7 +480,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_db(p)
     p.add_argument("--ops", default="all",
                    help="comma-separated configs.tuna_ops names, or 'all'")
-    p.add_argument("--targets", default=DEFAULT_TARGETS)
+    p.add_argument("--targets", default=DEFAULT_TARGET,
+                   help=f"comma-separated, of {', '.join(TARGET_NAMES)}")
     p.add_argument("--strategy", choices=["exhaustive", "es"],
                    default="exhaustive")
     p.add_argument("--workers", type=int, default=4)
@@ -506,7 +592,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="freeze the store into a regression-gated golden release "
              "(+ optional kernel bundle)")
     _add_db(p)
-    p.add_argument("--target", default=TARGET_NAMES[0],
+    p.add_argument("--target", default=DEFAULT_TARGET,
                    help="the target whose records are promoted")
     p.add_argument("--dir", default=os.path.join("build", "golden"),
                    metavar="OUT_DIR",
@@ -536,6 +622,56 @@ def build_parser() -> argparse.ArgumentParser:
                    help="push the release (+ bundle) and their `latest` "
                         "pointers over this transport")
     p.set_defaults(fn=cmd_golden)
+
+    p = sub.add_parser(
+        "train",
+        help="fit the learned ranker offline from the store's log")
+    _add_db(p)
+    p.add_argument("--dir", default=LEARNED_DIR, metavar="OUT_DIR",
+                   help="artifact directory (default build/learned under "
+                        "the working directory, which .gitignore lists): "
+                        "versioned models (learned.<version>-<digest>.json) "
+                        "plus a `latest` pointer; retrains only when the "
+                        "store's training content or cost-model version "
+                        "changed")
+    p.add_argument("--augment", type=int, default=0, metavar="N",
+                   help="add up to N statically-scored configs per stored "
+                        "(op, target) — free cm1-lineage samples for "
+                        "spaces with few stored records")
+    p.add_argument("--l2", type=float, default=1e-2,
+                   help="ridge regularisation strength")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--force", action="store_true",
+                   help="retrain even if the pointed artifact is current")
+    p.add_argument("--transport", default=None, metavar="SPEC",
+                   help="pull the fleet's published shard stores (needs "
+                        "--num-shards) and merge them before training")
+    p.add_argument("--num-shards", type=int, default=0,
+                   help="fleet size for --transport pulls")
+    p.add_argument("--staging-dir", default=None,
+                   help="where transport pulls land (default <db>.staging/)")
+    p.add_argument("--ignore-shards", action="store_true",
+                   help="train on just the base store even when per-shard "
+                        "stores sit next to it (default: fail fast)")
+    p.add_argument("--publish", default=None, metavar="SPEC",
+                   help="push the artifact and its `latest` pointer over "
+                        "this transport")
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser(
+        "eval",
+        help="rank-correlate a trained artifact against the store")
+    _add_db(p)
+    p.add_argument("--model",
+                   default=os.path.join(LEARNED_DIR, "learned.latest.json"),
+                   help="artifact or `latest` pointer to evaluate")
+    p.add_argument("--check", action="store_true",
+                   help="exit 1 unless mean per-group spearman >= "
+                        "--min-spearman")
+    p.add_argument("--min-spearman", type=float, default=0.5,
+                   help="gate for --check (1.0 = perfect ordering, 0 = "
+                        "random)")
+    p.set_defaults(fn=cmd_eval)
     return ap
 
 

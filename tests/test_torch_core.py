@@ -1,10 +1,12 @@
 """The port's static analysis (``repro_torch.core``) held against the
 reference's (``repro.core``), and the port's Hopper target and matmul space.
 
-The port carries no TPU, CPU or A100 constants: the tests build its
-``HardwareTarget`` for those three field by field from the reference
-objects, then require exactly equal knobs, signatures, enumeration order,
-VISA text, features, scores, rankings and ES results.
+The port keeps its own copies of the reference's TPU, CPU and A100
+targets (``repro_torch.hw``): the tests require them equal to the
+reference's field by field, then exactly equal knobs, signatures,
+enumeration order, VISA text, features, scores, rankings and ES results,
+for the four legacy families and the model zoo's ``moe_dispatch``,
+``ssm_scan`` and ``mlstm_chunk`` on every kind of the reference.
 """
 import dataclasses
 import itertools
@@ -25,27 +27,32 @@ from repro.hw import TARGETS as JTARGETS
 from repro_torch.benchmarks import topk_ratio
 from repro_torch.core import cost_model, es, op_registry, tuner, visa
 from repro_torch.core.spaces import SM90_MATMUL_TILES, MatmulSpace, sm90_matmul_smem_bytes
+from repro_torch.hw import TARGET_NAMES, get_target
 from repro_torch.hw.gpu_h100 import GPU_H100
-from repro_torch.hw.target import FunctionalUnit, HardwareTarget
+from repro_torch.hw.target import HardwareTarget
 
 YI6B_SHAPES = ((2048, 4096, 4096), (2048, 512, 4096), (2048, 11008, 4096),
                (2048, 4096, 11008), (2048, 64000, 4096))
 LEGACY = ("matmul", "batch_matmul", "conv2d", "depthwise_conv2d")
+ZOO = ("moe_dispatch", "ssm_scan", "mlstm_chunk")
 
 
 def _port_target(ref) -> HardwareTarget:
-    fields = {f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)}
-    fields["units"] = tuple(FunctionalUnit(u.name, u.issue_width)
-                            for u in ref.units)
-    fields["instruction_table"] = dict(ref.instruction_table)
-    return HardwareTarget(**fields)
+    """The port's own copy of a reference target (held equal to it by
+    ``test_reference_targets_are_copied_field_by_field``)."""
+    return get_target(ref.name)
 
 
-TARGET_FOR_KIND = {"tpu": ("tpu_v5e",), "cpu": ("cpu_avx2", "gpu_a100")}
+TARGET_FOR_KIND = {"tpu": ("tpu_v5e",), "cpu": ("cpu_avx2", "gpu_a100"),
+                   "gpu": ("gpu_a100",)}
 
-# (family, attrs, kind): every legacy preset on its kind, plus a few shapes
+# (family, attrs, kind): every legacy preset on its kind, every zoo preset of
+# the reference's on each of its kinds, plus a few shapes
 CASES = [(fam, dict(p.attrs), p.kind)
          for _, (fam, p) in jop_registry.all_presets().items() if fam in LEGACY]
+CASES += [(fam, dict(p.attrs), kind)
+          for _, (fam, p) in jop_registry.all_presets().items() if fam in ZOO
+          for kind in ("tpu", "cpu", "gpu")]
 CASES += [
     ("matmul", {"M": 256, "N": 384, "K": 128, "dtype_bytes": 2}, "tpu"),
     ("matmul", {"M": 96, "N": 64, "K": 48}, "cpu"),
@@ -53,6 +60,10 @@ CASES += [
                       "dtype_bytes": 2}, "tpu"),
     ("conv2d", {"N": 1, "H": 7, "W": 8, "Cin": 64, "Cout": 32}, "tpu"),
     ("depthwise_conv2d", {"N": 2, "H": 8, "W": 16, "C": 32}, "tpu"),
+    ("moe_dispatch", {"B": 1, "E": 4, "C": 64, "D": 128, "F": 256,
+                      "dtype_bytes": 2}, "tpu"),
+    ("ssm_scan", {"B": 1, "S": 64, "D": 32, "N": 8}, "gpu"),
+    ("mlstm_chunk", {"B": 2, "H": 2, "S": 128, "R": 32, "dh": 16}, "cpu"),
 ]
 PAIRS = [(fam, attrs, kind, t) for fam, attrs, kind in CASES
          for t in TARGET_FOR_KIND[kind]]
@@ -154,15 +165,69 @@ def test_cm1_golden_feature_vector_and_score():
 
 
 def test_port_registry_holds_the_legacy_families_only():
-    """The four legacy families, then the two attention families of the
-    model zoo; the reference's other zoo families are not ported."""
-    assert op_registry.families() == LEGACY + ("flash", "flash_gqa")
+    """The four legacy families, then the model zoo's five in the
+    reference's order (so the learned ranker's knob columns are the
+    reference's), in a registry of the port's own."""
+    assert op_registry.families() == LEGACY + ZOO + ("flash", "flash_gqa")
+    assert op_registry.families() == jop_registry.families()
     assert op_registry._REGISTRY is not jop_registry._REGISTRY
     for name in op_registry.families():
         assert op_registry.get(name) is not jop_registry.get(name)
     space = op_registry.space_from_signature(
         "matmul[K=64,M=128,N=256,dtype_bytes=2]", "sm90")
     assert isinstance(space, MatmulSpace) and space.knobs["bn"] == [64, 128, 256]
+
+
+def test_knob_feature_union_is_the_reference_s():
+    def names(reg):
+        return [(kf.name, kf.kind, kf.choices, kf.feature_names())
+                for kf in reg.knob_feature_union()]
+
+    got = names(op_registry)
+    assert got == names(jop_registry) and len(got) == 16
+    flat = [n for *_, fn in got for n in fn]
+    assert len(flat) == 18
+    assert {"log2_chunk", "log2_b_d", "log2_br", "log2_bh"} <= set(flat)
+
+
+@pytest.mark.parametrize("tname", ["tpu_v5e", "cpu_avx2", "gpu_a100"])
+def test_reference_targets_are_copied_field_by_field(tname):
+    port, ref = get_target(tname), JTARGETS[tname]
+    assert type(port) is HardwareTarget and port is not ref
+    for f in dataclasses.fields(ref):
+        got, want = getattr(port, f.name), getattr(ref, f.name)
+        if f.name == "units":
+            got = [(u.name, u.issue_width) for u in got]
+            want = [(u.name, u.issue_width) for u in want]
+        elif f.name == "instruction_table":
+            got, want = dict(got), dict(want)
+        assert got == want, f.name
+    assert [f.name for f in dataclasses.fields(port)] == \
+        [f.name for f in dataclasses.fields(ref)]
+
+
+def test_target_names_and_lookup():
+    assert TARGET_NAMES == ("gpu_h100", "tpu_v5e", "cpu_avx2", "gpu_a100")
+    assert get_target("gpu_h100") is GPU_H100
+    assert set(TARGET_NAMES) - {"gpu_h100"} == set(JTARGETS)
+    with pytest.raises(KeyError, match="unknown target"):
+        get_target("tpu_v4")
+
+
+@pytest.mark.parametrize("fam", ZOO)
+def test_zoo_families_on_sm90(fam):
+    """The port's own kind: the zoo families enumerate, build and score on
+    the H100 target (moe_dispatch with the Hopper matmul tiles)."""
+    _, preset = next(v for v in op_registry.all_presets().values() if v[0] == fam)
+    space = op_registry.make_space(fam, preset.attrs, "sm90")
+    assert space.signature() == jop_registry.make_space(
+        fam, preset.attrs, "tpu").signature()
+    if fam == "moe_dispatch":
+        assert space.knobs["bm"] == [64, 128] and space.knobs["bn"] == [64, 128, 256]
+    assert space.knobs["double_buffer"] == [False, True]
+    ranked = tuner.rank_space(space, GPU_H100, limit=None)
+    assert len(ranked) == space.size()
+    assert all(np.isfinite(s) and s > 0 for _, s in ranked)
 
 
 def test_target_helpers():

@@ -576,10 +576,11 @@ def test_long_prompt_takes_chunked_path(pair, monkeypatch):
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Importing every module of the port (the schedule store, the flash
-    families and the training path included), then registering its op
-    families and running the static matmul and flash picks, loads no jax and
-    no ``repro`` module (a subprocess: this test process has jax loaded
+    """Importing every module of the port (the schedule store, the zoo
+    families, the training path, the targets, the calibration and the
+    learned ranker included), then registering its op families, running the
+    static matmul and flash picks and featurizing the zoo families on every
+    target, loads no jax and no ``repro`` module (a subprocess: this test process has jax loaded
     already)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -601,10 +602,20 @@ def test_port_imports_no_jax_and_no_reference():
         "{'repro_torch.' + m for m in ('tree', 'optim.adamw', 'optim.schedule', "
         "'parallel.collectives', 'launch.steps', 'launch.train', 'data.synthetic', "
         "'data.loader', 'runtime.failure', 'runtime.straggler', "
-        "'checkpoint.store')}\n"
+        "'checkpoint.store', 'core.calibrate', 'core.learned', 'tuna.learned', "
+        "'hw.tpu_v5e', 'hw.cpu_avx2', 'hw.gpu_a100')}\n"
         "assert want <= set(mods), sorted(want - set(mods))\n"
         "from repro_torch.kernels import ops\n"
         "ops.tuned_flash_blocks(77, 80)  # the flash family's signature\n"
+        "from repro_torch.core import calibrate, learned\n"
+        "from repro_torch.hw import TARGET_NAMES, get_target\n"
+        "for t in TARGET_NAMES:  # the zoo families on every target\n"
+        "    for fam in ('moe_dispatch', 'ssm_scan', 'mlstm_chunk'):\n"
+        "        _, pre = next(v for v in op_registry.all_presets().values() "
+        "if v[0] == fam)\n"
+        "        sp = op_registry.make_space(fam, pre.attrs, get_target(t).kind)\n"
+        "        learned.featurize(sp, get_target(t), sp.default_config())\n"
+        "calibrate.coeffs_for_scoring(dict.fromkeys(calibrate.FEATURES, 1e-9))\n"
         "print(len(mods)); assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(SRC))

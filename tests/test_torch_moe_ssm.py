@@ -427,3 +427,42 @@ def test_bf16_combine_sums_in_top_k_order():
     v1, v2, s = out[0, 1, 0, 0].float(), out[0, 2, 0, 0].float(), out[0, 0, 0, 0].float()
     assert v1 == -v2 and v1 + s == v1 and 0 < s
     assert keep.all() and torch.equal(y[..., 0], torch.full((1, 16), float(s), **bf))
+
+
+MOE_ACT_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "sq_relu", "gelu"])
+def test_apply_moe_activations_match_reference(act):
+    """Every activation the reference's MoE takes: ``w3`` is drawn for the
+    gated two only, and the experts apply the same function (GELU in its
+    tanh form). f32 on both sides, max abs error 1e-5."""
+    cfg, jcfg = _cfgs("qwen3_moe_235b_a22b")
+    cfg, jcfg = (dataclasses.replace(c, activation=act) for c in (cfg, jcfg))
+    jp, p = _moe_params(jcfg)
+    assert ("w3" in p) == (act in ("swiglu", "geglu")) == ("w3" in jp)
+    x = _x(2, 16, cfg.d_model)
+    y, aux = moe.apply_moe(cfg, p, torch.from_numpy(x))
+    jy, jaux = jmoe.apply_moe(jcfg, jp, jnp.asarray(x))
+    err = np.abs(y.numpy() - np.asarray(jy)).max()
+    assert err <= MOE_ACT_ATOL, (act, err, np.abs(np.asarray(jy)).max())
+    assert abs(float(aux) - float(jaux)) <= MOE_ACT_ATOL
+
+
+def test_swiglu_moe_draws_are_unchanged():
+    """The card's qwen3-moe and jamba serves draw their weights from a
+    seeded generator: for swiglu the draws stay router, w1, w2, w3."""
+    from repro_torch.models import layers as L
+
+    cfg = get_config("qwen3_moe_235b_a22b").reduced()
+    assert cfg.activation == "swiglu"
+    d, fe, e = cfg.d_model, cfg.moe.d_expert, cfg.moe.n_experts
+    p = moe.init_moe(cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+    dt = cfg.torch_param_dtype()
+    want = [L.normal(gen, shape, sc, dt) for shape, sc in (
+        ((d, e), d ** -0.5), ((e, d, fe), d ** -0.5), ((e, fe, d), fe ** -0.5),
+        ((e, d, fe), d ** -0.5))]
+    assert list(p) == ["router", "w1", "w2", "w3"]
+    for got, w in zip(p.values(), want):
+        assert torch.equal(got, w)

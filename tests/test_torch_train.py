@@ -203,6 +203,41 @@ def test_loss_and_gradients_match_reference(arch, remat):
         np.testing.assert_allclose(_np(g), want, err_msg=path, **tol)
 
 
+DENSE_ARCHS = ("yi_6b", "stablelm_3b", "nemotron_4_15b", "qwen25_14b",
+               "whisper_large_v3", "internvl2_1b")
+BF16_GRAD_FACTOR = 2.0
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_bf16_gradient_error_within_twice_the_reference_own(arch):
+    """The dense archs in bf16 (reduced configs cast to bf16, B=2, S=16):
+    for every leaf, the port's bf16 gradient is no further from the f32
+    reference's than ``BF16_GRAD_FACTOR`` times the reference's own bf16
+    gradient, each distance max |g - g_f32| over max |g_f32|."""
+    to16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    _, _, want32 = _reference_loss_and_grad(arch)
+    jcfg16 = dataclasses.replace(jget_config(arch).reduced(), **to16)
+    jparams16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), _jparams(arch))
+    jbatch = {k: jnp.asarray(v) for k, v in _batch(jcfg16).items()}
+    jgrads = jax.tree.leaves(jax.jit(jax.grad(
+        lambda p, b: JModel(jcfg16).loss(p, b)[0]))(jparams16, jbatch))
+    cfg16 = dataclasses.replace(get_config(arch).reduced(), **to16)
+    params = from_jax(jax.tree.map(np.asarray, jparams16), device="cpu")
+    leaves = tree.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = Model(cfg16, device="cpu").loss(
+        params, {k: torch.from_numpy(v) for k, v in _batch(cfg16).items()})
+    grads = torch.autograd.grad(loss, leaves)
+    assert len(grads) == len(jgrads) == len(want32)
+    for path, g, jg, want in zip(tree.paths(params), grads, jgrads, want32):
+        assert g.dtype == torch.bfloat16, path
+        scale = float(np.abs(want).max())
+        port = float(np.abs(_np(g) - want).max()) / scale
+        ref = float(np.abs(_np(jg) - want).max()) / scale
+        assert port <= BF16_GRAD_FACTOR * ref, (path, port, ref)
+
+
 def test_moe_gradient_with_capacity_drops_matches_reference():
     """Reduced qwen3-moe at capacity factor 0.5, where assignments are
     dropped and the reference empties slot (0, 0) (``dispatch_plan``'s

@@ -379,8 +379,10 @@ class TestCli:
         assert len(json.loads((tmp_path / "out.json").read_text())) == 2
         assert cli.main(["query", "--db", db, "--op", "nope["]) == 1
 
+    # tpu_v4 is no target of either package (the reference's three are the
+    # port's too, beside gpu_h100)
     @pytest.mark.parametrize("argv", [["--ops", "bogus", "--targets", H100],
-                                      ["--ops", "dense_256", "--targets", "tpu_v5e"],
+                                      ["--ops", "dense_256", "--targets", "tpu_v4"],
                                       ["--num-shards", "2", "--shard-id", "2"]])
     def test_bad_op_target_or_shard_rejected(self, tmp_path, argv):
         assert cli.main(["tune", "--db", str(tmp_path / "db.jsonl")] + argv) == 2
