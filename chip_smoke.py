@@ -165,7 +165,26 @@ Phases, in order; any failure exits non-zero before the last line:
              moments, two microbatches, int8 gradient compression, a
              checkpoint every 2 steps and a failure at step 3 must end
              bit-equal to an uninterrupted run, and two uninterrupted runs
-             must be bit-equal to each other.
+             must be bit-equal to each other. The uncut run's parameter
+             and moment leaves are digested (sha1 of each leaf's bytes, on
+             the host) before the profiled fifth step updates them.
+7c. mesh  — the same yi-6b run (steps, batch, length, seed, bf16 moments)
+             through ``train(..., mesh_shape=(1, 1))`` on a one-rank NCCL
+             group (``launch/mesh.init_process_group``: a store on
+             127.0.0.1): parameters and moments are DTensors placed by
+             the sharding rules and the flash kernel takes the local
+             shards through ``local_map``. Its loss history must equal the
+             ``train`` phase's bit for bit, every leaf digest the ``train``
+             phase's, and its flash launches 4 x 32 x 2; the median step
+             seconds beside the meshless median (DTensor's host cost), the
+             peak memory, a profiled fifth step's idle share and device
+             time by span. Then at the resume's 2 layers: a meshless run
+             saved at step 2, restored onto the 1x1 mesh by
+             ``elastic.restore_on_mesh`` inside ``train`` and continued to
+             step 4, must end bit-equal to an uninterrupted meshless run.
+             Then ``psum_int8`` over the one-rank group must equal
+             ``int8_compress_decompress`` bit for bit, and a one-stage
+             ``pipeline_apply`` its stage function applied per microbatch.
 12. encdec-vision — whisper-large-v3 (32 encoder and 32 decoder layers)
              and internvl2-1b (24 layers), uncut, one after the other, each
              freed before the next, through ``Model.prefill`` and
@@ -178,7 +197,7 @@ Phases, in order; any failure exits non-zero before the last line:
              and x 24; a profiled second run split into attention,
              cross-attention and the rest; the parity of phase 7.
 
-Prints a ``train`` JSON line, a ``topk`` JSON line (top1, ratio@5 and rank_corr
+Prints a ``train`` and a ``mesh`` JSON line, a ``topk`` JSON line (top1, ratio@5 and rank_corr
 per shape for the static, calibrated and hybrid rankings, the check, the fit), a
 ``kernels`` JSON line,
 then the card's name and power limit, then ``{"ok": true, "device": {...}}``
@@ -826,6 +845,11 @@ def main() -> None:
     train = train_phase(qkv)
     log(f"train: {time.perf_counter() - t_phase:.1f} s")
 
+    # ----------------------------------------------------------------- mesh
+    t_phase = time.perf_counter()
+    mesh = mesh_phase(train)
+    log(f"mesh: {time.perf_counter() - t_phase:.1f} s")
+
     # ------------------------------------------------- the new head groups
     groups = sorted({(c.n_heads, c.n_kv_heads, c.head_dim)
                      for c in (get_config(a) for a, _ in NEW_SERVES + DENSE_SERVES)},
@@ -918,9 +942,11 @@ def main() -> None:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",
-        "launches": sum(serve_launches.values()) + sum(train["launches"].values()),
+        "launches": (sum(serve_launches.values()) + sum(train["launches"].values())
+                     + mesh["launches"]),
         "launches_by_serve": serve_launches,
-        "launches_by_train": train["launches"], "train_shape": train["kernel"],
+        "launches_by_train": train["launches"], "launches_by_mesh": mesh["launches"],
+        "train_shape": train["kernel"],
         "max_abs_err": max_err,
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms, "head_dims": list(fa.HEAD_DIMS),
@@ -2223,6 +2249,198 @@ def _bit_diff(a, b) -> list:
             if x.dtype != y.dtype or not torch.equal(x, y)]
 
 
+def _digests(out) -> list:
+    """The sha1 of each leaf's bytes of a train run's (params, opt_state),
+    in leaf order, taken on the host (a DTensor's whole tensor; bf16 as
+    its 16-bit patterns), hashed on 8 threads while the next leaves copy."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    def host(t):
+        t = t.full_tensor() if hasattr(t, "full_tensor") else t
+        t = t.detach().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.cpu().numpy()
+
+    with ThreadPoolExecutor(8) as pool:
+        futures = []
+        for t in _train_state(out):
+            futures.append(pool.submit(lambda a: hashlib.sha1(memoryview(a).cast("B"))
+                                       .hexdigest(), host(t)))
+            while sum(not f.done() for f in futures) > 16:  # bound the host copies
+                time.sleep(0.01)
+        return [f.result() for f in futures]
+
+
+def _local_state(out) -> list:
+    """A train run's leaves as local tensors (a one-rank mesh's DTensors
+    whole)."""
+    return [t.to_local() if hasattr(t, "to_local") else t for t in _train_state(out)]
+
+
+def mesh_phase(train: dict) -> dict:
+    """The mesh phase (7c of the docstring): yi-6b uncut on a 1x1 mesh
+    against the ``train`` phase's run, the elastic resume, the collectives.
+    Returns its flash launches and readings."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel import context as pctx
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    mesh_mod.init_process_group("cuda")
+    log(f"mesh: a one-rank {dist.get_backend()} group, world {dist.get_world_size()}")
+    cfg = get_config(ARCH)
+    opts = train_mod.TrainOptions(steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                                  state_dtype="bfloat16", log_every=1, seed=SEED,
+                                  mesh_shape=(1, 1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    steps_seen = []
+    t0 = time.perf_counter()
+    with step_metrics(steps_seen):
+        out = train_mod.train(cfg, opts)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [loss for _, loss, _ in out["history"]]
+    secs = [dt for _, _, dt in out["history"]]
+    med = statistics.median(secs)
+    leaf = _train_state(out)[0]
+    t_dig = time.perf_counter()
+    digests = _digests(out)
+    differ = [i for i, (a, b) in enumerate(zip(digests, train["digests"])) if a != b]
+    log(f"mesh {ARCH} uncut on a 1x1 mesh ({type(leaf).__name__} leaves, placements "
+        f"{tuple(leaf.placements)}): {TRAIN_STEPS} steps in {wall:.1f} s (init included); "
+        f"step seconds {[round(x, 4) for x in secs]}, median {med:.4f} s against the "
+        f"meshless {train['median_step_s']:.4f} s ({med - train['median_step_s']:+.4f} s); "
+        f"peak {peak:.2f} GiB (meshless {train['peak_gib']:.2f}); flash launches {launches}; "
+        f"losses {losses} against {train['losses']}; {len(differ)} of {len(digests)} leaf "
+        f"digests differ {differ[:8]} ({time.perf_counter() - t_dig:.1f} s)")
+    want = TRAIN_STEPS * cfg.n_layers * 2
+    if launches != want:
+        fail(f"mesh flash launches {launches} != steps x layers x 2 = {want}")
+    if losses != train["losses"]:
+        fail("the 1x1 mesh's loss history is not bit-equal to the meshless run's")
+    if differ or len(digests) != len(train["digests"]):
+        fail("a 1x1 mesh leaf is not bit-equal to the meshless run's")
+
+    # a fifth step, profiled, on the mesh (its context installed, as train does)
+    mesh = leaf.device_mesh
+    model = Model(cfg)
+    step_fn = steps_mod.make_train_step(
+        model, AdamWConfig(lr=opts.lr, state_dtype="bfloat16"),
+        grad_shardings=sh.params_sharding(out["params"], mesh))
+    batch = SyntheticTokens(SyntheticConfig(cfg.vocab, TRAIN_S, TRAIN_B, seed=SEED)).batch(
+        TRAIN_STEPS)
+    trace = ROOT / "build" / "profile" / "mesh_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    pctx.install(("data",), tp_size=1, sp_seq=False, mesh=mesh)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_fn(out["params"], out["opt_state"], batch)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+    finally:
+        pctx.clear()
+    prof.export_chrome_trace(str(trace))
+    kernels, spans = trace_device_time(trace)
+    trace.unlink()
+    busy = sum(ms for _, ms in kernels)
+    idle = 1 - busy / (prof_wall * 1e3)
+    split = {name: spans.get(key, 0.0) for key, name in TRAIN_SPANS.items()}
+    split["the rest"] = busy - sum(split.values())
+    log(f"mesh profile (a fifth step on the 1x1 mesh, profiler on): device busy "
+        f"{busy:.1f} ms over {len(kernels)} kernels in the step's own wall "
+        f"{prof_wall * 1e3:.1f} ms: idle {100 * idle:.1f}% (meshless "
+        f"{100 * train['idle']:.1f}%); by span: " + ", ".join(
+            f"{name} {ms:.1f} ms ({100 * ms / busy:.1f}%)" for name, ms in split.items()))
+    del out, model, step_fn, leaf, mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- elastic: saved meshless at step 2, restored onto the 1x1 mesh
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
+    kw = dict(steps=RESUME_STEPS, batch=RESUME_B, seq=RESUME_S, state_dtype="int8",
+              accum_steps=2, grad_compression="int8", log_every=1, seed=SEED)
+    first = train_mod.train(cfg2, train_mod.TrainOptions(**kw))
+    ckpt = ROOT / "build" / "mesh_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        train_mod.train(cfg2, train_mod.TrainOptions(
+            ckpt_dir=str(ckpt), ckpt_every=2, **dict(kw, steps=2)))
+        resumed = train_mod.train(cfg2, train_mod.TrainOptions(
+            ckpt_dir=str(ckpt), ckpt_every=RESUME_STEPS, mesh_shape=(1, 1), **kw))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    differ = [i for i, (a, b) in enumerate(zip(_local_state(first), _local_state(resumed)))
+              if a.dtype != b.dtype or not torch.equal(a, b)]
+    n_leaves = len(_train_state(first))
+    log(f"mesh elastic: meshless to step 2, restored onto the 1x1 mesh, ended at step "
+        f"{resumed['final_step']}: {len(differ)} of {n_leaves} leaves differ from the "
+        f"uninterrupted meshless run {differ[:8]}; {time.perf_counter() - t0:.1f} s")
+    if resumed["final_step"] != RESUME_STEPS or differ:
+        fail("the resume onto the 1x1 mesh is not bit-equal to the uninterrupted run")
+    del first, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the collectives on the one-rank group
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    g = torch.randn(cfg.d_model, cfg.d_ff, generator=gen, device="cuda").to(torch.bfloat16)
+    want_g = collectives.int8_compress_decompress({"g": g.clone()})["g"]
+    got_g = collectives.psum_int8(g)
+    pmesh = mesh_mod.make_mesh((1, 1), ("pod", "model"))
+    d = cfg.d_model
+    w = (torch.randn(1, d, d, generator=gen, device="cuda") * d ** -0.5).to(torch.bfloat16)
+    b = (torch.randn(1, d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    x = torch.randn(4, 2, 128, d, generator=gen, device="cuda").to(torch.bfloat16)
+    stage_fn = lambda p, h: torch.tanh(h @ p["w"] + p["b"])
+    placed = sh.distribute({"w": w, "b": b}, {"w": (Shard(0), Replicate()),
+                                              "b": (Shard(0), Replicate())}, pmesh)
+    got_p = pipeline_apply(stage_fn, placed, x, mesh=pmesh, axis="pod")
+    want_p = torch.stack([stage_fn({"w": w[0], "b": b[0]}, x[i]) for i in range(x.shape[0])])
+    psum_ok, pipe_ok = torch.equal(got_g, want_g), torch.equal(got_p, want_p)
+    log(f"mesh collectives: psum_int8 over the one-rank group of a [{cfg.d_model}, "
+        f"{cfg.d_ff}] bf16 gradient {'equals' if psum_ok else 'differs from'} "
+        f"int8_compress_decompress; a one-stage pipeline_apply of 4 microbatches "
+        f"{'equals' if pipe_ok else 'differs from'} its stage function")
+    if not psum_ok:
+        fail("psum_int8 over one rank is not int8_compress_decompress")
+    if not pipe_ok:
+        fail("a one-stage pipeline is not its stage function")
+    dist.destroy_process_group()
+
+    result = {"arch": ARCH, "mesh": [1, 1], "step_s": secs, "median_step_s": med,
+              "meshless_median_step_s": train["median_step_s"], "peak_gib": peak,
+              "device_busy_ms": busy, "idle": idle, "spans_ms": split,
+              "profiled_step_s": prof_wall, "losses": losses, "launches": launches,
+              "digests_equal": len(digests)}
+    print("mesh " + json.dumps(result), flush=True)
+    return result
+
+
 def train_phase(qkv) -> dict:
     """The train phase (phase 7b of the docstring). Returns the flash
     launches of the uncut run and the kernel's times at its shape."""
@@ -2290,6 +2508,7 @@ def train_phase(qkv) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_params = sum(t.numel() for t in _leaves(out["params"]))
     secs = [dt for _, _, dt in out["history"]]
+    out_history = out["history"]
     med = statistics.median(secs)
     log(f"train {ARCH} uncut: {n_params / 1e9:.3f} B parameters, {TRAIN_STEPS} steps "
         f"of B={TRAIN_B} x S={TRAIN_S} in {wall:.1f} s (init included); step seconds "
@@ -2302,6 +2521,10 @@ def train_phase(qkv) -> dict:
     if len(kernel_steps) != TRAIN_STEPS or not all(
             np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in kernel_steps):
         fail(f"a train step's loss or gradient norm is not finite: {kernel_steps}")
+    # the mesh phase's reference: every leaf's digest before the fifth step
+    t_dig = time.perf_counter()
+    digests = _digests(out)
+    log(f"train: {len(digests)} leaf digests in {time.perf_counter() - t_dig:.1f} s")
 
     # a fifth step, profiled: device time by span against the median step
     model = Model(cfg)
@@ -2424,6 +2647,8 @@ def train_phase(qkv) -> dict:
               "first_step_gaps": {name: list(g[:3]) for name, g in readings.items()},
               "launches": {ARCH: launches}, "kernel": kernel}
     print("train " + json.dumps(result), flush=True)
+    result["losses"] = [loss for _, loss, _ in out_history]
+    result["digests"] = digests
     return result
 
 

@@ -32,10 +32,24 @@ import torch
 from repro_torch import tree as tree_mod
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A leaf whole: a ``DTensor`` gathered from its mesh (a collective:
+    every rank of the mesh calls it), a tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the default
+    process group, or the only process."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """A host copy of a leaf; bf16 as its 16-bit patterns in a ``'<V2'``
     array."""
-    t = t.detach().cpu()
+    t = _whole(t).detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")
     return t.numpy()
@@ -51,7 +65,13 @@ def _from_numpy(arr: np.ndarray, dtype: str, like: torch.Tensor) -> torch.Tensor
 
 
 def save(directory: str, step: int, tree, meta: Optional[Dict] = None) -> str:
-    """Write ``tree`` (of tensors) as checkpoint ``step``."""
+    """Write ``tree`` (of tensors) as checkpoint ``step``. ``DTensor``
+    leaves are stored whole; under a process group every rank calls this
+    and rank 0 writes."""
+    if not _writer():
+        for leaf in tree_mod.leaves(tree):
+            _whole(leaf)
+        return os.path.join(directory, f"step_{step:08d}")
     os.makedirs(directory, exist_ok=True)
     name = f"step_{step:08d}"
     tmp = os.path.join(directory, name + ".tmp")
@@ -146,7 +166,9 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree, meta: Optional[Dict] = None) -> None:
         self.wait()
-        host_tree = tree_mod.map(lambda t: t.detach().to("cpu", copy=True), tree)
+        host_tree = tree_mod.map(lambda t: _whole(t).detach().to("cpu", copy=True), tree)
+        if not _writer():
+            return
 
         def _write():
             try:

@@ -90,6 +90,12 @@ class ArchConfig:
             p = math.lcm(p, self.moe_every)
         return p
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if per-token decode cost is O(1)-ish in context (SSM/hybrid):
+        eligible for the long_500k shape."""
+        return self.family in ("hybrid", "ssm")
+
     def mixer_kind(self, i: int) -> str:
         if self.slstm_every > 1:
             return "slstm" if i % self.slstm_every == self.slstm_offset else "mlstm"
@@ -273,3 +279,7 @@ def get_config(name: str) -> ArchConfig:
         raise ValueError(f"unknown arch {name!r} (known: {ARCH_IDS})")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
+
+
+def all_configs():
+    return {a: get_config(a) for a in ARCH_IDS}

@@ -100,3 +100,7 @@ GPU_H100 = HardwareTarget(
     peak_flops_f32=67e12,
     ici_bandwidth=25e9,
 )
+
+# chip-level constants: the H100 SXM's 80 GB of HBM3 (80 GiB as the data
+# sheet's 80 GB is counted, the figure the launcher's state-dtype rule uses)
+HBM_BYTES = 80 * 1024**3

@@ -11,7 +11,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import layers as L
+from repro_torch.parallel import sharding as sh
 
 NEG_INF = -1e30
 
@@ -108,6 +110,61 @@ def chunked_attention(
     return out.reshape(b, h, s, dh).to(q.dtype)
 
 
+def _local_kv(k, v, first: int, n: int, g: int):
+    """The key/value heads of query heads ``[first, first + n)`` out of
+    whole ``k``/``v`` (query head i reads key head i // g), as a GQA layout
+    of its own: a slice of n / g heads, one head for a group wider than
+    ``n``, else each head repeated per query head."""
+    if n % g == 0:
+        sl = slice(first // g, first // g + n // g)
+    elif g % n == 0 and first // g == (first + n - 1) // g:
+        sl = slice(first // g, first // g + 1)
+    else:
+        idx = torch.arange(first, first + n, device=k.device) // g
+        return k[:, idx].contiguous(), v[:, idx].contiguous()
+    return k[:, sl].contiguous(), v[:, sl].contiguous()
+
+
+def head_parallel(attend, q, k, v):
+    """``attend(q, k, v)``; on DTensors, per rank on its local shards
+    (``local_map``), so the kernel sees raw tensors and launches on each
+    rank's heads. The batch goes over the mesh's DP axes and the heads over
+    ``model`` where the query heads divide; the key/value heads go with
+    them where they divide too, else stay whole and each rank takes its
+    query heads' own (``_local_kv``), their gradients summed over
+    ``model``."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    if not isinstance(q, DTensor):
+        return attend(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    names, shape = mesh_mod.axis_names(mesh), mesh_mod.shape_of(mesh)
+    dp = mesh_mod.dp_axes(mesh)
+    hq, hkv = q.shape[1], k.shape[1]
+    tp = shape.get(sh.TP, 1)
+    q_heads = sh.TP if sh.TP in names and hq % tp == 0 else None
+    kv_heads = q_heads if q_heads and hkv % tp == 0 else None
+    qp = sh.placements(sh.P(dp, q_heads), mesh)
+    kvp = sh.placements(sh.P(dp, kv_heads), mesh)
+    kv_grad = kvp
+    if q_heads and not kv_heads:
+        kv_grad = tuple(Partial() if a == sh.TP else p for a, p in zip(names, kvp))
+    q, k, v = (t if tuple(t.placements) == pl else t.redistribute(mesh, pl)
+               for t, pl in ((q, qp), (k, kvp), (v, kvp)))
+
+    def local(ql, kl, vl):
+        if q_heads and not kv_heads:
+            n = hq // tp
+            kl, vl = _local_kv(kl, vl, mesh.get_local_rank(sh.TP) * n, n, hq // hkv)
+        return attend(ql, kl, vl)
+
+    return local_map(local, out_placements=list(qp), in_placements=(qp, kvp, kvp),
+                     in_grad_placements=(qp, kv_grad, kv_grad),
+                     device_mesh=mesh)(q, k, v)
+
+
 def attention_forward(
     cfg,
     p: Dict,
@@ -128,11 +185,14 @@ def attention_forward(
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     s = q.shape[2]
     if kv_x is not None:
-        out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+        attend = lambda q, k, v: chunked_attention(q, k, v, causal=False,
+                                                   chunk=cfg.attn_chunk)
     elif s >= chunked_threshold:
-        out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+        attend = lambda q, k, v: chunked_attention(q, k, v, causal=causal,
+                                                   chunk=cfg.attn_chunk)
     else:
-        out = kops.attention(q, k, v, causal=causal)
+        attend = lambda q, k, v: kops.attention(q, k, v, causal=causal)
+    out = head_parallel(attend, q, k, v)
     b = x.shape[0]
     cd = cfg.torch_compute_dtype()
     merged = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)

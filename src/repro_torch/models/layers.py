@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.parallel import context as pctx
 from repro_torch.spans import span
 
 
@@ -38,8 +39,12 @@ DRAW_CHUNK = 2**31
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
-    """``scale * N(0, 1)`` drawn in f32 on the generator's device, then cast."""
+    """``scale * N(0, 1)`` drawn in f32 on the generator's device, then cast.
+    On the meta device (``launch/specs.abstract_params``) nothing is drawn:
+    the result has the shape and dtype only."""
     shape = tuple(shape)
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     if len(shape) > 1 and math.prod(shape) > DRAW_CHUNK:
         out = torch.empty(shape, dtype=dtype, device=gen.device)
         for i in range(shape[0]):
@@ -189,7 +194,8 @@ def cross_entropy_loss(cfg, p: Dict, x: torch.Tensor, labels: torch.Tensor,
 
     def chunk_loss(xi, yi):
         with span("cross_entropy"):  # the forward, and its recompute
-            logits = unembed(cfg, p, xi).float()  # [B, c, V]
+            # vocab-sharded logits have no DTensor strategy for the gather
+            logits = pctx.batch_only(unembed(cfg, p, xi).float())  # [B, c, V]
             lse = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, yi[..., None])[..., 0]
             return torch.sum(lse - gold)

@@ -27,6 +27,7 @@ import torch
 from repro_torch.hw import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.parallel import context as pctx
 
 ENC_PATTERN = (("attention", "dense"),)
 
@@ -87,7 +88,7 @@ class Model:
             patches = batch["patches"].to(self.device, cd) @ params["vis_proj"].to(cd)
             x = torch.cat([patches, x], dim=1)
             n_prefix = patches.shape[1]
-        return x, torch.arange(x.shape[1], device=x.device), n_prefix
+        return pctx.constrain_tokens(x), torch.arange(x.shape[1], device=x.device), n_prefix
 
     # ------------------------------------------------------------------ loss
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

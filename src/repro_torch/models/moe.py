@@ -10,9 +10,13 @@ bits on every run, as the reference's XLA scatter-add does. Assignments
 ranked past the capacity are dropped (Switch style), bounded by
 ``capacity_factor``.
 
-The reference's expert-parallel pins (``pctx.moe_pin()`` and its sharding
-constraints) place tensors over a device mesh; on one device they do
-nothing, so they are left out here until the multi-device slice.
+On a device mesh (DTensor activations) the router and the expert products
+run on DTensors, the experts over ``model`` (EP); the dispatch plan, the
+token gather and the combine, whose index ops have no DTensor strategy, run
+on each rank's batch rows (``pctx.map_rows``), the slot outputs gathered
+over the experts first. With ``pctx.moe_pin()`` the reference's five
+constraints pin the plan and the ``[B, E, C, *]`` activations. Without a
+mesh all of these are plain calls and no-ops.
 
 Aux loss: Switch load-balancing  E · Σ_e f_e · P_e.
 """
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.parallel import context as pctx
 
 
 def init_moe(cfg, gen, lead: Tuple[int, ...] = ()) -> Dict:
@@ -122,21 +127,32 @@ def dispatch_plan(idx: torch.Tensor, gates: torch.Tensor, cap: int,
     return dispatch_idx, slot_w, keep, emptied, slot
 
 
+def _gather_slots(x: torch.Tensor, dispatch_idx: torch.Tensor,
+                  slot_w: torch.Tensor) -> torch.Tensor:
+    rows = torch.arange(x.shape[0], device=x.device)[:, None, None]
+    xin = x[rows, dispatch_idx]  # [B,E,C,D]
+    return xin * (slot_w[..., None] != 0)  # zero out unused slots
+
+
 def expert_outputs(cfg, p: Dict, x: torch.Tensor, dispatch_idx: torch.Tensor,
                    slot_w: torch.Tensor) -> torch.Tensor:
     """The gate-weighted expert output of every capacity slot, [B, E, C, D]
     in the compute dtype; 0 in an unused or emptied slot."""
     cd = cfg.torch_compute_dtype()
     with L.span("moe.gather_scatter"):
-        rows = torch.arange(x.shape[0], device=x.device)[:, None, None]
-        xin = x[rows, dispatch_idx]  # [B,E,C,D]
-        xin = xin * (slot_w[..., None] != 0)  # zero out unused slots
+        xin = pctx.map_rows(_gather_slots, (x, dispatch_idx, slot_w), (True,) * 3)
+    if pctx.moe_pin():
+        xin = pctx.constrain_dims(xin, ("dp", "tp", None, None))
     with L.span("moe.experts"):
         xc = xin.to(cd)
         h = torch.einsum("becd,edf->becf", xc, p["w1"].to(cd))
+        if pctx.moe_pin():
+            h = pctx.constrain_dims(h, ("dp", "tp", None, None))
         g = (torch.einsum("becd,edf->becf", xc, p["w3"].to(cd))
              if "w3" in p else None)
         out = torch.einsum("becf,efd->becd", L._act(cfg, h, g), p["w2"].to(cd))
+        if pctx.moe_pin():
+            out = pctx.constrain_dims(out, ("dp", "tp", None, None))
         return out * slot_w[..., None]
 
 
@@ -168,10 +184,18 @@ def apply_moe(cfg, p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
 
     idx, gates, aux = route(cfg, p, x)
     with L.span("moe.route"):
-        dispatch_idx, slot_w, keep, _, slot = dispatch_plan(idx, gates, cap, e, cd)
+        dispatch_idx, slot_w, keep, _, slot = pctx.map_rows(
+            lambda i, g: dispatch_plan(i, g, cap, e, cd), (idx, gates), (True, True),
+            n_out=5)
+    if pctx.moe_pin():
+        dispatch_idx = pctx.constrain_dims(dispatch_idx, ("dp", None, None))
+        slot_w = pctx.constrain_dims(slot_w, ("dp", None, None))
     out = expert_outputs(cfg, p, x, dispatch_idx, slot_w)
     with L.span("moe.gather_scatter"):
-        y = combine(out, slot, keep, k)
+        y = pctx.map_rows(lambda o, sl, kp: combine(o, sl, kp, k), (out, slot, keep),
+                          (True,) * 3)
+    if pctx.moe_pin():
+        y = pctx.constrain_dims(y, ("dp", None, None))
 
     if moe.shared_expert:
         with L.span("moe.experts"):

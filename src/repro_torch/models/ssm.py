@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.parallel import context as pctx
 
 
 def d_inner(cfg) -> int:
@@ -78,17 +79,19 @@ def _chunk_scan(carry_h, dA, dBx):
     return h, h[:, -1]
 
 
-def mamba_forward(cfg, p: Dict, x: torch.Tensor, chunk: int = 0,
-                  return_state: bool = False):
-    """Prefill path. x [B, S, D] -> [B, S, D] (+ the final decode cache
-    ``{conv, h}`` when ``return_state``)."""
-    b, s, d = x.shape
-    chunk = chunk or cfg.ssm_chunk
+# the mixer's weights that the scan reads, past the input projection
+_SCAN_KEYS = ("A_log", "D", "conv_b", "conv_w", "dt_bias", "dt_proj", "w_bc", "w_dt")
+
+
+def _conv_scan(cfg, p: Dict, xz: torch.Tensor, chunk: int):
+    """xz [B, S, 2di] (the input projection) -> (y [B, S, di] in the
+    compute dtype, gated, before the output projection; the conv state
+    [B, K-1, di]; h [B, di, N]): the causal depthwise conv, the selective
+    scan and the gate."""
+    b, s, _ = xz.shape
     di = d_inner(cfg)
     cd = cfg.torch_compute_dtype()
     k = cfg.ssm_conv
-
-    xz = x.to(cd) @ p["in_proj"].to(cd)  # [B, S, 2di]
     xi, z = xz[..., :di], xz[..., di:]
     # causal depthwise conv (width k)
     xp = torch.cat([xi.new_zeros((b, k - 1, di)), xi], dim=1)
@@ -97,7 +100,7 @@ def mamba_forward(cfg, p: Dict, x: torch.Tensor, chunk: int = 0,
     u = F.silu(conv)  # [B, S, di]
 
     c = min(chunk, s)
-    h = torch.zeros((b, di, cfg.ssm_state), dtype=torch.float32, device=x.device)
+    h = torch.zeros((b, di, cfg.ssm_state), dtype=torch.float32, device=xz.device)
 
     def scan_chunk(h, u_i):
         dA, dBx, c_t = _discretise(p, u_i)  # [B, c, di, N]
@@ -110,10 +113,25 @@ def mamba_forward(cfg, p: Dict, x: torch.Tensor, chunk: int = 0,
         ys.append(y)
     y = torch.cat(ys, dim=1)
     y = y + u.float() * p["D"].float()
-    y = y.to(cd) * F.silu(z)
+    return y.to(cd) * F.silu(z), xp[:, s:s + k - 1], h
+
+
+def mamba_forward(cfg, p: Dict, x: torch.Tensor, chunk: int = 0,
+                  return_state: bool = False):
+    """Prefill path. x [B, S, D] -> [B, S, D] (+ the final decode cache
+    ``{conv, h}`` when ``return_state``). On a mesh the projections run on
+    DTensors and the conv and scan on each rank's batch rows, with the
+    scan's weights whole (``pctx.map_rows``)."""
+    chunk = chunk or cfg.ssm_chunk
+    cd = cfg.torch_compute_dtype()
+    xz = x.to(cd) @ p["in_proj"].to(cd)  # [B, S, 2di]
+    y, conv_state, h = pctx.map_rows(
+        lambda xz, *w: _conv_scan(cfg, dict(zip(_SCAN_KEYS, w)), xz, chunk),
+        (xz,) + tuple(p[key] for key in _SCAN_KEYS),
+        (True,) + (False,) * len(_SCAN_KEYS), n_out=3)
     out = (y @ p["out_proj"].to(cd)).to(x.dtype)
     if return_state:
-        return out, {"conv": xp[:, s:s + k - 1], "h": h}
+        return out, {"conv": conv_state, "h": h}
     return out
 
 

@@ -24,6 +24,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.parallel import context as pctx
 
 MIXERS = ("attention", "mamba", "mlstm", "slstm")
 MLPS = ("dense", "moe", "none")
@@ -219,9 +220,11 @@ def apply_stack(cfg, stack_params: Tuple[Dict, ...], x: torch.Tensor,
 
     def run_group(g, x):
         aux_g, contribs = None, []
+        x = pctx.constrain_tokens(x)
         for pp, kinds in enumerate(pattern):
             x, contrib, a = apply_block(cfg, views[pp][g], kinds, x, positions,
                                         causal=causal, enc_out=enc_out)
+            x = pctx.constrain_tokens(x)
             if a is not None:
                 aux_g = a if aux_g is None else aux_g + a
             contribs.append(contrib)

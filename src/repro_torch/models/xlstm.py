@@ -12,11 +12,11 @@ does for ``lax.scan``. Under autograd each mLSTM chunk's intra-chunk
 matrices are recomputed in the backward (``layers.remat``, the reference's
 ``jax.checkpoint`` per chunk).
 
-The reference maps each mixer over the data-parallel mesh axes
-(``_shard_map_mixer``) and runs it as a plain call where there is no mesh.
-The port has no mesh yet, so ``mlstm_forward`` and ``slstm_forward`` call
-their cores directly. Neither mixer has a kernel in the reference: both are
-plain torch here, as the mamba scan is.
+As in the reference, each mixer runs mapped over the data-parallel mesh
+axes with its parameters whole (``_shard_map_mixer``, a ``local_map`` over
+DTensor inputs), so its scans are local code; without a mesh it is a plain
+call. Neither mixer has a kernel in the reference: both are plain torch
+here, as the mamba scan is.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.parallel import context as pctx
 
 _EPS = 1e-6
 _M_FLOOR = -1e30  # the stabiliser's start, and its guard against all -inf rows
@@ -133,10 +134,29 @@ def _mlstm_core(cfg, p: Dict, x: torch.Tensor, init_state: Dict):
     return _mlstm_out(cfg, p, torch.cat(hs, dim=2), o, x), {"C": c1, "n": n1, "m": m1}
 
 
+def _shard_map_mixer(core, init_cache, state_keys, cfg, p: Dict, x: torch.Tensor):
+    """``core(cfg, p, x, init_state)`` on each rank's batch rows with the
+    mixer's parameters whole (``pctx.map_rows``: their gradients summed
+    over the DP axes at the boundary, not per time step), the initial state
+    drawn for the local rows; a plain call on plain tensors. Returns (out,
+    the final state of ``state_keys``)."""
+    keys = sorted(p)
+
+    def local(x, *w):
+        out, state = core(cfg, dict(zip(keys, w)), x,
+                          init_cache(cfg, x.shape[0], x.device))
+        return (out,) + tuple(state[n] for n in state_keys)
+
+    outs = pctx.map_rows(local, (x,) + tuple(p[k] for k in keys),
+                         (True,) + (False,) * len(keys), n_out=1 + len(state_keys))
+    return outs[0], dict(zip(state_keys, outs[1:]))
+
+
 def mlstm_forward(cfg, p: Dict, x: torch.Tensor, return_state: bool = False):
     """Prefill path. x [B, S, D] -> [B, S, D] (+ the final decode cache
     ``{C, n, m}`` when ``return_state``)."""
-    out, state = _mlstm_core(cfg, p, x, init_mlstm_cache(cfg, x.shape[0], x.device))
+    out, state = _shard_map_mixer(_mlstm_core, init_mlstm_cache, ("C", "n", "m"), cfg,
+                                  p, x)
     if return_state:
         return out, state
     return out
@@ -216,7 +236,8 @@ def _slstm_core(cfg, p: Dict, x: torch.Tensor, init_state: Dict):
 def slstm_forward(cfg, p: Dict, x: torch.Tensor, return_state: bool = False):
     """Prefill path. x [B, S, D] -> [B, S, D] (+ the final decode cache
     ``{c, n, h, m}`` when ``return_state``)."""
-    out, state = _slstm_core(cfg, p, x, init_slstm_cache(cfg, x.shape[0], x.device))
+    out, state = _shard_map_mixer(_slstm_core, init_slstm_cache, ("c", "n", "h", "m"),
+                                  cfg, p, x)
     if return_state:
         return out, state
     return out

@@ -15,6 +15,15 @@ updates the parameters and the moments in place. The int8 blocks lie along
 the last axis, so a slice quantises exactly as the whole leaf does: the
 numbers are the reference's, up to the order in which the global norm sums
 its squares.
+
+On a device mesh the leaves are ``DTensor``s placed by the sharding rules
+(gradients placed like their parameters). The update is elementwise, so it
+runs on each rank's local shards in place; ``global_norm`` adds each
+shard's squares, each scaled by one over the number of ranks that hold the
+same shard, and all-reduces the total over the mesh once. An int8 leaf
+whose last (blocked) axis is sharded is updated with whole rows: its
+parameter, gradient and moments are gathered along that axis, updated as on
+one device and scattered back.
 """
 from __future__ import annotations
 
@@ -108,9 +117,20 @@ def init_state(cfg: AdamWConfig, params) -> Dict[str, Any]:
         dt = torch.bfloat16 if cfg.state_dtype == "int8" else getattr(torch, cfg.state_dtype)
         return torch.zeros(p.shape, dtype=dt, device=p.device)
 
-    device = tree.leaves(params)[0].device
+    device = local(tree.leaves(params)[0]).device
     return {"step": torch.zeros((), dtype=torch.int32, device=device),
             "m": tree.map(zero_like, params), "v": tree.map(zero_like, params)}
+
+
+def _dtensor():
+    from torch.distributed.tensor import DTensor
+
+    return DTensor
+
+
+def local(t):
+    """A DTensor's local shard (a view of its storage); a tensor as it is."""
+    return t.to_local() if isinstance(t, _dtensor()) else t
 
 
 def row_slices(shape) -> Iterator[slice]:
@@ -132,12 +152,38 @@ def _part(st, sl):
     return st[sl]
 
 
+def _copies(t) -> int:
+    """How many ranks of its mesh hold each shard of the DTensor ``t``."""
+    from torch.distributed.tensor import Replicate
+
+    n = 1
+    for size, pl in zip(t.device_mesh.shape, t.placements):
+        if isinstance(pl, Replicate):
+            n *= size
+        elif not pl.is_shard():
+            raise ValueError(f"a leaf placed {tuple(t.placements)}: place gradients "
+                             "like their parameters before the update")
+    return n
+
+
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient in f32, slice by slice."""
-    total = torch.zeros((), device=grads[0].device)
+    """sqrt of the sum of squares of every gradient in f32, slice by slice
+    (on a mesh: over the local shards, then all-reduced)."""
+    DTensor = _dtensor()
+    total = torch.zeros((), device=local(grads[0]).device)
+    mesh = None
     for g in grads:
+        n = 1
+        if isinstance(g, DTensor):
+            mesh, n = g.device_mesh, _copies(g)
+            g = g.to_local()
         for sl in row_slices(g.shape):
-            total = total + g[sl].float().square().sum()
+            sq = g[sl].float().square().sum()
+            total = total + (sq if n == 1 else sq / n)
+    if mesh is not None:
+        from torch.distributed.tensor import Partial
+
+        total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim).full_tensor()
     return total.sqrt()
 
 
@@ -150,6 +196,60 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: Dict[str, Any],
         return _apply_updates(cfg, params, grads, state, lr_scale)
 
 
+def _update_leaf(cfg, p, g, m_st, v_st, clip, bc1, bc2, lr) -> None:
+    """AdamW on one leaf's tensors (local), in place, slice by slice."""
+    for sl in row_slices(p.shape):
+        ps, ms, vs = p[sl], _part(m_st, sl), _part(v_st, sl)
+        gs = g[sl].float() * clip
+        m = _decode_moment(ms)
+        v = _decode_moment(vs)
+        m = cfg.b1 * m + (1 - cfg.b1) * gs
+        v = cfg.b2 * v + (1 - cfg.b2) * gs * gs
+        update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        update = update + cfg.weight_decay * ps.float()
+        ps.copy_((ps.float() - lr * update).to(p.dtype))
+        _store_moment(ms, m)
+        _store_moment(vs, v)
+
+
+def _row_placements(t) -> list:
+    """The DTensor ``t``'s placements with its last axis whole (every other
+    placement kept)."""
+    from torch.distributed.tensor import Replicate
+
+    last = t.ndim - 1
+    return [Replicate() if p.is_shard() and p.dim in (last, -1) else p
+            for p in t.placements]
+
+
+def splits_rows(t) -> bool:
+    """Whether ``t`` is a DTensor whose last axis is sharded, so that an
+    int8 block along it may straddle two ranks."""
+    return isinstance(t, _dtensor()) and _row_placements(t) != list(t.placements)
+
+
+def whole_rows(t):
+    """The DTensor ``t`` with its last axis gathered where it is sharded:
+    int8 blocks along that axis then lie whole on each rank. ``t`` itself
+    where they do."""
+    return t.redistribute(t.device_mesh, _row_placements(t)) if splits_rows(t) else t
+
+
+def _update_sharded_blocks(cfg, p, g, m_st, v_st, *scalars) -> None:
+    """The update of an int8 leaf whose last axis is sharded: on whole rows,
+    then each rank's shard written back."""
+    trees = [p, g, m_st, v_st]
+    whole = [{k: whole_rows(v) for k, v in t.items()} if isinstance(t, dict)
+             else whole_rows(t) for t in trees]
+    _update_leaf(cfg, *[{k: local(v) for k, v in t.items()} if isinstance(t, dict)
+                        else local(t) for t in whole], *scalars)
+    for t, w in ((p, whole[0]), (m_st, whole[2]), (v_st, whole[3])):
+        for dst, src in ([(t[k], w[k]) for k in t] if isinstance(t, dict) else [(t, w)]):
+            if src is not dst:
+                dst.to_local().copy_(src.redistribute(dst.device_mesh,
+                                                      dst.placements).to_local())
+
+
 def _apply_updates(cfg, params, grads, state, lr_scale):
     flat_p = tree.leaves(params)
     flat_g = tree.flatten_up_to(params, grads)
@@ -157,24 +257,25 @@ def _apply_updates(cfg, params, grads, state, lr_scale):
     flat_v = tree.flatten_up_to(params, state["v"])
     gnorm = global_norm(flat_g)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-    step = state["step"] + 1
+    step_st = state["step"]
+    step = local(step_st) + 1
     t = step.float()
     bc1 = 1.0 - cfg.b1 ** t
     bc2 = 1.0 - cfg.b2 ** t
     lr = cfg.lr * lr_scale
+    DTensor = _dtensor()
 
     for p, g, m_st, v_st in zip(flat_p, flat_g, flat_m, flat_v):
-        for sl in row_slices(p.shape):
-            ps, ms, vs = p[sl], _part(m_st, sl), _part(v_st, sl)
-            gs = g[sl].float() * clip
-            m = _decode_moment(ms)
-            v = _decode_moment(vs)
-            m = cfg.b1 * m + (1 - cfg.b1) * gs
-            v = cfg.b2 * v + (1 - cfg.b2) * gs * gs
-            update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-            update = update + cfg.weight_decay * ps.float()
-            ps.copy_((ps.float() - lr * update).to(p.dtype))
-            _store_moment(ms, m)
-            _store_moment(vs, v)
+        if isinstance(m_st, dict) and splits_rows(p):
+            _update_sharded_blocks(cfg, p, g, m_st, v_st, clip, bc1, bc2, lr)
+            continue
+        if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+            raise ValueError(f"a gradient placed {tuple(g.placements)}, its parameter "
+                             f"{tuple(p.placements)}")
+        moments = [{k: local(x) for k, x in st.items()} if isinstance(st, dict) else local(st)
+                   for st in (m_st, v_st)]
+        _update_leaf(cfg, local(p), local(g), *moments, clip, bc1, bc2, lr)
+    if isinstance(step_st, DTensor):
+        step = DTensor.from_local(step, step_st.device_mesh, step_st.placements)
     state["step"] = step
     return params, state, {"grad_norm": gnorm}

@@ -8,8 +8,8 @@ mitigation:
 
   * ``rebalance_data``  — input-bound (loader fetch time dominates)
   * ``exclude_and_remesh`` — persistent compute slowness (the elastic path:
-     checkpoint → shrink mesh → restore: the reference's checkpoint/elastic.py,
-     which the port takes with the multi-device slice, ROADMAP Queue A 8)
+     checkpoint → shrink mesh → restore: ``checkpoint/elastic.py``'s
+     ``restore_on_mesh``, or ``reshard_live`` without the disk)
   * ``transient``       — one-off; log only
 
 On a single host the signals are simulated in tests via an

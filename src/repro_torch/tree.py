@@ -56,6 +56,27 @@ def map(fn: Callable, tree):
     return unflatten_like(tree, [fn(leaf) for leaf in leaves(tree)])
 
 
+def key_paths(tree, prefix: Tuple = ()) -> List[Tuple]:
+    """Each leaf's path as a tuple of keys: a dict's key, a tuple's or
+    list's index as an ``int`` (``jax.tree_util``'s ``DictKey`` and
+    ``SequenceKey``)."""
+    kind, _ = _children(tree)
+    if not kind:
+        return [prefix]
+    if kind == "dict":
+        return [p for k in sorted(tree) for p in key_paths(tree[k], prefix + (k,))]
+    if kind == "none":
+        return []
+    return [p for i, kid in enumerate(tree) for p in key_paths(kid, prefix + (i,))]
+
+
+def map_with_path(fn: Callable, tree):
+    """``fn(path, leaf)`` over the leaves of ``tree`` (paths of
+    ``key_paths``)."""
+    return unflatten_like(tree, [fn(p, leaf) for p, leaf
+                                 in zip(key_paths(tree), leaves(tree))])
+
+
 def flatten_up_to(tree, other) -> List[Any]:
     """``other``'s subtrees at the positions of ``tree``'s leaves (a moment
     tree whose int8 leaves are ``{q, scale}`` dicts, against the params)."""

@@ -451,3 +451,66 @@ def test_flash_gradients_on_the_card(card, hq, hkv, s, d, causal):
         g, w = g.float().cpu().numpy(), w.cpu().numpy()
         atol = ATOL_RMS * float(np.sqrt(np.mean(w ** 2)))
         np.testing.assert_allclose(g, w, rtol=RTOL, atol=atol)
+
+
+@pytest.mark.gpu
+def test_one_by_one_nccl_mesh_train_step_is_bit_equal_on_the_card(card):
+    """Two train steps of reduced yi-6b, widened to head dim 64 in bf16 so
+    that its attention takes the flash kernel (through ``local_map``), on a
+    1x1 mesh over a one-rank NCCL group: the losses, the gradient norms and
+    every parameter and moment leaf equal the meshless steps' bit for bit,
+    and both launch the kernel once per layer per step."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import context as pctx
+    from repro_torch.parallel import sharding as sh
+
+    cfg = dataclasses.replace(get_config("yi_6b").reduced(), d_model=256, d_head=64,
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    assert cfg.head_dim == 64
+    model, opt = Model(cfg, device=card), adamw.AdamWConfig(state_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in
+               (rng.integers(0, cfg.vocab, (4, 129)).astype(np.int32) for _ in range(2))]
+    kw = dict(accum_steps=2, grad_compression="int8")
+    started = not dist.is_initialized()
+    mesh_mod.init_process_group("cuda")
+    try:
+        runs = []
+        for meshed in (False, True):
+            params = model.init(torch.Generator(device=card).manual_seed(0))
+            state = adamw.init_state(opt, params)
+            mesh = None
+            if meshed:
+                mesh = mesh_mod.make_mesh((1, 1), ("data", "model"))
+                pctx.install(("data",), tp_size=1, mesh=mesh)
+                p_sh = sh.params_sharding(params, mesh)
+                state = sh.distribute(state, sh.opt_state_sharding(state, params, mesh), mesh)
+                params = sh.distribute(params, p_sh, mesh)
+                kw["grad_shardings"] = p_sh
+            ops.reset_launch_counts()
+            metrics = []
+            try:
+                for i, batch in enumerate(batches):
+                    step = steps.make_train_step(model, opt, **(kw if i else {}))
+                    params, state, m = step(params, state, batch)
+                    metrics.append({k: float(v) for k, v in m.items()})
+            finally:
+                pctx.clear()
+            local = lambda t: t.to_local() if hasattr(t, "to_local") else t
+            runs.append((metrics, [local(t) for t in tree.leaves((params, state))],
+                         ops.launch_counts()["flash_attention"]))
+        (m0, l0, n0), (m1, l1, n1) = runs
+        assert m0 == m1 and n0 == n1 == 3 * cfg.n_layers * 2  # 3 passes, fwd + remat
+        assert all(torch.equal(a, b) for a, b in zip(l0, l1))
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
