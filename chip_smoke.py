@@ -185,6 +185,35 @@ Phases, in order; any failure exits non-zero before the last line:
              Then ``psum_int8`` over the one-rank group must equal
              ``int8_compress_decompress`` bit for bit, and a one-stage
              ``pipeline_apply`` its stage function applied per microbatch.
+7d. dryrun — the dry run (``launch/dryrun.run_cell``), which runs no step
+             on any device: the step traced on meta tensors over a fake
+             process group on the host. First the card's own cell, the
+             ``train``/``mesh`` phases' configuration (yi-6b uncut, B=2 x
+             2048, bf16 moments, one microbatch) on a one-rank group: its
+             predicted per-device peak (arguments + temporaries) against
+             the ``mesh`` phase's measured ``max_memory_allocated``, within
+             DRYRUN_PEAK_RTOL, and no collective; its counted flops beside
+             the 6 N T of the analytic MFU. Then yi-6b x train_4k,
+             prefill_32k and decode_32k on the 16x16 production mesh (256
+             fake ranks): each ``status == "ok"``, with its trace seconds,
+             per-device GiB against the card's memory and collectives by
+             kind. One ``dryrun {...}`` JSON line.
+7e. controller — the fleet controller (``python -m repro_torch.tuna
+             controller --smoke --targets gpu_h100 --num-shards 2``, process
+             workers, shard 0's first worker crashed, over a dir:// channel
+             under build/controller, its snapshots published to another,
+             ``--exit-when-converged --port 0``): exit 0, converged, one
+             shard healed, a snapshot published. Then a third host joins
+             with its own store (the schedule-store phase's, yi-6b's matmul
+             shapes among its records) pushed as shard 2, and a controller
+             in this process over the same store and channel, three shards
+             wide, resumes all three, converges with no dispatch and serves
+             HTTP: ``GET /schedule`` for each yi-6b matmul shape equals
+             ``python -m repro_torch.tuna query --json`` for it, and the
+             matmul kernel launched at the served blocks is within the
+             matmul limit of its plain version (the launches join the
+             ``kernels`` line's matmul count). One ``controller {...}``
+             JSON line.
 12. encdec-vision — whisper-large-v3 (32 encoder and 32 decoder layers)
              and internvl2-1b (24 layers), uncut, one after the other, each
              freed before the next, through ``Model.prefill`` and
@@ -197,7 +226,7 @@ Phases, in order; any failure exits non-zero before the last line:
              and x 24; a profiled second run split into attention,
              cross-attention and the rest; the parity of phase 7.
 
-Prints a ``train`` and a ``mesh`` JSON line, a ``topk`` JSON line (top1, ratio@5 and rank_corr
+Prints a ``train``, a ``mesh``, a ``dryrun`` and a ``controller`` JSON line, a ``topk`` JSON line (top1, ratio@5 and rank_corr
 per shape for the static, calibrated and hybrid rankings, the check, the fit), a
 ``kernels`` JSON line,
 then the card's name and power limit, then ``{"ok": true, "device": {...}}``
@@ -223,6 +252,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 ARCH = "yi-6b"
+# the dry run's predicted peak of the card's training cell against the
+# measured one (PERF.md section 5, written before the first chip run)
+DRYRUN_PEAK_RTOL = 0.05
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 PROMPT_LENS = (64, 77, 128, 300, 513, 1000, 1024, 2047)
 MAX_NEW = 16
 SLOTS = 4
@@ -850,6 +883,18 @@ def main() -> None:
     mesh = mesh_phase(train)
     log(f"mesh: {time.perf_counter() - t_phase:.1f} s")
 
+    # --------------------------------------------------------------- dryrun
+    t_phase = time.perf_counter()
+    dryrun = dryrun_phase(train, mesh)
+    log(f"dryrun: {time.perf_counter() - t_phase:.1f} s")
+
+    # ----------------------------------------------------------- controller
+    t_phase = time.perf_counter()
+    ctl = controller_phase(gen)
+    log(f"controller: {time.perf_counter() - t_phase:.1f} s")
+    mm_launches += ctl["launches"]
+    mm_err = max(mm_err, ctl["max_abs_err"])
+
     # ------------------------------------------------- the new head groups
     groups = sorted({(c.n_heads, c.n_kv_heads, c.head_dim)
                      for c in (get_config(a) for a, _ in NEW_SERVES + DENSE_SERVES)},
@@ -955,7 +1000,8 @@ def main() -> None:
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:28",
-        "launches": mm_launches, "max_abs_err": mm_err,
+        "launches": mm_launches, "launches_by_controller": ctl["launches"],
+        "max_abs_err": mm_err,
         "ms": mm_ms, "plain_ms": mm_plain_ms, "bound_ms": mm_bound_ms,
         "bound_by": mm_bound_by, "library_ms": mm_lib_ms, "sass": mm_sass,
         "registers": mm_regs, "sweep": mm_sweep}]}), flush=True)
@@ -2438,6 +2484,170 @@ def mesh_phase(train: dict) -> dict:
               "profiled_step_s": prof_wall, "losses": losses, "launches": launches,
               "digests_equal": len(digests)}
     print("mesh " + json.dumps(result), flush=True)
+    return result
+
+
+def dryrun_phase(train: dict, mesh: dict) -> dict:
+    """The dry-run phase (7d of the docstring): the card's own training cell
+    predicted and held against the ``mesh`` phase's measured peak, then the
+    production cells. Touches no card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.hw.gpu_h100 import HBM_BYTES
+    from repro_torch.launch import dryrun
+
+    cfg = get_config(ARCH)
+    card = dryrun.run_cell(
+        "yi_6b", "train_4k", mesh={"data": 1, "model": 1}, verbose=False,
+        variant={"state_dtype": "bfloat16", "accum_steps": 1},
+        spec={"kind": "train", "seq": TRAIN_S, "batch": TRAIN_B})
+    mem = card["mem"]
+    predicted = (mem["argument_bytes"] + mem["temp_bytes"]) / 2**30
+    measured = mesh["peak_gib"]
+    n_params = cfg.param_count()
+    analytic = 6 * n_params * TRAIN_B * TRAIN_S
+    colls = sum(card["collective_counts"].values())
+    log(f"dryrun card cell {ARCH} uncut B={TRAIN_B} x S={TRAIN_S}, bf16 moments, 1x1 "
+        f"(traced in {card['lower_s']} s on the host): predicted peak {predicted:.2f} GiB "
+        f"(arguments {mem['argument_bytes'] / 2**30:.2f} + temporaries "
+        f"{mem['temp_bytes'] / 2**30:.2f}) against the mesh phase's measured "
+        f"{measured:.2f} GiB ({100 * (predicted / measured - 1):+.2f}%; meshless "
+        f"{train['peak_gib']:.2f} GiB), limit {DRYRUN_PEAK_RTOL:.0%}; counted flops "
+        f"{card['hlo_flops']:.4e} against the analytic 6 N T {analytic:.4e} "
+        f"({card['hlo_flops'] / analytic:.3f}x: the remat recompute and attention); "
+        f"{colls} collectives")
+    if card["status"] != "ok" or colls:
+        fail(f"the one-rank dry run did not trace clean: {card['status']}, {colls} "
+             "collectives")
+    if abs(predicted - measured) > DRYRUN_PEAK_RTOL * measured:
+        fail(f"the dry run's peak {predicted:.2f} GiB is not within "
+             f"{DRYRUN_PEAK_RTOL:.0%} of the measured {measured:.2f} GiB")
+    cells = {}
+    for shape in DRYRUN_SHAPES:
+        rec = dryrun.run_cell("yi_6b", shape, verbose=False)
+        m = rec.get("mem", {})
+        gib = (m.get("argument_bytes", 0) + m.get("temp_bytes", 0)) / 2**30
+        kinds = {k: v for k, v in rec.get("collective_counts_scaled", {}).items() if v}
+        log(f"dryrun {ARCH} x {shape} x {rec['mesh']} ({rec['n_devices']} fake ranks): "
+            f"{rec['status']} in {rec.get('lower_s')} s; per device {gib:.2f} GiB of the "
+            f"card's {HBM_BYTES / 2**30:.0f} (arguments "
+            f"{m.get('argument_bytes', 0) / 2**30:.2f}, temporaries "
+            f"{m.get('temp_bytes', 0) / 2**30:.2f}); flops {rec.get('hlo_flops', 0):.4e}; "
+            f"collectives (scaled) {kinds}, operand bytes "
+            f"{sum(rec.get('collective_operand_bytes_scaled', {}).values()):.4e}")
+        if rec["status"] != "ok":
+            fail(f"the dry run of {ARCH} x {shape} on 16x16 did not trace: {rec}")
+        cells[shape] = {k: rec[k] for k in (
+            "status", "lower_s", "n_devices", "accum_steps", "hlo_flops", "hlo_bytes", "mem",
+            "collective_counts", "collective_counts_scaled",
+            "collective_operand_bytes_scaled") if k in rec}
+    result = {"card": {"predicted_peak_gib": predicted, "measured_peak_gib": measured,
+                       "meshless_peak_gib": train["peak_gib"], "rtol": DRYRUN_PEAK_RTOL,
+                       "mem": mem, "flops": card["hlo_flops"], "analytic_flops": analytic,
+                       "lower_s": card["lower_s"]},
+              "production": cells}
+    print("dryrun " + json.dumps(result, default=float), flush=True)
+    return result
+
+
+def controller_phase(gen) -> dict:
+    """The controller phase (7e of the docstring). Returns the matmul
+    launches at the served blocks and the worst error against the plain
+    version."""
+    import urllib.parse
+    import urllib.request
+
+    import torch
+
+    from repro_torch.benchmarks.topk_ratio import YI6B_SHAPES
+    from repro_torch.core.spaces import MatmulSpace
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ops
+    from repro_torch.tuna.controller import ControllerConfig, FleetController, start_http
+
+    from repro_torch.tuna import fleet
+    from repro_torch.tuna.transport import resolve_transport
+
+    base = ROOT / "build" / "controller"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    db = base / "fleet.jsonl"
+    bucket, published = f"dir://{base / 'bucket'}", f"dir://{base / 'published'}"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    env.pop("REPRO_TUNA_DB", None)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.tuna", "controller", "--db", str(db), "--smoke",
+         "--targets", "gpu_h100", "--num-shards", "2", "--transport", bucket,
+         "--publish", published, "--worker-mode", "process", "--inject-crash-shard", "0",
+         "--exit-when-converged", "--port", "0"],
+        env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    exit_line = next((line for line in res.stdout.splitlines() if "exit:" in line), "")
+    pushed = sorted(p.name for p in (base / "published").glob("*"))
+    log(f"controller CLI ({cli_s:.1f} s): exit {res.returncode}; {exit_line.strip()}; "
+        f"published {pushed}")
+    if res.returncode or "exit: converged" not in exit_line:
+        fail(f"the controller did not converge: {res.stdout[-2000:]} {res.stderr[-2000:]}")
+    healed = int(exit_line.split(" shards healed")[0].rsplit(", ", 1)[-1])
+    if healed < 1:
+        fail(f"the controller healed no shard: {exit_line}")
+    if not any(name.startswith("schedule_cache") for name in pushed):
+        fail(f"the controller published no snapshot: {pushed}")
+
+    # a third host joins with its own store (the schedule-store phase's,
+    # yi-6b's matmul shapes among its records), pushed as shard 2
+    resolve_transport(bucket).push(str(ROOT / "build" / "schedule_store" / "db.jsonl"),
+                                   fleet.shard_object_name(str(db), 2))
+    ctl = FleetController(ControllerConfig(
+        db=str(db), ops=["dense_256", "batch_matmul"], targets=["gpu_h100"], num_shards=3,
+        transport=bucket, quiet=True))
+    if ctl.run(exit_when_converged=True) != 0 or not ctl.converged \
+            or ctl.metrics.get("jobs_dispatched_total"):
+        fail("the resumed controller did not converge without dispatching")
+    server = start_http(ctl)
+    port = server.server_address[1]
+    launches, worst, served = 0, 0.0, {}
+    try:
+        for m, n, k in YI6B_SHAPES:
+            sig = MatmulSpace(m, n, k, 2, target_kind="sm90").signature()
+            url = f"http://127.0.0.1:{port}/schedule?op={urllib.parse.quote(sig)}&target=gpu_h100"
+            with urllib.request.urlopen(url, timeout=30) as resp:
+                body = json.loads(resp.read().decode("utf-8"))
+            q = subprocess.run([sys.executable, "-m", "repro_torch.tuna", "query", "--db",
+                                str(db), "--op", sig, "--target", "gpu_h100", "--json"],
+                               env=env, capture_output=True, text=True, timeout=120)
+            if q.returncode or json.loads(q.stdout) != body["records"]:
+                fail(f"GET /schedule for {sig} differs from query --json: "
+                     f"{body['records']} vs {q.stdout[:500]}")
+            cfg = [r for r in body["records"] if r["op"] == sig][0]["config"]
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            y = torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
+            ops.reset_launch_counts()
+            got = km.matmul(x, y, bm=cfg["bm"], bn=cfg["bn"], bk=cfg["bk"],
+                            double_buffer=cfg["double_buffer"])
+            torch.cuda.synchronize()
+            launches += ops.launch_counts()["matmul"]
+            want = km.matmul_plain(x, y, cfg["bm"], cfg["bn"], cfg["bk"])
+            bad, w = outside(got, want, MM_RTOL, MM_ATOL_RMS)
+            worst = max(worst, float((got.float() - want.float()).abs().max()))
+            served[f"{m}x{n}x{k}"] = {"config": cfg, "outside": bad, "worst": w}
+            if bad:
+                fail(f"the matmul kernel at the served blocks {cfg} disagrees with its "
+                     f"plain version at {m}x{n}x{k}")
+    finally:
+        server.shutdown()
+        server.server_close()
+    if launches != len(YI6B_SHAPES):
+        fail(f"{launches} matmul launches at the served blocks, not one per yi-6b shape")
+    health = ctl.health()
+    log(f"controller HTTP: /schedule = query --json at {len(served)} yi-6b shapes; the "
+        f"kernel at the served blocks within the matmul limit of its plain version "
+        f"{served}; {launches} launches; store {health['store_records']} records, "
+        f"snapshot {health['snapshot']['name']}")
+    result = {"cli_s": cli_s, "exit": exit_line.strip(), "healed": healed,
+              "published": pushed, "served": served, "launches": launches,
+              "max_abs_err": worst, "store_records": health["store_records"]}
+    print("controller " + json.dumps(result, default=float), flush=True)
     return result
 
 

@@ -113,15 +113,14 @@ def featurize(space: Space, target: HardwareTarget, cfg: Dict,
 
 
 def hlo_counts(hlo_text: Optional[str]) -> Tuple[float, ...]:
-    """Graph-level sub-vector: zeros when no HLO text is attached
-    (TIR-space records). The reference parses HLO text with
-    ``repro.core.hlo_features``; the port has no parser for it yet (ROADMAP
-    Queue A 3, the dry run), so a record that carries HLO text raises."""
+    """Graph-level sub-vector from ``core.hlo_features.parse_hlo`` —
+    zeros when no HLO text is attached (TIR-space records)."""
     if not hlo_text:
         return (0.0,) * len(_HLO_COUNTS)
-    raise NotImplementedError(
-        "HLO-text features are not ported (ROADMAP Queue A 3: the dry run "
-        "and its cost source)")
+    from repro_torch.core.hlo_features import parse_hlo
+
+    hf = parse_hlo(hlo_text)
+    return tuple(float(getattr(hf, n)) for n in _HLO_COUNTS)
 
 
 # -- op-signature round trip -------------------------------------------------

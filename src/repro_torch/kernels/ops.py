@@ -34,6 +34,7 @@ from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import flash_attention as _flash_mod
 from repro_torch.kernels import matmul as _matmul_mod
+from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention,
                                                 padded_head_dim, smem_bytes)
 
@@ -187,6 +188,13 @@ def attention(
     differentiable: both go through ``FlashAttention``, whose backward is
     ``flash_attention_backward``."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "meta":
+        # the dry run's meta tensors (``launch/dryrun.py``): the full-softmax
+        # oracle, as the reference's host compile takes its jnp reference
+        # path; its [S, S] scores are what the dry run's memory counts,
+        # where the kernel keeps one tile
+        return FlashAttention.apply(q, k, v, causal, scale, functools.partial(
+            ref.attention, causal=causal, scale=scale))
     fn = None
     if blocks is None:
         fn = _bundle_executable("flash", (q, k, v), {"causal": causal, "scale": scale})

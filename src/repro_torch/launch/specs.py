@@ -66,7 +66,9 @@ class _MetaGenerator:
     device = META
 
 
-def _on_meta(model):
+def on_meta(model):
+    """A copy of ``model`` on the meta device (its ``init``, ``init_cache``
+    and steps then make meta tensors)."""
     meta = copy.copy(model)
     meta.device = META
     return meta
@@ -74,12 +76,12 @@ def _on_meta(model):
 
 def abstract_params(model):
     """``model.init``'s tree of meta tensors."""
-    return _on_meta(model).init(_MetaGenerator())
+    return on_meta(model).init(_MetaGenerator())
 
 
 def abstract_cache(model, batch: int, cap: int):
     """``model.init_cache(batch, cap)``'s tree of meta tensors."""
-    return _on_meta(model).init_cache(batch, cap)
+    return on_meta(model).init_cache(batch, cap)
 
 
 def decode_specs(cfg, batch: int, cap: int) -> Dict[str, Any]:

@@ -27,6 +27,7 @@ from repro_torch.optim import adamw
 from repro_torch.optim.adamw import local
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.parallel import collectives
+from repro_torch.parallel import sharding as sh
 
 
 def _to_device(batch, device):
@@ -39,14 +40,6 @@ def _mesh_of(leaf):
     return leaf.device_mesh if isinstance(leaf, DTensor) else None
 
 
-def _placed(g, placements):
-    """The DTensor ``g`` redistributed to ``placements`` (a no-op where it
-    has them)."""
-    if tuple(g.placements) == tuple(placements):
-        return g
-    return g.redistribute(g.device_mesh, placements)
-
-
 def make_train_step(
     model: Model,
     opt_cfg: adamw.AdamWConfig,
@@ -56,6 +49,7 @@ def make_train_step(
     schedule: Callable = warmup_cosine,
     grad_shardings=None,
     grad_dtype: Optional[torch.dtype] = None,
+    microbatch_loop: Optional[Callable] = None,
 ) -> Callable:
     """With ``accum_steps > 1`` the batch's leading axis is split into that
     many microbatches, run one after another, their gradients summed in f32
@@ -67,7 +61,11 @@ def make_train_step(
     places the accumulator, and each microbatch's gradient before it is
     added, as the reference's ``_constrain`` does; without it they are
     placed like the parameters (a DTensor accumulator needs its placements
-    up front, where the reference leaves them to propagation)."""
+    up front, where the reference leaves them to propagation).
+    ``microbatch_loop`` maps the list of microbatches to the iterable the
+    accumulation runs over (default: each in turn); the dry run
+    (``launch/dryrun.py``) runs the first alone inside its trace's loop
+    count, as a compiled step runs its loop body once per trip."""
     if grad_compression not in (None, "int8"):
         raise ValueError(f"unknown grad_compression {grad_compression!r}")
 
@@ -82,21 +80,19 @@ def make_train_step(
         if mesh is None:
             grads = [torch.zeros(p.shape, dtype=acc_dt, device=p.device) for p in leaves]
         else:
-            from torch.distributed.tensor import zeros as dzeros
-
             acc_pl = (tree.flatten_up_to(params, grad_shardings) if grad_shardings is not None
                       else [p.placements for p in leaves])
-            grads = [dzeros(p.shape, dtype=acc_dt, device_mesh=mesh, placements=list(pl))
+            grads = [sh.placed_zeros(p.shape, acc_dt, pl, mesh, local(p).device)
                      for p, pl in zip(leaves, acc_pl)]
         msum = None
-        for mb in mbs:
+        for mb in (microbatch_loop or iter)(mbs):
             m, g = value_and_grad(params, leaves, mb)
             for acc, gi in zip(grads, g):
                 gi = gi.to(grad_dtype) if grad_dtype is not None else gi
                 if mesh is None:
                     acc += gi
                 else:
-                    local(acc).add_(local(_placed(gi, acc.placements)))
+                    local(acc).add_(local(sh.placed_as(gi, acc.placements)))
             del g
             msum = m if msum is None else {k: msum[k] + m[k] for k in msum}
         grads = [g / accum_steps for g in grads]
@@ -113,8 +109,6 @@ def make_train_step(
         if mesh is not None:
             from torch.distributed.tensor.experimental import implicit_replication
 
-            from repro_torch.parallel import sharding as sh
-
             # each microbatch's rows over the DP axes
             mbs = [sh.distribute(mb, sh.batch_sharding(mb, mesh), mesh) for mb in mbs]
             replicate = implicit_replication()
@@ -130,7 +124,7 @@ def make_train_step(
             for p in leaves:
                 p.requires_grad_(False)
         if mesh is not None:
-            grads = [_placed(g, p.placements) for g, p in zip(grads, leaves)]
+            grads = [sh.placed_as(g, p.placements) for g, p in zip(grads, leaves)]
             metrics = {k: v.full_tensor() if hasattr(v, "full_tensor") else v
                        for k, v in metrics.items()}
         grads = tree.unflatten_like(params, grads)

@@ -55,6 +55,28 @@ def _qkv_products(p, xc, kv_xc=None):
     return _product(p, "wq", xc), _product(p, "wk", kv_xc), _product(p, "wv", kv_xc)
 
 
+def _whole_heads(t, heads: int):
+    """``t`` [..., heads * dh] ready for the split into heads: on a DTensor
+    whose last dim is sharded over mesh dims whose ranks do not divide
+    ``heads`` (the head-aware rules replicate such a projection's columns,
+    but DTensor's propagation may shard its output anyway), those mesh dims
+    take ``Replicate()``, so each rank holds whole heads. A plain tensor,
+    or one whose shards hold whole heads, is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        return t
+    last = t.ndim - 1
+    split = [i for i, pl in enumerate(t.placements) if pl.is_shard(last)]
+    n = 1
+    for i in split:
+        n *= t.device_mesh.size(i)
+    if heads % n == 0:
+        return t
+    pl = [Replicate() if i in split else p for i, p in enumerate(t.placements)]
+    return t.redistribute(t.device_mesh, pl)
+
+
 def _project_qkv(cfg, p, x, kv_x=None):
     """x [B,S,D] (and kv_x [B,Skv,D], default x) -> q [B,H,S,dh], k/v
     [B,Hkv,Skv,dh]."""
@@ -64,6 +86,7 @@ def _project_qkv(cfg, p, x, kv_x=None):
     skv = kv_x.shape[1]
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _qkv_products(p, x.to(cd), kv_x.to(cd))
+    q, k, v = _whole_heads(q, h), _whole_heads(k, hkv), _whole_heads(v, hkv)
     q = q.reshape(b, s, h, dh).transpose(1, 2)
     k = k.reshape(b, skv, hkv, dh).transpose(1, 2)
     v = v.reshape(b, skv, hkv, dh).transpose(1, 2)
@@ -151,8 +174,7 @@ def head_parallel(attend, q, k, v):
     kv_grad = kvp
     if q_heads and not kv_heads:
         kv_grad = tuple(Partial() if a == sh.TP else p for a, p in zip(names, kvp))
-    q, k, v = (t if tuple(t.placements) == pl else t.redistribute(mesh, pl)
-               for t, pl in ((q, qp), (k, kvp), (v, kvp)))
+    q, k, v = (sh.placed_as(t, pl) for t, pl in ((q, qp), (k, kvp), (v, kvp)))
 
     def local(ql, kl, vl):
         if q_heads and not kv_heads:
@@ -223,10 +245,17 @@ def decode_attention(
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // hkv
     if cross:
-        q = _product(p, "wq", x.to(cd)).reshape(b, hkv, g, dh)
+        q = _whole_heads(_product(p, "wq", x.to(cd)), hkv).reshape(b, hkv, g, dh)
+        if _is_dtensor(cache_k):
+            y = _project_out(cfg, p, _decode_sharded(q, None, None, cache_k, cache_v, None))
+            return y.to(x.dtype), cache_k, cache_v
         return _attend(cfg, p, q, cache_k, cache_v, None).to(x.dtype), cache_k, cache_v
     vector_pos = pos.ndim == 1
+    if vector_pos and _is_dtensor(cache_k):
+        raise ValueError("per-slot decode positions need a plain cache, not a DTensor one")
     q, knew, vnew = _qkv_products(p, x.to(cd))
+    # q splits into [hkv, g] below, so its shards hold whole key-head groups
+    q, knew, vnew = (_whole_heads(t, hkv) for t in (q, knew, vnew))
     q = q.reshape(b, h, 1, dh)
     knew = knew.reshape(b, hkv, 1, dh)
     vnew = vnew.reshape(b, hkv, 1, dh)
@@ -239,6 +268,9 @@ def decode_attention(
         sin, cos = L.rope_tables(cfg, pos[None])  # [1, dh/2]
     q = L.apply_rope(q, sin, cos).reshape(b, h, dh)
     knew = L.apply_rope(knew, sin, cos)
+    if _is_dtensor(cache_k):
+        out = _decode_sharded(q.reshape(b, hkv, g, dh), knew, vnew, cache_k, cache_v, pos)
+        return _project_out(cfg, p, out).to(x.dtype), cache_k, cache_v
     if vector_pos:
         rows, at = torch.arange(b, device=x.device), pos.long()
         cache_k[rows, :, at] = knew[:, :, 0].to(cache_k.dtype)
@@ -254,6 +286,67 @@ def decode_attention(
         valid = idx <= pos
     y = _attend(cfg, p, q.reshape(b, hkv, g, dh), cache_k, cache_v, valid)
     return y.to(x.dtype), cache_k, cache_v
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _project_out(cfg, p, out):
+    """out [B, Hkv, G, dh] -> [B, 1, D] through ``wo`` in the compute dtype."""
+    cd = cfg.torch_compute_dtype()
+    b, hkv, g, dh = out.shape
+    return out.reshape(b, 1, hkv * g * dh).to(cd) @ p["wo"].to(cd)
+
+
+def _decode_sharded(q, knew, vnew, cache_k, cache_v, pos):
+    """One-token attention over a cache of DTensors placed by
+    ``sharding.cache_sharding`` (the batch over the DP axes, the key heads
+    over ``model`` where they divide, else the positions), per rank on its
+    own shards: q [B, Hkv, G, dh] (and the new k/v [B, Hkv, 1, dh], written
+    at the 0-dim ``pos`` where given) are placed like the cache but whole
+    along the positions; each rank writes the new k/v where ``pos`` falls
+    in its range and attends over its positions, and where the positions
+    are split the softmax's max, sum and output are all-reduced over those
+    mesh dims (flash decoding). Returns the output [B, Hkv, G, dh] (f32) as
+    a DTensor placed like q."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = cache_k.device_mesh
+    split = [i for i, pl in enumerate(cache_k.placements) if pl.is_shard(2)]
+    qpl = [Replicate() if i in split else pl for i, pl in enumerate(cache_k.placements)]
+    b, hkv, g, dh = q.shape
+    ql = sh.placed_as(q, qpl).to_local()
+    kl, vl = cache_k.to_local(), cache_v.to_local()
+    lo, n = sh.local_range(cache_k, 2)
+    pos_at = lo + torch.arange(n, device=kl.device)
+    if knew is not None:
+        at = pos.reshape(1).long() - lo
+        inside = (at >= 0) & (at < n)
+        idx = at.clamp(0, max(n - 1, 0))
+        for cl, new in ((kl, knew), (vl, vnew)):
+            new = sh.placed_as(new, qpl).to_local().to(cl.dtype)
+            cl.index_copy_(2, idx, torch.where(inside, new, cl.index_select(2, idx)))
+
+    def over_split(t, op):
+        for i in split:
+            t = funcol.all_reduce(t, op, (mesh, i))
+            t = t.wait() if hasattr(t, "wait") else t
+        return t
+
+    logits = torch.einsum("bhgd,bhkd->bhgk", ql.float() * (dh ** -0.5), kl.float())
+    if knew is not None:
+        logits = logits.masked_fill(~(pos_at <= pos), NEG_INF)
+    m = over_split(logits.amax(-1), "max")
+    w = torch.exp(logits - m[..., None])
+    den = over_split(w.sum(-1), "sum")
+    num = over_split(torch.einsum("bhgk,bhkd->bhgd", w, vl.float()), "sum")
+    out = num / den[..., None]
+    return DTensor.from_local(out, mesh, qpl, run_check=False, shape=(b, hkv, g, dh),
+                              stride=(hkv * g * dh, g * dh, dh, 1))
 
 
 def _attend(cfg, p, q, cache_k, cache_v, valid):

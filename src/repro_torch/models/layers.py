@@ -171,7 +171,12 @@ def init_embed(cfg, gen) -> Dict:
 
 
 def embed(cfg, p: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens.long()].to(cfg.torch_compute_dtype())
+    """The token embeddings; on a mesh, each rank gathers its batch rows
+    from the whole table (``pctx.map_rows``), the table's gradient summed
+    over the DP axes: DTensor's strategy for the backward's ``index_put``
+    fails on torch 2.11 with the rows sharded."""
+    rows = pctx.map_rows(lambda tok, ids: tok[ids.long()], (p["tok"], tokens), (False, True))
+    return rows.to(cfg.torch_compute_dtype())
 
 
 def unembed(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -190,6 +195,7 @@ def cross_entropy_loss(cfg, p: Dict, x: torch.Tensor, labels: torch.Tensor,
     c = min(seq_chunk, s)
     while s % c:
         c //= 2
+    x = pctx.whole_tokens(x)
     labels = labels.to(x.device).long()
 
     def chunk_loss(xi, yi):

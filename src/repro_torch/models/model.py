@@ -127,10 +127,27 @@ class Model:
         return L.unembed(self.cfg, params["embed"], x[:, n_prefix:])
 
     # --------------------------------------------------------------- serving
-    def init_cache(self, batch: int, cap: int) -> Tuple:
+    def init_cache(self, batch: int, cap: int, mesh=None) -> Tuple:
+        """The zeroed decode cache; on ``mesh`` every leaf is a ``DTensor``
+        placed by ``sharding.cache_sharding``, each rank allocating its own
+        shards only."""
         cfg = self.cfg
         cross_len = cfg.n_frontend_tokens if cfg.encoder_decoder else 0
-        return T.init_stack_cache(cfg, batch, cap, self.device, cross_len=cross_len)
+        if mesh is None:
+            return T.init_stack_cache(cfg, batch, cap, self.device, cross_len=cross_len)
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        from repro_torch import tree
+        from repro_torch.parallel import sharding as sh
+
+        # the leaves' shapes, on meta with no dispatch mode on: no work of
+        # the step that a mode (the dry run's trace) should count
+        with _disable_current_modes():
+            shapes = T.init_stack_cache(cfg, batch, cap, "meta", cross_len=cross_len)
+        placed = tree.flatten_up_to(shapes, sh.cache_sharding(shapes, mesh))
+        return tree.unflatten_like(shapes, [
+            sh.placed_zeros(t.shape, t.dtype, p, mesh, self.device)
+            for t, p in zip(tree.leaves(shapes), placed)])
 
     def prefill(self, params, batch, cap: int):
         """Run the prompt (after the vision prefix, where the arch has one)
@@ -146,7 +163,7 @@ class Model:
         s_total = x.shape[1]
         if cap < s_total:
             raise ValueError(f"cache capacity {cap} < prefix and prompt length {s_total}")
-        cache = self.init_cache(x.shape[0], cap)
+        cache = self.init_cache(x.shape[0], cap, mesh=getattr(x, "device_mesh", None))
         x, _ = T.apply_stack(cfg, params["layers"], x, pos, causal=True,
                              cache=cache, enc_out=enc_out)
         x = L.apply_norm(cfg, params["norm_f"], x[:, -1:])
@@ -160,7 +177,9 @@ class Model:
         (logits [B, V], cache)."""
         cfg = self.cfg
         cap = next((c["k"].shape[3] for c in cache if "k" in c), None)
-        if int(pos.min()) < 0 or (cap is not None and int(pos.max()) >= cap):
+        # a dry run's meta position has a shape and no value to check
+        if not pos.is_meta and (int(pos.min()) < 0
+                                 or (cap is not None and int(pos.max()) >= cap)):
             raise ValueError(f"decode position out of the cache [0, {cap})")
         pos = pos.to(self.device)
         x = L.embed(cfg, params["embed"], token.to(self.device)[:, None])

@@ -58,7 +58,9 @@ def route(cfg, p: Dict, x: torch.Tensor):
     does (``torch.topk`` promises no order on ties)."""
     moe = cfg.moe
     with L.span("moe.route"):
-        logits = x.float() @ p["router"].float()  # [B,S,E]
+        # the logits with every dim but the batch whole: the softmax, sort
+        # and aux loss below then return their gradient in that placement
+        logits = pctx.batch_only(x.float() @ p["router"].float())  # [B,S,E]
         probs = torch.softmax(logits, dim=-1)
         srt = torch.sort(probs, dim=-1, descending=True, stable=True)
         gates, idx = srt.values[..., :moe.top_k], srt.indices[..., :moe.top_k]

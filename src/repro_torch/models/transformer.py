@@ -25,6 +25,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.parallel import context as pctx
+from repro_torch.parallel import sharding as sh
 
 MIXERS = ("attention", "mamba", "mlstm", "slstm")
 MLPS = ("dense", "moe", "none")
@@ -110,11 +111,11 @@ def _apply_mlp(cfg, p, mlp_kind, x):
     nothing for an aux loss."""
     if mlp_kind == "none":
         return x, None
-    h = L.apply_norm(cfg, p["norm2"], x)
+    h = pctx.whole_tokens(L.apply_norm(cfg, p["norm2"], x))
     if mlp_kind == "dense":
-        return x + L.apply_dense_mlp(cfg, p["mlp"], h), None
+        return pctx.residual(x, L.apply_dense_mlp(cfg, p["mlp"], h)), None
     y, aux = moe_mod.apply_moe(cfg, p["mlp"], h)
-    return x + y, aux
+    return pctx.residual(x, y), aux
 
 
 def apply_block(cfg, p: Dict, kinds: Tuple[str, str], x: torch.Tensor,
@@ -125,7 +126,9 @@ def apply_block(cfg, p: Dict, kinds: Tuple[str, str], x: torch.Tensor,
     mixer's final state, and with ``enc_out`` (and cross-attention
     parameters) the encoder's projections ``{xk, xv}``."""
     mixer_kind, mlp_kind = kinds
-    h = L.apply_norm(cfg, p["norm1"], x)
+    # sequence-parallel activations: normed on their shards, whole for the
+    # mixer's and the MLP's products
+    h = pctx.whole_tokens(L.apply_norm(cfg, p["norm1"], x))
     with L.span(mixer_kind):
         if mixer_kind == "attention":
             y, (k, v) = attn.attention_forward(cfg, p["mixer"], h, positions,
@@ -133,15 +136,15 @@ def apply_block(cfg, p: Dict, kinds: Tuple[str, str], x: torch.Tensor,
             contrib = {"k": k, "v": v}
         else:
             y, contrib = _FORWARD[mixer_kind](cfg, p["mixer"], h, return_state=True)
-    x = x + y
+    x = pctx.residual(x, y)
     if enc_out is not None and "xattn" in p:
-        hx = L.apply_norm(cfg, p["norm_x"], x)
+        hx = pctx.whole_tokens(L.apply_norm(cfg, p["norm_x"], x))
         with L.span("cross_attention"):
             y, (xk, xv) = attn.attention_forward(cfg, p["xattn"], hx, positions,
-                                                 causal=False, kv_x=enc_out,
+                                                 causal=False, kv_x=pctx.whole_tokens(enc_out),
                                                  use_rope=False)
         contrib = dict(contrib, xk=xk, xv=xv)
-        x = x + y
+        x = pctx.residual(x, y)
     x, aux = _apply_mlp(cfg, p, mlp_kind, x)
     return x, contrib, aux
 
@@ -159,14 +162,14 @@ def apply_block_decode(cfg, p: Dict, kinds: Tuple[str, str], x: torch.Tensor,
         else:
             y, st = _DECODE[mixer_kind](cfg, p["mixer"], h, cache)
             for key, val in st.items():
-                cache[key].copy_(val)
-    x = x + y
+                sh.write_along(cache[key], val)
+    x = pctx.residual(x, y)
     if "xattn" in p:
         hx = L.apply_norm(cfg, p["norm_x"], x)
         with L.span("cross_attention"):
             y, _, _ = attn.decode_attention(cfg, p["xattn"], hx, cache["xk"],
                                             cache["xv"], pos, cross=True)
-        x = x + y
+        x = pctx.residual(x, y)
     x, _ = _apply_mlp(cfg, p, mlp_kind, x)
     return x
 
@@ -214,7 +217,6 @@ def apply_stack(cfg, stack_params: Tuple[Dict, ...], x: torch.Tensor,
     ``cfg.remat_stack`` each group's activations are recomputed in the
     backward, as the reference's ``nothing_saveable`` policy does."""
     pattern = _check_pattern(cfg, pattern)
-    s = x.shape[1]
     aux = torch.zeros((), device=x.device)
     views = [group_views(sp) for sp in stack_params]
 
@@ -241,10 +243,7 @@ def apply_stack(cfg, stack_params: Tuple[Dict, ...], x: torch.Tensor,
             continue
         for pp, contrib in enumerate(contribs):
             for key, val in contrib.items():
-                leaf = cache[pp][key][g]
-                if key in ("k", "v"):
-                    leaf = leaf[:, :, :s]
-                leaf.copy_(val)
+                sh.write_along(cache[pp][key][g], val, 2 if key in ("k", "v") else None)
     return x, aux
 
 

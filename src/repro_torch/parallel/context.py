@@ -118,6 +118,38 @@ def constrain_tokens(x: torch.Tensor) -> torch.Tensor:
     return _constrain(x, spec)
 
 
+def whole_tokens(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, D] activations with the sequence dim whole: a DTensor whose
+    dim 1 is sharded (the sequence-parallel activations between blocks,
+    ``constrain_tokens`` with ``sp_seq``) is gathered over those mesh dims,
+    as sequence parallelism gathers a block's normed input before its
+    mixer's and MLP's products (``transformer.apply_block``). Left to
+    DTensor, a product flattens [B, S, D] into [B * S, D] with S sharded,
+    which torch 2.11 refuses and torch 2.13 plans as strided shards, at
+    length on a mesh of three dims. A plain tensor, or one whose sequence
+    is whole, is returned as it is."""
+    if not _is_dtensor(x) or x.ndim != 3 or not any(p.is_shard(1) for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh,
+                          [Replicate() if p.is_shard(1) else p for p in x.placements])
+
+
+def residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y``, a block's output ``y`` first placed like the residual
+    stream ``x`` where both are DTensors: a differentiable redistribution,
+    so the backward hands ``y``'s producer its gradient in ``y``'s own
+    placements (with sequence-parallel ``x``, the reduce-scatter onto the
+    sequence shards in the forward and its all-gather in the backward).
+    Left to the add, the gradient would reach the product that made ``y``
+    sharded over the sequence, which its backward cannot flatten on
+    torch 2.11."""
+    if _is_dtensor(x) and _is_dtensor(y) and tuple(x.placements) != tuple(y.placements):
+        y = y.redistribute(x.device_mesh, x.placements)
+    return x + y
+
+
 def batch_only(x: torch.Tensor) -> torch.Tensor:
     """A DTensor ``x`` with its leading dim over its mesh's DP axes and
     every other dim whole, whether or not a context is installed (the

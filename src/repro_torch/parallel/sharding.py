@@ -315,20 +315,92 @@ def shard_of(t, placements_seq, mesh):
     return t.contiguous()
 
 
+def placed_zeros(shape, dtype, placements_seq, mesh, device):
+    """A ``DTensor`` of zeros of the global ``shape`` with
+    ``placements_seq`` on ``mesh``, each rank allocating its own shard
+    only, on ``device`` (a meta device allocates nothing: the dry run's)."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    local = list(shape)
+    for d in range(len(shape)):
+        local[d] = _chunk_range(shape[d], d, placements_seq, mesh)[1]
+    stride, n = [], 1
+    for s in reversed(shape):
+        stride.insert(0, n)
+        n *= max(int(s), 1)
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), mesh,
+                              list(placements_seq), run_check=False, shape=shape,
+                              stride=tuple(stride))
+
+
+def _chunk_range(n: int, dim: int, placements_seq, mesh) -> Tuple[int, int]:
+    """(start, length) of this rank's piece of a dim of ``n`` elements,
+    tensor dim ``dim``, under ``placements_seq``: ``torch.chunk``'s layout
+    per mesh dim that shards it, in mesh-dim order, as ``shard_of`` cuts."""
+    start = 0
+    coord = mesh.get_coordinate()
+    for size, pl, c in zip(mesh.shape, placements_seq, coord):
+        if pl.is_shard(dim) and size > 1:
+            step = -(-n // size)
+            lo = min(c * step, n)
+            start, n = start + lo, min(lo + step, n) - lo
+    return start, n
+
+
+def local_range(t, dim: int) -> Tuple[int, int]:
+    """(start, length) of this rank's shard of the DTensor ``t`` along tensor
+    dim ``dim``, in ``torch.chunk``'s layout with the mesh dims in order, as
+    ``shard_of`` cuts it; ``(0, size)`` where no mesh dim shards ``dim``."""
+    return _chunk_range(t.shape[dim], dim, t.placements, t.device_mesh)
+
+
+def placed_as(t, placements_seq):
+    """``t`` (a DTensor) redistributed to ``placements_seq`` (itself where it
+    has them)."""
+    if tuple(t.placements) == tuple(placements_seq):
+        return t
+    return t.redistribute(t.device_mesh, list(placements_seq))
+
+
+def write_along(dst, src, dim: Optional[int] = None, start: int = 0) -> None:
+    """``dst`` written in place with ``src``: whole (``dim`` None), or
+    ``src`` at ``[start, start + src.shape[dim])`` along ``dim``. On a
+    DTensor ``dst`` each rank writes its own shard: ``src`` is placed like
+    ``dst`` but whole along ``dim``, and each rank copies the part of it
+    that falls in its range (``local_range``), so a cache sharded along its
+    positions is written where a slice of the DTensor would be a copy."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(dst, DTensor):
+        (dst if dim is None else dst.narrow(dim, start, src.shape[dim])).copy_(src)
+        return
+    pl = [Replicate() if dim is not None and p.is_shard(dim) else p for p in dst.placements]
+    src = placed_as(src, pl).to_local()
+    out = dst.to_local()
+    if dim is None:
+        out.copy_(src)
+        return
+    lo, n = local_range(dst, dim)
+    a, b = max(lo, start), min(lo + n, start + src.shape[dim])
+    if b > a:
+        out.narrow(dim, a - lo, b - a).copy_(src.narrow(dim, a - start, b - a))
+
+
 def distribute(tree, placements_tree, mesh):
     """Every leaf of ``tree`` (a whole tensor, the same on every rank, as a
     seeded init or a restored checkpoint gives it) as a ``DTensor`` on
     ``mesh`` with its placements. Each rank cuts its own shard out
     (``shard_of``), so nothing is communicated and on a one-rank mesh each
     DTensor wraps the leaf's own storage; the leaves move to the mesh's
-    device type first."""
+    device type first (a meta leaf, the dry run's, stays on meta)."""
     from torch.distributed.tensor import DTensor
 
     dev = torch.device(mesh.device_type)
     pl = tree_mod.flatten_up_to(tree, placements_tree)
 
     def one(t, p):
-        t = t.detach().to(dev)
+        t = t.detach() if t.is_meta else t.detach().to(dev)
         return DTensor.from_local(shard_of(t, p, mesh), mesh, list(p), run_check=False,
                                   shape=t.shape, stride=t.stride())
 

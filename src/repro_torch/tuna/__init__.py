@@ -12,7 +12,11 @@ publish); ``golden`` freezes the store into regression-gated golden
 releases and builds kernel bundles that carry the compiled Hopper
 libraries; ``learned`` trains the learned ranker from the store's log
 (``train_from_store``) and keeps its artifacts (``LearnedManager``);
-``cli`` drives it (``python -m repro_torch.tuna``).
+``controller`` runs the whole fleet as a daemon — lease-tracked shard
+dispatch, crash healing, sync + verify, snapshot (and learned-ranker)
+republish, and an HTTP schedule/health/metrics API (``python -m
+repro_torch.tuna controller``); ``cli`` drives it (``python -m
+repro_torch.tuna``).
 ``core.tuner`` consults an installed bundle, the snapshot and the DB
 transparently and hot-reloads republished snapshots via
 ``refresh_default_cache``. The store, snapshot and golden-release files
@@ -20,8 +24,6 @@ are the reference's: either package reads what the other writes. Kernel
 bundles are not: each package refuses the other's by its backend tag.
 Learned-ranker artifacts are: a ranker trained by either package on the
 same store has the same fingerprint.
-
-The reference's fleet controller waits for ROADMAP Queue A 4.
 
 Only ``db``, ``cache``, ``golden`` and ``transport`` are imported eagerly
 (``orchestrator``/``fleet`` pull in the operator registry; ``golden``

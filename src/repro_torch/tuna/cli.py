@@ -42,7 +42,13 @@ Subcommands:
            store; --check exits 1 below --min-spearman. Exit 1 on a
            missing, torn, tampered or stale artifact
 
-The reference's controller subcommand waits for ROADMAP Queue A 4.
+  controller
+           the fleet controller daemon (repro_torch.tuna.controller):
+           dispatch the sharded job matrix to workers, heal crashed or
+           expired shards, sync, snapshot (and retrain the learned ranker
+           with --learned-dir), and serve GET /schedule /healthz /metrics
+           on --port (0 = ephemeral); --exit-when-converged ends at the
+           first converged round
 
 ``--db`` defaults to ``$REPRO_TUNA_DB``; without either it is required.
 
@@ -58,6 +64,8 @@ Examples:
   python -m repro_torch.tuna golden --db db.jsonl --bundle --device cpu
   python -m repro_torch.tuna train --db db.jsonl
   python -m repro_torch.tuna eval --db db.jsonl --check
+  python -m repro_torch.tuna controller --db fleet.jsonl --smoke --num-shards 2 \
+      --transport dir:///tmp/bucket --port 0 --exit-when-converged
 """
 from __future__ import annotations
 
@@ -119,7 +127,7 @@ def cmd_tune(args: argparse.Namespace) -> int:
         print(f"error: --shard-id must be in [0, {args.num_shards})",
               file=sys.stderr)
         return 2
-    if args.num_shards > 1:
+    if args.num_shards > 1 or args.as_shard:
         from repro_torch.tuna import fleet
 
         jobs = fleet.shard_jobs(jobs, args.num_shards, args.shard_id)
@@ -413,6 +421,72 @@ def cmd_eval(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_controller(args: argparse.Namespace) -> int:
+    from repro_torch.tuna.controller import (ControllerConfig, FleetController,
+                                             start_http)
+
+    if args.smoke:
+        ops = list(SMOKE_OPERATORS)
+        targets = [DEFAULT_TARGET]
+        limit = min(args.limit, 256)
+    else:
+        ops = _csv(args.ops) if args.ops != "all" else list(OPERATORS)
+        targets = _csv(args.targets)
+        limit = args.limit
+    for op in ops:
+        if op not in OPERATORS:
+            print(f"error: unknown operator {op!r}; have {sorted(OPERATORS)}",
+                  file=sys.stderr)
+            return 2
+    for t in targets:
+        if t not in TARGET_NAMES:
+            print(f"error: unknown target {t!r}; have {sorted(TARGET_NAMES)}",
+                  file=sys.stderr)
+            return 2
+    cfg = ControllerConfig(
+        db=args.db, ops=ops, targets=targets, num_shards=args.num_shards,
+        strategy=args.strategy, limit=limit, seed=args.seed,
+        transport=args.transport or None,
+        snapshot_dir=args.snapshot_dir, publish=args.publish or None,
+        learned_dir=args.learned_dir,
+        lease_s=args.lease_s, poll_s=args.poll_s,
+        max_attempts=args.max_attempts, max_workers=args.max_workers,
+        worker_procs=args.workers, worker_retries=args.retries,
+        worker_mode=args.worker_mode,
+        inject_crash_shard=args.inject_crash_shard,
+    )
+    ctl = FleetController(cfg)
+    server = None
+    if args.port is not None:
+        server = start_http(ctl, host=args.host, port=args.port)
+        host, port = server.server_address[:2]
+        print(f"[controller] serving http://{host}:{port} "
+              f"(/schedule /healthz /metrics)", flush=True)
+
+    import signal
+
+    def _stop(signum, frame):
+        print(f"[controller] signal {signum}: shutting down", flush=True)
+        ctl.stop()
+
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, _stop)
+    try:
+        rc = ctl.run(max_rounds=args.max_rounds or None,
+                     exit_when_converged=args.exit_when_converged)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+    state = "converged" if ctl.converged else \
+        ("wedged" if ctl.wedged else "stopped")
+    print(f"[controller] exit: {state}, "
+          f"{int(ctl.metrics.get('jobs_done_total'))} jobs done, "
+          f"{int(ctl.metrics.get('shards_healed_total'))} shards healed, "
+          f"{ctl._store_records} store records", flush=True)
+    return rc
+
+
 def cmd_golden(args: argparse.Namespace) -> int:
     from repro_torch.core.cost_model import COST_MODEL_VERSION
     from repro_torch.tuna.golden import (
@@ -496,6 +570,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard-id", type=int, default=0,
                    help="which shard this host owns (writes to "
                         "<db>.shardNN.jsonl)")
+    p.add_argument("--as-shard", action="store_true",
+                   help="use the per-shard store layout even with "
+                        "--num-shards 1 (what controller workers pass, so "
+                        "sync/heal semantics hold for one-shard fleets)")
     p.add_argument("--transport", default=None, metavar="SPEC",
                    help="push the finished store into this channel "
                         "(dir:///path, mem://bucket, or a bare directory) "
@@ -554,6 +632,72 @@ def build_parser() -> argparse.ArgumentParser:
                    help="emit one JSON array (the serialization export "
                         "uses) instead of JSONL lines")
     p.set_defaults(fn=cmd_query)
+
+    p = sub.add_parser(
+        "controller",
+        help="run the fleet controller daemon (dispatch + heal + sync + "
+             "snapshot + HTTP schedule/metrics API)")
+    _add_db(p, help="base store path")
+    p.add_argument("--ops", default="all",
+                   help="comma-separated configs.tuna_ops names, or 'all'")
+    p.add_argument("--targets", default=",".join(TARGET_NAMES),
+                   help=f"comma-separated, of {', '.join(TARGET_NAMES)}")
+    p.add_argument("--strategy", choices=["exhaustive", "es"],
+                   default="exhaustive")
+    p.add_argument("--limit", type=int, default=1024)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--smoke", action="store_true",
+                   help="tiny fixed job matrix (CI controller-smoke)")
+    p.add_argument("--num-shards", type=int, default=2)
+    p.add_argument("--transport", default=None, metavar="SPEC",
+                   help="fleet channel the workers push shard stores into "
+                        "and sync pulls from (dir:///path, mem://bucket)")
+    p.add_argument("--snapshot-dir", default=None,
+                   help="versioned snapshot + `latest` pointer directory "
+                        "(default <db>.snapshots/)")
+    p.add_argument("--publish", default=None, metavar="SPEC",
+                   help="transport to publish snapshots over (what serving "
+                        "hosts' refresh_default_cache watches)")
+    p.add_argument("--learned-dir", default=None, metavar="OUT_DIR",
+                   help="retrain + republish the learned ranker "
+                        "(repro_torch.tuna.learned.LearnedManager) into this "
+                        "directory whenever the store's training content "
+                        "changes — same ensure-on-change contract as "
+                        "snapshots")
+    p.add_argument("--port", type=int, default=None,
+                   help="serve GET /schedule /healthz /metrics on this "
+                        "port (0 = ephemeral, printed at boot; omit to "
+                        "run headless)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--lease-s", type=float, default=300.0,
+                   help="shard lease: a worker silent past this is killed "
+                        "and its shard re-dispatched")
+    p.add_argument("--poll-s", type=float, default=0.5,
+                   help="control-loop heartbeat interval")
+    p.add_argument("--max-attempts", type=int, default=3,
+                   help="dispatches per shard before giving up on it")
+    p.add_argument("--max-workers", type=int, default=2,
+                   help="concurrent shard workers")
+    p.add_argument("--workers", type=int, default=2,
+                   help="orchestrator process pool inside each worker")
+    p.add_argument("--retries", type=int, default=2,
+                   help="per-job retries inside each worker")
+    p.add_argument("--worker-mode", choices=["auto", "process", "thread"],
+                   default="auto",
+                   help="auto = subprocess workers, in-process threads "
+                        "for mem:// channels")
+    p.add_argument("--max-rounds", type=int, default=0,
+                   help="stop after this many control rounds (0 = run "
+                        "until signalled)")
+    p.add_argument("--exit-when-converged", "--once", action="store_true",
+                   dest="exit_when_converged",
+                   help="exit as soon as the fleet converges (or wedges) "
+                        "instead of keeping watch")
+    p.add_argument("--inject-crash-shard", type=int, default=None,
+                   metavar="SHARD",
+                   help="fault injection: this shard's first dispatch "
+                        "dies before publishing (CI heal check)")
+    p.set_defaults(fn=cmd_controller)
 
     p = sub.add_parser("compact", help="drop superseded log lines")
     _add_db(p)

@@ -10,7 +10,7 @@ that load in either package. Then the port's copies of the reference's
 ``tests/test_learned.py``, ``TestCalibration`` and ``TestOperatorSpaces`` of
 ``tests/test_tuna_extra.py``, and ``TestSmokeTuneAllTargets`` and
 ``TestLearnedFeatureLayout`` of ``tests/test_op_registry.py``, as far as
-they apply (the controller is not ported). Everything runs on the CPU,
+they apply (the controller's retrain cell among them). Everything runs on the CPU,
 where a measured time is the plain version's and says nothing of the card.
 """
 import json
@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import benchmarks.measure as jmeasure
+import test_distribution as jdist
 from repro.core import calibrate as jcalibrate
 from repro.core import cost_model as jcost_model
 from repro.core import learned as jlearned
@@ -170,9 +171,19 @@ def test_featurize_rows_equal_the_reference_s_by_name(name, kind):
 
 
 def test_hlo_counts_zero_without_text_and_refused_with_it():
+    """No text: zeros. With HLO text (the reference's parsing cell, a module
+    of fusions and dots, a while loop) the counts equal
+    ``repro.core.learned.hlo_counts`` of the same text (the port's own
+    ``core/hlo_features`` parser; it raised before the parser was
+    ported)."""
     assert hlo_counts(None) == hlo_counts("") == (0.0,) * 4
-    with pytest.raises(NotImplementedError, match="Queue A 3"):
-        hlo_counts("HloModule m\nENTRY e { ROOT c = f32[] constant(0) }")
+    fused = ("HloModule m\n%f = f32[8,8]{1,0} fusion(%a), kind=kLoop\n"
+             "%d = f32[8,8]{1,0} dot(%a, %b)\n%t = f32[8,8]{0,1} transpose(%d)\n"
+             "%c = f32[8,8]{1,0} copy(%t)\n%w = (s32[]) while(%i), condition=%c1, body=%b1\n")
+    for text in (jdist.TestHloParsing.HLO, fused,
+                 "HloModule m\nENTRY e { ROOT c = f32[] constant(0) }"):
+        assert hlo_counts(text) == jlearned.hlo_counts(text), text
+    assert hlo_counts(fused) == (1.0, 1.0, 2.0, 1.0)
 
 
 # --------------------------------------------------------------------------
@@ -668,14 +679,23 @@ class TestTrainingAndLifecycle:
         assert sum(rhos) / len(rhos) > 0.5
 
     def test_a_record_with_hlo_text_is_refused(self, tmp_path):
+        """A store with a record that carries HLO text (``meta["hlo"]``)
+        trains like any other, to the reference's ranker: the same
+        fingerprint, version, training hash and counts (it was refused
+        before the parser was ported)."""
         path = str(tmp_path / "db.jsonl")
         db = _seed_store(path, per_space=4)
         space = _space()
         db.add(ScheduleRecord(op=space.signature(), target=CPU.name,
                               config=space.default_config(), score=1.0,
-                              meta={"hlo": "HloModule m"}, version=measured_version()))
-        with pytest.raises(NotImplementedError, match="Queue A 3"):
-            train_from_store(path)
+                              meta={"hlo": jdist.TestHloParsing.HLO},
+                              version=measured_version()))
+        model, tsha, n, sk = train_from_store(path)
+        jmodel, jtsha, jn, jsk = jtlearned.train_from_store(path)
+        assert n == jn and n > 0
+        assert model.fingerprint() == jmodel.fingerprint()
+        assert (model.version, tsha, sk, model.lineages) == \
+            (jmodel.version, jtsha, jsk, jmodel.lineages)
 
     def test_manager_ensure_on_change_and_publish(self, tmp_path):
         from repro_torch.tuna.transport import resolve_transport
@@ -730,6 +750,33 @@ class TestTrainingAndLifecycle:
             op="x[]", target="cpu_avx2", config={}, score=1.0, version="cm0"))
         with pytest.raises(ValueError, match="usable training sample"):
             LearnedManager(path, str(tmp_path / "learned")).ensure()
+
+    def test_controller_retrains_and_publishes_on_change(self, tmp_path):
+        """The port's copy of the reference's cell: the controller's
+        reconcile retrains and republishes the learned ranker exactly when
+        the store's training content changes."""
+        from repro_torch.tuna.controller import ControllerConfig, FleetController
+
+        path = str(tmp_path / "db.jsonl")
+        db = _seed_store(path)
+        cfg = ControllerConfig(db=path, ops=[], targets=[], num_shards=1,
+                               learned_dir=str(tmp_path / "learned"),
+                               publish=f"mem://port-ctl-learned-{os.getpid()}", quiet=True)
+        ctl = FleetController(cfg, jobs=[])
+        ctl.ensure_learned()
+        assert ctl.metrics.get("learned_retrains_total") == 1
+        assert ctl.metrics.get("learned_publishes_total") == 1
+        ctl.ensure_learned()  # no change: no retrain, no republish
+        assert ctl.metrics.get("learned_retrains_total") == 1
+        assert ctl.metrics.get("learned_publishes_total") == 1
+        space = MatmulSpace(32, 32, 32, 4, target_kind="cpu")
+        cfg2 = space.default_config()
+        db.add(ScheduleRecord(op=space.signature(), target=CPU.name, config=cfg2,
+                              score=float(tuner._score_config(space, CPU, cfg2)),
+                              version=measured_version()))
+        ctl.ensure_learned()
+        assert ctl.metrics.get("learned_retrains_total") == 2
+        assert ctl.metrics.get("learned_publishes_total") == 2
 
 
 # --------------------------------------------------------------------------

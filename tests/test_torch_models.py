@@ -578,8 +578,10 @@ def test_long_prompt_takes_chunked_path(pair, monkeypatch):
 def test_port_imports_no_jax_and_no_reference():
     """Importing every module of the port (the schedule store, the zoo
     families, the training path, the targets, the calibration, the
-    learned ranker and the multi-device modules included; none starts a
-    process group), then registering its op families, running the
+    learned ranker, the multi-device modules, the dry run, the fleet
+    controller and the examples included; none starts a process group or
+    does any work), then registering its op families, parsing HLO text for
+    the learned ranker's columns, running the
     static matmul and flash picks and featurizing the zoo families on every
     target, loads no jax and no ``repro`` module (a subprocess: this test process has jax loaded
     already)."""
@@ -606,7 +608,9 @@ def test_port_imports_no_jax_and_no_reference():
         "'checkpoint.store', 'core.calibrate', 'core.learned', 'tuna.learned', "
         "'hw.tpu_v5e', 'hw.cpu_avx2', 'hw.gpu_a100', 'launch.mesh', 'launch.specs', "
         "'parallel.sharding', 'parallel.context', 'parallel.pipeline', "
-        "'checkpoint.elastic')}\n"
+        "'checkpoint.elastic', 'core.hlo_features', 'core.sharding_tuner', "
+        "'launch.dryrun', 'tuna.controller', 'examples.quickstart', "
+        "'examples.serve_batched', 'examples.train_tiny', 'examples.tune_operator')}\n"
         "assert want <= set(mods), sorted(want - set(mods))\n"
         "from repro_torch.kernels import ops\n"
         "ops.tuned_flash_blocks(77, 80)  # the flash family's signature\n"
@@ -619,6 +623,8 @@ def test_port_imports_no_jax_and_no_reference():
         "        sp = op_registry.make_space(fam, pre.attrs, get_target(t).kind)\n"
         "        learned.featurize(sp, get_target(t), sp.default_config())\n"
         "calibrate.coeffs_for_scoring(dict.fromkeys(calibrate.FEATURES, 1e-9))\n"
+        "assert learned.hlo_counts('%f = f32[4]{0} fusion(%x), kind=kLoop') == "
+        "(1.0, 0.0, 0.0, 0.0)\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()  # importing a mesh module starts no group\n"
         "print(len(mods)); assert not bad, bad\n"

@@ -10,6 +10,7 @@ destroy the group; rank 0 writes the output. ``start`` launches a job in a
 subprocess from a test, and ``REFERENCE`` is the script that runs the
 reference's side of the same cases on forced host devices.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -124,6 +125,54 @@ def _trainer_leaves(arch, mesh_shape):
     local = [t.to_local() if hasattr(t, "to_local") else t
              for t in tree.leaves((out["params"], out["opt_state"]))]
     return [loss for _, loss, _ in out["history"]], local
+
+
+def _serve(arch, params, tokens, mesh=None):
+    """Prefill 8 x 12 tokens into a cache of 16 positions, then two decode
+    steps (all rows at one depth): the logits of each, and every cache
+    leaf, whole. On a mesh the parameters and the prompt are placed by the
+    head-aware rules, and the cache by ``cache_sharding``."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    cfg = reduced_config(arch)
+    model = Model(cfg, device="cpu")
+    params = tree.map(lambda t: t.clone(), params)
+    batch = {"tokens": torch.as_tensor(tokens[:, :12])}
+    replicate = contextlib.nullcontext()
+    if mesh is not None:
+        params = sh.distribute(params, sh.params_sharding(params, mesh, cfg), mesh)
+        batch = sh.distribute(batch, sh.batch_sharding(batch, mesh), mesh)
+        replicate = implicit_replication()
+    out = []
+    with torch.no_grad(), replicate:
+        cache, pos, logits = steps.make_prefill_step(model, 16)(params, batch)
+        out.append(_whole(logits))
+        step = steps.make_serve_step(model)
+        for i in range(2):
+            tok = {"t": torch.as_tensor(tokens[:, 12 + i])}
+            if mesh is not None:
+                tok = sh.distribute(tok, sh.batch_sharding(tok, mesh), mesh)
+            logits, cache = step(params, cache, tok["t"], torch.tensor(12 + i))
+            out.append(_whole(logits))
+        leaves = [_whole(t).clone() for t in tree.leaves(cache)]
+    return out, leaves
+
+
+def case_serve(rank, world, job, inputs):
+    """Prefill and decode of every arch of the job on its mesh (the
+    head-aware rules) and meshless, on the same rank."""
+    mesh = mesh_mod.make_mesh(job["mesh"], AXES, device="cpu")
+    out = {}
+    for arch in job["archs"]:
+        p, toks = inputs[arch]["params"], inputs[arch]["tokens"]
+        pctx.install(("data",), tp_size=mesh_mod.axis_size(mesh, "model"), sp_seq=False,
+                     mesh=mesh)
+        try:
+            meshed = _serve(arch, p, toks, mesh)
+        finally:
+            pctx.clear()
+        out[arch] = (meshed, _serve(arch, p, toks))
+    return out
 
 
 def case_one_rank(rank, world, job, inputs):
@@ -280,7 +329,7 @@ def close_steps(got, want, arch, what=""):
 
 
 CASES = {"train": case_train, "one_rank": case_one_rank, "pipeline": case_pipeline,
-         "elastic": case_elastic, "psum": case_psum}
+         "elastic": case_elastic, "psum": case_psum, "serve": case_serve}
 
 
 def _rank(rank, world, job):
@@ -359,8 +408,8 @@ def start(case, world, tmp, inputs=None, name=None, **job):
 
 def write_train_inputs(path, archs):
     """The archs' reduced parameters (the reference's ``jax.random.key(0)``
-    draw through ``from_jax``) and two batches of 4 x 16 tokens from numpy
-    seed 0, written to ``path``; returns them (for the tests, which have
+    draw through ``from_jax``), two batches of 4 x 16 tokens and 8 x 14
+    prompt tokens (``case_serve``'s) from numpy seed 0, written to ``path``; returns them (for the tests, which have
     jax)."""
     import jax
     import numpy as np
@@ -377,7 +426,9 @@ def write_train_inputs(path, archs):
         toks = [rng.integers(0, reduced_config(arch).vocab, (4, 17)).astype(np.int32)
                 for _ in range(2)]
         inputs[arch] = {"params": from_jax(jax.tree.map(np.asarray, jp), device="cpu"),
-                        "batches": [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]}
+                        "batches": [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks],
+                        "tokens": rng.integers(0, reduced_config(arch).vocab,
+                                               (8, 14)).astype(np.int32)}
     torch.save(inputs, path)
     return inputs
 
@@ -392,9 +443,11 @@ def start_reference(job_pkl, out_pkl, devices=8):
 # The reference's side, from a pickled job: ``pipe`` (GPipe over ('pod',
 # 'model') = (4, 2), its output and the gradients of sum(out ** 2)), ``psum``
 # (``psum_int8`` under shard_map over 4 devices, each device's slice of the
-# leading axis) and ``archs`` (two train steps on a ('data', 'model') = (2, 2)
-# mesh, jitted with in/out shardings as launch/train.py does; the second with
-# accum_steps=2, int8 compression and grad_shardings).
+# leading axis) and ``archs`` (two train steps on each ('data', 'model') mesh
+# of ``meshes``, [(output key, (data, model), head-aware rules)], by default
+# (2, 2) without the head-aware rules, jitted with in/out shardings as
+# launch/train.py does; the second with accum_steps=2, int8 compression and
+# grad_shardings).
 REFERENCE = r"""
 import pickle, sys
 import jax, jax.numpy as jnp, numpy as np
@@ -428,31 +481,36 @@ if "psum" in job:
         f = jax.shard_map(lambda a: psum_int8(a[0], "i")[None], mesh=m4, in_specs=P("i"),
                           out_specs=P("i"), check_vma=False)
         out["psum"][name] = np.asarray(jax.jit(f)(jnp.asarray(xs)).astype(jnp.float32))[0]
-m22 = Mesh(devs[:4].reshape(2, 2), ("data", "model"))
-out["train"] = {}
-for arch in job.get("archs", ()):
-    model = Model(get_config(arch).reduced())
-    opt = adamw.AdamWConfig(lr=job["lr"])
-    params = model.init(jax.random.key(0))
-    state = adamw.init_state(opt, params)
-    p_sh = sh.params_sharding(params, m22)
-    o_sh = sh.opt_state_sharding(state, params, m22)
-    params = jax.tree.map(jax.device_put, params, p_sh)
-    state = jax.tree.map(jax.device_put, state, o_sh)
-    pctx.install(("data",), tp_size=2, sp_seq=False)
-    metrics = []
-    for i, batch in enumerate(job["batches"][arch]):
-        kw = dict(accum_steps=2, grad_compression="int8", grad_shardings=p_sh) if i else {}
-        abstract = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), batch)
-        jitted = jax.jit(steps.make_train_step(model, opt, **kw),
-                         in_shardings=(p_sh, o_sh, sh.batch_sharding(abstract, m22)),
-                         out_shardings=(p_sh, o_sh, None))
-        with m22:
-            params, state, m = jitted(params, state, {k: jnp.asarray(v) for k, v in batch.items()})
-        metrics.append({k: float(v) for k, v in m.items()})
-    pctx.clear()
-    leaves = jax.tree.leaves(params) + jax.tree.leaves(state["m"]) + jax.tree.leaves(state["v"])
-    out["train"][arch] = (metrics, [np.asarray(a) for a in leaves])
+for key, (d, t), head_aware in job.get("meshes", [("train", (2, 2), False)]):
+    mesh = Mesh(devs[:d * t].reshape(d, t), ("data", "model"))
+    out[key] = {}
+    for arch in job.get("archs", ()):
+        cfg = get_config(arch).reduced()
+        model = Model(cfg)
+        opt = adamw.AdamWConfig(lr=job["lr"])
+        params = model.init(jax.random.key(0))
+        state = adamw.init_state(opt, params)
+        rules_cfg = cfg if head_aware else None
+        p_sh = sh.params_sharding(params, mesh, cfg=rules_cfg)
+        o_sh = sh.opt_state_sharding(state, params, mesh, cfg=rules_cfg)
+        params = jax.tree.map(jax.device_put, params, p_sh)
+        state = jax.tree.map(jax.device_put, state, o_sh)
+        pctx.install(("data",), tp_size=t, sp_seq=False)
+        metrics = []
+        for i, batch in enumerate(job["batches"][arch]):
+            kw = dict(accum_steps=2, grad_compression="int8", grad_shardings=p_sh) if i else {}
+            abstract = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), batch)
+            jitted = jax.jit(steps.make_train_step(model, opt, **kw),
+                             in_shardings=(p_sh, o_sh, sh.batch_sharding(abstract, mesh)),
+                             out_shardings=(p_sh, o_sh, None))
+            with mesh:
+                params, state, m = jitted(params, state,
+                                          {k: jnp.asarray(v) for k, v in batch.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+        pctx.clear()
+        leaves = (jax.tree.leaves(params) + jax.tree.leaves(state["m"])
+                  + jax.tree.leaves(state["v"]))
+        out[key][arch] = (metrics, [np.asarray(a) for a in leaves])
 pickle.dump(out, open(sys.argv[2], "wb"))
 """
 
