@@ -197,7 +197,15 @@ Phases, in order; any failure exits non-zero before the last line:
              prefill_32k and decode_32k on the 16x16 production mesh (256
              fake ranks): each ``status == "ok"``, with its trace seconds,
              per-device GiB against the card's memory and collectives by
-             kind. One ``dryrun {...}`` JSON line.
+             kind. Before those, the reference's three mini cells
+             (reduced yi-6b on 2x4 and 2x2x2, reduced qwen3-moe on 2x4, at
+             train_4k): each one's scaled collective operand and link
+             bytes at most DRYRUN_RATIO (qwen3-moe DRYRUN_MOE_RATIO) times
+             the reference's (DRYRUN_MINI), so the count is held on the
+             card's torch too; and reduced xlstm-1.3b's decode_32k on 2x4
+             must trace. The production cells must fit the card's memory,
+             and train_4k's operand bytes may not exceed theirs before
+             the layout regions (DRYRUN_BEFORE). One ``dryrun {...}`` JSON line.
 7e. controller — the fleet controller (``python -m repro_torch.tuna
              controller --smoke --targets gpu_h100 --num-shards 2``, process
              workers, shard 0's first worker crashed, over a dir:// channel
@@ -223,8 +231,9 @@ Phases, in order; any failure exits non-zero before the last line:
              (whisper at the prompts that fit its 448-token decoder context,
              internvl2 at all 8 after its 256 patches); every request gets
              its tokens, flash launches = prefills x 64 (encoder and decoder)
-             and x 24; a profiled second run split into attention,
-             cross-attention and the rest; the parity of phase 7.
+             and x 24; a profiled second run of the first request (whisper's
+             four requests launch about a million kernels) split into
+             attention, cross-attention and the rest; the parity of phase 7.
 
 Prints a ``train``, a ``mesh``, a ``dryrun`` and a ``controller`` JSON line, a ``topk`` JSON line (top1, ratio@5 and rank_corr
 per shape for the static, calibrated and hybrid rankings, the check, the fit), a
@@ -256,6 +265,21 @@ ARCH = "yi-6b"
 # measured one (PERF.md section 5, written before the first chip run)
 DRYRUN_PEAK_RTOL = 0.05
 DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+# those cells' operand bytes before the explicit layout regions
+# (parallel/context.region); the train cell's may not grow past them
+DRYRUN_BEFORE = {"train_4k": 6.971e11, "prefill_32k": 3.689e10, "decode_32k": 1.135e8}
+# the reference's mini cells (reduced configs at train_4k): its scaled
+# operand and link bytes per device, from the reference's run_cell on the
+# CPU (jax 0.9), as tests/test_torch_dryrun.py compares them; the card has
+# no jax. The port's may be at most DRYRUN_RATIO times either (qwen3-moe's
+# DRYRUN_MOE_RATIO, as the test holds them)
+DRYRUN_MINI = {"yi_6b 2x4": ("yi_6b", {"data": 2, "model": 4}, 827164736.0, 1614497870.0),
+               "yi_6b 2x2x2": ("yi_6b", {"pod": 2, "data": 2, "model": 2}, 572752968.0,
+                               574498376.0),
+               "qwen3_moe 2x4": ("qwen3_moe_235b_a22b", {"data": 2, "model": 4},
+                                 2974380102.0, 4707666005.0)}
+DRYRUN_RATIO = 2.0
+DRYRUN_MOE_RATIO = 1.15
 PROMPT_LENS = (64, 77, 128, 300, 513, 1000, 1024, 2047)
 MAX_NEW = 16
 SLOTS = 4
@@ -2013,8 +2037,8 @@ def serve_prefixed(arch: str, lens) -> int:
     seeded stub of frames or patches at 0.1 N(0, 1)) greedily decoded to
     MAX_NEW tokens through ``Model.prefill`` and ``Model.decode_step``, the
     reference's only entry for these archs (checked and counted); a
-    profiled second run; the parity of phase 7 at the longest prompt (513
-    where it fits). Frees the weights. Returns the flash launches of the
+    profiled second run of the first request; the parity of phase 7 at the
+    longest prompt (513 where it fits). Frees the weights. Returns the flash launches of the
     counted run."""
     import numpy as np
     import torch
@@ -2086,8 +2110,16 @@ def serve_prefixed(arch: str, lens) -> int:
     if launches["flash_attention"] != len(runs) * n_attn:
         fail(f"{arch}: flash launches {launches['flash_attention']} != prefills x "
              f"attention layers {len(runs) * n_attn}")
-    _profile_serve(model, params, batches, cap,
-                   lambda m, p, reqs, **kw: [greedy(b) for b in reqs], wall)
+    # the second run is cut to the first request: whisper's four launch
+    # about a million kernels, whose trace took most of the phase to read.
+    # Its profile is against the same request served unprofiled
+    t0 = time.perf_counter()
+    greedy(batches[0])
+    wall_one = time.perf_counter() - t0
+    log(f"profile {arch}: the second run is cut to one request (S={lens[0]}): "
+        f"unprofiled {wall_one:.3f} s")
+    _profile_serve(model, params, batches[:1], cap,
+                   lambda m, p, reqs, **kw: [greedy(b) for b in reqs], wall_one)
     s = max(n for n in lens if n <= 513)
     b = batch(s)
     _, _, got = model.prefill(params, b, cap)
@@ -2521,26 +2553,57 @@ def dryrun_phase(train: dict, mesh: dict) -> dict:
     if abs(predicted - measured) > DRYRUN_PEAK_RTOL * measured:
         fail(f"the dry run's peak {predicted:.2f} GiB is not within "
              f"{DRYRUN_PEAK_RTOL:.0%} of the measured {measured:.2f} GiB")
+    # the reference's mini cells, reduced, and reduced xlstm's meshed decode
+    mini = {}
+    for name, (arch, cell_mesh, ref_op, ref_link) in DRYRUN_MINI.items():
+        rec = dryrun.run_cell(arch, "train_4k", mesh=cell_mesh, verbose=False,
+                              cfg=get_config(arch).reduced())
+        op = sum(rec.get("collective_operand_bytes_scaled", {}).values())
+        link = sum(rec.get("collective_link_bytes_scaled", {}).values())
+        top = DRYRUN_MOE_RATIO if arch.startswith("qwen3_moe") else DRYRUN_RATIO
+        log(f"dryrun mini cell {name} (reduced, train_4k): {rec['status']} in "
+            f"{rec.get('lower_s')} s; scaled operand bytes {op:.4e} against the "
+            f"reference's {ref_op:.4e} ({op / ref_op:.3f}x), link bytes {link:.4e} against "
+            f"{ref_link:.4e} ({link / ref_link:.3f}x), limit {top}x")
+        if rec["status"] != "ok" or op > top * ref_op or link > top * ref_link:
+            fail(f"the mini cell {name} moves more than {top}x the reference's bytes "
+                 f"or did not trace: {rec.get('status')}, {op / ref_op:.3f}x, "
+                 f"{link / ref_link:.3f}x")
+        mini[name] = {"operand": op, "link": link, "ref_operand": ref_op,
+                      "ref_link": ref_link, "lower_s": rec["lower_s"]}
+    rec = dryrun.run_cell("xlstm_13b", "decode_32k", mesh={"data": 2, "model": 4},
+                          verbose=False, cfg=get_config("xlstm_13b").reduced())
+    log(f"dryrun xlstm-1.3b reduced x decode_32k x 2x4: {rec['status']} in "
+        f"{rec.get('lower_s')} s (the sLSTM's and mLSTM's decode steps on each rank's "
+        f"rows)")
+    if rec["status"] != "ok":
+        fail(f"reduced xlstm's meshed decode did not trace: {rec}")
+    mini["xlstm decode 2x4"] = {"status": rec["status"], "lower_s": rec["lower_s"]}
     cells = {}
     for shape in DRYRUN_SHAPES:
         rec = dryrun.run_cell("yi_6b", shape, verbose=False)
         m = rec.get("mem", {})
         gib = (m.get("argument_bytes", 0) + m.get("temp_bytes", 0)) / 2**30
         kinds = {k: v for k, v in rec.get("collective_counts_scaled", {}).items() if v}
+        op = sum(rec.get("collective_operand_bytes_scaled", {}).values())
         log(f"dryrun {ARCH} x {shape} x {rec['mesh']} ({rec['n_devices']} fake ranks): "
             f"{rec['status']} in {rec.get('lower_s')} s; per device {gib:.2f} GiB of the "
             f"card's {HBM_BYTES / 2**30:.0f} (arguments "
             f"{m.get('argument_bytes', 0) / 2**30:.2f}, temporaries "
             f"{m.get('temp_bytes', 0) / 2**30:.2f}); flops {rec.get('hlo_flops', 0):.4e}; "
-            f"collectives (scaled) {kinds}, operand bytes "
-            f"{sum(rec.get('collective_operand_bytes_scaled', {}).values()):.4e}")
-        if rec["status"] != "ok":
-            fail(f"the dry run of {ARCH} x {shape} on 16x16 did not trace: {rec}")
+            f"collectives (scaled) {kinds}, operand bytes {op:.4e} (before the "
+            f"layout regions: {DRYRUN_BEFORE[shape]:.4e})")
+        if rec["status"] != "ok" or gib * 2**30 > HBM_BYTES:
+            fail(f"the dry run of {ARCH} x {shape} on 16x16 did not trace or does not "
+                 f"fit: {rec}")
+        if shape == "train_4k" and op > DRYRUN_BEFORE[shape]:
+            fail(f"the train cell's operand bytes {op:.4e} exceed the "
+                 f"{DRYRUN_BEFORE[shape]:.4e} before the layout regions")
         cells[shape] = {k: rec[k] for k in (
             "status", "lower_s", "n_devices", "accum_steps", "hlo_flops", "hlo_bytes", "mem",
             "collective_counts", "collective_counts_scaled",
-            "collective_operand_bytes_scaled") if k in rec}
-    result = {"card": {"predicted_peak_gib": predicted, "measured_peak_gib": measured,
+            "collective_operand_bytes_scaled", "collective_link_bytes_scaled") if k in rec}
+    result = {"mini": mini, "card": {"predicted_peak_gib": predicted, "measured_peak_gib": measured,
                        "meshless_peak_gib": train["peak_gib"], "rtol": DRYRUN_PEAK_RTOL,
                        "mem": mem, "flops": card["hlo_flops"], "analytic_flops": analytic,
                        "lower_s": card["lower_s"]},

@@ -11,8 +11,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import layers as L
+from repro_torch.parallel import context as pctx
 from repro_torch.parallel import sharding as sh
 
 NEG_INF = -1e30
@@ -77,22 +77,6 @@ def _whole_heads(t, heads: int):
     return t.redistribute(t.device_mesh, pl)
 
 
-def _project_qkv(cfg, p, x, kv_x=None):
-    """x [B,S,D] (and kv_x [B,Skv,D], default x) -> q [B,H,S,dh], k/v
-    [B,Hkv,Skv,dh]."""
-    cd = cfg.torch_compute_dtype()
-    b, s, _ = x.shape
-    kv_x = x if kv_x is None else kv_x
-    skv = kv_x.shape[1]
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = _qkv_products(p, x.to(cd), kv_x.to(cd))
-    q, k, v = _whole_heads(q, h), _whole_heads(k, hkv), _whole_heads(v, hkv)
-    q = q.reshape(b, s, h, dh).transpose(1, 2)
-    k = k.reshape(b, skv, hkv, dh).transpose(1, 2)
-    v = v.reshape(b, skv, hkv, dh).transpose(1, 2)
-    return q, k, v
-
-
 def chunked_attention(
     q: torch.Tensor,  # [B,H,S,dh]
     k: torch.Tensor,  # [B,Hkv,Skv,dh]
@@ -148,43 +132,21 @@ def _local_kv(k, v, first: int, n: int, g: int):
     return k[:, sl].contiguous(), v[:, sl].contiguous()
 
 
-def head_parallel(attend, q, k, v):
-    """``attend(q, k, v)``; on DTensors, per rank on its local shards
-    (``local_map``), so the kernel sees raw tensors and launches on each
-    rank's heads. The batch goes over the mesh's DP axes and the heads over
-    ``model`` where the query heads divide; the key/value heads go with
-    them where they divide too, else stay whole and each rank takes its
-    query heads' own (``_local_kv``), their gradients summed over
-    ``model``."""
-    from torch.distributed.tensor import DTensor, Partial
-
-    if not isinstance(q, DTensor):
-        return attend(q, k, v)
-    from torch.distributed.tensor.experimental import local_map
-
-    mesh = q.device_mesh
-    names, shape = mesh_mod.axis_names(mesh), mesh_mod.shape_of(mesh)
-    dp = mesh_mod.dp_axes(mesh)
-    hq, hkv = q.shape[1], k.shape[1]
-    tp = shape.get(sh.TP, 1)
-    q_heads = sh.TP if sh.TP in names and hq % tp == 0 else None
-    kv_heads = q_heads if q_heads and hkv % tp == 0 else None
-    qp = sh.placements(sh.P(dp, q_heads), mesh)
-    kvp = sh.placements(sh.P(dp, kv_heads), mesh)
-    kv_grad = kvp
-    if q_heads and not kv_heads:
-        kv_grad = tuple(Partial() if a == sh.TP else p for a, p in zip(names, kvp))
-    q, k, v = (sh.placed_as(t, pl) for t, pl in ((q, qp), (k, kvp), (v, kvp)))
-
-    def local(ql, kl, vl):
-        if q_heads and not kv_heads:
-            n = hq // tp
-            kl, vl = _local_kv(kl, vl, mesh.get_local_rank(sh.TP) * n, n, hq // hkv)
-        return attend(ql, kl, vl)
-
-    return local_map(local, out_placements=list(qp), in_placements=(qp, kvp, kvp),
-                     in_grad_placements=(qp, kv_grad, kv_grad),
-                     device_mesh=mesh)(q, k, v)
+def _heads(cfg, p, x, kv_x, positions, use_rope: bool, heads: int, kv_heads: int):
+    """q [B, heads, S, dh] and k/v [B, kv_heads, Skv, dh] from x [B, S, D]
+    and kv_x [B, Skv, D] through the projections ``p`` (whole, or a rank's
+    column shard of whole heads), with RoPE where ``use_rope``."""
+    cd = cfg.torch_compute_dtype()
+    b, s, _ = x.shape
+    skv, dh = kv_x.shape[1], cfg.head_dim
+    q, k, v = _qkv_products(p, x.to(cd), kv_x.to(cd))
+    q = q.reshape(b, s, heads, dh).transpose(1, 2)
+    k = k.reshape(b, skv, kv_heads, dh).transpose(1, 2)
+    v = v.reshape(b, skv, kv_heads, dh).transpose(1, 2)
+    if use_rope:
+        sin, cos = L.rope_tables(cfg, positions)  # [S, dh/2] — broadcasts
+        q, k = L.apply_rope(q, sin, cos), L.apply_rope(k, sin, cos)
+    return q.contiguous(), k.contiguous(), v.contiguous()
 
 
 def attention_forward(
@@ -196,16 +158,25 @@ def attention_forward(
     kv_x: Optional[torch.Tensor] = None,
     use_rope: bool = True,
     chunked_threshold: int = 4096,
+    with_kv: bool = True,
 ):
     """Self (or, with ``kv_x``, cross) attention for prefill. RoPE applies
     to self attention with ``use_rope`` only. Returns (output [B,S,D],
-    (k, v) for the cache)."""
-    q, k, v = _project_qkv(cfg, p, x, kv_x)
-    if use_rope and kv_x is None:
-        sin, cos = L.rope_tables(cfg, positions)  # [S, dh/2] — broadcasts
-        q, k = L.apply_rope(q, sin, cos), L.apply_rope(k, sin, cos)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    s = q.shape[2]
+    (k, v) for the cache; ``(None, None)`` where ``with_kv`` is off).
+
+    On a mesh the whole block part is one ``pctx.region``, token-gathered:
+    the tokens (and ``kv_x``) gathered over their sequence shards, and where
+    the query heads divide ``model`` each rank projects, attends (the
+    kernel on raw tensors) and projects out its own heads, ``wo``'s rows
+    leaving a partial sum; the key/value heads go with them where they
+    divide too, else each rank takes its query heads' own (``_local_kv``),
+    projecting only those unless the cache needs them all (``with_kv``).
+    The weight-gathered layout would keep the queries on their sequence
+    shards, but the keys and values need every position and the flash
+    kernel has no argument for the queries' offset in the causal mask, so
+    attention stays token-gathered."""
+    s = x.shape[1]
+    rope = use_rope and kv_x is None
     if kv_x is not None:
         attend = lambda q, k, v: chunked_attention(q, k, v, causal=False,
                                                    chunk=cfg.attn_chunk)
@@ -214,12 +185,47 @@ def attention_forward(
                                                    chunk=cfg.attn_chunk)
     else:
         attend = lambda q, k, v: kops.attention(q, k, v, causal=causal)
-    out = head_parallel(attend, q, k, v)
-    b = x.shape[0]
-    cd = cfg.torch_compute_dtype()
-    merged = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    y = merged.to(cd) @ p["wo"].to(cd)
-    return y.to(x.dtype), (k, v)
+    names = sorted(k for k in p if k != "wo")
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = h // hkv
+    tp = pctx.tp_size(x.device_mesh) if pctx.is_dtensor(x) else 1
+    q_split = h % tp == 0
+    kv_split = q_split and hkv % tp == 0
+    n = h // tp if q_split else h
+    first = n * x.device_mesh.get_local_rank(sh.TP) if q_split and tp > 1 else 0
+    # the key/value heads this rank projects: its own share, all of them,
+    # or (its query heads' own) a range of them
+    if kv_split:
+        kv0, kv1 = first // g, first // g + n // g
+    elif with_kv:
+        kv0, kv1 = 0, hkv
+    else:
+        kv0, kv1 = first // g, (first + n - 1) // g + 1
+    tokens = (x,) if kv_x is None else (x, kv_x)
+
+    def local(*args):
+        x, kv_x = args[0], args[len(tokens) - 1]
+        wo, w = args[len(tokens)], dict(zip(names, args[len(tokens) + 1:]))
+        if not kv_split and (kv0, kv1) != (0, hkv):
+            cols = slice(kv0 * dh, kv1 * dh)
+            w.update({k: w[k][..., cols] for k in ("wk", "wv", "bk", "bv") if k in w})
+        q, k, v = _heads(cfg, w, x, kv_x, positions, rope, n, kv1 - kv0)
+        kl, vl = (k, v) if (kv1 - kv0) * g == n else _local_kv(k, v, first - kv0 * g, n, g)
+        out = attend(q, kl, vl)
+        cd = cfg.torch_compute_dtype()
+        merged = out.transpose(1, 2).reshape(x.shape[0], s, n * dh)
+        y = (merged.to(cd) @ wo.to(cd)).to(x.dtype)
+        return (y, k, v) if with_kv else y
+
+    # a projection's columns (a bias's entries) split with its heads
+    split_of = {"wq": q_split, "bq": q_split, "wk": kv_split, "bk": kv_split,
+                "wv": kv_split, "bv": kv_split}
+    weights = [(p["wo"], 0)] + [(p[k], p[k].ndim - 1 if split_of[k] else None)
+                                for k in names]
+    kv_dim = 1 if kv_split else None
+    outs = (pctx.ROW_SUM, kv_dim, kv_dim) if with_kv else (pctx.ROW_SUM,)
+    out = pctx.region(local, tokens, weights, split=q_split, outs=outs)
+    return (out[0], out[1:]) if with_kv else (out, (None, None))
 
 
 def decode_attention(
@@ -246,12 +252,12 @@ def decode_attention(
     g = h // hkv
     if cross:
         q = _whole_heads(_product(p, "wq", x.to(cd)), hkv).reshape(b, hkv, g, dh)
-        if _is_dtensor(cache_k):
+        if pctx.is_dtensor(cache_k):
             y = _project_out(cfg, p, _decode_sharded(q, None, None, cache_k, cache_v, None))
             return y.to(x.dtype), cache_k, cache_v
         return _attend(cfg, p, q, cache_k, cache_v, None).to(x.dtype), cache_k, cache_v
     vector_pos = pos.ndim == 1
-    if vector_pos and _is_dtensor(cache_k):
+    if vector_pos and pctx.is_dtensor(cache_k):
         raise ValueError("per-slot decode positions need a plain cache, not a DTensor one")
     q, knew, vnew = _qkv_products(p, x.to(cd))
     # q splits into [hkv, g] below, so its shards hold whole key-head groups
@@ -268,7 +274,7 @@ def decode_attention(
         sin, cos = L.rope_tables(cfg, pos[None])  # [1, dh/2]
     q = L.apply_rope(q, sin, cos).reshape(b, h, dh)
     knew = L.apply_rope(knew, sin, cos)
-    if _is_dtensor(cache_k):
+    if pctx.is_dtensor(cache_k):
         out = _decode_sharded(q.reshape(b, hkv, g, dh), knew, vnew, cache_k, cache_v, pos)
         return _project_out(cfg, p, out).to(x.dtype), cache_k, cache_v
     if vector_pos:
@@ -286,12 +292,6 @@ def decode_attention(
         valid = idx <= pos
     y = _attend(cfg, p, q.reshape(b, hkv, g, dh), cache_k, cache_v, valid)
     return y.to(x.dtype), cache_k, cache_v
-
-
-def _is_dtensor(t) -> bool:
-    from torch.distributed.tensor import DTensor
-
-    return isinstance(t, DTensor)
 
 
 def _project_out(cfg, p, out):

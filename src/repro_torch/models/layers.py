@@ -21,15 +21,35 @@ def _needs_grad(args) -> bool:
                else torch.is_tensor(a) and a.requires_grad for a in args)
 
 
+def _keep_collectives(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat``: a collective's result
+    (``torch.ops._c10d_functional``, and the dry run's ``_dtensor``
+    all-to-all) is saved, every other op recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if getattr(op, "namespace", None) in ("_c10d_functional", "_dtensor"):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat(fn, *args):
     """``fn(*args)``; under autograd, when a tensor among ``args`` needs a
     gradient, with its activations dropped and recomputed in the backward
-    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``). The
-    serving path, where nothing needs a gradient, calls ``fn`` directly."""
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``); on a
+    mesh of more than one rank the results of its collectives are kept, so
+    the recompute issues none of the forward's again. The serving path,
+    where nothing needs a gradient, calls ``fn`` directly."""
     if not (torch.is_grad_enabled() and _needs_grad(args)):
         return fn(*args)
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
-                                             preserve_rng_state=False)
+    if not any(pctx.is_dtensor(a) and a.device_mesh.size() > 1 for a in args):
+        # no collective to keep: no dispatch mode over every op
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: create_selective_checkpoint_contexts(_keep_collectives))
 
 
 # A leaf of more elements than this is drawn one slice of its first axis at a
@@ -150,11 +170,26 @@ def _act(cfg, h: torch.Tensor, g: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def apply_dense_mlp(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The MLP of [B, S, D] ``x``. On a mesh, one ``pctx.region`` in the
+    layout ``pctx.layout_of`` picks for its weights and ``x``'s shards:
+    token-gathered, ``w1``/``w3`` split over ``model`` by columns and
+    ``w2`` by rows where ``d_ff`` divides it; or weight-gathered. The
+    output is placed like ``x``."""
     cd = cfg.torch_compute_dtype()
-    xc = x.to(cd)
-    h = xc @ p["w1"].to(cd)
-    g = xc @ p["w3"].to(cd) if "w3" in p else None
-    return (_act(cfg, h, g) @ p["w2"].to(cd)).to(x.dtype)
+    names = ("w1", "w2", "w3") if "w3" in p else ("w1", "w2")
+
+    def mlp(x, w1, w2, w3=None):
+        xc = x.to(cd)
+        h = xc @ w1.to(cd)
+        g = xc @ w3.to(cd) if w3 is not None else None
+        return (_act(cfg, h, g) @ w2.to(cd)).to(x.dtype)
+
+    weights = [(p[k], 0 if k == "w2" else 1) for k in names]
+    if not pctx.is_dtensor(x):
+        return mlp(x, *(w for w, _ in weights))
+    layout = pctx.layout_of([tuple(p[k].shape) for k in names], x)
+    split = p["w1"].shape[1] % pctx.tp_size(x.device_mesh) == 0
+    return pctx.region(mlp, (x,), weights, layout=layout, split=split)
 
 
 # --------------------------------------------------------------------------
@@ -190,23 +225,54 @@ def cross_entropy_loss(cfg, p: Dict, x: torch.Tensor, labels: torch.Tensor,
     """Mean softmax cross-entropy of the unembedded ``x`` [B, S, D] against
     ``labels`` [B, S], over sequence chunks of ``seq_chunk`` (halved until
     it divides S); each chunk's logits [B, c, V] are recomputed in the
-    backward, so no [B, S, V] tensor lives (the reference's chunked scan)."""
+    backward, so no [B, S, V] tensor lives (the reference's chunked scan).
+
+    Vocab-parallel: one ``pctx.region`` (a plain call on a plain tensor;
+    on a mesh token-gathered, the tokens gathered over their sequence
+    shards and the unembedding over its FSDP shards once) gives each rank,
+    per position, the logsumexp of its vocab shard's logits and the gold
+    logit where the shard holds the label (0 elsewhere). On a mesh these
+    [B, S] pairs are gathered over ``model``; the loss is the logsumexp of
+    the ranks' logsumexps less the sum of their gold logits (of one shard,
+    its own pair). No [B, c, V] tensor leaves its rank."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.parallel.sharding import placed_as
+
     b, s, _ = x.shape
     c = min(seq_chunk, s)
     while s % c:
         c //= 2
-    x = pctx.whole_tokens(x)
-    labels = labels.to(x.device).long()
+    w = p["head"] if "head" in p else p["tok"].T
+    tp = pctx.tp_size(x.device_mesh) if pctx.is_dtensor(x) else 1
+    split = w.shape[1] % tp == 0
+    # the first vocab entry of this rank's shard
+    first = w.shape[1] // tp * x.device_mesh.get_local_rank("model") if split and tp > 1 else 0
+    cd = cfg.torch_compute_dtype()
 
-    def chunk_loss(xi, yi):
+    def chunk_stats(xi, wl, yi):
         with span("cross_entropy"):  # the forward, and its recompute
-            # vocab-sharded logits have no DTensor strategy for the gather
-            logits = pctx.batch_only(unembed(cfg, p, xi).float())  # [B, c, V]
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, yi[..., None])[..., 0]
-            return torch.sum(lse - gold)
+            logits = (xi.to(cd) @ wl.to(cd)).float()  # [B, c, V / tp]
+            at = yi - first
+            held = (at >= 0) & (at < logits.shape[-1])
+            gold = torch.gather(logits, -1, at.clamp(0, logits.shape[-1] - 1)[..., None])
+            return torch.stack([torch.logsumexp(logits, dim=-1),
+                                torch.where(held, gold[..., 0], 0.0)], dim=-1)
 
-    total = torch.zeros((), device=x.device)
+    def shard_stats(xl, yl, wl):
+        yl = yl.long()
+        return torch.cat([remat(chunk_stats, xl[:, c0:c0 + c], wl, yl[:, c0:c0 + c])
+                          for c0 in range(0, s, c)], dim=1)  # [B, S, 2]
+
+    stats = pctx.region(shard_stats, (x, labels.to(x.device)), [(w, 1)],
+                        split=split, outs=(2,))
+    if pctx.is_dtensor(stats):
+        stats = placed_as(stats, [Replicate() if q.is_shard(2) else q
+                                  for q in stats.placements])
+    per = stats.reshape(b, s, -1, 2)  # [B, S, ranks, (logsumexp, gold)]
+    lse, gold = torch.logsumexp(per[..., 0], dim=-1), per[..., 1].sum(-1)
+    total = None
     for c0 in range(0, s, c):
-        total = total + remat(chunk_loss, x[:, c0:c0 + c], labels[:, c0:c0 + c])
+        part = torch.sum(lse[:, c0:c0 + c] - gold[:, c0:c0 + c])
+        total = part if total is None else total + part
     return total / (b * s)

@@ -108,43 +108,48 @@ def init_block_cache(cfg, mixer_kind: str, batch: int, cap: int, device,
 
 def _apply_mlp(cfg, p, mlp_kind, x):
     """Returns (x, the MoE aux loss or None): a block without MoE launches
-    nothing for an aux loss."""
+    nothing for an aux loss. The dense MLP is a ``pctx.region`` that places
+    its output like ``x``; the MoE takes its tokens whole."""
     if mlp_kind == "none":
         return x, None
-    h = pctx.whole_tokens(L.apply_norm(cfg, p["norm2"], x))
+    h = L.apply_norm(cfg, p["norm2"], x)
     if mlp_kind == "dense":
-        return pctx.residual(x, L.apply_dense_mlp(cfg, p["mlp"], h)), None
-    y, aux = moe_mod.apply_moe(cfg, p["mlp"], h)
+        return x + L.apply_dense_mlp(cfg, p["mlp"], h), None
+    y, aux = moe_mod.apply_moe(cfg, p["mlp"], pctx.whole_tokens(h))
     return pctx.residual(x, y), aux
 
 
 def apply_block(cfg, p: Dict, kinds: Tuple[str, str], x: torch.Tensor,
                 positions: torch.Tensor, causal: bool = True,
-                enc_out: Optional[torch.Tensor] = None):
+                enc_out: Optional[torch.Tensor] = None, with_cache: bool = True):
     """Prefill through one block. Returns (x, cache_contrib, MoE aux loss or
-    None): attention's ``{k, v}`` ``[B, Hkv, S, dh]`` or a recurrent
-    mixer's final state, and with ``enc_out`` (and cross-attention
-    parameters) the encoder's projections ``{xk, xv}``."""
+    None): attention's ``{k, v}`` ``[B, Hkv, S, dh]`` (``None`` each without
+    ``with_cache``) or a recurrent mixer's final state, and with ``enc_out``
+    (and cross-attention parameters) the encoder's projections ``{xk,
+    xv}``."""
     mixer_kind, mlp_kind = kinds
-    # sequence-parallel activations: normed on their shards, whole for the
-    # mixer's and the MLP's products
-    h = pctx.whole_tokens(L.apply_norm(cfg, p["norm1"], x))
+    # sequence-parallel activations are normed on their shards; attention
+    # is a region that gathers them and places its output like ``x``, the
+    # recurrent mixers take them whole
+    h = L.apply_norm(cfg, p["norm1"], x)
     with L.span(mixer_kind):
         if mixer_kind == "attention":
             y, (k, v) = attn.attention_forward(cfg, p["mixer"], h, positions,
-                                               causal=causal)
+                                               causal=causal, with_kv=with_cache)
             contrib = {"k": k, "v": v}
+            x = x + y
         else:
-            y, contrib = _FORWARD[mixer_kind](cfg, p["mixer"], h, return_state=True)
-    x = pctx.residual(x, y)
+            y, contrib = _FORWARD[mixer_kind](cfg, p["mixer"], pctx.whole_tokens(h),
+                                              return_state=True)
+            x = pctx.residual(x, y)
     if enc_out is not None and "xattn" in p:
-        hx = pctx.whole_tokens(L.apply_norm(cfg, p["norm_x"], x))
+        hx = L.apply_norm(cfg, p["norm_x"], x)
         with L.span("cross_attention"):
             y, (xk, xv) = attn.attention_forward(cfg, p["xattn"], hx, positions,
-                                                 causal=False, kv_x=pctx.whole_tokens(enc_out),
+                                                 causal=False, kv_x=enc_out,
                                                  use_rope=False)
         contrib = dict(contrib, xk=xk, xv=xv)
-        x = pctx.residual(x, y)
+        x = x + y
     x, aux = _apply_mlp(cfg, p, mlp_kind, x)
     return x, contrib, aux
 
@@ -225,7 +230,8 @@ def apply_stack(cfg, stack_params: Tuple[Dict, ...], x: torch.Tensor,
         x = pctx.constrain_tokens(x)
         for pp, kinds in enumerate(pattern):
             x, contrib, a = apply_block(cfg, views[pp][g], kinds, x, positions,
-                                        causal=causal, enc_out=enc_out)
+                                        causal=causal, enc_out=enc_out,
+                                        with_cache=cache is not None)
             x = pctx.constrain_tokens(x)
             if a is not None:
                 aux_g = a if aux_g is None else aux_g + a

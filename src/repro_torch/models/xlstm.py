@@ -172,9 +172,31 @@ def init_mlstm_cache(cfg, batch: int, device, lead: Tuple[int, ...] = ()) -> Dic
             "m": torch.full(lead + (batch, h), _M_FLOOR, device=device)}
 
 
+def _decode_rows(step, state_keys, cfg, p: Dict, x: torch.Tensor, cache: Dict):
+    """``step(cfg, p, x, state)`` on each rank's batch rows, with the
+    mixer's parameters whole and the state's rows (``pctx.map_rows``), as
+    the prefill runs (``_shard_map_mixer``); a plain call on plain tensors.
+    Returns (y, the new state of ``state_keys``)."""
+    keys = sorted(p)
+
+    def local(x, *a):
+        y, state = step(cfg, dict(zip(keys, a)), x, dict(zip(state_keys, a[len(keys):])))
+        return (y,) + tuple(state[n] for n in state_keys)
+
+    args = (x,) + tuple(p[k] for k in keys) + tuple(cache[n] for n in state_keys)
+    rows = (True,) + (False,) * len(keys) + (True,) * len(state_keys)
+    outs = pctx.map_rows(local, args, rows, n_out=1 + len(state_keys))
+    return outs[0], dict(zip(state_keys, outs[1:]))
+
+
 def mlstm_decode(cfg, p: Dict, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """One token, x [B, 1, D]: the recurrent form (a chunk of one) ->
-    (y [B, 1, D], the new ``{C, n, m}``)."""
+    (y [B, 1, D], the new ``{C, n, m}``), on each rank's rows
+    (``_decode_rows``)."""
+    return _decode_rows(_mlstm_step, ("C", "n", "m"), cfg, p, x, cache)
+
+
+def _mlstm_step(cfg, p: Dict, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
     q, k, v, li, lf, o = _mlstm_qkv_gates(cfg, p, x)
     h, (c1, n1, m1) = _mlstm_chunk(q, k, v, li, lf, (cache["C"], cache["n"], cache["m"]))
     return _mlstm_out(cfg, p, h, o, x), {"C": c1, "n": n1, "m": m1}
@@ -252,7 +274,13 @@ def init_slstm_cache(cfg, batch: int, device, lead: Tuple[int, ...] = ()) -> Dic
 
 
 def slstm_decode(cfg, p: Dict, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """One token, x [B, 1, D] -> (y [B, 1, D], the new ``{c, n, h, m}``)."""
+    """One token, x [B, 1, D] -> (y [B, 1, D], the new ``{c, n, h, m}``), on
+    each rank's rows (``_decode_rows``): the head view of the state
+    (``_slstm_step``) then sees whole rows, never a shard of them."""
+    return _decode_rows(_slstm_decode_step, ("c", "n", "h", "m"), cfg, p, x, cache)
+
+
+def _slstm_decode_step(cfg, p: Dict, x: torch.Tensor, cache: Dict):
     cd = cfg.torch_compute_dtype()
     xw = x[:, 0].to(cd) @ p["w_in"].to(cd)
     state = tuple(cache[key] for key in ("c", "n", "h", "m"))

@@ -6,6 +6,12 @@ Model code is mesh-agnostic; the launcher installs the data-parallel axes
 ``DTensor`` to the guarded placements; on a plain tensor, or with no context
 installed (unit tests, single-device runs), it is a no-op, as in the
 reference.
+
+Inside a block, each part's products run in one explicit region
+(``region``, over ``local_map``), whose collectives its placements state
+in both directions, in the layout ``pick_layout`` picks from shapes;
+``map_rows`` runs the regions that have no DTensor strategy on each
+rank's batch rows. On plain tensors both are plain calls.
 """
 from __future__ import annotations
 
@@ -64,10 +70,17 @@ def activation_sharding(dp_axes: Tuple[str, ...], tp_axis: str = "model",
             clear()
 
 
-def _is_dtensor(x) -> bool:
+def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
     return isinstance(x, DTensor)
+
+
+def tp_size(mesh) -> int:
+    """The ranks of ``mesh``'s ``model`` axis (1 where it has none)."""
+    from repro_torch.launch.mesh import shape_of
+
+    return shape_of(mesh).get("model", 1)
 
 
 def _constrain(x, spec: Tuple):
@@ -86,7 +99,7 @@ def constrain_dims(x: torch.Tensor, dims: Tuple) -> torch.Tensor:
     leading axis (trailing axes unconstrained, i.e. replicated). The 'tp'
     entries are divisibility-guarded; a no-op without an installed context
     or on a plain tensor."""
-    if _DP_AXES is None or not _is_dtensor(x):
+    if _DP_AXES is None or not is_dtensor(x):
         return x
     spec = []
     for i, d in enumerate(dims[: x.ndim]):
@@ -103,7 +116,7 @@ def constrain_dims(x: torch.Tensor, dims: Tuple) -> torch.Tensor:
 def constrain_tokens(x: torch.Tensor) -> torch.Tensor:
     """[B, S, D] (or [B, S]) activations: batch over DP; with SP enabled the
     seq dim additionally shards over TP."""
-    if _DP_AXES is None or not _is_dtensor(x):
+    if _DP_AXES is None or not is_dtensor(x):
         return x
     if x.ndim == 3:
         seq_ax = (
@@ -128,7 +141,7 @@ def whole_tokens(x: torch.Tensor) -> torch.Tensor:
     which torch 2.11 refuses and torch 2.13 plans as strided shards, at
     length on a mesh of three dims. A plain tensor, or one whose sequence
     is whole, is returned as it is."""
-    if not _is_dtensor(x) or x.ndim != 3 or not any(p.is_shard(1) for p in x.placements):
+    if not is_dtensor(x) or x.ndim != 3 or not any(p.is_shard(1) for p in x.placements):
         return x
     from torch.distributed.tensor import Replicate
 
@@ -145,7 +158,7 @@ def residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     Left to the add, the gradient would reach the product that made ``y``
     sharded over the sequence, which its backward cannot flatten on
     torch 2.11."""
-    if _is_dtensor(x) and _is_dtensor(y) and tuple(x.placements) != tuple(y.placements):
+    if is_dtensor(x) and is_dtensor(y) and tuple(x.placements) != tuple(y.placements):
         y = y.redistribute(x.device_mesh, x.placements)
     return x + y
 
@@ -155,7 +168,7 @@ def batch_only(x: torch.Tensor) -> torch.Tensor:
     every other dim whole, whether or not a context is installed (the
     regions whose ops have no DTensor strategy for a sharded feature dim);
     a plain tensor as it is."""
-    if not _is_dtensor(x):
+    if not is_dtensor(x):
         return x
     from repro_torch.launch.mesh import dp_axes as mesh_dp_axes
 
@@ -204,3 +217,135 @@ def map_rows(fn, args, rows, n_out: int = 1):
     out_pl = batched if n_out == 1 else tuple([batched] * n_out)
     return local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl),
                      in_grad_placements=tuple(grad_pl), device_mesh=mesh)(*ins)
+
+
+# --------------------------------------------------------------------------
+# explicit layout regions for a block's products
+# --------------------------------------------------------------------------
+
+# the two layouts of a block part's products on a mesh
+TOKEN_GATHERED = "token_gathered"  # Megatron sequence parallelism
+WEIGHT_GATHERED = "weight_gathered"  # FSDP-style: tokens stay, weights move
+ROW_SUM = "row_sum"  # a region output that is the row product's [B, S, D]
+
+
+def pick_layout(weight_shapes, d_model: int, tokens: int, mesh, sp_seq: bool,
+                dtype: torch.dtype) -> str:
+    """The layout of a block part whose products take the weights of
+    ``weight_shapes`` (each ``(rows, cols)``) over ``tokens`` activations of
+    width ``d_model`` per rank (as they sit between blocks, a sequence
+    shard where ``sp_seq``), on ``mesh`` (a ``DeviceMesh`` or a stand-in):
+    the one whose forward and backward move fewer ring link bytes over
+    ``model`` (``hlo_features.ring_bytes``, the port's one ring model). Both
+    layouts gather the weights' FSDP shards over ``data`` alike, so only
+    the ``model`` traffic is compared: the token-gathered layout moves the
+    activations (an all-gather of the tokens and a reduce-scatter of the
+    row product's sum, and the mirror image in the backward), the
+    weight-gathered layout the weights (an all-gather over ``model``, and a
+    reduce-scatter of their gradients). Without ``sp_seq`` the tokens are
+    whole on every ``model`` rank, so the weight-gathered layout would run
+    the whole part on each, tp times the token-gathered layout's products:
+    the tokens stay gathered. A pure function of shapes, the same on every
+    rank; a tie keeps the tokens gathered."""
+    from repro_torch.core.hlo_features import ring_bytes
+
+    tp = tp_size(mesh)
+    if tp == 1 or not sp_seq:
+        return TOKEN_GATHERED
+    item = torch.empty((), dtype=dtype).element_size()
+    act = tokens * d_model * item
+    moved = (ring_bytes("all-gather", act * tp, tp)[1]
+             + ring_bytes("reduce-scatter", act, tp)[1])
+    weights = sum(r * c for r, c in weight_shapes) * item
+    gathered = (ring_bytes("all-gather", weights, tp)[1]
+                + ring_bytes("reduce-scatter", weights / tp, tp)[1])
+    return WEIGHT_GATHERED if gathered < 2 * moved else TOKEN_GATHERED
+
+
+def layout_of(weight_shapes, x: torch.Tensor) -> str:
+    """``pick_layout`` for the products of ``weight_shapes`` over the
+    [B, S, D] DTensor ``x``, from its global shape and placements (so the
+    same on every rank)."""
+    from repro_torch.launch.mesh import axis_names
+
+    mesh = x.device_mesh
+    names = axis_names(mesh)
+    tokens = x.shape[0] * x.shape[1]
+    sp = False
+    for i, p in enumerate(x.placements):
+        if p.is_shard(0) or p.is_shard(1):
+            tokens //= mesh.size(i)
+        sp = sp or (p.is_shard(1) and names[i] == "model")
+    return pick_layout(weight_shapes, x.shape[-1], tokens, mesh, sp, x.dtype)
+
+
+def region(fn, tokens, weights, layout: str = TOKEN_GATHERED, split: bool = True,
+           outs=(ROW_SUM,)):
+    """``fn(*tokens, *weights)`` on each rank's local tensors (``local_map``),
+    every collective of the region stated in both directions by its in,
+    out and gradient placements; a plain call where ``tokens[0]`` is not a
+    ``DTensor``.
+
+    ``tokens`` are [B, S, D] activations; ``weights`` are ``(tensor, dim)``
+    pairs, ``dim`` the weight's dim that ``model`` shards where the region
+    is split (a column product's last, a row product's first), ``None``
+    for a weight each rank holds whole. The batch rows stay on their DP
+    shards. With ``layout`` ``TOKEN_GATHERED`` the tokens' other dims are
+    gathered (the sequence, once per block part) and, with ``split``, the
+    products run on each rank's ``model`` shard of the weights, so a row
+    product leaves a partial sum over ``model``, and the tokens' gradient is
+    a partial sum that the backward reduce-scatters (or all-reduces) onto
+    their shards. With ``WEIGHT_GATHERED`` the tokens stay on their shards
+    and every weight goes in whole: its gradient is summed over the mesh
+    dims whose ranks hold other tokens. Either way a weight's FSDP shards
+    are gathered and its gradient reduce-scattered back onto them.
+
+    ``outs`` names each output of ``fn``: ``ROW_SUM`` for a row product's
+    [B, S, D], returned placed like ``tokens[0]`` (with sequence-parallel
+    tokens the reduce-scatter onto the sequence shards, else the
+    all-reduce, and in the backward the all-gather of its gradient), or the
+    output's dim that ``model`` shards where the region is split (``None``:
+    whole), its dim 0 over the tokens' batch shards."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.launch.mesh import axis_names
+    from repro_torch.parallel.sharding import placed_as
+
+    x = tokens[0]
+    if not isinstance(x, DTensor):
+        return fn(*tokens, *(w for w, _ in weights))
+    mesh = x.device_mesh
+    names = axis_names(mesh)
+    n = len(names)
+    tp = names.index("model") if tp_size(mesh) > 1 else None
+    gathered = layout == TOKEN_GATHERED
+    split = split and gathered and tp is not None
+    rep = Replicate()
+
+    def tokens_in(t):
+        return [Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(1) and not gathered
+                else rep for p in t.placements]
+
+    tok_pl = [tokens_in(t) for t in tokens]
+    varies = [any(pl[i] != rep for pl in tok_pl) or (split and i == tp) for i in range(n)]
+    w_pl = [[Shard(d) if split and i == tp and d is not None else rep for i in range(n)]
+            for _, d in weights]
+    in_pl = tok_pl + w_pl
+    grad_pl = [tuple(p if p != rep else Partial() if varies[i] else rep
+                     for i, p in enumerate(pl)) for pl in in_pl]
+    row = tok_pl[0]
+    out_pl = []
+    for o in outs:
+        if o == ROW_SUM:
+            out_pl.append([Partial() if split and i == tp else p for i, p in enumerate(row)])
+        else:
+            out_pl.append([Shard(o) if split and i == tp and o is not None
+                           else Shard(0) if row[i].is_shard(0) else rep for i in range(n)])
+    ins = [placed_as(t, pl) for t, pl in zip(list(tokens) + [w for w, _ in weights], in_pl)]
+    res = local_map(fn, out_placements=out_pl[0] if len(outs) == 1 else tuple(out_pl),
+                    in_placements=tuple(tuple(pl) for pl in in_pl),
+                    in_grad_placements=tuple(grad_pl), device_mesh=mesh)(*ins)
+    res = [res] if len(outs) == 1 else list(res)
+    res = [placed_as(r, x.placements) if o == ROW_SUM else r for r, o in zip(res, outs)]
+    return res[0] if len(outs) == 1 else tuple(res)

@@ -342,6 +342,7 @@ def runs(tmp_path_factory):
         "2x4": cases.start("train", 8, tmp, tmp / "inputs.pt", name="t24", mesh=[2, 4],
                            archs=ARCHS, head_aware=True),
         "serve": cases.start("serve", 8, tmp, tmp / "inputs.pt", mesh=[2, 4], archs=ARCHS),
+        "loss": cases.start("loss", 8, tmp, tmp / "inputs.pt", mesh=[2, 4], arch="yi_6b"),
         "one_rank": cases.start("one_rank", 1, tmp, tmp / "inputs.pt", archs=MESH_ARCHS),
         "pipeline": cases.start("pipeline", 8, tmp, tmp / "pipe.pt", mesh=[4, 2]),
         "elastic": cases.start("elastic", 4, tmp, arch="yi_6b",
@@ -422,6 +423,30 @@ def test_mesh_prefill_and_decode_match_meshless(runs, arch):
         torch.testing.assert_close(a, b, rtol=SERVE_TOL, atol=SERVE_TOL, msg=f"logits {i}")
     for i, (a, b) in enumerate(zip(mcache, pcache)):
         torch.testing.assert_close(a, b, rtol=SERVE_TOL, atol=SERVE_TOL, msg=f"cache leaf {i}")
+
+
+# the meshed loss and gradients against meshless, f32: the same sums in
+# another order and grouping, the vocab's logsumexp put together from the
+# ranks' own
+LOSS_TOL = 1e-5
+
+
+@pytest.mark.parametrize("layout", ["picked", pctx.TOKEN_GATHERED, pctx.WEIGHT_GATHERED])
+@pytest.mark.parametrize("sp", [False, True], ids=["whole", "sp_seq"])
+def test_vocab_parallel_loss_and_grads_match_meshless(runs, sp, layout):
+    """Reduced yi-6b's loss on 4 x 16 tokens and its gradient for every
+    parameter leaf on a 2x4 gloo mesh (the head-aware rules), within
+    ``LOSS_TOL`` of the meshless port's: the cross-entropy vocab-parallel
+    (each rank's 64 of the 256 logits), the activations between blocks
+    whole or sharded over the sequence (``sp_seq``), each block part's
+    products in the layout ``pctx.pick_layout`` picks or forced into each
+    layout (``pctx.region``)."""
+    got = runs["loss"].result()
+    (want_loss, want), (loss, grads) = got["meshless"], got[(sp, layout)]
+    torch.testing.assert_close(loss, want_loss, rtol=LOSS_TOL, atol=LOSS_TOL)
+    assert len(grads) == len(want)
+    for i, (a, b) in enumerate(zip(grads, want)):
+        torch.testing.assert_close(a, b, rtol=LOSS_TOL, atol=LOSS_TOL, msg=f"gradient {i}")
 
 
 def test_pipeline_matches_reference_and_sequential(runs):

@@ -35,6 +35,8 @@ def runs(tmp_path_factory):
         "1x4": cases.start("train", 4, tmp, tmp / "inputs.pt", name="t14", mesh=[1, 4],
                            archs=ARCHS, head_aware=True),
         "one_rank": cases.start("one_rank", 1, tmp, tmp / "inputs.pt", archs=ARCHS),
+        "serve": cases.start("serve", 8, tmp, tmp / "inputs.pt", mesh=[2, 4],
+                             archs=["xlstm_13b"], prompt=11),
     }
     yield jobs
     for job in jobs.values():
@@ -60,3 +62,18 @@ def test_mesh_train_steps_match_meshless_and_reference(runs, arch, mesh):
     if mesh == "2x2":
         cases.close_steps(got, runs["reference"].result()["train"][arch], arch,
                           "2x2 vs reference")
+
+
+def test_mesh_xlstm_prefill_and_decode_match_meshless(runs):
+    """Reduced xlstm-1.3b (mLSTM and sLSTM blocks) on a 2x4 gloo mesh with
+    the head-aware rules: a prefill of 8 x 11 tokens and three decode
+    steps, each mixer's step on each rank's batch rows with its weights
+    whole (``xlstm._decode_rows``), the states placed by ``cache_sharding``
+    (over ``model`` by feature): the logits of each and every cache leaf
+    within 1e-5 of the meshless run's."""
+    (mlog, mcache), (plog, pcache) = runs["serve"].result()["xlstm_13b"]
+    assert len(mlog) == len(plog) == 4 and len(mcache) == len(pcache)
+    for i, (a, b) in enumerate(zip(mlog, plog)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=f"logits {i}")
+    for i, (a, b) in enumerate(zip(mcache, pcache)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=f"cache leaf {i}")

@@ -127,17 +127,18 @@ def _trainer_leaves(arch, mesh_shape):
     return [loss for _, loss, _ in out["history"]], local
 
 
-def _serve(arch, params, tokens, mesh=None):
-    """Prefill 8 x 12 tokens into a cache of 16 positions, then two decode
-    steps (all rows at one depth): the logits of each, and every cache
-    leaf, whole. On a mesh the parameters and the prompt are placed by the
-    head-aware rules, and the cache by ``cache_sharding``."""
+def _serve(arch, params, tokens, mesh=None, prompt=12):
+    """Prefill 8 x ``prompt`` tokens into a cache of 16 positions, then a
+    decode step for each token after the prompt (all rows at one depth):
+    the logits of each, and every cache leaf, whole. On a mesh the
+    parameters and the prompt are placed by the head-aware rules, and the
+    cache by ``cache_sharding``."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     cfg = reduced_config(arch)
     model = Model(cfg, device="cpu")
     params = tree.map(lambda t: t.clone(), params)
-    batch = {"tokens": torch.as_tensor(tokens[:, :12])}
+    batch = {"tokens": torch.as_tensor(tokens[:, :prompt])}
     replicate = contextlib.nullcontext()
     if mesh is not None:
         params = sh.distribute(params, sh.params_sharding(params, mesh, cfg), mesh)
@@ -148,11 +149,11 @@ def _serve(arch, params, tokens, mesh=None):
         cache, pos, logits = steps.make_prefill_step(model, 16)(params, batch)
         out.append(_whole(logits))
         step = steps.make_serve_step(model)
-        for i in range(2):
-            tok = {"t": torch.as_tensor(tokens[:, 12 + i])}
+        for i in range(prompt, tokens.shape[1]):
+            tok = {"t": torch.as_tensor(tokens[:, i])}
             if mesh is not None:
                 tok = sh.distribute(tok, sh.batch_sharding(tok, mesh), mesh)
-            logits, cache = step(params, cache, tok["t"], torch.tensor(12 + i))
+            logits, cache = step(params, cache, tok["t"], torch.tensor(i))
             out.append(_whole(logits))
         leaves = [_whole(t).clone() for t in tree.leaves(cache)]
     return out, leaves
@@ -160,18 +161,69 @@ def _serve(arch, params, tokens, mesh=None):
 
 def case_serve(rank, world, job, inputs):
     """Prefill and decode of every arch of the job on its mesh (the
-    head-aware rules) and meshless, on the same rank."""
+    head-aware rules) and meshless, on the same rank: a prompt of the job's
+    ``prompt`` tokens (default 12), then one decode step per token up to
+    the 14th."""
     mesh = mesh_mod.make_mesh(job["mesh"], AXES, device="cpu")
+    prompt = job.get("prompt", 12)
     out = {}
     for arch in job["archs"]:
         p, toks = inputs[arch]["params"], inputs[arch]["tokens"]
         pctx.install(("data",), tp_size=mesh_mod.axis_size(mesh, "model"), sp_seq=False,
                      mesh=mesh)
         try:
-            meshed = _serve(arch, p, toks, mesh)
+            meshed = _serve(arch, p, toks, mesh, prompt)
         finally:
             pctx.clear()
-        out[arch] = (meshed, _serve(arch, p, toks))
+        out[arch] = (meshed, _serve(arch, p, toks, prompt=prompt))
+    return out
+
+
+def _loss_and_grads(arch, params, batch, mesh=None):
+    """``Model.loss`` of the reduced ``arch`` in f32 and its gradient for
+    every parameter leaf, whole (on a mesh the parameters and the batch
+    placed by the head-aware rules)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    cfg = reduced_config(arch)
+    model = Model(cfg, device="cpu")
+    params = tree.map(lambda t: t.clone(), params)
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    replicate = contextlib.nullcontext()
+    if mesh is not None:
+        params = sh.distribute(params, sh.params_sharding(params, mesh, cfg), mesh)
+        batch = sh.distribute(batch, sh.batch_sharding(batch, mesh), mesh)
+        replicate = implicit_replication()
+    leaves = tree.leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    with replicate:
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    return _whole(loss).detach(), [_whole(g).detach() for g in grads]
+
+
+def case_loss(rank, world, job, inputs):
+    """The loss (its cross-entropy vocab-parallel) and every gradient of
+    the job's arch on its mesh, with the activations between blocks whole
+    and with them sharded over the sequence, each block part in the layout
+    ``pctx.pick_layout`` picks and in each layout forced; and meshless."""
+    mesh = mesh_mod.make_mesh(job["mesh"], AXES, device="cpu")
+    arch = job["arch"]
+    p, batch = inputs[arch]["params"], inputs[arch]["batches"][0]
+    pick = pctx.pick_layout
+    out = {"meshless": _loss_and_grads(arch, p, batch)}
+    for sp in (False, True):
+        for layout in ("picked", pctx.TOKEN_GATHERED, pctx.WEIGHT_GATHERED):
+            if layout != "picked":
+                pctx.pick_layout = lambda *a, layout=layout, **kw: layout
+            pctx.install(("data",), tp_size=mesh_mod.axis_size(mesh, "model"), sp_seq=sp,
+                         mesh=mesh)
+            try:
+                out[(sp, layout)] = _loss_and_grads(arch, p, batch, mesh)
+            finally:
+                pctx.clear()
+                pctx.pick_layout = pick
     return out
 
 
@@ -329,7 +381,7 @@ def close_steps(got, want, arch, what=""):
 
 
 CASES = {"train": case_train, "one_rank": case_one_rank, "pipeline": case_pipeline,
-         "elastic": case_elastic, "psum": case_psum, "serve": case_serve}
+         "elastic": case_elastic, "psum": case_psum, "serve": case_serve, "loss": case_loss}
 
 
 def _rank(rank, world, job):
