@@ -11,11 +11,16 @@ Phases, in order; any failure exits non-zero before the last line:
              setmaxnreg; count each library's wgmma (HGMMA), TMA (UTMALDG),
              mma.sync (HMMA) and wgmma-wait (WARPGROUP.DEPBAR) instructions
              in its SASS and fail without HGMMA or TMA, with any HMMA, or
-             with a wait after every HGMMA (serialized by ptxas); check that
-             the shared memory each library reports for every instantiation
-             is what ``flash_attention.smem_bytes`` (the block picker's
+             with a wait after every HGMMA (serialized by ptxas) or a C7515
+             serialization note; expect the bf16 flash instantiations (12
+             built head dims, 8 generic ones of padded width 64 or 128), the
+             6 f32 flash and the 21 f32 matmul ones, and fail unless each
+             f32 kernel's SASS has FFMA and no HGMMA or HMMA; check that the
+             shared memory each library reports for every instantiation is
+             what ``flash_attention.smem_bytes`` (the block picker's
              pruning) and ``matmul.smem_bytes`` (the tuner's ``sm90``
-             accounting) say.
+             accounting) say, at 2 bytes and, for the f32 kernels, at 4
+             (-1 where none is built).
 2. kernels — hold the flash-attention kernel against its plain torch version
              on the card, in bf16, at yi-6b shapes (B=1, Hq=32, Hkv=4,
              D=128) for every prompt length the serve phase prefills and a
@@ -24,13 +29,35 @@ Phases, in order; any failure exits non-zero before the last line:
              then at stablelm-3b's head dim 80 (Hq=Hkv=32, causal and not,
              the same lengths), where the kernel pads its tiles to 128
              columns, and show that the limit would catch a kernel that
-             lost the second column atom (columns 64-79 zero).
+             lost the second column atom (columns 64-79 zero); then the
+             generic builds at D = 16, 32, 48 and 96 (32/4 heads, S = 1, 77,
+             513, 1024, causal and not), where the limit must catch a
+             kernel that dropped the last 8 columns. Then, with TF32 off
+             everywhere, the f32 flash kernel at every block pair it is
+             built for against its plain version and the oracle at the
+             reference's grid (tests/test_kernels.py, causal and not) and at
+             the reduced configs' shapes (4/2 and 4/4 heads of 16, S = 1,
+             12, 64, 77), and the f32 matmul kernel at every built
+             configuration of the reference's matmul grid and dense_256/512
+             (the tuner's pick at 4 bytes among them), at the reference's
+             f32 limits, which must flag the plain version run on
+             TF32-rounded inputs at the reference's grids.
 3. timing  — at every prompt length of the serve, causal: the kernel, its
              plain version and, as a yardstick only, torch's
              scaled_dot_product_attention (the port never calls it), with
              CUDA events: the kernel and SDPA as device time (a CUDA graph of
              the calls, replayed) and as back-to-back eager calls, the plain
-             version eagerly; the bound from the data sheet.
+             version eagerly; the bound from the data sheet. Then the f32
+             flash kernel at S=1024 (32/4 heads of 128, causal) and at the
+             reduced shape (8 x 64 tokens, 4/2 heads of 16) against SDPA in
+             f32 (efficient or math backend), the bf16 generic builds at
+             D=16 and 96 against SDPA, and the f32 matmul at 2048x4096x4096
+             and 256^3 against torch.matmul with TF32 off, each in turns by
+             graph replay, beside its plain version and its bound (f32 at
+             the FP32 rate, 67 TFLOP/s).
+3b. reduced — the ten archs' ``.reduced()`` configs (f32, head dim 16) on
+             the card through their normal entry points, counted: see
+             ``reduced_phase``. One ``reduced {...}`` JSON line.
 4. matmul  — hold the matmul kernel against its plain version in bf16 at
              every yi-6b projection of a 2048-token prefill, the unembed and
              the reference's matmul_{1024,2048,4096}_bf16 presets, with every
@@ -235,7 +262,7 @@ Phases, in order; any failure exits non-zero before the last line:
              four requests launch about a million kernels) split into
              attention, cross-attention and the rest; the parity of phase 7.
 
-Prints a ``train``, a ``mesh``, a ``dryrun`` and a ``controller`` JSON line, a ``topk`` JSON line (top1, ratio@5 and rank_corr
+Prints a ``reduced``, a ``train``, a ``mesh``, a ``dryrun`` and a ``controller`` JSON line, a ``topk`` JSON line (top1, ratio@5 and rank_corr
 per shape for the static, calibrated and hybrid rankings, the check, the fit), a
 ``kernels`` JSON line,
 then the card's name and power limit, then ``{"ok": true, "device": {...}}``
@@ -397,6 +424,35 @@ GRAD_CASES = ([(1, 32, 4, s, 128, True) for s in (77, 513, TRAIN_S)]
 # microbatches of one row of 1024 tokens, int8 gradient compression, a
 # checkpoint every 2 steps, a failure injected at step 3.
 RESUME_LAYERS, RESUME_B, RESUME_S, RESUME_STEPS = 2, 2, 1024, 4
+# The f32 kernels against their plain versions in f32 (TF32 off on both
+# sides), at the reference's own limits (tests/test_kernels.py): flash
+# |kernel - plain| <= F32_FLASH_ATOL + F32_FLASH_RTOL*|plain|, matmul
+# F32_MM_TOL*sqrt(K) + F32_MM_TOL*|plain|. Both sum exact f32 products in
+# another order. A product on TF32-rounded inputs (10 mantissa bits) must
+# fall outside them at the reference's grids.
+F32_FLASH_ATOL, F32_FLASH_RTOL = 3e-5, 3e-4
+F32_MM_TOL = 2e-4
+# the reference's TestFlashAttentionKernel grid (B, Hq, Hkv, S, D) and its
+# TestMatmulKernel shapes, then the dense_256 / dense_512 presets
+F32_FLASH_GRID = ((1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 32),
+                  (2, 4, 4, 512, 128))
+F32_MM_SHAPES = ((128, 128, 128), (256, 128, 512), (64, 256, 128), (384, 256, 256),
+                 (256, 256, 256), (512, 512, 512))
+F32_MM_TIMED = ((2048, 4096, 4096), (256, 256, 256))
+# the bf16 head dims of the generic builds the smoke checks and times
+OTHER_HEAD_DIMS = (16, 32, 48, 96)
+# The reduced phase: the ten archs' .reduced() configs (f32, 4 heads of 16,
+# 2 or 4 key heads) on the card, 4 requests at these prompt lengths; the last
+# logits of a prefill through the f32 kernel within REDUCED_LOGIT_RTOL *
+# rms of the same prefill through the plain version (f32 against f32: the
+# summation order only), and train_tiny's first step, loss and every
+# gradient leaf, within REDUCED_GRAD_RTOL relative.
+REDUCED_LENS = (1, 12, 64, 77)
+# the seed of the generator the checks and timings of the kernels' other
+# inputs draw from (the earlier phases' own stays SEED, its draws as before)
+NEW_INPUTS_SEED = 1
+REDUCED_LOGIT_RTOL = 1e-4
+REDUCED_GRAD_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -465,13 +521,100 @@ def tail_keep(s: int, bk: int) -> int:
     return (s - 1) // bk * bk if s > bk else s - min(bk, s // 4)
 
 
-def flash_work(b, hq, hkv, s, d, causal):
-    """(flops, bytes) the attention forward must do/move: q.k and p.v over
-    the (causal) pairs, each input read once and the output written once."""
+def flash_work(b, hq, hkv, s, d, causal, size: int = 2):
+    """(flops, bytes) the attention forward must do/move with ``size``-byte
+    elements (bf16: 2): q.k and p.v over the (causal) pairs, each input read
+    once and the output written once."""
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * b * hq * d * pairs
-    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * 2
+    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * size
     return flops, nbytes
+
+
+def bound(flops, nbytes, peak_flops):
+    """(ms, "operations" or "bytes"): the least time the card could take,
+    the larger of the work at ``peak_flops`` and the bytes at the HBM rate."""
+    from repro_torch.hw.gpu_h100 import GPU_H100
+
+    t_ops, t_bytes = flops / peak_flops, nbytes / GPU_H100.hbm_bandwidth
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def time_new_kernels(gen) -> dict:
+    """The timing phase's part for the kernels' other inputs, each by graph
+    replay beside its plain version (eager) and a yardstick the port never
+    calls, with its bound: the f32 flash kernel at yi-6b's heads (S=1024,
+    causal) and at the reduced shape (train_tiny's 8 x 64 tokens, 4/2 heads
+    of 16), against SDPA in f32 through its efficient or math backend (its
+    flash backend refuses f32) on key heads expanded to the query heads; the
+    bf16 generic builds at D=16 and 96 against SDPA in bf16; the f32 matmul
+    at 2048x4096x4096 and 256^3 (the tuner's pick) against torch.matmul in
+    f32 with TF32 off. f32 bounds at the FP32 rate, bf16 at the tensor
+    cores'. Returns {name: [entries]}."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.hw.gpu_h100 import GPU_H100
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ops
+
+    out = {"flash_attention_f32": [], "flash_attention": [], "matmul_f32": []}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, (b, hq, hkv, s, d), dtype in (
+            ("flash_attention_f32", (1, 32, 4, TIMED_S, 128), torch.float32),
+            ("flash_attention_f32", (8, 4, 2, 64, 16), torch.float32),
+            ("flash_attention", (1, 32, 4, TIMED_S, 16), torch.bfloat16),
+            ("flash_attention", (1, 32, 4, TIMED_S, 96), torch.bfloat16)):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+        size = q.element_size()
+        bq, bk = ops.tuned_flash_blocks(s, d, size)
+        kern = lambda: fa.flash_attention(q, k, v, causal=True, block_q=bq, block_k=bk)
+        if dtype == torch.float32:
+            kx, vx = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+
+            def lib_fn():
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]):
+                    return sdpa(q, kx, vx, is_causal=True)
+        else:
+            lib_fn = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        k1, l1, l2, k2 = (graph_ms(f, iters=20) for f in (kern, lib_fn, lib_fn, kern))
+        ms, lib = (k1 + k2) / 2, (l1 + l2) / 2
+        plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True, block_q=bq,
+                                                         block_k=bk), iters=3, warmup=1)
+        flops, nbytes = flash_work(b, hq, hkv, s, d, True, size)
+        peak = GPU_H100.peak_flops_f32 if dtype == torch.float32 else GPU_H100.peak_flops_bf16
+        bound_ms, by = bound(flops, nbytes, peak)
+        out[name].append({"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "causal": True,
+                          "dtype": str(dtype), "blocks": [bq, bk], "ms": ms,
+                          "plain_ms": plain, "library_ms": lib, "bound_ms": bound_ms,
+                          "bound_by": by, "tflops": flops / ms / 1e9})
+        log(f"timing {name} {dtype} B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal "
+            f"blocks=({bq},{bk}), graph replay: kernel {ms:.4f} ms [{k1:.4f}, {k2:.4f}] "
+            f"({flops / ms / 1e9:.2f} TFLOP/s), sdpa (yardstick) {lib:.4f} ms [{l1:.4f}, "
+            f"{l2:.4f}] ({ms / lib:.2f}x); plain {plain:.4f} ms; bound {bound_ms:.4f} ms "
+            f"by {by} ({nvidia_smi('name,power.limit')})")
+    for m, n, k in F32_MM_TIMED:
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        y = torch.randn((k, n), generator=gen, device="cuda")
+        blocks = ops.tuned_matmul_blocks(m, n, k, 4)
+        kern = lambda: ops.matmul(x, y)
+        lib_fn = lambda: torch.matmul(x, y)
+        k1, l1, l2, k2 = (graph_ms(f) for f in (kern, lib_fn, lib_fn, kern))
+        ms, lib = (k1 + k2) / 2, (l1 + l2) / 2
+        plain = cuda_ms(lambda: km.matmul_plain(x, y, *blocks[:3]), iters=3)
+        flops, nbytes = matmul_work(m, n, k, 4)
+        bound_ms, by = bound(flops, nbytes, GPU_H100.peak_flops_f32)
+        out["matmul_f32"].append({"shape": [m, n, k], "blocks": list(blocks), "ms": ms,
+                                  "plain_ms": plain, "library_ms": lib,
+                                  "bound_ms": bound_ms, "bound_by": by,
+                                  "tflops": flops / ms / 1e9})
+        log(f"timing matmul_f32 {m}x{n}x{k} blocks={blocks}, graph replay: kernel "
+            f"{ms:.4f} ms [{k1:.4f}, {k2:.4f}] ({flops / ms / 1e9:.2f} TFLOP/s), "
+            f"torch.matmul f32, TF32 off (yardstick) {lib:.4f} ms [{l1:.4f}, {l2:.4f}] "
+            f"({ms / lib:.2f}x); plain {plain:.4f} ms; bound {bound_ms:.4f} ms by {by} "
+            f"({nvidia_smi('name,power.limit')})")
+    return out
 
 
 def nvidia_smi(query: str) -> str:
@@ -484,10 +627,15 @@ def nvidia_smi(query: str) -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def sass_counts(lib) -> dict:
-    """wgmma (HGMMA), tensor-map TMA load (UTMALDG), mma.sync (HMMA) and
-    wgmma-wait (WARPGROUP.DEPBAR) instruction counts in the SASS of the library
-    ``lib``, from the toolkit's cuobjdump (or the copy Triton ships)."""
+SASS_WORDS = ("HGMMA", "UTMALDG", "HMMA", "WARPGROUP.DEPBAR", "FFMA", "LDL", "STL")
+
+
+def sass_counts(lib):
+    """wgmma (HGMMA), tensor-map TMA load (UTMALDG), mma.sync (HMMA),
+    wgmma-wait (WARPGROUP.DEPBAR), FFMA and local-memory (LDL, STL)
+    instruction counts in the SASS of the library ``lib``, from the
+    toolkit's cuobjdump (or the copy Triton ships): (the library's totals,
+    the counts per kernel function by its mangled name)."""
     import shutil
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -507,8 +655,11 @@ def sass_counts(lib) -> dict:
                          timeout=120)
     if out.returncode != 0:
         fail(f"cuobjdump failed: {out.stderr.strip()[:300]}")
-    return {w: out.stdout.count(w)
-            for w in ("HGMMA", "UTMALDG", "HMMA", "WARPGROUP.DEPBAR")}
+    per_fn = {}
+    for part in re.split(r"\n\s*Function : ", out.stdout)[1:]:
+        name, body = part.split("\n", 1)
+        per_fn[name.strip()] = {w: body.count(w) for w in SASS_WORDS}
+    return {w: out.stdout.count(w) for w in SASS_WORDS}, per_fn
 
 
 def check_flash(cases, qkv, rtol: float = KERNEL_RTOL) -> float:
@@ -555,7 +706,17 @@ def check_flash(cases, qkv, rtol: float = KERNEL_RTOL) -> float:
             # a tail of 5% of the keys or more must not slip through
             if n_drop == 0 and (s - keep) * 20 >= s:
                 fail(f"the kernel limit would miss a dropped tail tile at S={s}")
-        if d % 64:
+        if d not in fa.HEAD_DIMS:
+            # a generic build (the head dim at run time): a kernel that
+            # stored 8 columns too few would leave the last 8 at zero
+            short = got.clone()
+            short[..., d - 8:] = 0
+            n_short, worst_short = outside(short, want, rtol, KERNEL_ATOL_RMS)
+            line += (f"; a kernel that dropped the last 8 columns ({d - 8}-{d - 1} zero) "
+                     f"would give {n_short} outside, worst at {worst_short:.1f} of the limit")
+            if n_short == 0:
+                fail(f"the kernel limit would miss dropped last columns at S={s} D={d}")
+        if d % 64 and d > 64:
             # a head dim padded to whole 64-column atoms: a kernel that lost
             # the second atom would leave columns 64.. of the output at zero
             lost = got.clone()
@@ -572,10 +733,121 @@ def check_flash(cases, qkv, rtol: float = KERNEL_RTOL) -> float:
     return max_err
 
 
-def matmul_work(m, n, k):
-    """(flops, bytes) of C = A @ B in bf16: each input read once, C written
-    once."""
-    return 2 * m * n * k, 2 * (m * k + k * n + m * n)
+def matmul_work(m, n, k, size: int = 2):
+    """(flops, bytes) of C = A @ B with ``size``-byte elements (bf16: 2):
+    each input read once, C written once."""
+    return 2 * m * n * k, size * (m * k + k * n + m * n)
+
+
+def f32_outside(got, want, atol: float, rtol: float):
+    """(elements outside |got - want| <= atol + rtol*|want|, max share of
+    the limit): the reference's assert_allclose."""
+    err = (got.float() - want.float()).abs()
+    ratio = err / (atol + rtol * want.float().abs())
+    return int((ratio > 1).sum()), float(ratio.max())
+
+
+def tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest even), as a tensor
+    core's TF32 product reads it."""
+    import torch
+
+    i = x.float().contiguous().view(torch.int32).to(torch.int64)
+    i = (i + 0xFFF + ((i >> 13) & 1)) & ~0x1FFF
+    return i.to(torch.int32).view(torch.float32)
+
+
+def check_flash_f32(cases, gen, control: bool = True) -> float:
+    """Hold the f32 flash kernel against its plain version and the f32
+    oracle at each (B, Hq, Hkv, S, D, causal), at every block pair it is
+    built for, within the reference's f32 limit; with ``control``, fail
+    unless the limit flags the plain version run on TF32-rounded inputs.
+    Returns max |kernel - plain|."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    max_err = 0.0
+    for b, hq, hkv, s, d, causal in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+        oracle = ref.attention(q, k, v, causal=causal)
+        blocks = [(bq, bk) for bq in fa.BLOCKS for bk in fa.BLOCKS
+                  if fa.built(bq, bk, d, torch.float32)]
+        parts, worst, n_tf = [], 0.0, None
+        for bq, bk in blocks:
+            got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_plain(q, k, v, causal=causal, block_q=bq, block_k=bk)
+            bad, w = f32_outside(got, want, F32_FLASH_ATOL, F32_FLASH_RTOL)
+            bad_o, w_o = f32_outside(got, oracle, F32_FLASH_ATOL, F32_FLASH_RTOL)
+            max_err = max(max_err, float((got - want).abs().max()))
+            worst = max(worst, w, w_o)
+            parts.append(f"({bq},{bk}) {bad}/{bad_o} outside, worst {w:.3f}/{w_o:.3f}")
+            if n_tf is None:
+                tf = fa.flash_attention_plain(tf32(q), tf32(k), tf32(v), causal=causal,
+                                              block_q=bq, block_k=bk)
+                n_tf, w_tf = f32_outside(tf, want, F32_FLASH_ATOL, F32_FLASH_RTOL)
+            if bad or bad_o or got.dtype != torch.float32 or not torch.isfinite(got).all():
+                log(f"kernel f32 B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal}: "
+                    + "; ".join(parts))
+                fail(f"the f32 flash kernel disagrees at B={b} Hq={hq} Hkv={hkv} S={s} "
+                     f"D={d} causal={causal} blocks=({bq},{bk})")
+        log(f"kernel f32 B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal}, limit "
+            f"{F32_FLASH_ATOL} + {F32_FLASH_RTOL}*|want| (vs plain / vs oracle): "
+            + "; ".join(parts) + f"; TF32-rounded inputs (plain): {n_tf} outside, worst "
+            f"{w_tf:.1f} of the limit")
+        if control and n_tf == 0:
+            fail(f"the f32 flash limit would miss TF32 products at S={s} D={d}")
+    return max_err
+
+
+def check_matmul_f32(shapes, gen) -> float:
+    """Hold the f32 matmul kernel against its plain version at each shape,
+    at every configuration of the sm90 space at 4 bytes that it is built
+    for (the tuner's pick among them, which must be one), and ops.matmul
+    (the pick) against the f32 oracle, within the reference's f32 limit;
+    fail unless the limit flags the plain version on TF32-rounded inputs.
+    Returns max |kernel - plain|."""
+    import torch
+    from repro_torch.core.spaces import MatmulSpace
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ops, ref
+
+    max_err = 0.0
+    for m, n, k in shapes:
+        cfgs = [c for c in MatmulSpace(m, n, k, 4, target_kind="sm90").enumerate(None)
+                if km.built(c["bm"], c["bn"], c["bk"], c["double_buffer"], torch.float32)]
+        pick = dict(zip(("bm", "bn", "bk", "double_buffer"), ops.tuned_matmul_blocks(m, n, k, 4)))
+        if pick not in cfgs:
+            fail(f"the f32 pick {pick} at {m}x{n}x{k} is not a built configuration")
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        y = torch.randn((k, n), generator=gen, device="cuda")
+        atol = F32_MM_TOL * k ** 0.5
+        got = ops.matmul(x, y)
+        bad_o, w_o = f32_outside(got, ref.matmul(x, y), atol, F32_MM_TOL)
+        worst, err = 0.0, 0.0
+        for c in cfgs:
+            got = km.matmul(x, y, **c)
+            torch.cuda.synchronize()
+            want = km.matmul_plain(x, y, c["bm"], c["bn"], c["bk"])
+            bad, w = f32_outside(got, want, atol, F32_MM_TOL)
+            worst, err = max(worst, w), max(err, float((got - want).abs().max()))
+            if bad or got.dtype != torch.float32 or not torch.isfinite(got).all():
+                fail(f"the f32 matmul kernel disagrees at {m}x{n}x{k} {c}: {bad} outside")
+        max_err = max(max_err, err)
+        tf = km.matmul_plain(tf32(x), tf32(y), pick["bm"], pick["bn"], pick["bk"])
+        n_tf, w_tf = f32_outside(tf, km.matmul_plain(x, y, pick["bm"], pick["bn"], pick["bk"]),
+                                 atol, F32_MM_TOL)
+        log(f"matmul f32 {m}x{n}x{k}: {len(cfgs)} configs, 0 outside {F32_MM_TOL}*sqrt(K) "
+            f"+ {F32_MM_TOL}*|plain|, worst {worst:.3f}, max err {err:.3e}; the pick {pick} "
+            f"vs the oracle {bad_o} outside, worst {w_o:.3f}; TF32-rounded inputs (plain): "
+            f"{n_tf} outside, worst {w_tf:.1f} of the limit")
+        if bad_o:
+            fail(f"the f32 matmul kernel disagrees with the oracle at {m}x{n}x{k}")
+        if n_tf == 0:
+            fail(f"the f32 matmul limit would miss TF32 products at {m}x{n}x{k}")
+    return max_err
 
 
 def main() -> None:
@@ -599,8 +871,11 @@ def main() -> None:
     from repro_torch.launch.serve import serve
     from repro_torch.models.model import Model
 
+    # every f32 product of the smoke in true f32: the plain versions, the
+    # oracles and the yardsticks, as the f32 kernels are
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda")
     props = torch.cuda.get_device_properties(0)
     log(f"device {props.name}: {props.multi_processor_count} SMs "
@@ -627,6 +902,11 @@ def main() -> None:
             fail(f"the {name} kernel spills: {spills[:3]}")
         if "setmaxnreg ignored" in text:
             fail(f"ptxas ignored setmaxnreg in {name}")
+        # ptxas serializes wgmma where it cannot keep the pipeline (C7515)
+        serialized = [line.strip() for line in text.splitlines() if "C7515" in line]
+        if serialized:
+            fail(f"ptxas serialized wgmma in {name}: {serialized[:2]}")
+
     def registers(name, kernel, fmt):
         text = build.log_path(name).read_text()
         found = {}
@@ -637,12 +917,25 @@ def main() -> None:
                 found[fmt.format(*m.groups())] = int(used)
         return found
 
-    flash_regs = registers("flash_attention", "flash_fwd_wgmma_kernel", "bq{}_bk{}_d{}")
+    pad = fa.padded_head_dim
+    flash_regs = registers("flash_attention", "flash_fwd_wgmma_kernel", "bq{}_bk{}_d{}_dp{}")
     log(f"build flash registers per instantiation (launch count; the consumer "
-        f"warpgroups of BQ=128 raise theirs to 240 with setmaxnreg): {flash_regs}")
-    if len(flash_regs) != len(fa.BLOCKS) ** 2 * len(fa.HEAD_DIMS):
-        fail(f"expected {len(fa.BLOCKS) ** 2 * len(fa.HEAD_DIMS)} flash instantiations, "
+        f"warpgroups of BQ=128 raise theirs to 240 with setmaxnreg; d0 is the generic "
+        f"build of its padded width dp, the head dim passed at run time): {flash_regs}")
+    want_flash = ({f"bq{bq}_bk{bk}_d{d}_dp{pad(d)}" for bq in fa.BLOCKS for bk in fa.BLOCKS
+                   for d in fa.HEAD_DIMS}
+                  | {f"bq{bq}_bk{bk}_d0_dp{dp}" for bq in fa.BLOCKS for bk in fa.BLOCKS
+                     for dp in fa.PADDED_WIDTHS})
+    if set(flash_regs) != want_flash:
+        fail(f"expected the {len(want_flash)} bf16 flash instantiations {sorted(want_flash)}, "
              f"found {sorted(flash_regs)}")
+    flash32_regs = registers("flash_attention", "flash_fwd_f32_kernel", "bq{}_bk{}_dp{}")
+    log(f"build f32 flash registers per instantiation (SIMT, BQ/8 warps): {flash32_regs}")
+    want_flash32 = {f"bq{bq}_bk{bk}_dp{dp}" for bq in fa.BLOCKS for bk in fa.BLOCKS
+                    for dp in fa.PADDED_WIDTHS if fa.built(bq, bk, dp, torch.float32)}
+    if set(flash32_regs) != want_flash32:
+        fail(f"expected the f32 flash instantiations {sorted(want_flash32)}, found "
+             f"{sorted(flash32_regs)}")
     mm_configs = [(bm, bn, bk, db) for bm in km.BLOCKS["bm"] for bn in km.BLOCKS["bn"]
                   for bk in km.BLOCKS["bk"] for db in (False, True)]
     mm_regs = registers("matmul", "matmul_wgmma_kernel", "bm{}_bn{}_bk{}_s{}")
@@ -652,8 +945,15 @@ def main() -> None:
                                  for bm, bn, bk, db in mm_configs):
         fail(f"expected the {len(mm_configs)} matmul instantiations of "
              f"{km.BLOCKS}, found {sorted(mm_regs)}")
-    sass = sass_counts(build.library_path("flash_attention"))
-    mm_sass = sass_counts(build.library_path("matmul"))
+    mm32_configs = [c for c in mm_configs if km.built(*c, torch.float32)]
+    mm32_regs = registers("matmul", "matmul_f32_kernel", "bm{}_bn{}_bk{}_s{}")
+    log(f"build f32 matmul registers per instantiation (SIMT, 256 threads): {mm32_regs}")
+    if sorted(mm32_regs) != sorted(f"bm{bm}_bn{bn}_bk{bk}_s{2 if db else 1}"
+                                   for bm, bn, bk, db in mm32_configs):
+        fail(f"expected the {len(mm32_configs)} f32 matmul instantiations, found "
+             f"{sorted(mm32_regs)}")
+    sass, sass_fn = sass_counts(build.library_path("flash_attention"))
+    mm_sass, mm_sass_fn = sass_counts(build.library_path("matmul"))
     log(f"build SASS: flash {sass}, matmul {mm_sass}")
     for name, counts in (("flash", sass), ("matmul", mm_sass)):
         if counts["HGMMA"] == 0 or counts["UTMALDG"] == 0:
@@ -663,29 +963,67 @@ def main() -> None:
         # ptxas may serialize wgmma without a warning: a wait after every one
         if counts["WARPGROUP.DEPBAR"] >= counts["HGMMA"]:
             fail(f"the {name} library waits on every wgmma alone: {counts}")
+    # the f32 kernels: true f32, FFMA and no tensor-core product of any kind
+    f32_sass = {fn: c for fn, c in {**sass_fn, **mm_sass_fn}.items()
+                if "flash_fwd_f32_kernel" in fn or "matmul_f32_kernel" in fn}
+    short = {fn: re.sub(r".*?(flash_fwd_f32|matmul_f32)_kernel", r"\1", fn)[:40]
+             for fn in f32_sass}
+    log("build SASS of the f32 kernels (FFMA/HGMMA/HMMA/LDL+STL local memory) per "
+        "instantiation: " + ", ".join(
+            f"{short[fn]} {c['FFMA']}/{c['HGMMA']}/{c['HMMA']}/{c['LDL'] + c['STL']}"
+            for fn, c in sorted(f32_sass.items())))
+    if len(f32_sass) != len(want_flash32) + len(mm32_configs):
+        fail(f"found {len(f32_sass)} f32 kernels in the SASS, want "
+             f"{len(want_flash32) + len(mm32_configs)}")
+    for fn, c in f32_sass.items():
+        if c["FFMA"] == 0 or c["HGMMA"] or c["HMMA"]:
+            fail(f"the f32 kernel {fn} is not FFMA alone: {c}")
     for bq in fa.BLOCKS:
         for bk in fa.BLOCKS:
-            for d in fa.HEAD_DIMS:
+            for d in fa.HEAD_DIMS + OTHER_HEAD_DIMS:
                 lib_bytes = fa.kernel_smem_bytes(bq, bk, d)
                 if lib_bytes != fa.smem_bytes(bq, bk, d) or lib_bytes > GPU_H100.fast_mem_bytes:
                     fail(f"flash ({bq},{bk}) d={d}: the library launches with {lib_bytes} "
                          f"B of shared memory, smem_bytes says {fa.smem_bytes(bq, bk, d)}")
+                lib32 = fa.kernel_smem_bytes(bq, bk, d, torch.float32)
+                want32 = (fa.smem_bytes(bq, bk, d, 4) if fa.built(bq, bk, d, torch.float32)
+                          else -1)
+                if lib32 != want32:
+                    fail(f"f32 flash ({bq},{bk}) d={d}: the library launches with {lib32} "
+                         f"B of shared memory, the pickers count {want32}")
     log(f"build flash shared memory: library = smem_bytes <= {GPU_H100.fast_mem_bytes} B "
-        f"at all {len(flash_regs)} instantiations")
+        f"at all {len(flash_regs)} bf16 instantiations (d {fa.HEAD_DIMS + OTHER_HEAD_DIMS}) "
+        f"and, at 4 bytes, the {len(flash32_regs)} f32 ones (-1 where none is built)")
     for bm, bn, bk, db in mm_configs:
         lib_bytes = km.kernel_smem_bytes(bm, bn, bk, db)
         staged = (2 if db else 1) * km.smem_bytes(bm, bn, bk, 2)
         if lib_bytes != staged or lib_bytes > GPU_H100.fast_mem_bytes:
             fail(f"matmul ({bm},{bn},{bk}, {2 if db else 1} stages): the library stages "
                  f"{lib_bytes} B of shared memory, the sm90 model counts {staged}")
+        lib32 = km.kernel_smem_bytes(bm, bn, bk, db, torch.float32)
+        want32 = ((2 if db else 1) * km.smem_bytes(bm, bn, bk, 4)
+                  if km.built(bm, bn, bk, db, torch.float32) else -1)
+        if lib32 != want32:
+            fail(f"f32 matmul ({bm},{bn},{bk}, {2 if db else 1} stages): the library stages "
+                 f"{lib32} B, the sm90 model counts {want32}")
     log(f"build matmul shared memory: library = stages x smem_bytes <= "
-        f"{GPU_H100.fast_mem_bytes} B at all {len(mm_configs)} instantiations")
+        f"{GPU_H100.fast_mem_bytes} B at all {len(mm_configs)} bf16 instantiations and, at "
+        f"4 bytes, the {len(mm32_configs)} f32 ones (-1 where none is built)")
 
     # -------------------------------------------------------------- kernels
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def qkv(b, hq, hkv, s, d):
         return tuple(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                     for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+
+    # the checks and timings of the kernels' other inputs (the generic
+    # builds, the f32 kernels) draw from a generator of their own, so that
+    # every later phase sees the inputs it saw before they were added
+    gen_new = torch.Generator(device=dev).manual_seed(NEW_INPUTS_SEED)
+
+    def qkv_new(b, hq, hkv, s, d):
+        return tuple(torch.randn(shape, generator=gen_new, device=dev).to(torch.bfloat16)
                      for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
 
     # every (S, blocks) the serve phase launches, at its head counts
@@ -701,6 +1039,24 @@ def main() -> None:
     max_err = max(max_err, check_flash(
         [(1, *D80_HEADS[:2], s, D80_HEADS[2], c)
          for s in sorted(set(KERNEL_S) | set(PROMPT_LENS)) for c in (True, False)], qkv))
+    log(f"kernel at the generic builds' head dims {OTHER_HEAD_DIMS} (32/4 heads, the head "
+        f"dim at run time, padded to {fa.PADDED_WIDTHS} columns), causal and not, limit "
+        f"{KERNEL_RTOL}*|plain|")
+    max_err = max(max_err, check_flash(
+        [(1, 32, 4, s, d, c) for d in OTHER_HEAD_DIMS for s in (1, 77, 513, 1024)
+         for c in (True, False)], qkv_new))
+
+    # ------------------------------------------------------------ f32 kernels
+    t_f32 = time.perf_counter()
+    log(f"kernel f32 at the reference's grid {F32_FLASH_GRID} (B, Hq, Hkv, S, D), causal "
+        f"and not, then at the reduced configs' shapes (4/2 and 4/4 heads of 16)")
+    max_err32 = check_flash_f32([(*g, c) for g in F32_FLASH_GRID for c in (True, False)],
+                                gen_new)
+    max_err32 = max(max_err32, check_flash_f32(
+        [(1, 4, hkv, s, 16, c) for hkv in (2, 4) for s in REDUCED_LENS for c in (True, False)],
+        gen_new, control=False))
+    mm_err32 = check_matmul_f32(F32_MM_SHAPES, gen_new)
+    log(f"f32 kernels checked in {time.perf_counter() - t_f32:.1f} s")
 
     # --------------------------------------------------------------- timing
     cfg = get_config(ARCH)
@@ -833,6 +1189,14 @@ def main() -> None:
         f"temperature.gpu): {nvidia_smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu')}")
     del x, y
     torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    new_timing = time_new_kernels(gen_new)
+    log(f"timing of the f32 kernels and the generic builds: "
+        f"{time.perf_counter() - t_new:.1f} s")
+
+    # -------------------------------------------------------------- reduced
+    reduced = reduced_phase()
+    log(f"reduced: {reduced['phase_s']:.1f} s")
 
     # ---------------------------------------------------------------- serve
     model = Model(cfg, device="cuda")
@@ -1018,17 +1382,41 @@ def main() -> None:
         "train_shape": train["kernel"],
         "max_abs_err": max_err,
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": lib_ms, "head_dims": list(fa.HEAD_DIMS),
-        "d80": d80, "sass": sass,
+        "bound_by": bound_by, "library_ms": lib_ms, "dtypes": ["bfloat16"],
+        "head_dims": (f"every multiple of 8 from 8 to {fa.MAX_HEAD_DIM}: "
+                      f"{list(fa.HEAD_DIMS)} built, the rest at run time in the generic "
+                      f"builds of {list(fa.PADDED_WIDTHS)} columns"),
+        "d80": d80, "other_head_dims": new_timing["flash_attention"], "sass": sass,
         "registers": flash_regs, "sweep": sweep}, {
+        "name": "flash_attention_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "launches": reduced["launches"]["flash_attention_f32"],
+        "launches_by_reduced": {a: r["launches"] for a, r in reduced["archs"].items()},
+        "max_abs_err": max_err32,
+        **{key: new_timing["flash_attention_f32"][0][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library": "scaled_dot_product_attention, f32, efficient or math backend",
+        "dtypes": ["float32"],
+        "head_dims": f"every multiple of 8 from 8 to {fa.MAX_HEAD_DIM} (padded to "
+                     f"{list(fa.PADDED_WIDTHS)} columns)",
+        "registers": flash32_regs, "sweep": new_timing["flash_attention_f32"]}, {
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:28",
         "launches": mm_launches, "launches_by_controller": ctl["launches"],
         "max_abs_err": mm_err,
         "ms": mm_ms, "plain_ms": mm_plain_ms, "bound_ms": mm_bound_ms,
-        "bound_by": mm_bound_by, "library_ms": mm_lib_ms, "sass": mm_sass,
-        "registers": mm_regs, "sweep": mm_sweep}]}), flush=True)
+        "bound_by": mm_bound_by, "library_ms": mm_lib_ms, "dtypes": ["bfloat16"],
+        "sass": mm_sass, "registers": mm_regs, "sweep": mm_sweep}, {
+        "name": "matmul_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/matmul.cu",
+        "replaces": "src/repro/kernels/matmul.py:28",
+        "launches": reduced["launches"]["matmul_f32"], "max_abs_err": mm_err32,
+        **{key: new_timing["matmul_f32"][0][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library": "torch.matmul, f32, TF32 off", "dtypes": ["float32"],
+        "registers": mm32_regs, "sweep": new_timing["matmul_f32"]}]}), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1668,7 +2056,7 @@ def plain_flash():
     from repro_torch.models import attention as tattn
 
     def plain_attention(q, k, v, *, causal=True, scale=None, blocks=None):
-        bq, bk = blocks or ops.tuned_flash_blocks(q.shape[2], q.shape[3], 2)
+        bq, bk = blocks or ops.tuned_flash_blocks(q.shape[2], q.shape[3], q.element_size())
         return fa.flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                         block_q=bq, block_k=bk)
 
@@ -1997,38 +2385,53 @@ def serve_arch(arch: str, n_layers: int) -> int:
     if not n_attn:
         log(f"parity {arch}: skipped: the kernel-vs-plain prefill parity compares "
             f"attention, and {arch} has no attention layer (its flash launches are 0)")
-    elif not n_moe:
-        _, _, got = model.prefill(params, {"tokens": prompt}, 513)
-        with plain_flash():
-            _, _, want = model.prefill(params, {"tokens": prompt}, 513)
-        check_logits(arch, cfg, got, want)
     else:
-        routes = []
-        with recorded(moe_mod, "route", lambda args, out: routes.append(out[0])):
-            _, _, got = model.prefill(params, {"tokens": prompt}, 513)
-        with plain_flash():
-            _, _, free = model.prefill(params, {"tokens": prompt}, 513)
-            moved, it = [], iter(routes)
-
-            def pin(args, out):
-                (_, p, x), want = args, next(it)
-                moved.append(int((out[0].sort(-1).values != want.sort(-1).values)
-                                 .any(-1).sum()))
-                probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
-                g = probs.gather(-1, want)
-                return want, (g / g.sum(-1, keepdim=True).clamp_min(1e-9)).to(x.dtype), out[2]
-
-            with recorded(moe_mod, "route", pin):
-                _, _, want = model.prefill(params, {"tokens": prompt}, 513)
-        free_diff = float((got.float() - free.float()).abs().max())
-        check_logits(arch, cfg, got, want,
-                     f", routing of the kernel run pinned (tokens whose top-k set the plain "
-                     f"attention would move, per MoE layer: {moved}; unpinned max "
-                     f"|kernel-plain| {free_diff:.4e})")
+        got, want, note = prefill_parity(model, params, {"tokens": prompt}, 513, n_moe > 0)
+        check_logits(arch, cfg, got, want, note)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     return launches["flash_attention"]
+
+
+def prefill_parity(model, params, batch, cap: int, pin: bool):
+    """The last logits of one prefill of ``batch`` through the kernel and
+    through the plain version: (kernel, plain, note). With ``pin`` (MoE
+    layers) the kernel run's routing is recorded and pinned in the plain
+    run. Routing is a discontinuous function of the hidden state: an ulp of
+    difference in attention can move a near-tie assignment to another
+    expert, a different computation rather than an error of the kernel, so
+    the limit is held with the kernel run's routing; the note reports the
+    plain run's own routing beside it."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+
+    if not pin:
+        _, _, got = model.prefill(params, batch, cap)
+        with plain_flash():
+            _, _, want = model.prefill(params, batch, cap)
+        return got, want, ""
+    routes = []
+    with recorded(moe_mod, "route", lambda args, out: routes.append(out[0])):
+        _, _, got = model.prefill(params, batch, cap)
+    with plain_flash():
+        _, _, free = model.prefill(params, batch, cap)
+        moved, it = [], iter(routes)
+
+        def pin_route(args, out):
+            (_, p, x), want = args, next(it)
+            moved.append(int((out[0].sort(-1).values != want.sort(-1).values)
+                             .any(-1).sum()))
+            probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+            g = probs.gather(-1, want)
+            return want, (g / g.sum(-1, keepdim=True).clamp_min(1e-9)).to(x.dtype), out[2]
+
+        with recorded(moe_mod, "route", pin_route):
+            _, _, want = model.prefill(params, batch, cap)
+    free_diff = float((got.float() - free.float()).abs().max())
+    return got, want, (f", routing of the kernel run pinned (tokens whose top-k set the "
+                       f"plain attention would move, per MoE layer: {moved}; unpinned max "
+                       f"|kernel-plain| {free_diff:.4e})")
 
 
 def serve_prefixed(arch: str, lens) -> int:
@@ -2924,6 +3327,267 @@ def train_phase(qkv) -> dict:
     result["digests"] = digests
     return result
 
+
+def attention_layers(cfg) -> int:
+    """The layers whose prefill launches the flash kernel: the decoder's
+    attention mixers and, for the encoder-decoder, the encoder's layers
+    (its cross-attention runs the chunked version, not the kernel)."""
+    n = sum(cfg.mixer_kind(i) == "attention" for i in range(cfg.n_layers))
+    return n + (cfg.n_encoder_layers if cfg.encoder_decoder else 0)
+
+
+def reduced_phase(dev: str = "cuda") -> dict:
+    """The reduced phase: the port's entry points at the reduced configs on
+    the card, whose attention runs the f32 kernel at head dim 16. For each
+    of the ten archs' ``.reduced()`` configs: weights from a seeded CPU
+    generator moved to the card, one serve of 4 requests (REDUCED_LENS)
+    through ``launch.serve.serve`` (whisper and internvl2, with seeded stub
+    frames or patches, greedily through ``Model.prefill``/``decode_step``,
+    the reference's only entry for them): every request gets its tokens,
+    f32 flash launches = prefills x attention layers (0 for xlstm), and the
+    last logits of one prefill (77 tokens) within REDUCED_LOGIT_RTOL*rms of
+    the same prefill through the plain version (MoE routing pinned). Then
+    train_tiny's first step, its loss and every gradient leaf against the
+    same step through the plain version within REDUCED_GRAD_RTOL relative;
+    ``examples.train_tiny.main(["--steps", "40"])`` must collapse the loss
+    (ce < 0.5 ln V), ``examples.serve_batched``, ``examples.quickstart``
+    (the f32 matmul kernel at the f32 pick), ``launch.serve --reduced`` and
+    ``launch.train --reduced`` run at their defaults; and the f32 store
+    path: ``python -m repro_torch.tuna tune --smoke`` into a fresh DB, its
+    records promoted and bundled on the card, and an f32 ``ops.matmul``
+    without blocks launched from the bundle's library with no nvcc run.
+    Each counted run's launches are read just after it; returns the
+    phase's summary with the f32 kernels' main-path launches."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import ARCH_IDS, get_config
+    from repro_torch.core.spaces import MatmulSpace
+    from repro_torch.examples import quickstart, serve_batched, train_tiny
+    from repro_torch.hw.gpu_h100 import GPU_H100
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.engine import Request
+    from repro_torch.models.model import Model
+    from repro_torch.tuna.db import ScheduleDatabase
+    from repro_torch.tuna.golden import GoldenManager, build_kernel_bundle
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    defaults = [] if dev == "cuda" else ["--device", dev]
+    t_phase = time.perf_counter()
+    main_path = {"flash_attention_f32": 0, "matmul_f32": 0}
+
+    def counted(fn):
+        """fn() with the launch counts set to 0 just before and read just
+        after; the f32 kernels' launches join the main path's."""
+        sync()
+        ops.reset_launch_counts()
+        out = fn()
+        sync()
+        got = ops.launch_counts()
+        for key in main_path:
+            main_path[key] += got[key]
+        return out, got
+
+    def within(got, want, rtol):
+        diff = float((got.float() - want.float()).abs().max())
+        rms = float(want.float().pow(2).mean().sqrt())
+        return diff, rms, diff <= rtol * rms and bool(torch.isfinite(got).all())
+
+    archs = {}
+    for arch in ARCH_IDS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).reduced()
+        n_attn, n_moe = attention_layers(cfg), sum(
+            cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers))
+        params = tree.map(lambda t: t.to(dev), Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(SEED)))
+        model = Model(cfg, device=dev)
+        rng = np.random.default_rng(SEED)
+        n_prefix = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+        cap = max(REDUCED_LENS) + n_prefix + MAX_NEW + 2
+        stub = {"audio": "frames", "vision": "patches"}.get(cfg.frontend)
+        stub_gen = torch.Generator().manual_seed(SEED + 2)
+
+        def batch(n):
+            b = {"tokens": torch.tensor([[int(t) for t in rng.integers(0, cfg.vocab, n)]],
+                                        dtype=torch.int32, device=dev)}
+            if stub:
+                b[stub] = (0.1 * torch.randn((1, cfg.n_frontend_tokens, cfg.d_model),
+                                             generator=stub_gen)).to(dev)
+            return b
+
+        if stub is None:
+            reqs = [Request(i, [int(t) for t in rng.integers(0, cfg.vocab, n)], MAX_NEW)
+                    for i, n in enumerate(REDUCED_LENS)]
+            stats, got = counted(lambda: serve_mod.serve(model, params, reqs, slots=SLOTS,
+                                                         cap=cap, scheduler="continuous"))
+            outs, prefills = [list(r.out) for r in reqs], stats["prefills"]
+        else:
+            def greedy(b):
+                cache, pos, last = model.prefill(params, b, cap)
+                out = [int(torch.argmax(last[0, 0]))]
+                for t in range(MAX_NEW - 1):
+                    logits, cache = model.decode_step(
+                        params, cache, torch.tensor([out[-1]], dtype=torch.int32), pos + t)
+                    out.append(int(torch.argmax(logits[0])))
+                return out
+
+            batches = [batch(n) for n in REDUCED_LENS]
+            outs, got = counted(lambda: [greedy(b) for b in batches])
+            prefills = len(batches)
+        if [len(o) for o in outs] != [MAX_NEW] * len(REDUCED_LENS) or any(
+                not 0 <= t < cfg.vocab for o in outs for t in o):
+            fail(f"reduced {arch}: a request got too few tokens or one outside the "
+                 f"vocabulary: {outs}")
+        if prefills != len(REDUCED_LENS) or got["flash_attention_f32"] != prefills * n_attn \
+                or got["flash_attention"]:
+            fail(f"reduced {arch}: f32 flash launches {got['flash_attention_f32']} (bf16 "
+                 f"{got['flash_attention']}) != prefills x attention layers {prefills} x "
+                 f"{n_attn}")
+        row = {"prefills": prefills, "attention_layers": n_attn,
+               "launches": got["flash_attention_f32"], "tokens": sum(map(len, outs))}
+        if n_attn:
+            g, w, note = prefill_parity(model, params, batch(77), cap, n_moe > 0)
+            diff, rms, ok = within(g, w, REDUCED_LOGIT_RTOL)
+            row.update(logits_max_diff=diff, logits_rms=rms)
+            log(f"reduced {arch}: parity S=77 last logits {tuple(g.shape)}: max|kernel-plain| "
+                f"{diff:.3e} against a limit of {REDUCED_LOGIT_RTOL}*rms = "
+                f"{REDUCED_LOGIT_RTOL * rms:.3e}{note}")
+            if not ok or g.shape != (1, 1, cfg.vocab):
+                fail(f"reduced {arch}: the kernel prefill disagrees with the plain one")
+        row["s"] = time.perf_counter() - t0
+        archs[arch] = row
+        log(f"reduced {arch} ({cfg.n_layers} layers, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+            f"of {cfg.head_dim}, {cfg.param_dtype}): {row}")
+        del model, params
+
+    # train_tiny's first step through the kernel against the plain version
+    cfg = get_config("yi-6b").reduced()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    toks = ((torch.arange(65, dtype=torch.int32) * 7) % cfg.vocab)[None].repeat(8, 1).to(dev)
+    tiny = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def loss_and_grads():
+        leaves = [t.detach().clone().requires_grad_() for t in tree.leaves(params)]
+        loss, _ = model.loss(tree.unflatten_like(params, leaves), tiny)
+        return loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    loss_k, grads_k = loss_and_grads()
+    with plain_flash():
+        loss_p, grads_p = loss_and_grads()
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    leaf_rel = [float((gk - gp).norm() / gp.norm().clamp_min(1e-30))
+                for gk, gp in zip(grads_k, grads_p) if gp is not None]
+    log(f"reduced train_tiny first step: loss {float(loss_k):.6f} vs plain "
+        f"{float(loss_p):.6f} (relative {loss_rel:.3e}); {len(leaf_rel)} gradient leaves, "
+        f"largest relative |g_kernel - g_plain| / |g_plain| {max(leaf_rel):.3e}; limit "
+        f"{REDUCED_GRAD_RTOL}")
+    if loss_rel > REDUCED_GRAD_RTOL or max(leaf_rel) > REDUCED_GRAD_RTOL or any(
+            g is None or not torch.isfinite(g).all() for g in grads_k):
+        fail("reduced: train_tiny's first step through the kernel disagrees with the plain one")
+    del model, params
+
+    t0 = time.perf_counter()
+    tiny_out, got = counted(lambda: train_tiny.main(["--steps", "40"] + defaults))
+    tiny_row = {"ce_first": tiny_out["ce"][0], "ce_last": tiny_out["ce"][-1],
+                "floor": tiny_out["floor"], "launches": got["flash_attention_f32"],
+                "loss_rel": loss_rel, "max_leaf_rel": max(leaf_rel),
+                "s": time.perf_counter() - t0}
+    log(f"reduced examples.train_tiny --steps 40: {tiny_row}")
+    if not tiny_out["ce"][-1] < 0.5 * tiny_out["floor"] or got["flash_attention_f32"] < 40 * 2:
+        fail(f"reduced: train_tiny did not collapse the loss or launch the f32 kernel: "
+             f"{tiny_row}")
+
+    t0 = time.perf_counter()
+    sb, got = counted(lambda: serve_batched.main(defaults))
+    sb_row = {"tokens": sb["stats"]["tokens"], "prefills": sb["stats"]["prefills"],
+              "launches": got["flash_attention_f32"], "s": time.perf_counter() - t0}
+    log(f"reduced examples.serve_batched: {sb_row}")
+    if sb_row["launches"] != sb_row["prefills"] * attention_layers(cfg) or not sb_row["tokens"]:
+        fail(f"reduced: serve_batched launched the f32 kernel {sb_row['launches']} times "
+             f"for {sb_row['prefills']} prefills")
+
+    t0 = time.perf_counter()
+    qs, got = counted(lambda: quickstart.main(defaults))
+    qs_row = {"config": qs["config"], "blocks": list(qs["blocks"]),
+              "max_abs_err": qs["max_abs_err"], "launches": got["matmul_f32"],
+              "s": time.perf_counter() - t0}
+    log(f"reduced examples.quickstart (f32): {qs_row}")
+    if got["matmul_f32"] != 1 or not qs["max_abs_err"] <= F32_MM_TOL * 256 ** 0.5:
+        fail(f"reduced: the quickstart's f32 matmul did not launch once within the "
+             f"reference's f32 limit: {qs_row}")
+
+    launchers = {}
+    for name, fn, argv, want in (
+            ("launch.serve", serve_mod.main, ["--arch", "yi-6b", "--reduced"], 6),
+            ("launch.train", train_mod.main, ["--arch", "yi-6b", "--reduced"], 50)):
+        t0 = time.perf_counter()
+        _, got = counted(lambda: fn(argv + defaults))
+        launchers[name] = {"launches": got["flash_attention_f32"],
+                           "s": time.perf_counter() - t0}
+        log(f"reduced python -m repro_torch.{name} {' '.join(argv)}: {launchers[name]}")
+        # the serve prefills its 6 requests once each; each train step
+        # runs the forward at least once per attention layer
+        if got["flash_attention_f32"] < want * attention_layers(cfg):
+            fail(f"reduced: {name} --reduced launched the f32 kernel "
+                 f"{got['flash_attention_f32']} times")
+
+    # the f32 store path: tune --smoke, promoted, bundled, launched from it
+    t0 = time.perf_counter()
+    store = ROOT / "build" / "reduced_store"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    db_path = str(store / "db.jsonl")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    env.pop("REPRO_TUNA_DB", None)
+    res = subprocess.run([sys.executable, "-m", "repro_torch.tuna", "tune", "--smoke",
+                          "--db", db_path], env=env, capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode:
+        fail(f"reduced: python -m repro_torch.tuna tune --smoke exited {res.returncode}: "
+             f"{res.stderr[-1500:]}")
+    records = ScheduleDatabase(db_path).records()
+    sig = MatmulSpace(256, 256, 256, 4, target_kind=GPU_H100.kind).signature()
+    mgr = GoldenManager(str(store / "golden"))
+    info = mgr.promote(records, GPU_H100.name, source=db_path)
+    _, release = mgr.load_release(info.path)
+    binfo = build_kernel_bundle(release, str(store / "golden"), GPU_H100.name,
+                                golden_name=info.name, device=dev)
+    x, y = (torch.randn(shape, generator=torch.Generator().manual_seed(SEED)).to(dev)
+            for shape in ((256, 256), (256, 256)))
+    builds = ops.kernel_build_counts()
+    ops.use_kernel_bundle(binfo.path, device=dev)
+    try:
+        bundled, got = counted(lambda: ops.matmul(x, y))
+        bundle = ops.get_kernel_bundle()
+        hits, nvcc = bundle.exec_hits, {n: ops.kernel_build_counts()[n] - builds[n]
+                                        for n in builds}
+    finally:
+        ops.use_kernel_bundle(None)
+    rec = next(r for r in records if r.op == sig)
+    explicit = ops.matmul(x, y, blocks=tuple(rec.config[k] for k in
+                                             ("bm", "bn", "bk", "double_buffer")))
+    store_row = {"records": [r.op for r in records], "entries": binfo.entries,
+                 "skipped": binfo.skipped, "hits": hits, "nvcc": nvcc,
+                 "launches": got["matmul_f32"], "config": rec.config,
+                 "equal_explicit": bool(torch.equal(bundled, explicit)),
+                 "s": time.perf_counter() - t0}
+    log(f"reduced f32 store path: {store_row}")
+    if (sig not in [r.op for r in records] or binfo.entries < 1 or hits != 1
+            or any(nvcc.values()) or got["matmul_f32"] != 1 or not store_row["equal_explicit"]):
+        fail(f"reduced: the f32 dense_256 record did not launch from the bundle: {store_row}")
+    shutil.rmtree(store, ignore_errors=True)
+
+    summary = {"archs": archs, "train_tiny": tiny_row, "serve_batched": sb_row,
+               "quickstart": qs_row, "launchers": launchers, "store": store_row,
+               "launches": dict(main_path), "phase_s": time.perf_counter() - t_phase,
+               "card": nvidia_smi("name,power.limit") if dev == "cuda" else dev}
+    print("reduced " + json.dumps(summary, default=str), flush=True)
+    return summary
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cold-start-arm"]:

@@ -271,12 +271,20 @@ def sm90_padded_head_dim(d: int) -> int:
     return -(-d // 64) * 64
 
 
-def sm90_flash_smem_bytes(block_q: int, block_k: int, d: int) -> int:
+def sm90_flash_smem_bytes(block_q: int, block_k: int, d: int,
+                          dtype_bytes: int = 2) -> int:
     """Dynamic shared memory of the Hopper kernel at these blocks, as its
-    ``Cfg`` computes it: the Q tile, two stages of K and V tiles (bf16, at
-    the padded head dim), 128 bytes of barriers and 1024 bytes of slack to
-    align the tiles to the 1024-byte swizzle period."""
-    return 2 * sm90_padded_head_dim(d) * (block_q + 2 * 2 * block_k) + 128 + 1024
+    ``Cfg`` computes it. In bf16 (``dtype_bytes=2``): the Q tile, two
+    stages of K and V tiles at the padded head dim, 128 bytes of barriers
+    and 1024 bytes of slack to align the tiles to the 1024-byte swizzle
+    period. In f32 (``dtype_bytes=4``, the SIMT kernel's ``CfgF32``): the
+    same tiles in f32 and the [block_q, block_k] f32 probability tile, with
+    no barrier and no slack (cp.async needs 16-byte alignment only). No
+    kernel takes another width; it is counted as bf16."""
+    dp = sm90_padded_head_dim(d)
+    if dtype_bytes == 4:
+        return 4 * (dp * (block_q + 2 * 2 * block_k) + block_q * block_k)
+    return 2 * dp * (block_q + 2 * 2 * block_k) + 128 + 1024
 
 
 def _flash_knobs(attrs: Dict, kind: str) -> Dict[str, List]:
@@ -335,7 +343,7 @@ def _build_flash(attrs: Dict, cfg: Dict,
     prog = Program((Q, K, V, P, O), (qi,), name=f"flash_{hq}x{s}x{d}")
     if kind == "sm90":
         # what the Hopper kernel stages: its whole dynamic shared memory
-        vmem = sm90_flash_smem_bytes(bq, bk, d)
+        vmem = sm90_flash_smem_bytes(bq, bk, d, db)
     else:
         # the reference's VMEM estimate: q/o blocks + k/v blocks + the m/l
         # softmax carries and the probability tile

@@ -51,9 +51,48 @@
 //   slow grid axis, reversed, so the first wave holds every head's longest
 //   tiles and the short ones fill the tail.
 //
+// - Any other head dim d (a multiple of 8 up to 128: TMA's 16-byte row
+//   stride) runs a generic build of its padded width DP (64 or 128), the
+//   trick of D=80 with d passed at run time: TMA fills the columns past d
+//   with zeros and a run-time `col < d` guards the store. The
+//   accumulator's index stays compile-time (a run-time bound on a register
+//   array would move it to local memory). Q K^T runs all DP/16 k-steps,
+//   those past ceil(d/16) over the zero fill: stopping early, by a branch
+//   or by a predicated wgmma, made ptxas serialize the wgmma pipeline
+//   (C7515) in all eight generic instantiations, and at d=96 the stopped
+//   kernel was slower on the H100, not faster.
+//
 // Layout: q [B*Hq, S, D], k/v [B*Hkv, S, D], o [B*Hq, S, D], all contiguous.
 // Block (h, .) reads KV row (h / Hq) * Hkv + (h % Hq) / (Hq / Hkv).
-// Built for D in {64, 80, 128}, BQ in {64, 128}, BK in {64, 128}.
+// Built for D in {64, 80, 128} and, generically, for DP in {64, 128}, each
+// at BQ in {64, 128} and BK in {64, 128}.
+//
+// The f32 kernel (`flash_attention_fwd_f32`, below the bf16 one) is SIMT:
+// true f32 products by FFMA. TF32 tensor-core products miss the reference's
+// f32 tolerance (atol 3e-5, rtol 3e-4), and wgmma takes tf32 operands only
+// K-major, which V is not. Its bound is the FP32 rate, 67 TFLOP/s: at yi-6b's
+// heads with S=1024 causal, 8.6 GFLOP take 128 us against 38 MB of q/k/v/o,
+// 11 us at 3.35 TB/s, so the products bound it and the design keeps the
+// FFMA units fed from shared memory:
+//
+// - One block per (batch*q-head, q-tile), the bf16 kernel's grid and GQA row
+//   map; BQ/8 warps of 8 query rows each (256 or 512 threads).
+// - Q, and a ring of two K/V stages, are copied into shared memory with
+//   16-byte cp.async (zero-filled past S), so tile i+1 lands while tile i is
+//   multiplied.
+// - S = Q K^T: lane l of a warp owns keys l, l+32, ...; each step reads a
+//   float4 of Q (one address for the warp: a broadcast) and a float4 of
+//   each of its keys. K rows are stored with their 16-byte chunks XOR-
+//   swizzled by key % 8, so the eight lanes of a quarter-warp hit distinct
+//   banks with no padding.
+// - The online softmax runs in registers in the log2 domain (the bf16
+//   kernel's scale fold, mask and causal tile skip); each warp writes its
+//   rows of P to shared memory, and O += P V reads P as float4 broadcasts
+//   and V rows as 32 consecutive floats. Lane l owns output columns l,
+//   l+32, ..., below DP; the columns past d are zero in V and never
+//   stored.
+// - Shared memory: 4 * (DP * (BQ + 4 * BK) + BQ * BK) bytes, built at the
+//   (BQ, BK, DP) that fit one block's 232,448.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -74,14 +113,17 @@ constexpr int kStages = 2;
 constexpr int kAtomBytes = 128;  // one swizzled row: 64 bf16
 constexpr int kMaxDevices = 64;
 
-template <int BQ, int BK, int D>
+// D is a built head dim, or 0: any head dim d <= DP, passed at run time
+template <int BQ, int BK, int D, int DP = (D + 63) / 64 * 64>
 struct Cfg {
   static_assert(BQ == 64 || BQ == 128, "BQ is one or two warpgroups of 64 rows");
   static_assert(BK == 64 || BK == 128, "BK is the N of an m64nBKk16 wgmma");
-  static_assert(D == 64 || D == 80 || D == 128, "D is a built head dim");
+  static_assert(D == 64 || D == 80 || D == 128 || D == 0, "D is a built head dim or 0");
+  static_assert(DP == 64 || DP == 128, "DP is one or two 64-column atoms");
+  static_assert(D == 0 || DP == (D + 63) / 64 * 64, "a built D is padded to whole atoms");
   static constexpr int kConsumers = BQ / 64;              // consumer warpgroups
   static constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
-  static constexpr int kDP = (D + 63) / 64 * 64;  // D padded to whole atoms
+  static constexpr int kDP = DP;                  // D padded to whole atoms
   static constexpr int kCols = kDP / 64;           // atoms per row
   // whole boxes, out-of-bounds fill included: what TMA completes per tile
   static constexpr int kQBytes = BQ * kDP * 2;
@@ -126,14 +168,16 @@ __device__ __forceinline__ void scale_scores(float (&sc)[BK / 2], float scale_lo
   }
 }
 
-template <int BQ, int BK, int D>
-__global__ void __launch_bounds__(Cfg<BQ, BK, D>::kThreads, 1)
+template <int BQ, int BK, int D, int DP>
+__global__ void __launch_bounds__(Cfg<BQ, BK, D, DP>::kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
-                           bf16* __restrict__ o, int hq, int hkv, int s,
+                           bf16* __restrict__ o, int hq, int hkv, int s, int d,
                            float scale_log2, int causal) {
-  using C = Cfg<BQ, BK, D>;
+  using C = Cfg<BQ, BK, D, DP>;
+  // the head dim: the built one, or the run-time d of a generic build
+  const int dd = D > 0 ? D : d;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
@@ -214,7 +258,7 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D>::kThreads, 1)
     // step kk 32 bytes into column atom kk/4
     auto issue_s = [&](int i, float (&sc)[BK / 2]) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < (D > 0 ? D : DP) / 16; ++kk) {
         const uint32_t a = q_wg + (kk / 4) * BQ * kAtomBytes + (kk % 4) * 32;
         const uint32_t b = k_s(i % kStages) + (kk / 4) * BK * kAtomBytes + (kk % 4) * 32;
         wgmma_ss<BK, 0>(sc, smem_desc_sw128(a, 16, 1024), smem_desc_sw128(b, 16, 1024),
@@ -276,7 +320,7 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D>::kThreads, 1)
     // D; the rest are zero) and pack P
     auto rescale_and_pack = [&](const float (&sc)[BK / 2], float c0, float c1) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < (D > 0 ? D : DP) / 8; ++j) {
         acc[4 * j] *= c0;
         acc[4 * j + 1] *= c0;
         acc[4 * j + 2] *= c1;
@@ -365,85 +409,396 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D>::kThreads, 1)
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float d0 = fmaxf(l0, 1e-30f);
     const float d1 = fmaxf(l1, 1e-30f);
-    // the real D columns only, at row stride D
-    bf16* oh = o + (size_t)h * s * D;
+    // the real D columns only, at row stride D (a generic build: a
+    // run-time guard, col < d; d is even, so col + 1 < d too)
+    bf16* oh = o + (size_t)h * s * dd;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < (D > 0 ? D : DP) / 8; ++j) {
       const int col = 8 * j + 2 * t;
+      if (D == 0 && col >= dd) continue;
       if (row0 < s) {
-        *reinterpret_cast<uint32_t*>(oh + (size_t)row0 * D + col) =
+        *reinterpret_cast<uint32_t*>(oh + (size_t)row0 * dd + col) =
             pack_bf16x2(acc[4 * j] / d0, acc[4 * j + 1] / d0);
       }
       if (row0 + 8 < s) {
-        *reinterpret_cast<uint32_t*>(oh + (size_t)(row0 + 8) * D + col) =
+        *reinterpret_cast<uint32_t*>(oh + (size_t)(row0 + 8) * dd + col) =
             pack_bf16x2(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
       }
     }
   }
 }
 
+// ------------------------------------------------------------- f32, SIMT
+
+// 16-byte asynchronous copy global -> shared; `bytes` < 16 zero-fills the
+// rest (0: all zeros, nothing read)
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int BQ, int BK, int DP>
+struct CfgF32 {
+  static_assert(BQ == 64 || BQ == 128, "BQ is 8 or 16 warps of 8 rows");
+  static_assert(BK == 64 || BK == 128, "BK is 2 or 4 keys a lane");
+  static_assert(DP == 64 || DP == 128, "DP is 2 or 4 columns a lane");
+  static constexpr int kRows = 8;                 // query rows a warp owns
+  static constexpr int kThreads = 32 * BQ / kRows;
+  static constexpr int kKJ = BK / 32;             // keys a lane owns
+  static constexpr int kDJ = DP / 32;             // output columns a lane owns
+  // floats: Q [BQ][DP], then per stage K [BK][DP] (swizzled) and V [BK][DP],
+  // then P [BQ][BK]
+  static constexpr int kKV = BK * DP;
+  static constexpr int kKOff = BQ * DP;
+  static constexpr int kPOff = kKOff + 2 * 2 * kKV;
+  static constexpr int kSmem = 4 * (kPOff + BQ * BK);
+  static_assert(kSmem == 4 * (DP * (BQ + 4 * BK) + BQ * BK), "the pickers' count");
+  static_assert(kSmem <= 232448, "fits one block's shared memory");
+};
+
+template <int BQ, int BK, int DP>
+__global__ void __launch_bounds__(CfgF32<BQ, BK, DP>::kThreads, 1)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o, int hq,
+                         int hkv, int s, int d, float scale_log2, int causal) {
+  using C = CfgF32<BQ, BK, DP>;
+  constexpr int R = C::kRows, KJ = C::kKJ, DJ = C::kDJ;
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const uint32_t smem_base = smem_u32(smem);
+  float* q_s = smem;
+  float* p_s = smem + C::kPOff;
+  auto k_off = [&](int st) { return C::kKOff + st * 2 * C::kKV; };
+  auto v_off = [&](int st) { return k_off(st) + C::kKV; };
+
+  const int h = blockIdx.x;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int kvrow = (h / hq) * hkv + (h % hq) / (hq / hkv);
+  const int nk = (s + BK - 1) / BK;
+  const int n_tiles = causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
+  const int tid = threadIdx.x;
+  const int nc = d / 4;  // 16-byte chunks in a row
+
+  // V's columns d..DP-1 are never loaded: zero them once in both stages,
+  // so the accumulator's columns past d stay zero
+  for (int st = 0; st < 2; ++st) {
+    for (int e = tid; e < BK * (DP - d); e += C::kThreads) {
+      const int row = e / (DP - d);
+      smem[v_off(st) + row * DP + d + e % (DP - d)] = 0.f;
+    }
+  }
+  const float* qh = q + (size_t)h * s * d;
+  const float* kh = k + (size_t)kvrow * s * d;
+  const float* vh = v + (size_t)kvrow * s * d;
+  // rows past S read as zeros (and nothing is read for them)
+  auto load_rows = [&](const float* src, int row0, int n, int dst, bool swizzle) {
+    for (int e = tid; e < n * nc; e += C::kThreads) {
+      const int row = e / nc, c = e % nc;
+      const int g = row0 + row;
+      const int sc = swizzle ? (c ^ (row & 7)) : c;
+      cp_async_16(smem_base + 4u * (dst + row * DP + 4 * sc),
+                  src + (size_t)min(g, s - 1) * d + 4 * c, g < s ? 16 : 0);
+    }
+  };
+  auto load_kv = [&](int i) {
+    load_rows(kh, i * BK, BK, k_off(i & 1), true);
+    load_rows(vh, i * BK, BK, v_off(i & 1), false);
+  };
+  load_rows(qh, q0, BQ, 0, false);
+  load_kv(0);
+  cp_async_commit();
+  if (n_tiles > 1) {
+    load_kv(1);
+    cp_async_commit();
+  }
+
+  const int w = tid / 32, lane = tid % 32;
+  const int r0 = w * R;  // the warp's first row in the tile
+  float acc[R][DJ], m[R], l[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[r][j] = 0.f;
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile i (and Q) landed for every thread's copies
+    const float* k_s = smem + k_off(i & 1);
+    const float* v_s = smem + v_off(i & 1);
+
+    // S = Q K^T over the d columns: a float4 of Q (broadcast) against a
+    // float4 of each of the lane's keys; chunk c of key row j lies at chunk
+    // c ^ (j % 8), and j % 8 == lane % 8
+    float sc[R][KJ];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) sc[r][j] = 0.f;
+    }
+    for (int c = 0; c < nc; ++c) {
+      float4 kv[KJ];
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        kv[j] = *reinterpret_cast<const float4*>(
+            k_s + (lane + 32 * j) * DP + 4 * (c ^ (lane & 7)));
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 qv = *reinterpret_cast<const float4*>(q_s + (r0 + r) * DP + 4 * c);
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          sc[r][j] = fmaf(qv.x, kv[j].x, sc[r][j]);
+          sc[r][j] = fmaf(qv.y, kv[j].y, sc[r][j]);
+          sc[r][j] = fmaf(qv.z, kv[j].z, sc[r][j]);
+          sc[r][j] = fmaf(qv.w, kv[j].w, sc[r][j]);
+        }
+      }
+    }
+
+    // online softmax in the log2 domain; P to this warp's rows of p_s
+    const int k0 = i * BK;
+    const bool mask = k0 + BK > s || (causal && k0 + BK - 1 > q0 + r0);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = q0 + r0 + r;
+      float mx = m[r];
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        float x = sc[r][j] * scale_log2;
+        if (mask) {
+          const int key = k0 + lane + 32 * j;
+          if (key >= s || (causal && key > row)) x = kNegInf;
+        }
+        sc[r][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      }
+      const float corr = exp2_ftz(m[r] - mx);
+      m[r] = mx;
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const float p = exp2_ftz(sc[r][j] - mx);
+        p_s[(r0 + r) * BK + lane + 32 * j] = p;
+        ps += p;
+      }
+      l[r] = l[r] * corr + ps;  // this lane's share of the row sum
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[r][j] *= corr;
+    }
+    __syncwarp();
+
+    // O += P V: four keys a step, P as a float4 broadcast per row
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += 4) {
+      float vv[4][DJ];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) vv[e][j] = v_s[(kk + e) * DP + lane + 32 * j];
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 p = *reinterpret_cast<const float4*>(p_s + (r0 + r) * BK + kk);
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          acc[r][j] = fmaf(p.x, vv[0][j], acc[r][j]);
+          acc[r][j] = fmaf(p.y, vv[1][j], acc[r][j]);
+          acc[r][j] = fmaf(p.z, vv[2][j], acc[r][j]);
+          acc[r][j] = fmaf(p.w, vv[3][j], acc[r][j]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage (and its P)
+    if (i + 2 < n_tiles) {
+      load_kv(i + 2);
+      cp_async_commit();
+    }
+  }
+
+  float* oh = o + (size_t)h * s * d;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float sum = l[r];
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const int row = q0 + r0 + r;
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      const int col = lane + 32 * j;
+      if (row < s && col < d) oh[(size_t)row * d + col] = acc[r][j] * inv;
+    }
+  }
+}
+
 // ------------------------------------------------------------------- host
 
-template <int BQ, int BK, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int hq,
-                   int hkv, int s, float scale, int causal, cudaStream_t stream) {
-  using C = Cfg<BQ, BK, D>;
-  auto kern = flash_fwd_wgmma_kernel<BQ, BK, D>;
-  // the dynamic shared-memory limit is raised once per device
-  static bool raised[kMaxDevices] = {};
+// the dynamic shared-memory limit of `kern`, raised once per device
+template <typename K>
+cudaError_t raise_smem(K kern, int bytes, bool (&raised)[kMaxDevices]) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!raised[dev]) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::kSmem);
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     raised[dev] = true;
   }
+  return cudaSuccess;
+}
+
+template <int BQ, int BK, int D, int DP = (D + 63) / 64 * 64>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int hq,
+                   int hkv, int s, int d, float scale, int causal, cudaStream_t stream) {
+  using C = Cfg<BQ, BK, D, DP>;
+  auto kern = flash_fwd_wgmma_kernel<BQ, BK, D, DP>;
+  static bool raised[kMaxDevices] = {};
+  cudaError_t err = raise_smem(kern, C::kSmem, raised);
+  if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, b * hq, s, D, BQ) || !make_map(&tk, k, b * hkv, s, D, BK) ||
-      !make_map(&tv, v, b * hkv, s, D, BK)) {
+  if (!make_map(&tq, q, b * hq, s, d, BQ) || !make_map(&tk, k, b * hkv, s, d, BK) ||
+      !make_map(&tv, v, b * hkv, s, d, BK)) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid(b * hq, (s + BQ - 1) / BQ);
   kern<<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, static_cast<bf16*>(o), hq,
-                                                hkv, s, scale * kLog2e, causal);
+                                                hkv, s, d, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
+template <int BQ, int BK, int DP>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int b,
+                       int hq, int hkv, int s, int d, float scale, int causal,
+                       cudaStream_t stream) {
+  using C = CfgF32<BQ, BK, DP>;
+  auto kern = flash_fwd_f32_kernel<BQ, BK, DP>;
+  static bool raised[kMaxDevices] = {};
+  cudaError_t err = raise_smem(kern, C::kSmem, raised);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * hq, (s + BQ - 1) / BQ);
+  kern<<<grid, C::kThreads, C::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, s, d,
+      scale * kLog2e, causal);
+  return cudaGetLastError();
+}
+
+// bf16, one instantiation per built head dim (BQ, BK, D)
 #define FLASH_BUILT(X) \
   X(64, 64, 64) X(64, 128, 64) X(128, 64, 64) X(128, 128, 64) \
   X(64, 64, 80) X(64, 128, 80) X(128, 64, 80) X(128, 128, 80) \
   X(64, 64, 128) X(64, 128, 128) X(128, 64, 128) X(128, 128, 128)
 
+// bf16, any other head dim: one instantiation per padded width (BQ, BK, DP)
+#define FLASH_ANY_D_BUILT(X) \
+  X(64, 64, 64) X(64, 128, 64) X(128, 64, 64) X(128, 128, 64) \
+  X(64, 64, 128) X(64, 128, 128) X(128, 64, 128) X(128, 128, 128)
+
+// f32, every (BQ, BK, DP) whose shared memory fits one block
+#define FLASH_F32_BUILT(X) \
+  X(64, 64, 64) X(64, 128, 64) X(128, 64, 64) X(128, 128, 64) \
+  X(64, 64, 128) X(128, 64, 128)
+
+// a head dim the kernels take: a multiple of 8 (TMA's 16-byte row stride
+// in bf16) from 8 to 128
+bool head_dim_ok(int d) { return d >= 8 && d <= 128 && d % 8 == 0; }
+
+bool built_d(int d) { return d == 64 || d == 80 || d == 128; }
+
+int padded(int d) { return (d + 63) / 64 * 64; }
+
 }  // namespace
 
-// Dynamic shared memory of the (d, block_q, block_k) instantiation in bytes,
-// or -1 when that instantiation is not built.
+// Dynamic shared memory of the bf16 kernel that runs head dim d at
+// (block_q, block_k), in bytes, or -1 when none is built for them.
 extern "C" int flash_attention_smem_bytes(int d, int block_q, int block_k) {
+  if (!head_dim_ok(d)) return -1;
 #define FLASH_SMEM(BQ_, BK_, D_) \
   if (d == D_ && block_q == BQ_ && block_k == BK_) return Cfg<BQ_, BK_, D_>::kSmem;
   FLASH_BUILT(FLASH_SMEM)
 #undef FLASH_SMEM
+#define FLASH_SMEM_ANY(BQ_, BK_, DP_)                                        \
+  if (!built_d(d) && padded(d) == DP_ && block_q == BQ_ && block_k == BK_) \
+    return Cfg<BQ_, BK_, 0, DP_>::kSmem;
+  FLASH_ANY_D_BUILT(FLASH_SMEM_ANY)
+#undef FLASH_SMEM_ANY
+  return -1;
+}
+
+// The same for the f32 kernel.
+extern "C" int flash_attention_f32_smem_bytes(int d, int block_q, int block_k) {
+  if (!head_dim_ok(d)) return -1;
+#define FLASH_SMEM_F32(BQ_, BK_, DP_)                           \
+  if (padded(d) == DP_ && block_q == BQ_ && block_k == BK_) \
+    return CfgF32<BQ_, BK_, DP_>::kSmem;
+  FLASH_F32_BUILT(FLASH_SMEM_F32)
+#undef FLASH_SMEM_F32
   return -1;
 }
 
 // q, o: [b, hq, s, d]; k, v: [b, hkv, s, d]; bf16, contiguous, 16-byte
-// aligned. Built for d in {64, 80, 128} and block_q, block_k in {64, 128};
-// anything else returns cudaErrorInvalidValue without launching.
+// aligned. d a multiple of 8 from 8 to 128 (64, 80 and 128 have their own
+// instantiations), block_q, block_k in {64, 128}; anything else returns
+// cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                                         void* o, int b, int hq, int hkv, int s, int d,
                                         int block_q, int block_k, float scale,
                                         int causal, void* stream) {
-  if (b <= 0 || hq <= 0 || hkv <= 0 || s <= 0 || hq % hkv != 0) {
+  if (b <= 0 || hq <= 0 || hkv <= 0 || s <= 0 || hq % hkv != 0 || !head_dim_ok(d)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FLASH_CASE(BQ_, BK_, D_)                                              \
   if (d == D_ && block_q == BQ_ && block_k == BK_)                            \
-    return launch<BQ_, BK_, D_>(q, k, v, o, b, hq, hkv, s, scale, causal, st);
+    return launch<BQ_, BK_, D_>(q, k, v, o, b, hq, hkv, s, d, scale, causal, st);
   FLASH_BUILT(FLASH_CASE)
 #undef FLASH_CASE
+#define FLASH_CASE_ANY(BQ_, BK_, DP_)                                            \
+  if (!built_d(d) && padded(d) == DP_ && block_q == BQ_ && block_k == BK_)     \
+    return launch<BQ_, BK_, 0, DP_>(q, k, v, o, b, hq, hkv, s, d, scale, causal, st);
+  FLASH_ANY_D_BUILT(FLASH_CASE_ANY)
+#undef FLASH_CASE_ANY
+  return cudaErrorInvalidValue;
+}
+
+// The same in f32 (q, k, v, o float32), for the (block_q, block_k) that
+// FLASH_F32_BUILT holds at d's padded width.
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
+                                       void* o, int b, int hq, int hkv, int s, int d,
+                                       int block_q, int block_k, float scale,
+                                       int causal, void* stream) {
+  if (b <= 0 || hq <= 0 || hkv <= 0 || s <= 0 || hq % hkv != 0 || !head_dim_ok(d)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FLASH_CASE_F32(BQ_, BK_, DP_)                                         \
+  if (padded(d) == DP_ && block_q == BQ_ && block_k == BK_)                   \
+    return launch_f32<BQ_, BK_, DP_>(q, k, v, o, b, hq, hkv, s, d, scale, causal, st);
+  FLASH_F32_BUILT(FLASH_CASE_F32)
+#undef FLASH_CASE_F32
   return cudaErrorInvalidValue;
 }

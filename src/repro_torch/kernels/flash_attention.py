@@ -6,9 +6,15 @@ Replaces the TPU kernel ``_flash_kernel`` of
 kernel is ``csrc/flash_attention.cu``: one thread block per (batch*q-head,
 q-tile), a producer warp that streams K/V tiles with TMA through a ring of
 two shared-memory stages, and one or two consumer warpgroups of 64 query
-rows whose products are ``wgmma`` (bf16 in, f32 accumulation). Head dim 80
-is staged padded to 128 columns (``padded_head_dim``). Its source says what
-bounds it on the H100 and what the design does about it.
+rows whose products are ``wgmma`` (bf16 in, f32 accumulation). Head dims 64,
+80 and 128 have instantiations of their own; any other head dim the kernels
+take (``supports_head_dim``: a multiple of 8 from 8 to 128) runs a generic
+build of its padded width, 64 or 128 columns (``padded_head_dim``: 80 is
+staged at 128 too), with the head dim passed at run time. f32 tensors
+launch the source's second kernel, ``flash_attention_fwd_f32``: SIMT, true
+f32 products by FFMA, K/V tiles double-buffered with cp.async, at the
+blocks whose shared memory fits (``built``). Its source says what bounds
+each kernel on the H100 and what the design does about it.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors, and for nothing else: on a CUDA
@@ -32,23 +38,50 @@ import torch
 
 from repro_torch.core.zoo import (SM90_FLASH_BLOCKS, sm90_flash_smem_bytes,
                                   sm90_padded_head_dim)
+from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.kernels import build
 from repro_torch.spans import span
 
 _NEG_INF = -1e30
-HEAD_DIMS = (64, 80, 128)  # head dims the kernel is built for
+# bf16 head dims with an instantiation of their own; every other head dim
+# that ``supports_head_dim`` admits runs the generic build of its padded
+# width (one of PADDED_WIDTHS)
+HEAD_DIMS = (64, 80, 128)
+PADDED_WIDTHS = (64, 128)
+MAX_HEAD_DIM = 128
+# the kernels' entry points by input dtype (q, k and v alike)
+ENTRY = {torch.bfloat16: "flash_attention_fwd_bf16",
+         torch.float32: "flash_attention_fwd_f32"}
 # block_q / block_k values the kernel is built for (the knobs of the
 # ``flash`` family's ``sm90`` space)
 BLOCKS = SM90_FLASH_BLOCKS
 
-# kernel launches in this process (the main-path witness); reset via
-# ``ops.reset_launch_counts``
+# kernel launches in this process (the main-path witness), the bf16 and
+# the f32 kernel's apart; reset via ``ops.reset_launch_counts``
 LAUNCHES = 0
+LAUNCHES_F32 = 0
 
 # the width the kernel stages a head dim at, and its dynamic shared memory
 # at given blocks (the block picker's pruning): one definition, in core
 padded_head_dim = sm90_padded_head_dim
 smem_bytes = sm90_flash_smem_bytes
+
+
+def supports_head_dim(d: int) -> bool:
+    """The head dims the kernels take: a multiple of 8 (TMA's 16-byte row
+    stride in bf16) from 8 to 128. Anything else raises without a launch."""
+    return 8 <= d <= MAX_HEAD_DIM and d % 8 == 0
+
+
+def built(block_q: int, block_k: int, d: int, dtype: torch.dtype) -> bool:
+    """Whether a kernel is built for head dim ``d`` at these blocks in
+    ``dtype``: bf16 at every block pair of BLOCKS, f32 where its shared
+    memory (the probability tile included) fits one H100 block."""
+    if (dtype not in ENTRY or not supports_head_dim(d) or block_q not in BLOCKS
+            or block_k not in BLOCKS):
+        return False
+    size = torch.empty((), dtype=dtype).element_size()
+    return smem_bytes(block_q, block_k, d, size) <= GPU_H100.fast_mem_bytes
 
 
 def _check_shapes(q, k, v) -> None:
@@ -119,8 +152,8 @@ def flash_attention_plain(
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = build.load("flash_attention").flash_attention_fwd_bf16
+def _kernel(entry: str = "flash_attention_fwd_bf16"):
+    fn = getattr(build.load("flash_attention"), entry)
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -217,11 +250,14 @@ class FlashAttention(torch.autograd.Function):
 build.register_load_clearer(_kernel.cache_clear)
 
 
-def kernel_smem_bytes(block_q: int, block_k: int, d: int) -> int:
-    """The built library's own count of the shared memory it launches the
-    (d, block_q, block_k) instantiation with; -1 where none is built. Loads
-    (and if needed builds) the library: for checks on the card."""
-    fn = build.load("flash_attention").flash_attention_smem_bytes
+def kernel_smem_bytes(block_q: int, block_k: int, d: int,
+                      dtype: torch.dtype = torch.bfloat16) -> int:
+    """The built library's own count of the shared memory it launches head
+    dim d at (block_q, block_k) in ``dtype`` with; -1 where none is built.
+    Loads (and if needed builds) the library: for checks on the card."""
+    name = {torch.bfloat16: "flash_attention_smem_bytes",
+            torch.float32: "flash_attention_f32_smem_bytes"}[dtype]
+    fn = getattr(build.load("flash_attention"), name)
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
     return fn(d, block_q, block_k)
@@ -229,25 +265,27 @@ def kernel_smem_bytes(block_q: int, block_k: int, d: int) -> int:
 
 def _launch(q, k, v, causal: bool, scale: float, block_q: int,
             block_k: int) -> torch.Tensor:
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_F32
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the flash kernel takes bfloat16; {name} is {t.dtype}")
+        if t.dtype not in ENTRY or t.dtype != q.dtype:
+            raise TypeError(f"the flash kernels take bfloat16 or float32, q, k "
+                            f"and v alike; {name} is {t.dtype}, q {q.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the flash kernel is built for head dims {HEAD_DIMS}, "
-                         f"not {d}")
-    if block_q not in BLOCKS or block_k not in BLOCKS:
-        raise ValueError(f"blocks ({block_q}, {block_k}) are not built; the "
-                         f"kernel is built for {BLOCKS} x {BLOCKS}")
+    if not supports_head_dim(d):
+        raise ValueError(f"the flash kernels take head dims that are multiples "
+                         f"of 8 from 8 to {MAX_HEAD_DIM}, not {d}")
+    if not built(block_q, block_k, d, q.dtype):
+        raise ValueError(f"blocks ({block_q}, {block_k}) are not built for "
+                         f"{q.dtype} at head dim {d}; bf16 is built for {BLOCKS} "
+                         f"x {BLOCKS}, f32 where its shared memory fits")
     if -(-s // block_q) > 65535:
         raise ValueError(f"{-(-s // block_q)} q-tiles exceed the grid's y extent")
-    fn = _kernel()
+    fn = _kernel(ENTRY[q.dtype])
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -255,7 +293,10 @@ def _launch(q, k, v, causal: bool, scale: float, block_q: int,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError_t {err}")
-    LAUNCHES += 1
+    if q.dtype == torch.float32:
+        LAUNCHES_F32 += 1
+    else:
+        LAUNCHES += 1
     return o
 
 

@@ -6,8 +6,11 @@ Replaces the TPU kernel ``_matmul_kernel`` of ``src/repro/kernels/matmul.py``
 walk the (bm, bn) output tiles, a producer warp that streams A and B tiles
 with TMA through one or two shared-memory stages, and one or two consumer
 warpgroups of 64 rows whose products are ``wgmma`` (bf16 in, f32
-accumulation), written once as bf16 at the end of each tile. Its source says
-what bounds it on the H100 and what the design does about it.
+accumulation), written once as bf16 at the end of each tile. f32 tensors
+launch the source's second kernel, ``matmul_f32``: SIMT, true f32 products
+by FFMA over the same (bm, bn, bk) tiles and one or two TMA stages, built at
+the configurations whose stages fit shared memory (``built``). Its source
+says what bounds each kernel on the H100 and what the design does about it.
 
 ``matmul`` launches the kernel for CUDA tensors and runs ``matmul_plain`` for
 CPU tensors, and for nothing else: on a CUDA tensor it launches or raises.
@@ -23,16 +26,20 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.spaces import SM90_MATMUL_TILES, sm90_matmul_smem_bytes
+from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.kernels import build
 
 BLOCKS = SM90_MATMUL_TILES  # bm / bn / bk values the kernel is built for
 # shared memory of one stage: the A and B tiles, unpadded (the C tile stays
 # in registers); the tuner's sm90 space prunes with the same function
 smem_bytes = sm90_matmul_smem_bytes
+# the kernels' entry points by input dtype (A and B alike)
+ENTRY = {torch.bfloat16: "matmul_bf16", torch.float32: "matmul_f32"}
 
-# kernel launches in this process (the main-path witness); reset via
-# ``ops.reset_launch_counts``
+# kernel launches in this process (the main-path witness), the bf16 and
+# the f32 kernel's apart; reset via ``ops.reset_launch_counts``
 LAUNCHES = 0
+LAUNCHES_F32 = 0
 
 
 def check_shapes(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -58,6 +65,20 @@ def resolve_blocks(m: int, n: int, k: int, bm: int, bn: int,
     return bm, bn, bk
 
 
+def built(bm: int, bn: int, bk: int, double_buffer: bool,
+          dtype: torch.dtype) -> bool:
+    """Whether a kernel is built for these tiles in ``dtype``: bf16 at every
+    tile of BLOCKS with one or two stages; f32 where its stages fit one H100
+    block's shared memory, the configurations the sm90 cost model scores
+    without overflow."""
+    if dtype not in ENTRY or any(v not in BLOCKS[name] for name, v in
+                                 (("bm", bm), ("bn", bn), ("bk", bk))):
+        return False
+    size = torch.empty((), dtype=dtype).element_size()
+    stages = 2 if double_buffer else 1
+    return stages * smem_bytes(bm, bn, bk, size) <= GPU_H100.fast_mem_bytes
+
+
 def matmul_plain(x: torch.Tensor, y: torch.Tensor, bm: int, bn: int,
                  bk: int) -> torch.Tensor:
     """C = A @ B over the kernel's blocks, in torch: an f32 accumulator
@@ -81,8 +102,8 @@ def k_slices(x: torch.Tensor, y: torch.Tensor, bk: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = build.load("matmul").matmul_bf16
+def _kernel(entry: str = "matmul_bf16"):
+    fn = getattr(build.load("matmul"), entry)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -93,12 +114,15 @@ def _kernel():
 build.register_load_clearer(_kernel.cache_clear)
 
 
-def kernel_smem_bytes(bm: int, bn: int, bk: int, double_buffer: bool) -> int:
+def kernel_smem_bytes(bm: int, bn: int, bk: int, double_buffer: bool,
+                      dtype: torch.dtype = torch.bfloat16) -> int:
     """The built library's own count of the shared memory the (bm, bn, bk)
-    instantiation stages for A and B over its one or two stages; -1 where
-    none is built. Loads (and if needed builds) the library: for checks on
-    the card."""
-    fn = build.load("matmul").matmul_smem_bytes
+    instantiation in ``dtype`` stages for A and B over its one or two
+    stages; -1 where none is built. Loads (and if needed builds) the
+    library: for checks on the card."""
+    name = {torch.bfloat16: "matmul_smem_bytes",
+            torch.float32: "matmul_f32_smem_bytes"}[dtype]
+    fn = getattr(build.load("matmul"), name)
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
     return fn(bm, bn, bk, int(double_buffer))
@@ -106,18 +130,23 @@ def kernel_smem_bytes(bm: int, bn: int, bk: int, double_buffer: bool) -> int:
 
 def _launch(x, y, bm: int, bn: int, bk: int,
             double_buffer: bool) -> torch.Tensor:
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_F32
     m, k = x.shape
     n = y.shape[1]
     for name, t in (("A", x), ("B", y)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, A on {x.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the matmul kernel takes bfloat16; {name} is {t.dtype}")
+        if t.dtype not in ENTRY or t.dtype != x.dtype:
+            raise TypeError(f"the matmul kernels take bfloat16 or float32, A and "
+                            f"B alike; {name} is {t.dtype}, A {x.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     bm, bn, bk = resolve_blocks(m, n, k, bm, bn, bk)
-    fn = _kernel()
+    if not built(bm, bn, bk, double_buffer, x.dtype):
+        raise ValueError(f"({bm}, {bn}, {bk}) with {2 if double_buffer else 1} "
+                         f"stages is not built for {x.dtype}: its stages exceed "
+                         f"one block's shared memory")
+    fn = _kernel(ENTRY[x.dtype])
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k, bm, bn,
@@ -125,7 +154,10 @@ def _launch(x, y, bm: int, bn: int, bk: int,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul launch failed: cudaError_t {err}")
-    LAUNCHES += 1
+    if x.dtype == torch.float32:
+        LAUNCHES_F32 += 1
+    else:
+        LAUNCHES += 1
     return out
 
 

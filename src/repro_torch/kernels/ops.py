@@ -86,14 +86,19 @@ def _bundle_executable(kernel: str, args, params: Optional[Dict] = None):
 
 
 def launch_counts() -> Dict[str, int]:
-    """How many times each hand-written kernel has launched in this process."""
+    """How many times each hand-written kernel has launched in this process
+    (the bf16 kernels under their source's name, the f32 ones with
+    ``_f32``)."""
     return {"flash_attention": _flash_mod.LAUNCHES,
-            "matmul": _matmul_mod.LAUNCHES}
+            "matmul": _matmul_mod.LAUNCHES,
+            "flash_attention_f32": _flash_mod.LAUNCHES_F32,
+            "matmul_f32": _matmul_mod.LAUNCHES_F32}
 
 
 def reset_launch_counts() -> None:
-    _flash_mod.LAUNCHES = 0
-    _matmul_mod.LAUNCHES = 0
+    for mod in (_flash_mod, _matmul_mod):
+        mod.LAUNCHES = 0
+        mod.LAUNCHES_F32 = 0
 
 
 def matmul(
@@ -130,10 +135,11 @@ def tuned_flash_blocks(s: int, d: int, dtype_bytes: int = 2) -> Tuple[int, int]:
     step a fixed matrix-unit cost plus the staged q/k/v bytes over the
     memory rate, times the number of (q-tile, kv-tile) steps, with ragged
     tiles counted whole, and the head dim at the width the kernel stages it
-    (``padded_head_dim``). Candidates whose shared memory (``smem_bytes``:
-    the q tile and two stages of k and v tiles; the softmax statistics and
-    the accumulator stay in registers) exceeds what one H100 block may use
-    are pruned. The pick is written back to a writable default DB under
+    (``padded_head_dim``). Candidates whose shared memory at this dtype
+    width (``smem_bytes``: the q tile and two stages of k and v tiles, and
+    in f32 the probability tile; the softmax statistics and the accumulator
+    stay in registers) exceeds what one H100 block may use are pruned: in
+    f32 those are the blocks the kernel is not built for. The pick is written back to a writable default DB under
     strategy ``flash_grid``."""
     target = GPU_H100
     space = op_registry.make_space(
@@ -147,7 +153,7 @@ def tuned_flash_blocks(s: int, d: int, dtype_bytes: int = 2) -> Tuple[int, int]:
     for cfg in space.enumerate(None):
         bq, bk = cfg["block_q"], cfg["block_k"]
         evals += 1
-        if smem_bytes(bq, bk, dp) > target.fast_mem_bytes:
+        if smem_bytes(bq, bk, dp, dtype_bytes) > target.fast_mem_bytes:
             continue
         tiles = (bq // 128 or 1) * (bk // 128 or 1) * max(1, dp // 128)
         dma = (bq * dp + 2 * bk * dp) * dtype_bytes

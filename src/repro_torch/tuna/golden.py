@@ -390,22 +390,33 @@ def _cuda_skip(kernel: str, in_avals, config: Dict) -> Optional[str]:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as km
 
-    if any(dtype != op_registry.DTYPE_BY_BYTES[2] for _, dtype in in_avals):
-        return ("the Hopper kernel takes bfloat16 only "
-                "(ROADMAP Queue B 1b, 2a)")
+    import torch
+
+    dtypes = {op_registry.DTYPE_BY_BYTES[2]: torch.bfloat16,
+              op_registry.DTYPE_BY_BYTES[4]: torch.float32}
+    names = {dtype for _, dtype in in_avals}
+    if len(names) != 1 or not names <= set(dtypes):
+        return (f"the Hopper kernels take bfloat16 or float32 inputs alike, "
+                f"not {sorted(names)} (ROADMAP Queue B)")
+    dtype = dtypes[names.pop()]
     if kernel == "matmul":
         (m, k), (_, n) = (shape for shape, _ in in_avals)
         try:
-            km.resolve_blocks(m, n, k, config["bm"], config["bn"],
-                              config["bk"])
+            bm, bn, bk = km.resolve_blocks(m, n, k, config["bm"], config["bn"],
+                                           config["bk"])
         except ValueError as e:
             return f"blocks not built for this shape: {e}"
+        if not km.built(bm, bn, bk, config.get("double_buffer", True), dtype):
+            return (f"({bm}, {bn}, {bk}) is not built for {dtype}: its stages "
+                    f"exceed shared memory")
         return None
     d = in_avals[0][0][-1]
-    if d not in fa.HEAD_DIMS:
-        return f"head dim {d} is not built (built: {fa.HEAD_DIMS})"
-    if config["block_q"] not in fa.BLOCKS or config["block_k"] not in fa.BLOCKS:
-        return f"blocks not built (built: {fa.BLOCKS})"
+    if not fa.supports_head_dim(d):
+        return (f"head dim {d} is not built (multiples of 8 up to "
+                f"{fa.MAX_HEAD_DIM}; ROADMAP Queue B)")
+    if not fa.built(config["block_q"], config["block_k"], d, dtype):
+        return (f"blocks ({config['block_q']}, {config['block_k']}) not built "
+                f"for {dtype} at head dim {d}")
     return None
 
 
@@ -417,7 +428,7 @@ def plan_bundle_entries(records: Iterable[ScheduleRecord],
     (``OpDef.bundle_fn`` reconstructs shapes and dtypes). Families without
     a kernel, unparseable signatures and knob-mismatched records are
     skipped with a reason, and so, for ``device="cuda"``, are records the
-    Hopper kernels cannot run (f32, unbuilt blocks or head dims). A skip
+    Hopper kernels cannot run (other dtypes, unbuilt blocks or head dims). A skip
     still rides in the bundle's schedule index and never refuses the
     release."""
     plans: List[BundlePlan] = []

@@ -18,6 +18,14 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_plain
 # |kernel - plain| <= RTOL * |plain| + ATOL_RMS * rms(plain): one bf16 ulp of
 # the output, plus a floor for outputs near zero (as in chip_smoke.py)
 RTOL, ATOL_RMS = 2**-7, 0.02
+# f32, the reference's own limits (tests/test_kernels.py): flash |kernel -
+# plain| <= F32_ATOL + F32_RTOL * |plain|; matmul MM_F32_TOL * (sqrt(K) +
+# |plain|). Both sum exact f32 products in another order.
+F32_ATOL, F32_RTOL = 3e-5, 3e-4
+MM_F32_TOL = 2e-4
+# the bf16 head dims of the generic builds (one or two 64-column atoms)
+OTHER_HEAD_DIMS = (16, 32, 48, 96)
+FLASH_BLOCKS = [(64, 64), (64, 128), (128, 64), (128, 128)]
 
 
 @pytest.fixture
@@ -72,11 +80,77 @@ def test_kernel_head_dim_80_mha(card, s, causal):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 16), (torch.float32, 64)])
+@pytest.mark.parametrize("s", [1, 77, 513, 1024])
+@pytest.mark.parametrize("d", OTHER_HEAD_DIMS)
+@pytest.mark.parametrize("blocks", FLASH_BLOCKS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_matches_plain_at_other_head_dims(card, s, d, blocks, causal):
+    """The generic bf16 builds (the head dim passed at run time, the
+    padded columns TMA's zero fill, the store guarded) under the bf16
+    limit; the last 8 columns carry data."""
+    q, k, v = _qkv(2, 8, 2, s, d, card)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.attention(q, k, v, causal=causal, blocks=blocks)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, block_q=blocks[0],
+                                 block_k=blocks[1])
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    atol = ATOL_RMS * float(np.sqrt(np.mean(want ** 2)))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol)
+    assert np.abs(got[..., d - 8:]).max() > 0
+
+
+F32_FLASH_CASES = [(d, blocks) for d in (16, 32, 64, 80, 96, 128) for blocks in FLASH_BLOCKS
+                   if kflash.built(*blocks, d, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 77, 513, 1024, 2047])
+@pytest.mark.parametrize("d,blocks", F32_FLASH_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_kernel_matches_plain(card, s, d, blocks, causal):
+    """The f32 SIMT kernel at every block pair it is built for, within the
+    reference's f32 limit of the plain version in f32."""
+    q, k, v = (t.float() for t in _qkv(2, 8, 2, s, d, card))
+    before = ops.launch_counts()["flash_attention_f32"]
+    got = ops.attention(q, k, v, causal=causal, blocks=blocks)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert ops.launch_counts()["flash_attention_f32"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, block_q=blocks[0],
+                                 block_k=blocks[1])
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=F32_RTOL,
+                               atol=F32_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [8, 16, 64, 80, 96, 128])
+def test_flash_library_stages_what_the_pickers_count(card, d):
+    """The shared memory each library kernel launches with is the pickers'
+    count (``smem_bytes`` at the dtype's width), and -1 where none is
+    built."""
+    for bq, bk in FLASH_BLOCKS:
+        assert kflash.kernel_smem_bytes(bq, bk, d) == kflash.smem_bytes(bq, bk, d, 2)
+        f32 = kflash.kernel_smem_bytes(bq, bk, d, torch.float32)
+        if kflash.built(bq, bk, d, torch.float32):
+            assert f32 == kflash.smem_bytes(bq, bk, d, 4) <= 232_448
+        else:
+            assert f32 == -1
+    assert kflash.kernel_smem_bytes(64, 64, 136) == -1
+    assert kflash.kernel_smem_bytes(64, 64, 20, torch.float32) == -1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.bfloat16, 136),
+                                     (torch.bfloat16, 20), (torch.float32, 136)])
 def test_kernel_refuses_what_it_was_not_built_for(card, dtype, d):
+    """Still refused, with no launch: f16, D > 128 and D % 8 != 0."""
     q, k, v = (t.to(dtype) for t in _qkv(1, 2, 1, 8, d, card))
+    before = ops.launch_counts()
     with pytest.raises((ValueError, TypeError)):
-        ops.attention(q, k, v)
+        ops.attention(q, k, v, blocks=(64, 64))
+    assert ops.launch_counts() == before
 
 
 @pytest.mark.gpu
@@ -175,6 +249,13 @@ def test_matmul_library_stages_what_the_model_counts(card, bm, bn, bk):
         assert staged == (2 if db else 1) * kmatmul.smem_bytes(bm, bn, bk, 2)
         assert staged == (2 if db else 1) * (bm * bk + bk * bn) * 2
         assert staged + 128 + 1024 <= 232_448  # + barriers and alignment slack
+        # the f32 kernel, where it is built
+        f32 = kmatmul.kernel_smem_bytes(bm, bn, bk, db, torch.float32)
+        if kmatmul.built(bm, bn, bk, db, torch.float32):
+            assert f32 == (2 if db else 1) * kmatmul.smem_bytes(bm, bn, bk, 4)
+            assert f32 + 128 + 128 <= 232_448
+        else:
+            assert f32 == -1
     assert kmatmul.kernel_smem_bytes(32, bn, bk, True) == -1
 
 
@@ -211,13 +292,15 @@ def test_matmul_on_the_card_never_runs_the_plain_version(card, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["f32", "non-contiguous", "indivisible", "unbuilt",
-                                  "no-longer-built"])
+@pytest.mark.parametrize("case", ["f16", "f32-unbuilt", "non-contiguous", "indivisible",
+                                  "unbuilt", "no-longer-built"])
 def test_matmul_kernel_refuses(card, case):
     a, b = _ab(256, 256, 256, card)
     blocks = (64, 64, 64)
-    if case == "f32":
-        a, b, err = a.float(), b.float(), TypeError
+    if case == "f16":  # f32 launches its own kernel since it was added
+        a, b, err = a.half(), b.half(), TypeError
+    elif case == "f32-unbuilt":  # two f32 stages of (128, 128, 128) do not fit
+        a, b, blocks, err = a.float(), b.float(), (128, 128, 128), ValueError
     elif case == "non-contiguous":
         b, err = b.t(), ValueError
     elif case == "indivisible":
@@ -226,10 +309,34 @@ def test_matmul_kernel_refuses(card, case):
         blocks, err = (16, 64, 64), ValueError
     else:  # 32 left the built set with wgmma's 64-row warpgroup tiles
         blocks, err = (32, 32, 32), ValueError
-    before = ops.launch_counts()["matmul"]
+    before = ops.launch_counts()
     with pytest.raises(err):
         ops.matmul(a, b, blocks=blocks)
-    assert ops.launch_counts()["matmul"] == before
+    assert ops.launch_counts() == before
+
+
+MM_F32_CASES = [(bm, bn, bk, db) for bm, bn, bk in itertools.product(*kmatmul.BLOCKS.values())
+                for db in (False, True) if kmatmul.built(bm, bn, bk, db, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(256, 512, 384), (128, 256, 128), (256, 256, 256),
+                                   (2048, 512, 4096)])
+@pytest.mark.parametrize("config", MM_F32_CASES)
+def test_matmul_f32_kernel_matches_plain(card, shape, config):
+    """The f32 SIMT kernel at every configuration it is built for (blocks
+    clamped to the shape, as the reference clamps them), within the
+    reference's f32 limit of the plain version."""
+    m, n, k = shape
+    a, b = (t.float() for t in _ab(m, n, k, card))
+    before = ops.launch_counts()["matmul_f32"]
+    got = ops.matmul(a, b, blocks=config)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert ops.launch_counts()["matmul_f32"] == before + 1
+    want = kmatmul.matmul_plain(a, b, *config[:3])
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=MM_F32_TOL,
+                               atol=MM_F32_TOL * np.sqrt(k))
 
 
 # --------------------------------------------------------------------------
@@ -315,8 +422,9 @@ def test_mamba_forward_on_the_card_matches_stepped_decode(card, s, chunk):
 
 @pytest.fixture
 def bundle_records():
-    """A bf16 matmul and a bf16 flash record the Hopper kernels run, and
-    an f32 matmul record a CUDA bundle keeps in its schedule index only."""
+    """A bf16 matmul, an f32 matmul and a bf16 flash record the Hopper
+    kernels run, and an f32 matmul record at tiles whose two stages do not
+    fit, which a CUDA bundle keeps in its schedule index only."""
     from repro_torch.core import op_registry
     from repro_torch.core.spaces import MatmulSpace
     from repro_torch.tuna.db import ScheduleRecord
@@ -325,9 +433,12 @@ def bundle_records():
     mm32 = MatmulSpace(256, 256, 512, 4, target_kind="sm90").signature()
     fl = op_registry.make_space("flash", {"s": 256, "d": 128, "dtype_bytes": 2},
                                 "sm90").signature()
+    mm32_big = MatmulSpace(512, 512, 512, 4, target_kind="sm90").signature()
     cfg = {"bm": 128, "bn": 128, "bk": 64, "double_buffer": True}
     return [ScheduleRecord(op=mm, target="gpu_h100", score=1e-6, config=cfg),
             ScheduleRecord(op=mm32, target="gpu_h100", score=1e-6, config=cfg),
+            ScheduleRecord(op=mm32_big, target="gpu_h100", score=1e-6,
+                           config=dict(cfg, bk=128)),
             ScheduleRecord(op=fl, target="gpu_h100", score=1e-6,
                            config={"block_q": 128, "block_k": 64})]
 
@@ -343,15 +454,17 @@ def test_cuda_bundle_launches_its_library_with_no_build(card, tmp_path, bundle_r
     from repro_torch.tuna.golden import build_kernel_bundle
 
     info = build_kernel_bundle(bundle_records, str(tmp_path), "gpu_h100")
-    assert (info.entries, len(info.skipped)) == (2, 1)
-    assert "bfloat16" in info.skipped[0][1]
+    assert (info.entries, len(info.skipped)) == (3, 1)
+    assert "shared memory" in info.skipped[0][1]
     assert sorted(info.libraries) == sorted(build.SOURCES)
     rng = np.random.default_rng(0)
     x, y = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
             .to(card, torch.bfloat16) for s in ((256, 512), (512, 256)))
     q = torch.from_numpy(rng.standard_normal((1, 1, 256, 128)).astype(np.float32))
     q = q.to(card, torch.bfloat16)
+    x32, y32 = x.float(), y.float()
     base_mm = ops.matmul(x, y, blocks=(128, 128, 64, True))
+    base_mm32 = ops.matmul(x32, y32, blocks=(128, 128, 64, True))
     base_att = ops.attention(q, q, q, blocks=(128, 64))
     assert build.load("matmul")._name == str(build.library_path("matmul"))
     ops.use_kernel_bundle(info.path)
@@ -361,13 +474,17 @@ def test_cuda_bundle_launches_its_library_with_no_build(card, tmp_path, bundle_r
             {n: "bundled" for n in build.SOURCES}
         builds, launches = ops.kernel_build_counts(), ops.launch_counts()
         got_mm, got_att = ops.matmul(x, y), ops.attention(q, q, q)
+        got_mm32 = ops.matmul(x32, y32)
         torch.cuda.synchronize()
         assert build.load("matmul")._name == str(installed["matmul"])
         assert build.load("flash_attention")._name == str(installed["flash_attention"])
-        assert ops.get_kernel_bundle().exec_hits == 2
+        assert ops.get_kernel_bundle().exec_hits == 3
         assert ops.kernel_build_counts() == builds
-        assert ops.launch_counts() == {k: v + 1 for k, v in launches.items()}
+        assert ops.launch_counts() == dict(
+            launches, matmul=launches["matmul"] + 1, matmul_f32=launches["matmul_f32"] + 1,
+            flash_attention=launches["flash_attention"] + 1)
         assert torch.equal(got_mm, base_mm) and torch.equal(got_att, base_att)
+        assert torch.equal(got_mm32, base_mm32)
     finally:
         ops.use_kernel_bundle(None)
     assert build.installed() == {}

@@ -208,17 +208,61 @@ class TestKernelBundle:
         assert skip[0] == "conv2d[foo=1]" and "no kernel" in skip[1]
 
     def test_cuda_plan_keeps_f32_records_index_only(self):
-        """The Hopper kernels take bf16 only: a CUDA bundle keeps the f32
-        records in its schedule index, as skips with their reason."""
+        """The Hopper kernels take bf16 and f32: a CUDA bundle plans the f32
+        records beside the bf16 one, and keeps in its schedule index only,
+        as skips with their reason, the records no kernel is built for: an
+        f32 matmul whose two stages exceed shared memory, an f32 flash
+        record at blocks whose probability tile does not fit, and a head
+        dim past 128."""
         bf16 = ScheduleRecord(op="matmul[K=256,M=256,N=256,dtype_bytes=2]",
                               target=TGT, score=1e-6,
                               config={"bm": 128, "bn": 128, "bk": 64,
                                       "double_buffer": True})
-        plans, skipped = plan_bundle_entries(mk_records() + [bf16],
+        big = ScheduleRecord(op="matmul[K=256,M=256,N=256,dtype_bytes=4]",
+                             target=TGT, score=1e-6,
+                             config={"bm": 128, "bn": 128, "bk": 128,
+                                     "double_buffer": True})
+        wide = ScheduleRecord(op="flash[d=128,dtype_bytes=4,s=256]", target=TGT,
+                              score=1e-6, config={"block_q": 128, "block_k": 128})
+        d136 = ScheduleRecord(op="flash[d=136,dtype_bytes=2,s=256]", target=TGT,
+                              score=1e-6, config={"block_q": 64, "block_k": 64})
+        plans, skipped = plan_bundle_entries(mk_records() + [bf16, big, wide, d136],
                                              device="cuda")
-        assert [p.record.op for p in plans] == [bf16.op]
+        assert sorted(p.record.op for p in plans) == sorted([MM_OP, FL_OP, bf16.op])
         why = dict(skipped)
-        assert "bfloat16" in why[MM_OP] and "bfloat16" in why[FL_OP]
+        assert "shared memory" in why[big.op]
+        assert "not built for torch.float32" in why[wide.op]
+        assert "head dim 136" in why[d136.op]
+        assert "no kernel" in why["conv2d[foo=1]"]
+
+    @pytest.mark.parametrize("kernel,avals,config,ok", [
+        # the tune --smoke store's dense_256 matmul record at 4 bytes
+        ("matmul", [((256, 256), "float32"), ((256, 256), "float32")],
+         {"bm": 64, "bn": 64, "bk": 64, "double_buffer": True}, True),
+        # the reduced configs' attention: f32 and bf16 at head dim 16
+        ("flash", [((1, 4, 64, 16), "float32"), ((1, 2, 64, 16), "float32"),
+                   ((1, 2, 64, 16), "float32")], {"block_q": 64, "block_k": 64}, True),
+        ("flash", [((1, 4, 64, 16), "bfloat16"), ((1, 2, 64, 16), "bfloat16"),
+                   ((1, 2, 64, 16), "bfloat16")], {"block_q": 128, "block_k": 128}, True),
+        # still skipped: D=136, f16, and inputs of two dtypes
+        ("flash", [((1, 4, 64, 136), "bfloat16"), ((1, 2, 64, 136), "bfloat16"),
+                   ((1, 2, 64, 136), "bfloat16")], {"block_q": 64, "block_k": 64}, False),
+        ("matmul", [((256, 256), "float16"), ((256, 256), "float16")],
+         {"bm": 64, "bn": 64, "bk": 64, "double_buffer": True}, False),
+        ("flash", [((1, 4, 64, 16), "float16"), ((1, 2, 64, 16), "float16"),
+                   ((1, 2, 64, 16), "float16")], {"block_q": 64, "block_k": 64}, False),
+        ("matmul", [((256, 256), "float32"), ((256, 256), "bfloat16")],
+         {"bm": 64, "bn": 64, "bk": 64, "double_buffer": True}, False),
+    ])
+    def test_cuda_skip_admits_f32_and_other_head_dims(self, kernel, avals, config, ok):
+        """``_cuda_skip`` admits what a kernel is built for and states why
+        it skips the rest."""
+        from repro_torch.tuna.golden import _cuda_skip
+
+        why = _cuda_skip(kernel, avals, config)
+        assert (why is None) is ok
+        if not ok:
+            assert why
 
     def test_cuda_bundle_build_needs_nvcc(self, tmp_path, monkeypatch):
         import torch.utils.cpp_extension as cpp_ext

@@ -18,9 +18,11 @@ from repro_torch.core.spaces import SM90_MATMUL_TILES
 from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import matmul as kmatmul
-from repro_torch.kernels.flash_attention import (BLOCKS, HEAD_DIMS, flash_attention,
-                                                 flash_attention_plain, padded_head_dim,
-                                                 smem_bytes)
+from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels.flash_attention import (BLOCKS, HEAD_DIMS, PADDED_WIDTHS,
+                                                 flash_attention, flash_attention_plain,
+                                                 padded_head_dim, smem_bytes,
+                                                 supports_head_dim)
 from repro_torch.models.attention import chunked_attention
 
 RNG = np.random.default_rng(42)
@@ -193,17 +195,116 @@ def test_built_flash_blocks_fit_shared_memory(bq, bk, d):
     assert smem_bytes(bq, bk, d) == 2 * dp * (bq + 4 * bk) + 128 + 1024
 
 
+def _macro(src: str, name: str):
+    body = re.search(rf"#define {name}\(X\)(.*?)\n\n", src, re.S).group(1)
+    return {tuple(map(int, t)) for t in re.findall(r"X\(([\d, ]+)\)", body)
+            for t in [t.split(", ")]}
+
+
 def test_flash_source_instantiates_exactly_the_built_blocks():
-    """The (block_q, block_k, d) triples csrc/flash_attention.cu builds are
-    BLOCKS x BLOCKS x HEAD_DIMS, and the kernel's products are wgmma."""
+    """The (block_q, block_k, d) triples csrc/flash_attention.cu builds in
+    bf16 are BLOCKS x BLOCKS x HEAD_DIMS, its generic builds BLOCKS x BLOCKS
+    x PADDED_WIDTHS, and its f32 builds the (block_q, block_k, padded
+    width) that ``built`` admits; the bf16 products are wgmma, the f32
+    kernel's are not."""
     src = (build.CSRC / "flash_attention.cu").read_text()
-    macro = re.search(r"#define FLASH_BUILT\(X\)(.*?)\n\n", src, re.S).group(1)
-    built = {tuple(map(int, t)) for t in re.findall(r"X\((\d+), (\d+), (\d+)\)", macro)}
-    assert built == {(bq, bk, d) for bq in BLOCKS for bk in BLOCKS for d in HEAD_DIMS}
-    assert HEAD_DIMS == (64, 80, 128)
+    assert _macro(src, "FLASH_BUILT") == {
+        (bq, bk, d) for bq in BLOCKS for bk in BLOCKS for d in HEAD_DIMS}
+    assert HEAD_DIMS == (64, 80, 128) and PADDED_WIDTHS == (64, 128)
+    assert _macro(src, "FLASH_ANY_D_BUILT") == {
+        (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in PADDED_WIDTHS}
+    assert _macro(src, "FLASH_F32_BUILT") == {
+        (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in PADDED_WIDTHS
+        if kflash.built(bq, bk, dp, torch.float32)}
     assert "wgmma_ss" in src and "wgmma_rs" in src and "mma.sync" not in src
     # tiles and accumulator at the padded width, the store at the real one
-    assert "kDP = (D + 63) / 64 * 64" in src and "wgmma_rs<C::kDP, 1>" in src
+    assert "int DP = (D + 63) / 64 * 64" in src and "wgmma_rs<C::kDP, 1>" in src
+    assert "col >= dd" in src
+    # the f32 entry points beside the bf16 ones; the f32 kernel stages with
+    # cp.async and multiplies by FFMA (fmaf), with no tensor-core product
+    for entry in ("flash_attention_fwd_bf16", "flash_attention_fwd_f32",
+                  "flash_attention_smem_bytes", "flash_attention_f32_smem_bytes"):
+        assert f'extern "C" int {entry}(' in src
+    f32 = src[src.index("f32, SIMT"):src.index("// ---------------------------"
+                                                 "---------------------------------------- host")]
+    assert "cp.async.cg.shared.global" in f32 and "fmaf(" in f32
+    assert "wgmma" not in f32 and "tf32" not in f32
+
+
+# the head dims of the generic bf16 builds and the f32 kernel (a multiple of
+# 8 up to 128 that is not a built 64, 80 or 128), and two that are
+OTHER_HEAD_DIMS = [8, 16, 24, 48, 96]
+
+
+@pytest.mark.parametrize("d", OTHER_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_at_other_head_dims(d, dtype, causal):
+    """ops.attention (the plain version on CPU tensors) at the blocks the
+    picker gives for this dtype's width, against the Pallas kernel at the
+    same blocks and the oracle: f32 to summation order (F32_TOL), bf16 to
+    its output rounding and bf16 p (BF16_TOL)."""
+    arrs = _qkv(1, 4, 2, 128, d)
+    size = 4 if dtype == torch.float32 else 2
+    bq, bk = ops.tuned_flash_blocks(128, d, size)
+    got = ops.attention(*_torch(arrs, dtype), causal=causal)
+    assert got.dtype == dtype and got.shape == (1, 4, 128, d)
+    jarrs = [jnp.asarray(a, JDTYPE[dtype]) for a in arrs]
+    want_pallas = flash_attention_pallas(*jarrs, causal=causal, block_q=bq, block_k=bk,
+                                         interpret=True)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(_np(got), _np(want_pallas), **tol)
+    np.testing.assert_allclose(_np(got), _np(jref.attention(*jarrs, causal=causal)), **tol)
+
+
+@pytest.mark.parametrize("d,ok", [(0, False), (4, False), (8, True), (12, False),
+                                  (16, True), (20, False), (120, True), (128, True),
+                                  (132, False), (136, False)])
+def test_supports_head_dim_at_the_rules_edges(d, ok):
+    """A multiple of 8 (TMA's 16-byte row stride in bf16) from 8 to 128."""
+    assert supports_head_dim(d) is ok
+    assert kflash.built(64, 64, d, torch.bfloat16) is ok
+    assert kflash.built(64, 64, d, torch.float32) is ok
+
+
+@pytest.mark.parametrize("bq", BLOCKS)
+@pytest.mark.parametrize("bk", BLOCKS)
+@pytest.mark.parametrize("dp", PADDED_WIDTHS)
+def test_f32_flash_smem_is_the_kernels_count(bq, bk, dp):
+    """The f32 kernel stages Q [bq][dp], two stages of K and V [bk][dp] and
+    P [bq][bk], all f32, with no barrier and no slack; it is built exactly
+    where that fits one H100 block."""
+    hand = 4 * (bq * dp + 2 * 2 * bk * dp + bq * bk)
+    assert smem_bytes(bq, bk, dp, 4) == hand == smem_bytes(bq, bk, dp - 8, 4)
+    assert kflash.built(bq, bk, dp, torch.float32) is (hand <= GPU_H100.fast_mem_bytes)
+    assert kflash.built(bq, bk, dp, torch.bfloat16)
+    assert smem_bytes(bq, bk, dp, 2) == smem_bytes(bq, bk, dp)
+
+
+@pytest.mark.parametrize("s", [1, 12, 64, 77, 513, 1024, 2047])
+@pytest.mark.parametrize("d", [8, 16, 48, 64, 80, 96, 128])
+def test_tuned_flash_blocks_fit_the_f32_kernel(s, d):
+    """Every f32 pick is a block pair the f32 kernel is built for."""
+    bq, bk = ops.tuned_flash_blocks(s, d, 4)
+    assert kflash.built(bq, bk, d, torch.float32)
+    assert smem_bytes(bq, bk, d, 4) <= GPU_H100.fast_mem_bytes
+
+
+@pytest.mark.parametrize("dtype,d,blocks,err", [
+    (torch.float16, 64, (64, 64), TypeError),     # f16: no kernel
+    (torch.float32, 136, (64, 64), ValueError),   # D > 128
+    (torch.bfloat16, 20, (64, 64), ValueError),   # D % 8 != 0
+    (torch.float32, 128, (128, 128), ValueError),  # f32 blocks that do not fit
+    (torch.bfloat16, 64, (32, 64), ValueError),   # blocks never built
+])
+def test_flash_launch_refuses_what_no_kernel_is_built_for(monkeypatch, dtype, d,
+                                                          blocks, err):
+    """The wrapper's launch refuses before it loads a library."""
+    monkeypatch.setattr(kflash, "_kernel", lambda entry: pytest.fail("loaded"))
+    q = torch.zeros((1, 2, 8, d), dtype=dtype)
+    k = torch.zeros((1, 1, 8, d), dtype=dtype)
+    with pytest.raises(err):
+        kflash._launch(q, k, k, True, 1.0, *blocks)
 
 
 def test_wrapper_has_no_fallback_off_cpu():
@@ -226,7 +327,8 @@ def test_launch_counter_only_counts_kernel_launches():
     arrs = _torch(_qkv(1, 2, 1, 8, 64))
     ops.attention(*arrs)  # CPU: the plain versions, not launches
     ops.matmul(torch.ones((64, 64)), torch.ones((64, 64)))
-    assert ops.launch_counts() == {"flash_attention": 0, "matmul": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "matmul": 0,
+                                   "flash_attention_f32": 0, "matmul_f32": 0}
 
 
 def test_kernel_library_is_keyed_by_source_digest():
@@ -377,3 +479,64 @@ def test_matmul_source_instantiates_exactly_the_built_tiles():
     assert "wgmma_ss<BN, 1>" in src and "tma_load_3d" in src
     assert "mma.sync" not in src and "cp.async" not in src
     assert not re.search(r"gemm|gemv|xmma|nvjet", src, re.IGNORECASE)
+    # the f32 kernel: every (bm, bn, bk, stages) whose stages fit, FFMA
+    # products over TMA-staged tiles, its own entry points
+    assert _macro(src, "MM_F32_BUILT") == {
+        (bm, bn, bk, 2 if db else 1)
+        for bm, bn, bk in itertools.product(*SM90_MATMUL_TILES.values())
+        for db in (False, True) if kmatmul.built(bm, bn, bk, db, torch.float32)}
+    assert len(_macro(src, "MM_F32_BUILT")) == 21
+    assert 'extern "C" int matmul_f32(' in src
+    assert 'extern "C" int matmul_f32_smem_bytes(' in src
+    f32 = src[src.index("struct CfgF32"):src.index("// ---------------------------"
+                                                     "---------------------------------------- host")]
+    assert "fmaf(" in f32 and "tma_load_3d" in f32 and "wgmma" not in f32
+    assert "make_map_f32(&ta, a, 1, m, k, BM, BK)" in src
+
+
+@pytest.mark.parametrize("shape", [(128, 128, 128), (256, 128, 512), (64, 256, 128),
+                                   (384, 256, 256), (256, 256, 256), (512, 512, 512),
+                                   (2048, 4096, 4096), (2048, 512, 4096),
+                                   (2048, 11008, 4096), (2048, 4096, 11008),
+                                   (2048, 64000, 4096)])
+def test_tuned_matmul_blocks_at_f32_are_built(shape):
+    """The tuner's f32 pick (the sm90 space at dtype_bytes=4) is a
+    configuration the f32 kernel is built for, at the reference's grid, the
+    dense presets and yi-6b's shapes."""
+    m, n, k = shape
+    bm, bn, bk, db = ops.tuned_matmul_blocks(m, n, k, 4)
+    assert kmatmul.built(*kmatmul.resolve_blocks(m, n, k, bm, bn, bk), db, torch.float32)
+
+
+def test_f32_matmul_is_built_where_the_cost_model_sees_no_overflow():
+    """The f32 kernel's 21 configurations are the sm90 ones whose stages
+    fit shared memory by the cost model's own count (its ``vmem_overflow``
+    is zero), and the library stages what that count says."""
+    from repro_torch.core.spaces import MatmulSpace
+
+    space = MatmulSpace(2048, 2048, 2048, 4, target_kind="sm90")
+    for cfg in space.enumerate(None):
+        _, meta = space.instantiate(cfg)
+        stages = 2 if cfg["double_buffer"] else 1
+        fits = meta.vmem_tile_bytes * stages <= GPU_H100.fast_mem_bytes
+        assert kmatmul.built(cfg["bm"], cfg["bn"], cfg["bk"], cfg["double_buffer"],
+                             torch.float32) is fits
+        assert kmatmul.built(cfg["bm"], cfg["bn"], cfg["bk"], cfg["double_buffer"],
+                             torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,n,blocks,err", [
+    (torch.float16, 128, (64, 64, 64, True), TypeError),     # f16: no kernel
+    (torch.float32, 128, (128, 128, 128, True), ValueError),  # two stages do not fit
+    (torch.float32, 256, (128, 256, 128, True), ValueError),
+    (torch.bfloat16, 128, (64, 64, 32, True), ValueError),   # bk never built
+])
+def test_matmul_launch_refuses_what_no_kernel_is_built_for(monkeypatch, dtype, n,
+                                                           blocks, err):
+    """The wrapper's launch refuses before it loads a library; the f32 one
+    at (128, 128, 128) launches with one stage."""
+    monkeypatch.setattr(kmatmul, "_kernel", lambda entry: pytest.fail("loaded"))
+    x, y = torch.zeros((128, 128), dtype=dtype), torch.zeros((128, n), dtype=dtype)
+    with pytest.raises(err):
+        kmatmul._launch(x, y, *blocks)
+    assert kmatmul.built(128, 128, 128, False, torch.float32)
