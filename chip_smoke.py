@@ -453,6 +453,18 @@ REDUCED_LENS = (1, 12, 64, 77)
 NEW_INPUTS_SEED = 1
 REDUCED_LOGIT_RTOL = 1e-4
 REDUCED_GRAD_RTOL = 1e-4
+# Ragged tiles: (M, N, K) that no built matmul tile divides (decode-sized M
+# against yi-6b's 4096 x 4096 projection, K = 80, N = 8). Both kernels run
+# every configuration of each shape's space against the plain version at
+# MM_RTOL / MM_ATOL_RMS (f32 also at the reference's f32 limit), and the
+# limit must flag a kernel that dropped the ragged last rows, the last
+# columns or the last K slice. RAGGED_MM_TIMED are timed at the static pick.
+# Their inputs come from their own generator, so the earlier draws stay.
+RAGGED_MM_SHAPES = ((1, 4096, 4096), (8, 4096, 4096), (32, 4096, 4096), (96, 4096, 4096),
+                    (256, 256, 80), (64, 8, 64))
+RAGGED_MM_TIMED = ((1, 4096, 4096), (8, 4096, 4096), (32, 4096, 4096), (96, 4096, 4096),
+                   (256, 256, 80))
+RAGGED_SEED = 2
 
 
 def fail(msg: str) -> None:
@@ -850,6 +862,116 @@ def check_matmul_f32(shapes, gen) -> float:
     return max_err
 
 
+def dropped_tails(x, y, bm, bn, bk, want):
+    """What a kernel that dropped the last (ragged) tile of rows, of
+    columns or the last K slice at tiles (bm, bn, bk) would give, beside
+    ``want`` (the plain version): {name: tensor}."""
+    import torch
+    from repro_torch.kernels import matmul as km
+
+    m, k = x.shape
+    n = y.shape[1]
+    rows, cols = want.clone(), want.clone()
+    rows[(m - 1) // bm * bm:] = 0
+    cols[:, (n - 1) // bn * bn:] = 0
+    k0 = (k - 1) // bk * bk
+    kslice = (km.k_slices(x[:, :k0], y[:k0], bk) if k0 else torch.zeros_like(want))
+    return {"last rows": rows, "last columns": cols, "last K slice": kslice}
+
+
+def check_ragged_matmul(gen) -> dict:
+    """Both matmul kernels at the shapes no built tile divides
+    (``RAGGED_MM_SHAPES``): every configuration of the shape's sm90 space
+    (f32: those built) against the plain version at MM_RTOL / MM_ATOL_RMS
+    (f32 also at the reference's f32 limit), the tuner's pick through
+    ops.matmul against the f32 oracle, and controls at the pick's tiles that
+    the limit must flag; then each kernel at the pick of ``RAGGED_MM_TIMED``
+    by graph replay, beside torch.matmul (its yardstick), the plain version
+    and the bound. Returns {"launches": {name: n}, "max_abs_err": {name: x},
+    "timed": {name: [rows]}, "s": seconds}; the launches are the checks'."""
+    import torch
+    from repro_torch.core.spaces import MatmulSpace
+    from repro_torch.hw.gpu_h100 import GPU_H100
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ops, ref
+
+    t0 = time.perf_counter()
+    out = {"launches": {"matmul": 0, "matmul_f32": 0},
+           "max_abs_err": {"matmul": 0.0, "matmul_f32": 0.0},
+           "timed": {"matmul": [], "matmul_f32": []}}
+    for dtype, name in ((torch.bfloat16, "matmul"), (torch.float32, "matmul_f32")):
+        size = torch.empty((), dtype=dtype).element_size()
+        for m, n, k in RAGGED_MM_SHAPES:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            y = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+            cfgs = [c for c in MatmulSpace(m, n, k, size, target_kind="sm90").enumerate(None)
+                    if km.built(c["bm"], c["bn"], c["bk"], c["double_buffer"], dtype)]
+            pick = ops.tuned_matmul_blocks(m, n, k, size)
+            if dict(zip(("bm", "bn", "bk", "double_buffer"), pick)) not in cfgs:
+                fail(f"the {dtype} pick {pick} at {m}x{n}x{k} is not a built configuration")
+            worst, err = 0.0, 0.0
+            ops.reset_launch_counts()
+            for c in cfgs:
+                got = km.matmul(x, y, **c)
+                torch.cuda.synchronize()
+                want = km.matmul_plain(x, y, c["bm"], c["bn"], c["bk"])
+                bad, w = outside(got, want, MM_RTOL, MM_ATOL_RMS)
+                if dtype == torch.float32:
+                    bad32, w32 = f32_outside(got, want, F32_MM_TOL * k ** 0.5, F32_MM_TOL)
+                    bad, w = bad + bad32, max(w, w32)
+                worst, err = max(worst, w), max(err, float((got.float() - want.float())
+                                                           .abs().max()))
+                if bad or got.shape != (m, n) or not torch.isfinite(got).all():
+                    fail(f"the {dtype} matmul kernel disagrees at {m}x{n}x{k} {c}: "
+                         f"{bad} outside")
+            got = ops.matmul(x, y)
+            torch.cuda.synchronize()
+            bad_o, w_o = outside(got, ref.matmul(x, y), MM_RTOL, MM_ATOL_RMS)
+            out["launches"][name] += ops.launch_counts()[name]
+            if ops.launch_counts()[name] != len(cfgs) + 1:
+                fail(f"{name} at {m}x{n}x{k}: {ops.launch_counts()[name]} launches for "
+                     f"{len(cfgs)} configurations and the pick")
+            out["max_abs_err"][name] = max(out["max_abs_err"][name], err)
+            want = km.matmul_plain(x, y, *pick[:3])
+            controls = []
+            for what, dropped in dropped_tails(x, y, *pick[:3], want).items():
+                n_drop, w_drop = outside(dropped, want, MM_RTOL, MM_ATOL_RMS)
+                controls.append(f"dropped {what} {n_drop} outside (worst {w_drop:.1f}x)")
+                if n_drop == 0:
+                    fail(f"the matmul limit would miss a kernel that dropped the {what} "
+                         f"at {m}x{n}x{k} {dtype} tiles {pick[:3]}")
+            log(f"ragged {name} {m}x{n}x{k}: {len(cfgs)} configs, 0 outside, worst "
+                f"{worst:.3f}, max err {err:.3e}; pick {pick} vs the oracle {bad_o} "
+                f"outside (worst {w_o:.3f}); " + "; ".join(controls))
+            if bad_o:
+                fail(f"the {dtype} matmul kernel disagrees with the oracle at {m}x{n}x{k}")
+        peak = GPU_H100.peak_flops_bf16 if dtype == torch.bfloat16 else GPU_H100.peak_flops_f32
+        for m, n, k in RAGGED_MM_TIMED:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            y = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+            blocks = ops.tuned_matmul_blocks(m, n, k, size)
+            kern = lambda: ops.matmul(x, y)
+            lib_fn = lambda: torch.matmul(x, y)
+            k1, l1, l2, k2 = (graph_ms(f) for f in (kern, lib_fn, lib_fn, kern))
+            ms, lib = (k1 + k2) / 2, (l1 + l2) / 2
+            plain = cuda_ms(lambda: km.matmul_plain(x, y, *blocks[:3]), iters=3)
+            flops, nbytes = matmul_work(m, n, k, size)
+            bound_ms, by = bound(flops, nbytes, peak)
+            out["timed"][name].append({
+                "shape": [m, n, k], "blocks": list(blocks), "ms": ms, "plain_ms": plain,
+                "library_ms": lib, "bound_ms": bound_ms, "bound_by": by,
+                "tiles": -(-m // blocks[0]) * -(-n // blocks[1])})
+            log(f"timing ragged {name} {m}x{n}x{k} blocks={blocks} "
+                f"({out['timed'][name][-1]['tiles']} output tiles), graph replay: kernel "
+                f"{ms:.4f} ms [{k1:.4f}, {k2:.4f}], torch.matmul (yardstick) {lib:.4f} ms "
+                f"[{l1:.4f}, {l2:.4f}] ({ms / lib:.2f}x); plain {plain:.4f} ms; bound "
+                f"{bound_ms:.4f} ms by {by} ({nvidia_smi('name,power.limit')})")
+    out["s"] = time.perf_counter() - t0
+    log(f"ragged matmul checks and timing: {out['launches']} check launches, "
+        f"{out['s']:.1f} s")
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1151,6 +1273,8 @@ def main() -> None:
                      f"{m}x{n}x{k} bk={bk}")
         log("; ".join(line))
     del x, y, got, want, dropped
+    ragged = check_ragged_matmul(torch.Generator(device=dev).manual_seed(RAGGED_SEED))
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- tuner
     tuner = tuner_phase(gen, mm_spaces)
@@ -1408,6 +1532,9 @@ def main() -> None:
         "max_abs_err": mm_err,
         "ms": mm_ms, "plain_ms": mm_plain_ms, "bound_ms": mm_bound_ms,
         "bound_by": mm_bound_by, "library_ms": mm_lib_ms, "dtypes": ["bfloat16"],
+        "ragged_check_launches": ragged["launches"]["matmul"],
+        "ragged_max_abs_err": ragged["max_abs_err"]["matmul"],
+        "ragged": ragged["timed"]["matmul"],
         "sass": mm_sass, "registers": mm_regs, "sweep": mm_sweep}, {
         "name": "matmul_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -1416,6 +1543,9 @@ def main() -> None:
         **{key: new_timing["matmul_f32"][0][key]
            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "library": "torch.matmul, f32, TF32 off", "dtypes": ["float32"],
+        "ragged_check_launches": ragged["launches"]["matmul_f32"],
+        "ragged_max_abs_err": ragged["max_abs_err"]["matmul_f32"],
+        "ragged": ragged["timed"]["matmul_f32"],
         "registers": mm32_regs, "sweep": new_timing["matmul_f32"]}]}), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,17 @@
-"""Two builds of the bf16 flash kernel against each other on one card.
+"""Two builds of a bf16 kernel against each other on one card.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.flash_ab --other DIR \
-        [--out build/flash_ab.json]
+        [--kernel flash_attention|matmul] [--out build/flash_ab.json]
 
 ``DIR`` is the root of another checkout of the repository (a ``git archive``
 of another commit, say, unpacked under ``build/``): its
-``src/repro_torch/kernels/csrc/flash_attention.cu`` is compiled with this
+``src/repro_torch/kernels/csrc/<kernel>.cu`` is compiled with this
 checkout's nvcc flags into ``build/kernels/ab/``, and this checkout's
 library is built as usual. Both are loaded side by side and called through
-the entry point they share, ``flash_attention_fwd_bf16``, on the same bf16
-inputs at the head dims with instantiations of their own (64, 80 and 128)
-and at the blocks this checkout's picker gives:
+the entry point they share on the same bf16 inputs, at the blocks this
+checkout's picker gives: ``flash_attention_fwd_bf16`` at the head dims
+with instantiations of their own (64, 80 and 128), or ``matmul_bf16`` at
+yi-6b's prefill products (the tuner's shapes):
 
 - the outputs must be bit-equal (an unchanged instantiation computes the
   same function in the same order);
@@ -33,6 +34,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.benchmarks.measure import time_fn
+from repro_torch.benchmarks.topk_ratio import YI6B_SHAPES
 from repro_torch.kernels import build, ops
 
 # (B, Hq, Hkv, S, D, causal): yi-6b's heads, stablelm-3b's head dim 80 and
@@ -49,6 +51,45 @@ def _entry(lib: ctypes.CDLL):
     return fn
 
 
+def _matmul_entry(lib: ctypes.CDLL):
+    fn = lib.matmul_bf16
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _flash_cases(gen, dev):
+    """(the case's fields, its output, a call of a library's entry on it)."""
+    for b, hq, hkv, s, d, causal in CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+        blocks = ops.tuned_flash_blocks(s, d, 2)
+        yield ({"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "causal": causal,
+                "blocks": list(blocks)}, torch.empty_like(q),
+               lambda fn, o, q=q, k=k, v=v, blocks=blocks, causal=causal:
+               _call(fn, q, k, v, o, blocks, causal))
+
+
+def _matmul_cases(gen, dev):
+    for m, n, k in YI6B_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        y = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+        blocks = ops.tuned_matmul_blocks(m, n, k, 2)
+
+        def run(fn, o, x=x, y=y, blocks=blocks):
+            err = fn(x.data_ptr(), y.data_ptr(), o.data_ptr(), *o.shape, x.shape[1],
+                     *blocks[:3], int(blocks[3]), torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"matmul_bf16 failed: cudaError_t {err}")
+
+        yield ({"M": m, "N": n, "K": k, "blocks": list(blocks)},
+               torch.empty((m, n), dtype=torch.bfloat16, device=dev), run)
+
+
+# kernel source -> (its bf16 entry point, its cases)
+KERNELS = {"flash_attention": (_entry, _flash_cases), "matmul": (_matmul_entry, _matmul_cases)}
+
+
 def _call(fn, q, k, v, o, blocks, causal: bool) -> None:
     b, hq, s, d = q.shape
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq, k.shape[1], s,
@@ -58,12 +99,13 @@ def _call(fn, q, k, v, o, blocks, causal: bool) -> None:
         raise RuntimeError(f"flash_attention_fwd_bf16 failed: cudaError_t {err}")
 
 
-def build_other(root: Path) -> Path:
-    """The other checkout's flash library, built with this checkout's flags."""
-    src = root / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu"
+def build_other(root: Path, kernel: str = "flash_attention") -> Path:
+    """The other checkout's library of ``kernel``, built with this
+    checkout's flags."""
+    src = root / "src" / "repro_torch" / "kernels" / "csrc" / f"{kernel}.cu"
     if not src.exists():
-        raise SystemExit(f"no flash source at {src}")
-    out = build.BUILD_DIR / "ab" / "flash_attention-other.so"
+        raise SystemExit(f"no {kernel} source at {src}")
+    out = build.BUILD_DIR / "ab" / f"{kernel}-other.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)],
                          capture_output=True, text=True)
@@ -75,44 +117,41 @@ def build_other(root: Path) -> Path:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, help="root of the other checkout")
+    ap.add_argument("--kernel", default="flash_attention", choices=sorted(KERNELS))
     ap.add_argument("--out", default=None, help="also write the JSON line here")
     ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("flash_ab needs an NVIDIA card")
     dev = torch.device("cuda")
-    libs = {"other": _entry(ctypes.CDLL(str(build_other(Path(args.other))))),
-            "this": _entry(build.load("flash_attention"))}
+    entry, cases = KERNELS[args.kernel]
+    libs = {"other": entry(ctypes.CDLL(str(build_other(Path(args.other), args.kernel)))),
+            "this": entry(build.load(args.kernel))}
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, differ = [], 0
-    for b, hq, hkv, s, d, causal in CASES:
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-                   for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
-        blocks = ops.tuned_flash_blocks(s, d, 2)
-        outs = {name: torch.empty_like(q) for name in libs}
+    for fields, out, run in cases(gen, dev):
+        outs = {name: torch.empty_like(out) for name in libs}
         for name, fn in libs.items():
-            _call(fn, q, k, v, outs[name], blocks, causal)
+            run(fn, outs[name])
         torch.cuda.synchronize()
         equal = bool(torch.equal(outs["other"], outs["this"]))
         differ += not equal
         times = {"other": [], "this": []}
         for name in ("other", "this", "this", "other"):
             fn, o = libs[name], outs[name]
-            times[name].append(time_fn(lambda: _call(fn, q, k, v, o, blocks, causal), dev,
-                                       iters=args.iters, reps=10) * 1e3)
+            times[name].append(time_fn(lambda: run(fn, o), dev, iters=args.iters,
+                                       reps=10) * 1e3)
         ms = {name: sum(t) / len(t) for name, t in times.items()}
-        rows.append({"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "causal": causal,
-                     "blocks": list(blocks), "bit_equal": equal, "other_ms": ms["other"],
+        rows.append({**fields, "bit_equal": equal, "other_ms": ms["other"],
                      "this_ms": ms["this"], "ratio": ms["this"] / ms["other"],
                      "turns_ms": times})
-        print(f"[flash_ab] D={d} Hq={hq} Hkv={hkv} S={s} causal={causal} blocks={blocks}: "
-              f"other {ms['other']:.4f} ms {times['other']}, this {ms['this']:.4f} ms "
-              f"{times['this']}, this/other {ms['this'] / ms['other']:.4f}, bit-equal "
-              f"{equal}", flush=True)
+        print(f"[flash_ab] {args.kernel} {fields}: other {ms['other']:.4f} ms "
+              f"{times['other']}, this {ms['this']:.4f} ms {times['this']}, this/other "
+              f"{ms['this'] / ms['other']:.4f}, bit-equal {equal}", flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
-    line = json.dumps({"flash_ab": rows, "card": card})
+    line = json.dumps({"flash_ab": rows, "kernel": args.kernel, "card": card})
     print(line, flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -118,7 +118,8 @@ def _wrap_parallel(prog: Program, meta: ScheduleMeta,
 # consecutive powers of two, so ``_divisors_pow2`` over each range yields
 # exactly the built sizes that divide the shape (plus its fallback, dropped
 # below when it is not built). bm is one or two wgmma warpgroups of 64 rows;
-# bn and bk are whole 64-column (128-byte) swizzle atoms.
+# bn and bk are whole 64-column (128-byte) swizzle atoms. The kernel also
+# runs a tile that does not divide its dimension (a ragged last tile).
 SM90_MATMUL_TILES: Dict[str, Tuple[int, ...]] = {
     "bm": (64, 128),
     "bn": (64, 128, 256),
@@ -133,17 +134,24 @@ def sm90_matmul_smem_bytes(bm: int, bn: int, bk: int, dtype_bytes: int) -> int:
     return (bm * bk + bk * bn) * dtype_bytes
 
 
-def _built_divisors(n: int, built: Tuple[int, ...]) -> List[int]:
-    return [d for d in _divisors_pow2(n, built[0], built[-1]) if d in built]
+def _built_tiles(n: int, built: Tuple[int, ...]) -> List[int]:
+    """The built tiles that divide ``n``; where none does, every built tile
+    up to the first that covers ``n`` (all of them where none covers it),
+    each run with a ragged last tile."""
+    divisors = [d for d in _divisors_pow2(n, built[0], built[-1]) if d in built]
+    if divisors:
+        return divisors
+    covers = [i for i, t in enumerate(built) if t >= n]
+    return list(built[:covers[0] + 1] if covers else built)
 
 
 def _matmul_knobs(attrs: Dict, kind: str) -> Dict[str, List]:
     M, N, K = attrs["M"], attrs["N"], attrs["K"]
     if kind == "sm90":
         return {
-            "bm": _built_divisors(M, SM90_MATMUL_TILES["bm"]),
-            "bn": _built_divisors(N, SM90_MATMUL_TILES["bn"]),
-            "bk": _built_divisors(K, SM90_MATMUL_TILES["bk"]),
+            "bm": _built_tiles(M, SM90_MATMUL_TILES["bm"]),
+            "bn": _built_tiles(N, SM90_MATMUL_TILES["bn"]),
+            "bk": _built_tiles(K, SM90_MATMUL_TILES["bk"]),
             "double_buffer": [False, True],
         }
     if kind == "tpu":
@@ -166,10 +174,12 @@ def _matmul_tpu(attrs: Dict, cfg: Dict,
                 kind: str) -> Tuple[Program, ScheduleMeta]:
     """TPU and sm90: grid block loops + matrix-unit nest (on sm90 the grid
     is the set of (bm, bn) output tiles, the ``gk`` block loop the K loop
-    inside each thread block, one TMA stage of A and B per step)."""
+    inside each thread block, one TMA stage of A and B per step). The grid
+    extents are ceil(dim / tile), so a ragged last tile counts whole; the
+    ``tpu`` knobs always divide, where ceil is floor."""
     M, N, K, db = attrs["M"], attrs["N"], attrs["K"], attrs["dtype_bytes"]
     bm, bn, bk = cfg["bm"], cfg["bn"], cfg["bk"]
-    gm, gn, gk = M // bm, N // bn, K // bk
+    gm, gn, gk = -(-M // bm), -(-N // bn), -(-K // bk)
     A = TensorDecl("A", (M, K), db)
     B = TensorDecl("B", (K, N), db)
     C = TensorDecl("C", (M, N), db)

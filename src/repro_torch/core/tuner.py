@@ -588,11 +588,13 @@ def tuned_matmul_blocks(M: int, N: int, K: int,
     kernel, memoised per shape.
 
     Exhaustive over the ``sm90`` matmul space on ``GPU_H100``, whose knobs
-    are exactly the tiles the kernel is built for that divide the shape:
-    no card is read, as the paper requires. Consults the default snapshot
-    and DB first (``best_schedule``), so a warm store makes this a pure
-    lookup. Raises ``ValueError`` when no built tile divides one of M, N,
-    K."""
+    are the tiles the kernel is built for that divide the shape, or where
+    none divides a dimension the built tiles up to the first that covers
+    it, run with a ragged last tile: no card is read, as the paper
+    requires. The space is never empty, so every shape gets a pick; the
+    model does not see how many SMs a few tiles fill. Consults the
+    default snapshot and DB first (``best_schedule``), so a warm store
+    makes this a pure lookup."""
     space = MatmulSpace(M, N, K, dtype_bytes, target_kind=GPU_H100.kind)
     best, _ = best_schedule(space, GPU_H100, limit=1024)
     return best["bm"], best["bn"], best["bk"], best["double_buffer"]

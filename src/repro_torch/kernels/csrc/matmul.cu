@@ -48,8 +48,19 @@
 //   accumulator (128 registers a thread) fits without a spill.
 //
 // Layout: a [m, k], b [k, n], c [m, n], bf16, row-major, contiguous, 16-byte
-// aligned; the blocks divide the shape. Built for bm in {64, 128}, bn in
-// {64, 128, 256}, bk in {64, 128} and one or two stages (24 instantiations).
+// aligned; n and k multiples of 8 (TMA's row stride is a multiple of 16
+// bytes). Built for bm in {64, 128}, bn in {64, 128, 256}, bk in {64, 128}
+// and one or two stages (24 instantiations).
+//
+// Ragged tiles: the tiles need not divide the shape. The grid covers each
+// dimension with ceil(dim / tile) tiles and the last one is ragged. TMA
+// fills a box's elements past the tensor's edge with zeros (a box wholly
+// past it too, as the last N box of a ragged bn=256 tile may be), and still
+// counts the box's full bytes on the barrier. Zero columns of A meet zero
+// rows of B, so a ragged last K slice adds nothing to the sum; the K loop
+// counts its slots to whole stages (ceil(k / BK) * BK/64), so a one-stage
+// kernel always multiplies a whole stage and no wgmma sits in a branch. The
+// epilogue stores no row >= m and no column >= n.
 //
 // The f32 kernel (`matmul_f32`, below the bf16 one) is SIMT: true f32
 // products by FFMA. TF32 tensor-core products miss the reference's f32
@@ -70,6 +81,9 @@
 // - Shared memory is the sm90 model's count, stages x (bm + bn) x bk x 4;
 //   built at the 21 (bm, bn, bk, stages) whose stages fit one block, which
 //   are the sm90 configurations the cost model scores without overflow.
+// - Ragged tiles as in the bf16 kernel: a ceil(m / BM) x ceil(n / BN) grid,
+//   ceil(k / BK) stages of K, TMA's zero fill past the edges, and no store
+//   of a row >= m or a column >= n (n and k multiples of 4: 16-byte rows).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -131,9 +145,10 @@ __global__ void __launch_bounds__(Cfg<BM, BN, BK, S>::kThreads, 1)
   auto full = [&](int q) { return base + C::kStaged + 8u * q; };
   auto empty = [&](int q) { return base + C::kStaged + 8u * (R + q); };
 
-  const int tiles_m = m / BM;
-  const int tiles = tiles_m * (n / BN);
-  const int nb = k / kBox;  // slots' worth of K per tile
+  const int tiles_m = (m + BM - 1) / BM;
+  const int tiles = tiles_m * ((n + BN - 1) / BN);
+  // slots per tile: whole stages, the last one's K columns past k zero-filled
+  const int nb = (k + BK - 1) / BK * C::kSlotsPerStage;
 
   if (threadIdx.x == 0) {
     for (int q = 0; q < R; ++q) {
@@ -220,15 +235,21 @@ __global__ void __launch_bounds__(Cfg<BM, BN, BK, S>::kThreads, 1)
       for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
 
       // element 4j+e of acc is (row 16*warp + lane/4 + 8*(e/2), column
-      // 8j + 2*(lane%4) + e%2) of this warpgroup's 64 x BN
-      const size_t row = (size_t)m0 + wg * 64 + (tid / 32) * 16 + (lane >> 2);
-      bf16* c0 = c + row * n + n0 + 2 * (lane & 3);
+      // 8j + 2*(lane%4) + e%2) of this warpgroup's 64 x BN; a ragged tile
+      // stores only rows < m and columns < n (n is even: a pair is whole)
+      const int row = m0 + wg * 64 + (tid / 32) * 16 + (lane >> 2);
+      const int col = n0 + 2 * (lane & 3);
+      bf16* c0 = c + (size_t)row * n + col;
       bf16* c8 = c0 + 8 * (size_t)n;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(c0 + 8 * j) = pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
-        *reinterpret_cast<uint32_t*>(c8 + 8 * j) =
-            pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+        if (col + 8 * j < n) {
+          if (row < m)
+            *reinterpret_cast<uint32_t*>(c0 + 8 * j) = pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+          if (row + 8 < m)
+            *reinterpret_cast<uint32_t*>(c8 + 8 * j) =
+                pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+        }
       }
     }
   }
@@ -258,7 +279,7 @@ template <int BM, int BN, int BK, int S>
 __global__ void __launch_bounds__(256, 1)
     matmul_f32_kernel(const __grid_constant__ CUtensorMap ta,
                       const __grid_constant__ CUtensorMap tb, float* __restrict__ c,
-                      int n, int k) {
+                      int m, int n, int k) {
   using C = CfgF32<BM, BN, BK, S>;
   constexpr int TM = C::kTM, TN = C::kTN;
   extern __shared__ unsigned char smem_raw[];
@@ -270,7 +291,7 @@ __global__ void __launch_bounds__(256, 1)
 
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int nb = k / BK;
+  const int nb = (k + BK - 1) / BK;
   const int tid = threadIdx.x;
   auto issue = [&](int kb) {
     const int st = kb % S;
@@ -314,11 +335,14 @@ __global__ void __launch_bounds__(256, 1)
     if (tid == 0 && kb + S < nb) issue(kb + S);
   }
 
-  float* c0 = c + (size_t)(m0 + w * TM) * n + n0 + lane;
+  const int row = m0 + w * TM, col = n0 + lane;
+  float* c0 = c + (size_t)row * n + col;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) c0[(size_t)i * n + 32 * j] = acc[i][j];
+    for (int j = 0; j < TN; ++j) {
+      if (row + i < m && col + 32 * j < n) c0[(size_t)i * n + 32 * j] = acc[i][j];
+    }
   }
 }
 
@@ -354,7 +378,7 @@ cudaError_t launch(const void* a, const void* b, void* c, int m, int n, int k,
   if (!make_map(&ta, a, 1, m, k, BM) || !make_map(&tb, b, 1, k, n, kBox)) {
     return cudaErrorInvalidValue;
   }
-  const int tiles = (m / BM) * (n / BN);
+  const int tiles = ((m + BM - 1) / BM) * ((n + BN - 1) / BN);
   const int grid = tiles < resident[dev] ? tiles : resident[dev];
   kern<<<grid, C::kThreads, C::kSmem, stream>>>(ta, tb, static_cast<bf16*>(c), m, n, k);
   return cudaGetLastError();
@@ -381,8 +405,8 @@ cudaError_t launch_f32(const void* a, const void* b, void* c, int m, int n, int 
   if (!make_map_f32(&ta, a, 1, m, k, BM, BK) || !make_map_f32(&tb, b, 1, k, n, BK, BN)) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid(m / BM, n / BN);
-  kern<<<grid, C::kThreads, C::kSmem, stream>>>(ta, tb, static_cast<float*>(c), n, k);
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
+  kern<<<grid, C::kThreads, C::kSmem, stream>>>(ta, tb, static_cast<float*>(c), m, n, k);
   return cudaGetLastError();
 }
 
@@ -417,14 +441,14 @@ extern "C" int matmul_smem_bytes(int bm, int bn, int bk, int double_buffer) {
 }
 
 // a [m, k], b [k, n], c [m, n]: bf16, row-major, contiguous, 16-byte
-// aligned. Built for bm in {64, 128}, bn in {64, 128, 256}, bk in {64, 128}
-// and one or two stages; the blocks must divide the shape. Anything else
+// aligned, n and k multiples of 8 (TMA's 16-byte row stride). Built for bm
+// in {64, 128}, bn in {64, 128, 256}, bk in {64, 128} and one or two
+// stages; a tile that does not divide the shape is ragged. Anything else
 // returns cudaErrorInvalidValue without launching.
 extern "C" int matmul_bf16(const void* a, const void* b, void* c, int m, int n,
                            int k, int bm, int bn, int bk, int double_buffer,
                            void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || bm <= 0 || bn <= 0 || bk <= 0 ||
-      m % bm != 0 || n % bn != 0 || k % bk != 0) {
+  if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 8 != 0) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -449,13 +473,14 @@ extern "C" int matmul_f32_smem_bytes(int bm, int bn, int bk, int double_buffer) 
   return -1;
 }
 
-// a [m, k], b [k, n], c [m, n]: f32, row-major, contiguous, 16-byte aligned;
-// the blocks divide the shape and are in MM_F32_BUILT. Anything else returns
-// cudaErrorInvalidValue without launching.
+// a [m, k], b [k, n], c [m, n]: f32, row-major, contiguous, 16-byte aligned,
+// n and k multiples of 4 (TMA's 16-byte row stride); the blocks are in
+// MM_F32_BUILT, and a tile that does not divide the shape is ragged.
+// Anything else returns cudaErrorInvalidValue without launching.
 extern "C" int matmul_f32(const void* a, const void* b, void* c, int m, int n, int k,
                           int bm, int bn, int bk, int double_buffer, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || bm <= 0 || bn <= 0 || bk <= 0 ||
-      m % bm != 0 || n % bn != 0 || k % bk != 0 || n / bn > 65535) {
+  if (m <= 0 || n <= 0 || k <= 0 || bn <= 0 || n % 4 != 0 || k % 4 != 0 ||
+      (n + bn - 1) / bn > 65535) {
     return cudaErrorInvalidValue;
   }
   const int stages = double_buffer ? 2 : 1;

@@ -14,8 +14,23 @@ says what bounds each kernel on the H100 and what the design does about it.
 
 ``matmul`` launches the kernel for CUDA tensors and runs ``matmul_plain`` for
 CPU tensors, and for nothing else: on a CUDA tensor it launches or raises.
-Both clamp the blocks to the shape as the reference does, then refuse
-(``ValueError``) blocks that do not divide the shape or were never built.
+Both take their tiles from the caller's blocks by one rule
+(``resolve_blocks``): each block is clamped to its dimension, as the
+reference does, and the tile need not divide the shape. The grid covers
+each dimension with ceil(dim / tile) tiles, the last one ragged: TMA
+zero-fills the loads past the edge, so a ragged K slice adds nothing, and
+the kernel stores no row or column past it. The result is the same C = A @ B
+with f32 accumulation that the reference computes at any block that
+divides.
+
+This is a difference from the reference in the blocks accepted, not in
+results: the reference asserts that each clamped block divides its
+dimension, so (64, 64, 64) at M = 100 runs here and is refused there. A
+Hopper kernel with 64-row wgmma tiles cannot offer the reference's 8-row
+blocks, and a ragged tile is how it covers the reference's shapes (M = 8,
+M = 96, K = 80). The launch refuses N or K that TMA cannot address: its
+global row stride must be a multiple of 16 bytes, so N and K are multiples
+of 8 in bf16 and of 4 in f32.
 """
 from __future__ import annotations
 
@@ -51,18 +66,26 @@ def check_shapes(x: torch.Tensor, y: torch.Tensor) -> None:
 
 def resolve_blocks(m: int, n: int, k: int, bm: int, bn: int,
                    bk: int) -> Tuple[int, int, int]:
-    """The blocks clamped to the shape (``min(bm, m)`` ...), refused with
-    ``ValueError`` when one does not divide its dimension or is not a
-    built tile size."""
-    bm, bn, bk = min(bm, m), min(bn, n), min(bk, k)
-    if m % bm or n % bn or k % bk:
-        raise ValueError(f"shape ({m},{n},{k}) not divisible by blocks "
-                         f"({bm},{bn},{bk})")
-    for name, v in (("bm", bm), ("bn", bn), ("bk", bk)):
-        if v not in BLOCKS[name]:
-            raise ValueError(f"{name}={v} is not a built tile size "
-                             f"{BLOCKS[name]}")
-    return bm, bn, bk
+    """The kernel's tiles for the caller's blocks at shape (m, n, k). Each
+    block is clamped to its dimension (``min(bm, m)`` ...), as the
+    reference does; then
+    - a clamped size that is a built tile is the tile, ragged where it does
+      not divide;
+    - one that is not built but is the whole dimension (the block was at
+      least that large) runs as the smallest built tile that covers the
+      dimension, as one ragged tile, or where none covers it as the
+      largest built tile, with a ragged last tile;
+    - one that is not built and smaller than its dimension is refused with
+      ``ValueError``."""
+    tiles = []
+    for name, dim, v in (("bm", m, bm), ("bn", n, bn), ("bk", k, bk)):
+        v, built_sizes = min(v, dim), BLOCKS[name]
+        if v not in built_sizes:
+            if v < dim:
+                raise ValueError(f"{name}={v} is not a built tile size {built_sizes}")
+            v = next((t for t in built_sizes if t >= dim), built_sizes[-1])
+        tiles.append(v)
+    return tuple(tiles)
 
 
 def built(bm: int, bn: int, bk: int, double_buffer: bool,
@@ -81,10 +104,12 @@ def built(bm: int, bn: int, bk: int, double_buffer: bool,
 
 def matmul_plain(x: torch.Tensor, y: torch.Tensor, bm: int, bn: int,
                  bk: int) -> torch.Tensor:
-    """C = A @ B over the kernel's blocks, in torch: an f32 accumulator
-    advances one bk slice of K at a time (the kernel's K loop; its (bm, bn)
-    output tiles are independent, so all of them advance together), and
-    the result is cast to x's dtype once."""
+    """C = A @ B over the kernel's tiles (``resolve_blocks``), in torch: an
+    f32 accumulator advances one bk slice of K at a time, the last one
+    ragged where bk does not divide K (the kernel's K loop, whose
+    zero-filled columns add nothing; its (bm, bn) output tiles are
+    independent, so all of them advance together), and the result is cast
+    to x's dtype once."""
     check_shapes(x, y)
     m, k = x.shape
     bm, bn, bk = resolve_blocks(m, y.shape[1], k, bm, bn, bk)
@@ -141,6 +166,10 @@ def _launch(x, y, bm: int, bn: int, bk: int,
                             f"B alike; {name} is {t.dtype}, A {x.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if (n * x.element_size()) % 16 or (k * x.element_size()) % 16:
+        raise ValueError(f"N={n} and K={k} must be multiples of "
+                         f"{16 // x.element_size()} in {x.dtype}: TMA's global row "
+                         f"stride is a multiple of 16 bytes")
     bm, bn, bk = resolve_blocks(m, n, k, bm, bn, bk)
     if not built(bm, bn, bk, double_buffer, x.dtype):
         raise ValueError(f"({bm}, {bn}, {bk}) with {2 if double_buffer else 1} "

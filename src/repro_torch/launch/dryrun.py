@@ -316,7 +316,9 @@ def run_cell(
     group of the mesh's size and destroys it on return). ``variant``
     overrides the distribution knobs as the reference's does:
     accum_steps, grad_compression ("int8"), sp_seq (bool), state_dtype
-    ("float32"|"bfloat16"|"int8"), grad_dtype, moe_pin, and the config's
+    ("float32"|"bfloat16"|"int8"), grad_dtype, moe_pin, mixer_shard_map
+    (bool: the mesh in the activation context, the xLSTM mixers' form;
+    ``models/xlstm.py``), and the config's
     attn_chunk, ssm_chunk, mlstm_chunk and remat_stack. ``spec`` (``{kind,
     seq, batch}``) stands in for ``specs.SHAPES[shape_name]``, for a cell
     of another size (the card's own training run, in ``chip_smoke.py``).
@@ -371,10 +373,13 @@ def _trace_cell(cfg, spec, mesh, variant, record):
     kind, seq, batch = spec["kind"], spec["seq"], spec["batch"]
     model = S.on_meta(Model(cfg, device="cpu"))
     t0 = time.perf_counter()
+    # the mesh in the context only with the variant's key, as the
+    # reference's (its xLSTM mixers read it: ``models/xlstm.py``)
     pctx.install(mesh_mod.dp_axes(mesh), tp_axis="model",
                  tp_size=mesh_mod.axis_size(mesh, "model"),
                  sp_seq=variant.get("sp_seq", kind in ("train", "prefill")),
-                 mesh=mesh, moe_pin=variant.get("moe_pin", False))
+                 mesh=mesh if variant.get("mixer_shard_map", False) else None,
+                 moe_pin=variant.get("moe_pin", False))
     trace = StepTrace()
     try:
         params_s = S.abstract_params(model)

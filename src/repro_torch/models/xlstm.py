@@ -12,11 +12,30 @@ does for ``lax.scan``. Under autograd each mLSTM chunk's intra-chunk
 matrices are recomputed in the backward (``layers.remat``, the reference's
 ``jax.checkpoint`` per chunk).
 
-As in the reference, each mixer runs mapped over the data-parallel mesh
-axes with its parameters whole (``_shard_map_mixer``, a ``local_map`` over
-DTensor inputs), so its scans are local code; without a mesh it is a plain
-call. Neither mixer has a kernel in the reference: both are plain torch
-here, as the mamba scan is.
+On DTensor inputs each mixer runs mapped over the data-parallel mesh axes
+with its parameters whole (``pctx.map_rows``, a ``local_map``), in the form
+the reference's own record shows for the installed context (its
+``_shard_map_mixer`` runs under ``shard_map`` only where the launcher put
+the mesh in the context, ``pctx.mesh()``, and else under XLA's
+partitioner):
+
+- the mLSTM's chunk loop carries no weight, so it is one region around the
+  whole loop either way, its weights' gradients summed once at its end;
+- the sLSTM's scan body carries the recurrent weights, and the reference
+  sums their gradients over the DP axes at every time step, with a mesh
+  too (``shard_map``'s transpose of a replicated weight used in a scan
+  body is a psum in that body, one all-reduce of ``r``'s and ``b``'s
+  gradients together). So each time step is a region of its own
+  (``_slstm_steps``), ``r`` and ``b`` whole, and ``pctx.sum_each_use``
+  sums their gradients in one all-reduce per step. Without a mesh the
+  partitioner also keeps ``r`` on its ``model`` shards (its columns, as the
+  parameter is placed): each step's recurrent product is then a column
+  product over ``model`` whose output is gathered, and whose gradient to
+  the state is summed over ``model`` at every step.
+
+Decode is one step either way (``_decode_rows``). On plain tensors every
+form is the same plain call. Neither mixer has a kernel in the reference:
+both are plain torch here, as the mamba scan is.
 """
 from __future__ import annotations
 
@@ -221,14 +240,25 @@ def init_slstm(cfg, gen, lead: Tuple[int, ...] = ()) -> Dict:
     }
 
 
+def _slstm_rec(cfg, r, h):
+    """The recurrent preactivation h [B, D] @ the block-diagonal r [H, dh,
+    4dh] -> [B, H, 4dh] f32 (``r`` may be a shard of its columns)."""
+    b, d = h.shape
+    nh = cfg.n_heads
+    return (h.reshape(b, nh, 1, d // nh).float() @ r.float())[:, :, 0]
+
+
 def _slstm_step(cfg, p, state, xw):
     """state (c, n, h, m), each [B, D] f32; xw [B, 4D] the input
     preactivation -> (the new state, h)."""
-    c, n, h, m = state
-    b, d = c.shape
-    nh = cfg.n_heads
-    rec = (h.reshape(b, nh, 1, d // nh).float() @ p["r"].float()).reshape(b, 4 * d)
-    pre = xw.float() + rec + p["b"].float()
+    rec = _slstm_rec(cfg, p["r"], state[2])
+    return _slstm_gates(state, xw, rec.reshape(rec.shape[0], -1), p["b"])
+
+
+def _slstm_gates(state, xw, rec, bias):
+    """The step after the recurrent product: rec [B, 4D] f32."""
+    c, n, _, m = state
+    pre = xw.float() + rec + bias.float()
     zt, it, ft, ot = pre.chunk(4, dim=-1)
     log_f = F.logsigmoid(ft)
     m_new = torch.maximum(log_f + m, it)
@@ -255,11 +285,63 @@ def _slstm_core(cfg, p: Dict, x: torch.Tensor, init_state: Dict):
     return out, dict(zip(("c", "n", "h", "m"), state))
 
 
+def _slstm_steps(cfg, p: Dict, x: torch.Tensor):
+    """``_slstm_core`` on DTensors, one region per time step (the module
+    docstring): the input and output products are regions over the whole
+    sequence, and each step sums ``r``'s and ``b``'s gradients over the DP
+    axes (``pctx.sum_each_use``). With the context's mesh (``shard_map``)
+    ``r`` goes in whole; without it the step's recurrent product runs on
+    ``r``'s ``model`` shards (``pctx.region``, split) and its output is
+    gathered."""
+    cd = cfg.torch_compute_dtype()
+    s = x.shape[1]
+    keys = ("c", "n", "h", "m")
+    mapped = pctx.mesh() is not None
+    xw = pctx.map_rows(lambda x, w: x.to(cd) @ w.to(cd), (x, p["w_in"]), (True, False))
+    xws = pctx.map_rows(lambda xw: xw[:, 0] if s == 1 else xw.unbind(1), (xw,), (True,),
+                        n_out=s)
+    xws = (xws,) if s == 1 else xws
+    state = pctx.map_rows(
+        lambda x: tuple(init_slstm_cache(cfg, x.shape[0], x.device)[k] for k in keys),
+        (x,), (True,), n_out=len(keys))
+    # gathered once: each step takes them as they are
+    r, bias = (pctx.whole(p["r"]) if mapped else p["r"]), pctx.whole(p["b"])
+
+    def step(c, n, h, m, xw_t, r, bias):
+        return _slstm_step(cfg, {"r": r, "b": bias}, (c, n, h, m), xw_t)[0]
+
+    def gates(c, n, m, xw_t, rec, bias):
+        return _slstm_gates((c, n, None, m), xw_t, rec, bias)[0]
+
+    hs = []
+    for t in range(s):
+        r_t, b_t = pctx.sum_each_use(r, bias)
+        if mapped:
+            state = pctx.map_rows(step, (*state, xws[t], r_t, b_t), (True,) * 5 + (False,) * 2,
+                                  n_out=len(keys))
+        else:
+            rec = pctx.region(lambda h, r: _slstm_rec(cfg, r, h), [state[2]], [(r_t, 2)],
+                              outs=(2,))
+            rec = pctx.batch_only(rec)
+            rec = rec.reshape(rec.shape[0], -1)
+            c, n, _, m = state
+            state = pctx.map_rows(gates, (c, n, m, xws[t], rec, b_t), (True,) * 5 + (False,),
+                                  n_out=len(keys))
+        hs.append(state[2])
+    y = torch.stack(hs, dim=1)  # [B, S, D]
+    out = pctx.map_rows(lambda y, w: (y.to(cd) @ w.to(cd)).to(x.dtype),
+                        (y, p["out_proj"]), (True, False))
+    return out, dict(zip(keys, state))
+
+
 def slstm_forward(cfg, p: Dict, x: torch.Tensor, return_state: bool = False):
     """Prefill path. x [B, S, D] -> [B, S, D] (+ the final decode cache
-    ``{c, n, h, m}`` when ``return_state``)."""
-    out, state = _shard_map_mixer(_slstm_core, init_slstm_cache, ("c", "n", "h", "m"),
-                                  cfg, p, x)
+    ``{c, n, h, m}`` when ``return_state``); on DTensors one region per
+    time step (``_slstm_steps``)."""
+    if pctx.is_dtensor(x):
+        out, state = _slstm_steps(cfg, p, x)
+    else:
+        out, state = _slstm_core(cfg, p, x, init_slstm_cache(cfg, x.shape[0], x.device))
     if return_state:
         return out, state
     return out

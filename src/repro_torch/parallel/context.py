@@ -175,6 +175,61 @@ def batch_only(x: torch.Tensor) -> torch.Tensor:
     return _constrain(x, (mesh_dp_axes(x.device_mesh),) + (None,) * (x.ndim - 1))
 
 
+def whole(w: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``w`` whole on every rank (replicated over every mesh
+    dim), a plain tensor as it is: a weight gathered once before a loop
+    whose steps each take it whole."""
+    return _constrain(w, (None,) * w.ndim) if is_dtensor(w) else w
+
+
+class _SumEachUse(torch.autograd.Function):
+    """The identity in the forward. In the backward the gradients, each a
+    partial sum over the DP axes (a weight taken whole by a region whose
+    rows are the local batch), are summed over them at once: the local
+    gradients flattened together, one all-reduce per DP axis."""
+
+    @staticmethod
+    def forward(ctx, *ws):
+        return tuple(w.view_as(w) for w in ws)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from torch.distributed._functional_collectives import all_reduce, wait_tensor
+        from torch.distributed.tensor import DTensor, Replicate
+
+        from repro_torch.launch.mesh import axis_names, dp_axes as mesh_dp_axes
+
+        mesh = grads[0].device_mesh
+        names = axis_names(mesh)
+        dims = [names.index(a) for a in mesh_dp_axes(mesh)]
+        for g in grads:
+            if not all(g.placements[i].is_partial() for i in dims):
+                raise ValueError(f"a gradient placed {g.placements} is not a partial "
+                                 f"sum over the DP axes {mesh_dp_axes(mesh)}")
+        local = [g.to_local() for g in grads]
+        flat = torch.cat([t.reshape(-1) for t in local])
+        for i in dims:
+            flat = wait_tensor(all_reduce(flat, "sum", (mesh, i)))
+        out, at = [], 0
+        for g, t in zip(grads, local):
+            pl = [Replicate() if i in dims else p for i, p in enumerate(g.placements)]
+            out.append(DTensor.from_local(flat[at:at + t.numel()].view(t.shape), mesh, pl,
+                                          run_check=False, shape=g.shape, stride=g.stride()))
+            at += t.numel()
+        return tuple(out)
+
+
+def sum_each_use(*ws):
+    """``ws`` as they are, their gradients summed over the DP axes where
+    this use of them ends in the backward, all of them in one all-reduce
+    per DP axis, and not once after the last use: the reference's scans
+    psum a replicated weight's cotangent in their body, at every step. A
+    plain call on plain tensors."""
+    if not ws or not is_dtensor(ws[0]):
+        return ws
+    return _SumEachUse.apply(*ws)
+
+
 def map_rows(fn, args, rows, n_out: int = 1):
     """``fn(*args)`` on each rank's batch rows (``local_map`` over the DP
     axes) where an argument is a ``DTensor``; a plain call where none is.

@@ -292,7 +292,7 @@ def test_matmul_on_the_card_never_runs_the_plain_version(card, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["f16", "f32-unbuilt", "non-contiguous", "indivisible",
+@pytest.mark.parametrize("case", ["f16", "f32-unbuilt", "non-contiguous", "stride",
                                   "unbuilt", "no-longer-built"])
 def test_matmul_kernel_refuses(card, case):
     a, b = _ab(256, 256, 256, card)
@@ -303,8 +303,9 @@ def test_matmul_kernel_refuses(card, case):
         a, b, blocks, err = a.float(), b.float(), (128, 128, 128), ValueError
     elif case == "non-contiguous":
         b, err = b.t(), ValueError
-    elif case == "indivisible":
-        a, err = a[:100], ValueError
+    elif case == "stride":  # bf16 K = 100: rows of 200 bytes, which TMA cannot step
+        a, b = _ab(256, 256, 100, card)
+        err = ValueError
     elif case == "unbuilt":
         blocks, err = (16, 64, 64), ValueError
     else:  # 32 left the built set with wgmma's 64-row warpgroup tiles
@@ -313,6 +314,61 @@ def test_matmul_kernel_refuses(card, case):
     with pytest.raises(err):
         ops.matmul(a, b, blocks=blocks)
     assert ops.launch_counts() == before
+
+
+@pytest.mark.gpu
+def test_matmul_kernel_runs_an_indivisible_shape(card):
+    """M = 100 at (64, 64, 64), which the kernel refused before its tiles
+    could be ragged: one launch, within the limit of the plain version."""
+    a, b = _ab(256, 256, 256, card)
+    a = a[:100]
+    before = ops.launch_counts()["matmul"]
+    got = ops.matmul(a, b, blocks=(64, 64, 64))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["matmul"] == before + 1
+    assert got.shape == (100, 256)
+    assert _matmul_within_limit(got, kmatmul.matmul_plain(a, b, 64, 64, 64))
+
+
+# (M, N, K) that no built tile divides: decode-sized M, M = 96, K = 80, N =
+# 8, the reference's indivisible cases, and boxes wholly past the edge (the
+# last N box of a bn = 256 tile at N = 320, a bk = 128 stage's second slot
+# at K = 192)
+RAGGED_MM_SHAPES = [(8, 4096, 4096), (32, 256, 256), (1, 256, 256), (96, 256, 256),
+                    (256, 256, 80), (64, 8, 64), (1, 4096, 4096), (32, 4096, 4096),
+                    (96, 4096, 4096), (100, 128, 128), (128, 128, 96), (48, 128, 128),
+                    (200, 320, 192)]
+MM_ALL_CONFIGS = [(bm, bn, bk, db) for bm, bn, bk in itertools.product(
+    *kmatmul.BLOCKS.values()) for db in (False, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", RAGGED_MM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_matmul_ragged_tiles_match_plain(card, shape, dtype):
+    """Every built configuration as explicit blocks (the tiles they resolve
+    to are ragged here), then the tuner's pick through ops.matmul: one
+    launch each, within the limit of the plain version (bf16: one ulp and
+    an rms floor; f32: the reference's)."""
+    m, n, k = shape
+    a, b = (t.to(dtype) for t in _ab(m, n, k, card))
+    key = "matmul" if dtype == torch.bfloat16 else "matmul_f32"
+    configs = [c for c in MM_ALL_CONFIGS if kmatmul.built(
+        *kmatmul.resolve_blocks(m, n, k, *c[:3]), c[3], dtype)]
+    for config in configs + [None]:
+        before = ops.launch_counts()[key]
+        got = ops.matmul(a, b, blocks=config)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[key] == before + 1, config
+        assert got.shape == (m, n) and got.dtype == dtype
+        used = config or ops.tuned_matmul_blocks(m, n, k, a.element_size())
+        want = kmatmul.matmul_plain(a, b, *used[:3])
+        if dtype == torch.bfloat16:
+            assert _matmul_within_limit(got, want), config
+        else:
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=MM_F32_TOL, atol=MM_F32_TOL * np.sqrt(k),
+                                       err_msg=str(config))
 
 
 MM_F32_CASES = [(bm, bn, bk, db) for bm, bn, bk in itertools.product(*kmatmul.BLOCKS.values())
@@ -489,6 +545,36 @@ def test_cuda_bundle_launches_its_library_with_no_build(card, tmp_path, bundle_r
         ops.use_kernel_bundle(None)
     assert build.installed() == {}
     assert build.load("matmul")._name == str(build.library_path("matmul"))
+
+
+@pytest.mark.gpu
+def test_cuda_bundle_launches_a_ragged_record(card, tmp_path):
+    """A record at a shape no built tile divides (M = 96, its tuned ragged
+    pick) in a CUDA bundle: the call without blocks launches from the
+    bundled library with no nvcc run, bit for bit the explicit call."""
+    from repro_torch.core.spaces import MatmulSpace
+    from repro_torch.tuna.db import ScheduleRecord
+    from repro_torch.tuna.golden import build_kernel_bundle
+
+    pick = ops.tuned_matmul_blocks(96, 256, 256, 2)
+    rec = ScheduleRecord(op=MatmulSpace(96, 256, 256, 2, target_kind="sm90").signature(),
+                         target="gpu_h100", score=1e-6,
+                         config=dict(zip(("bm", "bn", "bk", "double_buffer"), pick)))
+    info = build_kernel_bundle([rec], str(tmp_path), "gpu_h100")
+    assert (info.entries, len(info.skipped)) == (1, 0)
+    x, y = _ab(96, 256, 256, card)
+    want = ops.matmul(x, y, blocks=pick)
+    ops.use_kernel_bundle(info.path)
+    try:
+        builds, launches = ops.kernel_build_counts(), ops.launch_counts()["matmul"]
+        got = ops.matmul(x, y)
+        torch.cuda.synchronize()
+        assert ops.get_kernel_bundle().exec_hits == 1
+        assert ops.kernel_build_counts() == builds
+        assert ops.launch_counts()["matmul"] == launches + 1
+    finally:
+        ops.use_kernel_bundle(None)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

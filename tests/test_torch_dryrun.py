@@ -71,6 +71,13 @@ MOE_RATIO = 1.15
 MINI_CELLS = {"yi_6b 2x4": ("yi_6b", {"data": 2, "model": 4}),
               "yi_6b 2x2x2": ("yi_6b", {"pod": 2, "data": 2, "model": 2}),
               "qwen3_moe 2x4": ("qwen3_moe_235b_a22b", {"data": 2, "model": 4})}
+# reduced xlstm-1.3b's cell on 2x4, with ``mixer_shard_map`` off and on, at a
+# short train shape that both packages run (the reference's registered in
+# its subprocess's ``specs.SHAPES``): the port traces the mixers' Python
+# loops op by op on meta tensors, and ``train_4k``'s 4096 tokens took it
+# tens of minutes. Two rows a microbatch, so each DP rank holds one, as at
+# ``train_4k``'s 128 microbatches of 2.
+XLSTM_SPEC = {"kind": "train", "seq": 64, "batch": 2}
 
 
 class FakeMesh:
@@ -346,6 +353,15 @@ REFERENCE = textwrap.dedent(r"""
         out[name] = run_cell(arch, "train_4k", mesh=m, cfg=get_config(arch).reduced(),
                              verbose=False)
     m = mesh_mod.make_mesh((2, 4), ("data", "model"))
+    if job.get("xlstm"):
+        # the xlstm cell's short shape, registered in this process only
+        from repro.launch import specs
+        name, spec = job["xlstm"]
+        specs.SHAPES[name] = spec
+        out["xlstm"] = {str(key): run_cell("xlstm_13b", name, mesh=m,
+                                           cfg=get_config("xlstm_13b").reduced(),
+                                           verbose=False, variant={"mixer_shard_map": key})
+                        for key in (False, True)}
 
     def step(x, w):
         def body(i, acc):
@@ -408,9 +424,15 @@ def runs():
             "arch": "yi_6b", "shape": "train_4k", "layers": 2, "mesh": {"data": 2, "model": 2},
             "variant": {"sp_seq": sp, "accum_steps": 1},
             "spec": {"kind": "train", "seq": 4096, "batch": 8}}
+    xlstm_cells = {f"xlstm key={key}": {
+        "arch": "xlstm_13b", "shape": "train_4k", "reduced": True,
+        "mesh": {"data": 2, "model": 4}, "variant": {"mixer_shard_map": key},
+        "spec": XLSTM_SPEC} for key in (False, True)}
     jobs = {
-        "reference": _Proc(REFERENCE, {"cells": MINI_CELLS}, _env(JAX_PLATFORMS="cpu")),
+        "reference": _Proc(REFERENCE, {"cells": MINI_CELLS, "xlstm": ("train_64", XLSTM_SPEC)},
+                           _env(JAX_PLATFORMS="cpu")),
         "port": _Proc(PORT, {"cells": port_cells}, _env()),
+        "xlstm": _Proc(PORT, {"cells": xlstm_cells}, _env()),
         "checks": _Proc(PORT, {"trip": True, "alltoall": True, "attribute": True}, _env()),
     }
     yield jobs
@@ -442,6 +464,44 @@ def test_run_cell_matches_the_reference_on_its_mini_cells(runs, cell):
         assert scaled >= once
         op, link = got["collective_operand_bytes_scaled"][kind], got["collective_link_bytes_scaled"][kind]
         assert (op > 0) == (scaled > 0) and link >= 0
+
+
+def _total(record, key):
+    return sum(record[key].values())
+
+
+@pytest.mark.parametrize("key", [False, True])
+def test_xlstm_mixer_shard_map_follows_the_reference(runs, key):
+    """The xlstm cell with ``mixer_shard_map`` off (XLA's partitioner in the
+    reference; the port's sLSTM product on ``r``'s model shards) and on
+    (``shard_map``): status, devices, mesh, accumulation, optimizer-state
+    dtype, variant and argument bytes equal, and the scaled all-reduce
+    count and the total scaled collective operand bytes within
+    ``TOTAL_RATIO`` of the reference's. Both sum the sLSTM's recurrent
+    weights' gradients over the DP axes at every time step (the module
+    docstring of ``models/xlstm.py``)."""
+    got = runs["xlstm"].result()[f"xlstm key={key}"]
+    want = runs["reference"].result()["xlstm"][str(key)]
+    for name in ("status", "n_devices", "mesh", "accum_steps", "opt_state_dtype", "variant"):
+        assert got[name] == want[name], name
+    assert got["status"] == "ok"
+    assert got["mem"]["argument_bytes"] == want["mem"]["argument_bytes"]
+    ratio = (got["collective_counts_scaled"]["all-reduce"]
+             / want["collective_counts_scaled"]["all-reduce"])
+    assert TOTAL_RATIO[0] <= ratio <= TOTAL_RATIO[1], ratio
+    ratio = (_total(got, "collective_operand_bytes_scaled")
+             / _total(want, "collective_operand_bytes_scaled"))
+    assert TOTAL_RATIO[0] <= ratio <= TOTAL_RATIO[1], ratio
+
+
+def test_xlstm_without_the_key_all_reduces_more(runs):
+    """Without ``mixer_shard_map`` both packages issue more all-reduces
+    than with it: one more a time step, over ``model`` (the state's
+    gradient, where the step's product runs on ``r``'s model shards)."""
+    got, want = runs["xlstm"].result(), runs["reference"].result()["xlstm"]
+    count = lambda r: r["collective_counts_scaled"]["all-reduce"]
+    assert count(want["False"]) > count(want["True"])
+    assert count(got["xlstm key=False"]) > count(got["xlstm key=True"])
 
 
 def test_the_loss_gathers_no_logits_and_the_recompute_no_collective(runs):

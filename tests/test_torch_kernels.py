@@ -12,6 +12,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
+from repro.core.tuner import tuned_matmul_blocks as jtuned_matmul_blocks
 from repro.kernels.matmul import matmul_pallas
 from repro.models.attention import chunked_attention as jchunked
 from repro_torch.core.spaces import SM90_MATMUL_TILES
@@ -434,17 +435,94 @@ def test_matmul_picks_tuned_blocks_when_none_given():
 
 
 @pytest.mark.parametrize("m,n,k,blocks", [
-    (100, 128, 128, (64, 64, 64)),   # indivisible (the reference's case)
-    (128, 128, 96, (64, 64, 64)),    # K not divisible by bk
-    (128, 128, 128, (16, 64, 64)),   # bm never built
-    (48, 128, 128, (64, 64, 64)),    # bm clamps to an unbuilt 48
+    (128, 128, 128, (16, 64, 64)),   # bm never built, smaller than M
+    (128, 128, 128, (64, 64, 32)),   # bk never built, smaller than K
+    (100, 128, 128, (64, 32, 64)),   # bn never built, smaller than N
 ])
 def test_matmul_refuses_unbuilt_or_indivisible_blocks(m, n, k, blocks):
+    """A block that clamps to a size never built and smaller than its
+    dimension is refused; a ragged tile is not (the next test)."""
     x, y = _torch(_xy(m, n, k))
     with pytest.raises(ValueError):
         ops.matmul(x, y, blocks=blocks)
     with pytest.raises(ValueError):
         kmatmul.matmul_plain(x, y, *blocks)
+
+
+@pytest.mark.parametrize("m,n,k,blocks,tiles,ref_refuses", [
+    (100, 128, 128, (64, 64, 64), (64, 64, 64), True),   # indivisible (the reference's case)
+    (128, 128, 96, (64, 64, 64), (64, 64, 64), True),    # K not divisible by bk
+    # bm clamps to 48, which the reference runs and the port never built
+    (48, 128, 128, (64, 64, 64), (64, 64, 64), False),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_runs_ragged_blocks_the_reference_refuses(m, n, k, blocks, tiles,
+                                                         ref_refuses, dtype):
+    """Blocks that do not divide the shape, or clamp to a size never built,
+    run with a ragged last tile where the port refused them before: the
+    reference's Pallas kernel refuses the first two (their clamped blocks
+    do not divide), and the port's result is the product the reference
+    computes at a block that divides (the whole shape), within the
+    reference's tolerance."""
+    x, y = _xy(m, n, k)
+    assert kmatmul.resolve_blocks(m, n, k, *blocks) == tiles
+    got = ops.matmul(*_torch((x, y), dtype), blocks=blocks)
+    assert got.shape == (m, n) and got.dtype == dtype
+    assert torch.equal(got, kmatmul.matmul_plain(*_torch((x, y), dtype), *blocks))
+    jx, jy = (jnp.asarray(a, JDTYPE[dtype]) for a in (x, y))
+    if ref_refuses:
+        with pytest.raises(AssertionError, match="not divisible"):
+            matmul_pallas(jx, jy, bm=blocks[0], bn=blocks[1], bk=blocks[2], interpret=True)
+    tol = dict(atol=MATMUL_TOL[dtype] * np.sqrt(k), rtol=MATMUL_TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(matmul_pallas(jx, jy, bm=m, bn=n, bk=k,
+                                                           interpret=True)), **tol)
+    np.testing.assert_allclose(_np(got), _np(jref.matmul(jx, jy)), **tol)
+
+
+# the shapes at which no built tile divides a dimension, (M, N, K): decode-
+# sized M, M = 96, K = 80 and N = 8; the reference's Pallas kernel runs each
+# at its own pick
+RAGGED_SHAPES = [(8, 4096, 4096), (32, 256, 256), (1, 256, 256), (96, 256, 256),
+                 (256, 256, 80), (64, 8, 64)]
+
+
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+@pytest.mark.parametrize("blocks", [None, (64, 64, 64), (128, 256, 128, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_ragged_tiles_match_pallas_and_oracle(shape, blocks, dtype):
+    """ops.matmul at the shapes no built tile divides, with the tuner's pick
+    and with explicit blocks: the plain version bit for bit, then the
+    reference's Pallas kernel (interpreted, at the reference's own pick)
+    and its oracle within the reference's tolerance."""
+    m, n, k = shape
+    x, y = _xy(m, n, k)
+    tx, ty = _torch((x, y), dtype)
+    got = ops.matmul(tx, ty, blocks=blocks)
+    assert got.shape == (m, n) and got.dtype == dtype
+    used = blocks or ops.tuned_matmul_blocks(m, n, k, tx.element_size())
+    assert torch.equal(got, kmatmul.matmul_plain(tx, ty, *used[:3]))
+    jx, jy = (jnp.asarray(a, JDTYPE[dtype]) for a in (x, y))
+    jbm, jbn, jbk = jtuned_matmul_blocks(m, n, k, tx.element_size())
+    want_pallas = matmul_pallas(jx, jy, bm=jbm, bn=jbn, bk=jbk, interpret=True)
+    tol = dict(atol=MATMUL_TOL[dtype] * np.sqrt(k), rtol=MATMUL_TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(want_pallas), **tol)
+    np.testing.assert_allclose(_np(got), _np(jref.matmul(jx, jy)), **tol)
+
+
+@pytest.mark.parametrize("m,n,k,blocks,tiles", [
+    (48, 128, 128, (64, 64, 64), (64, 64, 64)),      # one ragged tile of 64
+    (200, 128, 128, (512, 64, 64), (128, 64, 64)),   # no built tile covers 200
+    (100, 128, 128, (128, 64, 64), (128, 64, 64)),   # 128 is built: one ragged tile
+    (64, 8, 64, (64, 256, 64), (64, 64, 64)),        # N = 8: the smallest cover
+    (256, 256, 80, (64, 64, 128), (64, 64, 128)),    # bk 128 covers K = 80
+    (256, 256, 80, (64, 64, 64), (64, 64, 64)),      # a ragged last K slice of 16
+    (128, 128, 128, (64, 64, 256), (64, 64, 128)),   # clamps to a built size
+])
+def test_matmul_resolve_blocks_rule(m, n, k, blocks, tiles):
+    """The tiles a caller's blocks run as: clamped to the shape, a built
+    size as it is, an unbuilt whole dimension as the smallest built tile
+    that covers it (the largest where none does)."""
+    assert kmatmul.resolve_blocks(m, n, k, *blocks) == tiles
 
 
 def test_matmul_blocks_clamp_to_the_shape():
@@ -525,18 +603,23 @@ def test_f32_matmul_is_built_where_the_cost_model_sees_no_overflow():
                              torch.bfloat16)
 
 
-@pytest.mark.parametrize("dtype,n,blocks,err", [
-    (torch.float16, 128, (64, 64, 64, True), TypeError),     # f16: no kernel
-    (torch.float32, 128, (128, 128, 128, True), ValueError),  # two stages do not fit
-    (torch.float32, 256, (128, 256, 128, True), ValueError),
-    (torch.bfloat16, 128, (64, 64, 32, True), ValueError),   # bk never built
+@pytest.mark.parametrize("dtype,n,k,blocks,err", [
+    (torch.float16, 128, 128, (64, 64, 64, True), TypeError),     # f16: no kernel
+    (torch.float32, 128, 128, (128, 128, 128, True), ValueError),  # two stages do not fit
+    (torch.float32, 256, 128, (128, 256, 128, True), ValueError),
+    (torch.bfloat16, 128, 128, (64, 64, 32, True), ValueError),   # bk never built
+    # TMA's global row stride is a multiple of 16 bytes: N and K multiples
+    # of 8 in bf16, of 4 in f32
+    (torch.bfloat16, 128, 100, (64, 64, 64, True), ValueError),
+    (torch.bfloat16, 100, 128, (64, 64, 64, True), ValueError),
+    (torch.float32, 98, 128, (64, 64, 64, True), ValueError),
 ])
-def test_matmul_launch_refuses_what_no_kernel_is_built_for(monkeypatch, dtype, n,
+def test_matmul_launch_refuses_what_no_kernel_is_built_for(monkeypatch, dtype, n, k,
                                                            blocks, err):
     """The wrapper's launch refuses before it loads a library; the f32 one
     at (128, 128, 128) launches with one stage."""
     monkeypatch.setattr(kmatmul, "_kernel", lambda entry: pytest.fail("loaded"))
-    x, y = torch.zeros((128, 128), dtype=dtype), torch.zeros((128, n), dtype=dtype)
+    x, y = torch.zeros((128, k), dtype=dtype), torch.zeros((k, n), dtype=dtype)
     with pytest.raises(err):
         kmatmul._launch(x, y, *blocks)
     assert kmatmul.built(128, 128, 128, False, torch.float32)

@@ -159,6 +159,148 @@ class TestScheduleDatabase:
 
 
 # --------------------------------------------------------------------------
+# The sm90 matmul space: ragged tiles where no built tile divides
+# --------------------------------------------------------------------------
+
+# (configurations, the first 16 hex digits of sha256 over the ranking: each
+# configuration's items and its score's float.hex(), best first) of the
+# sm90 space on gpu_h100, frozen from the code before ragged tiles: at
+# these shapes every dimension has a built divisor, so the space, every
+# score and the ranking must not move (yi-6b's five prefill products,
+# chip_smoke.py's MM_PRESETS, the gpu_h100 calibration probe, in bf16 and
+# f32, and the zoo's presets of the matmul knob families)
+SM90_RANKING_PINS = {
+    ("matmul", (2048, 4096, 4096, 2)): (24, "b2aeac1c984a9a4f"),
+    ("matmul", (2048, 4096, 4096, 4)): (24, "d420dc88c0fdb6ce"),
+    ("matmul", (2048, 512, 4096, 2)): (24, "576e912ef9ba1fa2"),
+    ("matmul", (2048, 512, 4096, 4)): (24, "f8bec8a46ef34a08"),
+    ("matmul", (2048, 11008, 4096, 2)): (24, "fd34f37a087651c8"),
+    ("matmul", (2048, 11008, 4096, 4)): (24, "16b178e53d9266c7"),
+    ("matmul", (2048, 4096, 11008, 2)): (24, "334bbcc23969b2d5"),
+    ("matmul", (2048, 4096, 11008, 4)): (24, "2968cdc5b76ef3ae"),
+    ("matmul", (2048, 64000, 4096, 2)): (24, "b94b248c4d5156b7"),
+    ("matmul", (2048, 64000, 4096, 4)): (24, "69e7d3469a9f99ed"),
+    ("matmul", (1024, 1024, 1024, 2)): (24, "4932b678bf380f5e"),
+    ("matmul", (1024, 1024, 1024, 4)): (24, "7b86fac013d952c0"),
+    ("matmul", (2048, 2048, 2048, 2)): (24, "74e84da5259f8f6b"),
+    ("matmul", (2048, 2048, 2048, 4)): (24, "2b0c430dc83bae2b"),
+    ("matmul", (4096, 4096, 4096, 2)): (24, "3f3cdccf0395718b"),
+    ("matmul", (4096, 4096, 4096, 4)): (24, "88bc949773a44972"),
+    ("matmul", (4096, 2048, 4096, 2)): (24, "56c0267b97f8a2ab"),
+    ("matmul", (4096, 2048, 4096, 4)): (24, "8492d1a3cb2b4c58"),
+    ("dense_256", None): (24, "49ef62ae6285c7f3"),
+    ("dense_512", None): (24, "8029b59ad6b9ef06"),
+    ("matmul_1024_bf16", None): (24, "4932b678bf380f5e"),
+    ("matmul_2048_bf16", None): (24, "74e84da5259f8f6b"),
+    ("matmul_4096_bf16", None): (24, "3f3cdccf0395718b"),
+    ("batch_matmul", None): (8, "c1659672722cceb2"),
+    ("moe_dispatch", None): (24, "0bbdacea21feb361"),
+}
+# (M, N, K) at which no built tile divides a dimension
+RAGGED_SHAPES = [(8, 4096, 4096), (32, 256, 256), (1, 256, 256), (96, 256, 256),
+                 (256, 256, 80), (64, 8, 64)]
+
+
+def _ranking_digest(space):
+    import hashlib
+
+    ranked = tuner.rank_space(space, GPU_H100, limit=4096, db=False, learned=False)
+    text = json.dumps([[sorted(c.items()), score.hex()] for c, score in ranked])
+    return len(ranked), hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+class TestSm90MatmulSpace:
+    @pytest.mark.parametrize("name,shape", list(SM90_RANKING_PINS))
+    def test_ranking_is_bit_identical_where_built_tiles_divide(self, name, shape):
+        if shape is not None:
+            m, n, k, size = shape
+            space = op_registry.make_space(
+                "matmul", {"M": m, "N": n, "K": k, "dtype_bytes": size}, "sm90")
+        else:
+            family, preset = op_registry.all_presets()[name]
+            space = op_registry.make_space(family, preset.attrs, "sm90")
+        assert _ranking_digest(space) == SM90_RANKING_PINS[(name, shape)]
+
+    @pytest.mark.parametrize("dim,knob,tiles", [
+        (8, "bm", [64]), (1, "bm", [64]), (96, "bm", [64, 128]), (200, "bm", [64, 128]),
+        (80, "bk", [64, 128]), (8, "bn", [64]), (200, "bn", [64, 128, 256]),
+        (320, "bn", [64]), (384, "bm", [64, 128]),  # a divisor: as before
+    ])
+    def test_knobs_where_no_built_tile_divides(self, dim, knob, tiles):
+        """Where no built tile divides a dimension its knob is every built
+        tile up to the first that covers it (all where none does)."""
+        from repro_torch.core.spaces import _matmul_knobs
+
+        attrs = {"M": 128, "N": 128, "K": 128, "dtype_bytes": 2}
+        attrs[{"bm": "M", "bn": "N", "bk": "K"}[knob]] = dim
+        assert _matmul_knobs(attrs, "sm90")[knob] == tiles
+        # the TPU kind's knobs always divide, as the reference's do
+        assert all(dim % t == 0 for t in _matmul_knobs(attrs, "tpu")[knob])
+
+    @pytest.mark.parametrize("shape", RAGGED_SHAPES)
+    @pytest.mark.parametrize("size", [2, 4])
+    def test_space_is_not_empty_where_no_tile_divides(self, shape, size):
+        """The tuner picks at every shape: the pick is in the space and runs
+        as it is (``resolve_blocks`` keeps it)."""
+        from repro_torch.kernels import matmul as kmatmul
+
+        m, n, k = shape
+        configs = list(MatmulSpace(m, n, k, size, target_kind="sm90").enumerate(None))
+        assert configs
+        pick = tuner.tuned_matmul_blocks(m, n, k, size)
+        assert dict(zip(("bm", "bn", "bk", "double_buffer"), pick)) in configs
+        assert kmatmul.resolve_blocks(m, n, k, *pick[:3]) == pick[:3]
+
+    def test_cost_model_counts_a_ragged_tile_whole(self):
+        """At M = 96 a 64-row tile covers the rows in two tiles, the second
+        ragged: the grid counts both."""
+        space = MatmulSpace(96, 256, 80, 2, target_kind="sm90")
+        _, meta = space.instantiate({"bm": 64, "bn": 128, "bk": 64,
+                                     "double_buffer": True})
+        assert meta.grid_size == 2 * 2 * 2 and meta.parallel_extent == 2 * 2
+        prog, meta = space.instantiate({"bm": 64, "bn": 128, "bk": 64,
+                                        "double_buffer": True})
+        assert cost_model.evaluate(prog, GPU_H100, meta) > 0
+
+    def test_a_ragged_record_launches_from_a_bundle(self, tmp_path, monkeypatch):
+        """A record at a ragged shape (f32, M = 96) goes from the DB through
+        a golden release into a bundle; the installed bundle serves
+        ops.matmul bit for bit the explicit call, and a CUDA bundle plans
+        it (no skip)."""
+        import torch
+
+        from repro_torch.tuna.golden import (GoldenManager, build_kernel_bundle,
+                                             plan_bundle_entries)
+
+        db_path = str(tmp_path / "db.jsonl")
+        tuner.set_default_db(db_path)
+        pick = ops.tuned_matmul_blocks(96, 256, 256, 4)
+        tuner.set_default_db(None)
+        records = ScheduleDatabase(db_path).records()
+        sig = MatmulSpace(96, 256, 256, 4, target_kind="sm90").signature()
+        assert [r.op for r in records] == [sig]
+        mgr = GoldenManager(str(tmp_path / "golden"))
+        info = mgr.promote(records, H100, source=db_path)
+        _, release = mgr.load_release(info.path)
+        plans, skipped = plan_bundle_entries(release, device="cuda")
+        assert [p.record.op for p in plans] == [sig] and not skipped
+        binfo = build_kernel_bundle(release, str(tmp_path / "golden"), H100,
+                                    golden_name=info.name, device="cpu")
+        gen = torch.Generator().manual_seed(0)
+        x, y = torch.randn((96, 256), generator=gen), torch.randn((256, 256), generator=gen)
+        explicit = ops.matmul(x, y, blocks=pick)
+        monkeypatch.setattr(ops, "tuned_matmul_blocks",
+                            lambda *a: pytest.fail("a bundle hit called the picker"))
+        ops.use_kernel_bundle(binfo.path, device="cpu")
+        try:
+            got = ops.matmul(x, y)
+            assert ops.get_kernel_bundle().exec_hits == 1
+        finally:
+            ops.use_kernel_bundle(None)
+        assert torch.equal(got, explicit)
+
+
+# --------------------------------------------------------------------------
 # signatures (tests/test_tuna.py::TestSignature), and against the reference
 # --------------------------------------------------------------------------
 
