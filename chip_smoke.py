@@ -6,21 +6,26 @@
 Phases, in order; any failure exits non-zero before the last line:
 
 1. build   — compile every CUDA source of the port with nvcc (sm_90a), one
-             nvcc per source, in parallel; log registers per instantiation
-             and spills, and fail on a spill in either library or an ignored
-             setmaxnreg; count each library's wgmma (HGMMA), TMA (UTMALDG),
-             mma.sync (HMMA) and wgmma-wait (WARPGROUP.DEPBAR) instructions
-             in its SASS and fail without HGMMA or TMA, with any HMMA, or
-             with a wait after every HGMMA (serialized by ptxas) or a C7515
-             serialization note; expect the bf16 flash instantiations (12
-             built head dims, 8 generic ones of padded width 64 or 128), the
-             6 f32 flash and the 21 f32 matmul ones, and fail unless each
-             f32 kernel's SASS has FFMA and no HGMMA or HMMA; check that the
-             shared memory each library reports for every instantiation is
-             what ``flash_attention.smem_bytes`` (the block picker's
-             pruning) and ``matmul.smem_bytes`` (the tuner's ``sm90``
-             accounting) say, at 2 bytes and, for the f32 kernels, at 4
-             (-1 where none is built).
+             nvcc per source, in parallel (the five libraries: flash bf16
+             with f32, flash f16, flash past 128 columns, matmul bf16 with
+             f32, matmul f16), logging each source's seconds; log registers
+             per instantiation and spills, and fail on a spill in any
+             library or an ignored setmaxnreg; count each library's wgmma
+             (HGMMA), TMA (UTMALDG), mma.sync (HMMA) and wgmma-wait
+             (WARPGROUP.DEPBAR) instructions in its SASS and fail without
+             HGMMA or TMA, with any HMMA, or with a wait after every HGMMA
+             (serialized by ptxas) or a C7515 serialization note, and fail
+             unless every 16-bit kernel's own SASS has HGMMA and UTMALDG and
+             no HMMA; expect the 16-bit flash instantiations (in bf16 and in
+             f16: 12 built head dims, 8 generic ones of padded width 64 or
+             128; in each type 5 of width 192 or 256), the 24 matmul ones in
+             each type, the 6 f32 flash and the 21 f32 matmul ones, and fail
+             unless each f32 kernel's SASS has FFMA and no HGMMA or HMMA;
+             check that the shared memory each library reports for every
+             instantiation is what ``flash_attention.smem_bytes`` (the block
+             picker's pruning) and ``matmul.smem_bytes`` (the tuner's
+             ``sm90`` accounting) say, at 2 bytes and, for the f32 kernels,
+             at 4 (-1 where none is built).
 2. kernels — hold the flash-attention kernel against its plain torch version
              on the card, in bf16, at yi-6b shapes (B=1, Hq=32, Hkv=4,
              D=128) for every prompt length the serve phase prefills and a
@@ -63,6 +68,26 @@ Phases, in order; any failure exits non-zero before the last line:
              the reference's matmul_{1024,2048,4096}_bf16 presets, with every
              configuration of the Hopper space (the tuner's pick among them);
              show that the limit would catch a dropped last K block.
+4b. f16-wide — the float16 kernels and the head dims past 128, from a
+             generator of their own (F16_SEED): the bf16 builds' outputs at
+             ``benchmarks/flash_ab``'s cases against the parent's digests
+             (PARENT_BF16_DIGESTS: the templating on the element type left
+             bf16's code as it was); the f16 flash kernel at yi-6b's heads
+             at every prompt length, causal and not, and at D=64, at every
+             built block pair, within F16_RTOL*|want| +
+             F16_FLIP*softmax(.)|v| (one f16 ulp of every p, times |v|) of
+             its plain version and at the pick of the f32 oracle, with a
+             dropped tail tile and a lost last column atom that the limit
+             must flag; the f16 matmul at every configuration at
+             2048x4096x4096 (a dropped last K block must be flagged) and at
+             the ragged shapes; the wide builds at WIDE_HEADS (Gemma 7B's
+             16/16 heads of 256, 16/8 of 256, 32/4 of 192) at S = 1, 77,
+             513, 1024, 2047 causal and 1500 non-causal, in bf16 and f16, at
+             every block pair built for them; then the main path counted
+             (``ops.attention`` at the wide shapes, ``ops.matmul`` in f16 at
+             yi-6b's shapes) and the timing (``time_f16_wide``: f16 beside
+             bf16 on the same values, each wide shape in both types, each
+             against SDPA or torch.matmul in the same dtype, in turns).
 5. tuner   — the slice's main path, counted: first the calibration, the
              gpu_h100 fit of the static features to seconds at the probe
              4096x2048x4096 (16 configurations, seed 123, timed by CUDA-graph
@@ -119,9 +144,19 @@ Phases, in order; any failure exits non-zero before the last line:
              none, with no evaluation and at least one bundled hit; both
              give the phase-6 tokens; the bundled matmul equals the
              explicit-blocks launch and the unbundled start's bit for bit.
+             Before the cold starts, an f16 ops.matmul at a bundled yi-6b
+             shape with the bundle installed in this process: it must miss
+             the bf16 records' entries and launch the f16 kernel once, from
+             the bundle's matmul_f16 library, with no nvcc run, bit for bit
+             the explicit f16 launch at the record's blocks.
 7. parity  — the last logits of one prefill through the kernel and through
              the plain version agree within a stated bf16 tolerance; then
              yi-6b's weights are freed.
+7a. f16-serve — yi-6b uncut with float16 parameters and compute
+             (``serve_arch(..., dtype="float16")``): the same 8 requests,
+             every request gets its tokens, the f16 flash kernel launches
+             once per layer per prefill (256) and the bf16 one never, and
+             the S=513 parity of phase 7 at F16_LOGIT_TOL; no profiled rerun.
 8. groups  — the flash kernel against its plain version and the oracle at
              the head groups of the later serves, (Hq, Hkv) = (64, 4),
              (48, 8), (40, 8) and (32, 8), D=128, causal, at every prompt
@@ -465,6 +500,61 @@ RAGGED_MM_SHAPES = ((1, 4096, 4096), (8, 4096, 4096), (32, 4096, 4096), (96, 409
 RAGGED_MM_TIMED = ((1, 4096, 4096), (8, 4096, 4096), (32, 4096, 4096), (96, 4096, 4096),
                    (256, 256, 80))
 RAGGED_SEED = 2
+# f16 (the float16 kernels) and head dims past 128 (the wide builds, both
+# 16-bit types). The f16 flash kernel against its plain version and the f32
+# oracle, per element: |kernel - want| <= F16_RTOL*|want| + F16_FLIP *
+# (softmax(scale q k^T) |v|). F16_RTOL is two f16 ulps of the output (2^-9:
+# its rounding on each side). F16_FLIP * softmax(.)|v| is one f16 ulp
+# (2^-10 relative) of every probability times |v|: the most the f16 cast of
+# p can move an output when ex2.approx and torch.exp (or the oracle's exact
+# p) put each p on the other side of a rounding point (a subnormal p moves
+# by 2^-24 at most). An rms floor cannot bound those flips in a row of few
+# keys: on an H100 (700 W), 2^-9 with bf16's floor scaled by 2^-3 (0.0025
+# rms) put 8 elements of 12.6 M at 32/4 heads of 192, S=2047, at 1.609 of
+# the limit, every other case at 0.68 or less. The matmul: two
+# ulps and bf16's floor scaled by the 2^-3 between the unit roundoffs
+# (2^-11 and 2^-8). The f16 prefill's last logits: LOGIT_TOL scaled so.
+F16_RTOL, F16_FLIP = 2**-9, 2**-10
+F16_MM_RTOL, F16_MM_ATOL_RMS = 2**-9, MM_ATOL_RMS / 8
+F16_LOGIT_TOL = LOGIT_TOL / 8
+# the float16 serve: yi-6b uncut with float16 parameters and compute
+F16_SERVE = ("yi-6b", 32)
+# head dims past 128 at published widths: (Hq, Hkv, D, where it comes from)
+WIDE_HEADS = ((16, 16, 256, "Gemma 7B's attention, arXiv:2403.08295"),
+              (16, 8, 256, "16/8 heads of 256 (GQA at Gemma 7B's width)"),
+              (32, 4, 192, "32/4 heads of 192 (yi-6b's heads at 192)"))
+WIDE_S = (1, 77, 513, 1024, 2047)   # causal, and WIDE_NONCAUSAL_S non-causal
+WIDE_NONCAUSAL_S = 1500
+F16_SEED = 3
+# The bf16 builds' outputs at repro_torch.benchmarks.flash_ab's cases
+# (numpy-seeded inputs; flash at head dims 128, 80 and 64, matmul at
+# yi-6b's five shapes), as sha1, from the commit before the f16 and wide
+# builds were added (its libraries built from its own sources on an H100):
+# the templating on the element type must leave bf16's code as it was.
+PARENT_BF16_DIGESTS = {
+    "flash_attention": {
+        '{"B": 1, "D": 128, "Hkv": 4, "Hq": 32, "S": 1024, "blocks": [128, 128], "causal": true}':
+            "ea8d335e25a2532e84ee26d997032c7f08b34e24",
+        '{"B": 1, "D": 80, "Hkv": 32, "Hq": 32, "S": 1024, "blocks": [128, 128], "causal": true}':
+            "ef7d5eefdedf05a098f3756750850ba34e14d0ae",
+        '{"B": 1, "D": 64, "Hkv": 20, "Hq": 20, "S": 1500, "blocks": [128, 128], "causal": false}':
+            "c4859a7b5b5966e3b2880ec4a7b27344ef27f47f",
+        '{"B": 1, "D": 64, "Hkv": 2, "Hq": 8, "S": 1024, "blocks": [128, 128], "causal": true}':
+            "5dd648ee2f1860640cbb62261f4c30d7c3593de8",
+    },
+    "matmul": {
+        '{"K": 4096, "M": 2048, "N": 4096, "blocks": [128, 256, 128, true]}':
+            "47c52abe1619fb84c98bf4828e7a2b079fcd7dff",
+        '{"K": 4096, "M": 2048, "N": 512, "blocks": [128, 128, 128, true]}':
+            "c2b3a6845d413516571b0617b3230a4e9ec4daf2",
+        '{"K": 4096, "M": 2048, "N": 11008, "blocks": [128, 256, 128, true]}':
+            "3fed65f3b5be69852f7b9cc613d6d9f1620a9bcd",
+        '{"K": 11008, "M": 2048, "N": 4096, "blocks": [128, 256, 128, true]}':
+            "9c1d0cf6b137663d8434eec02635c0bebead87b8",
+        '{"K": 4096, "M": 2048, "N": 64000, "blocks": [128, 256, 128, true]}':
+            "6cbecc0d6e49f9bbe4f99e71694a666905473750",
+    },
+}
 
 
 def fail(msg: str) -> None:
@@ -502,10 +592,13 @@ def graph_ms(fn, iters: int = 20, reps: int = 10) -> float:
     return time_fn(fn, torch.device("cuda"), iters=iters, reps=reps) * 1e3
 
 
-def outside(got, want, rtol: float, atol_rms: float):
-    """(elements outside the limit, max |got - want| / limit)."""
+def outside(got, want, rtol: float, atol_rms: float, atol=None):
+    """(elements outside the limit, max |got - want| / limit): rtol*|want|
+    plus ``atol`` (a tensor of ``want``'s shape) where given, else
+    ``atol_rms``*rms(want)."""
     got, want = got.float(), want.float()
-    limit = rtol * want.abs() + atol_rms * want.pow(2).mean().sqrt()
+    floor = atol if atol is not None else atol_rms * want.pow(2).mean().sqrt()
+    limit = rtol * want.abs() + floor
     ratio = (got - want).abs() / limit
     return int((ratio > 1).sum()), float(ratio.max())
 
@@ -879,15 +972,17 @@ def dropped_tails(x, y, bm, bn, bk, want):
     return {"last rows": rows, "last columns": cols, "last K slice": kslice}
 
 
-def check_ragged_matmul(gen) -> dict:
-    """Both matmul kernels at the shapes no built tile divides
+def check_ragged_matmul(gen, kinds=None, timed: bool = True) -> dict:
+    """The matmul kernels ``kinds`` ((dtype, launch-count name) pairs; by
+    default bf16's and f32's) at the shapes no built tile divides
     (``RAGGED_MM_SHAPES``): every configuration of the shape's sm90 space
     (f32: those built) against the plain version at MM_RTOL / MM_ATOL_RMS
-    (f32 also at the reference's f32 limit), the tuner's pick through
-    ops.matmul against the f32 oracle, and controls at the pick's tiles that
-    the limit must flag; then each kernel at the pick of ``RAGGED_MM_TIMED``
-    by graph replay, beside torch.matmul (its yardstick), the plain version
-    and the bound. Returns {"launches": {name: n}, "max_abs_err": {name: x},
+    (f16 at F16_MM_RTOL / F16_MM_ATOL_RMS; f32 also at the reference's f32
+    limit), the tuner's pick through ops.matmul against the f32 oracle, and
+    controls at the pick's tiles that the limit must flag; then, with
+    ``timed``, each kernel at the pick of ``RAGGED_MM_TIMED`` by graph
+    replay, beside torch.matmul (its yardstick), the plain version and the
+    bound. Returns {"launches": {name: n}, "max_abs_err": {name: x},
     "timed": {name: [rows]}, "s": seconds}; the launches are the checks'."""
     import torch
     from repro_torch.core.spaces import MatmulSpace
@@ -896,11 +991,14 @@ def check_ragged_matmul(gen) -> dict:
     from repro_torch.kernels import ops, ref
 
     t0 = time.perf_counter()
-    out = {"launches": {"matmul": 0, "matmul_f32": 0},
-           "max_abs_err": {"matmul": 0.0, "matmul_f32": 0.0},
-           "timed": {"matmul": [], "matmul_f32": []}}
-    for dtype, name in ((torch.bfloat16, "matmul"), (torch.float32, "matmul_f32")):
+    kinds = kinds or ((torch.bfloat16, "matmul"), (torch.float32, "matmul_f32"))
+    out = {"launches": {name: 0 for _, name in kinds},
+           "max_abs_err": {name: 0.0 for _, name in kinds},
+           "timed": {name: [] for _, name in kinds}}
+    for dtype, name in kinds:
         size = torch.empty((), dtype=dtype).element_size()
+        rtol, atol_rms = ((F16_MM_RTOL, F16_MM_ATOL_RMS) if dtype == torch.float16
+                          else (MM_RTOL, MM_ATOL_RMS))
         for m, n, k in RAGGED_MM_SHAPES:
             x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
             y = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
@@ -915,7 +1013,7 @@ def check_ragged_matmul(gen) -> dict:
                 got = km.matmul(x, y, **c)
                 torch.cuda.synchronize()
                 want = km.matmul_plain(x, y, c["bm"], c["bn"], c["bk"])
-                bad, w = outside(got, want, MM_RTOL, MM_ATOL_RMS)
+                bad, w = outside(got, want, rtol, atol_rms)
                 if dtype == torch.float32:
                     bad32, w32 = f32_outside(got, want, F32_MM_TOL * k ** 0.5, F32_MM_TOL)
                     bad, w = bad + bad32, max(w, w32)
@@ -926,7 +1024,7 @@ def check_ragged_matmul(gen) -> dict:
                          f"{bad} outside")
             got = ops.matmul(x, y)
             torch.cuda.synchronize()
-            bad_o, w_o = outside(got, ref.matmul(x, y), MM_RTOL, MM_ATOL_RMS)
+            bad_o, w_o = outside(got, ref.matmul(x, y), rtol, atol_rms)
             out["launches"][name] += ops.launch_counts()[name]
             if ops.launch_counts()[name] != len(cfgs) + 1:
                 fail(f"{name} at {m}x{n}x{k}: {ops.launch_counts()[name]} launches for "
@@ -935,7 +1033,7 @@ def check_ragged_matmul(gen) -> dict:
             want = km.matmul_plain(x, y, *pick[:3])
             controls = []
             for what, dropped in dropped_tails(x, y, *pick[:3], want).items():
-                n_drop, w_drop = outside(dropped, want, MM_RTOL, MM_ATOL_RMS)
+                n_drop, w_drop = outside(dropped, want, rtol, atol_rms)
                 controls.append(f"dropped {what} {n_drop} outside (worst {w_drop:.1f}x)")
                 if n_drop == 0:
                     fail(f"the matmul limit would miss a kernel that dropped the {what} "
@@ -945,8 +1043,8 @@ def check_ragged_matmul(gen) -> dict:
                 f"outside (worst {w_o:.3f}); " + "; ".join(controls))
             if bad_o:
                 fail(f"the {dtype} matmul kernel disagrees with the oracle at {m}x{n}x{k}")
-        peak = GPU_H100.peak_flops_bf16 if dtype == torch.bfloat16 else GPU_H100.peak_flops_f32
-        for m, n, k in RAGGED_MM_TIMED:
+        peak = GPU_H100.peak_flops_f32 if dtype == torch.float32 else GPU_H100.peak_flops_bf16
+        for m, n, k in (RAGGED_MM_TIMED if timed else ()):
             x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
             y = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
             blocks = ops.tuned_matmul_blocks(m, n, k, size)
@@ -972,10 +1070,288 @@ def check_ragged_matmul(gen) -> dict:
     return out
 
 
+def check_flash_pairs(cases, gen, dtype) -> float:
+    """Hold the flash kernel in ``dtype`` (bf16 or f16) against its plain
+    version at each (B, Hq, Hkv, S, D, causal) at every block pair built
+    for it, and at the picked blocks against the f32 oracle; fail on an
+    element outside a limit. bf16: KERNEL_RTOL*|plain| +
+    KERNEL_ATOL_RMS*rms(plain), the oracle at ORACLE_RTOL / ORACLE_ATOL_RMS;
+    f16: F16_RTOL*|want| + F16_FLIP*softmax(.)|v| against both. Controls at
+    the picked blocks that the limit must flag: a dropped tail tile (a tail
+    of 5% of the keys or more), and at a head dim past 64 columns a kernel
+    that lost its last 64-column atom (columns 64*(ceil(D/64)-1)..D-1
+    zero). Returns max |kernel - plain|."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    max_err = 0.0
+    for b, hq, hkv, s, d, causal in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+        if dtype == torch.float16:
+            # the floor: one f16 ulp of every p, times |v|
+            rtol, atol_rms, oracle_limit = F16_RTOL, 0.0, (F16_RTOL, 0.0)
+            floor = F16_FLIP * ref.attention(q.float(), k.float(), v.float().abs(),
+                                             causal=causal)
+        else:
+            rtol, atol_rms, floor = KERNEL_RTOL, KERNEL_ATOL_RMS, None
+            oracle_limit = (ORACLE_RTOL, ORACLE_ATOL_RMS)
+        pairs = [(bq, bk) for bq in fa.BLOCKS for bk in fa.BLOCKS if fa.built(bq, bk, d, dtype)]
+        pick = ops.tuned_flash_blocks(s, d, 2)
+        if pick not in pairs:
+            fail(f"the {dtype} pick {pick} at S={s} D={d} is not a built block pair")
+        parts, worst = [], 0.0
+        for bq, bk in pairs:
+            got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_plain(q, k, v, causal=causal, block_q=bq, block_k=bk)
+            bad, w = outside(got, want, rtol, atol_rms, floor)
+            err = float((got.float() - want.float()).abs().max())
+            max_err, worst = max(max_err, err), max(worst, w)
+            parts.append(f"({bq},{bk}) {bad} outside, worst {w:.3f}, max err {err:.3e}")
+            if bad or got.dtype != dtype or not torch.isfinite(got).all():
+                fail(f"the {dtype} flash kernel disagrees at Hq={hq} Hkv={hkv} S={s} D={d} "
+                     f"causal={causal} blocks=({bq},{bk}): " + "; ".join(parts))
+            if (bq, bk) == pick:
+                at_pick = (got, want)
+        got, want = at_pick
+        bad_o, w_o = outside(got, ref.attention(q, k, v, causal=causal), *oracle_limit, floor)
+        line = (f"kernel {dtype} B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal}: "
+                + "; ".join(parts) + f"; pick {pick} vs the oracle {bad_o} outside, worst "
+                f"{w_o:.3f}")
+        keep = tail_keep(s, pick[1])
+        if s % pick[1] and keep < s:
+            n_drop, w_drop = outside(drop_tail(q, k, v, causal, keep), want, rtol, atol_rms,
+                                     floor)
+            line += f"; dropped tail tile ({s - keep} keys) {n_drop} outside ({w_drop:.1f}x)"
+            if n_drop == 0 and (s - keep) * 20 >= s:
+                fail(f"the {dtype} limit would miss a dropped tail tile at S={s} D={d}")
+        if d > 64:
+            last = (fa.padded_head_dim(d) - 64)
+            lost = got.clone()
+            lost[..., last:] = 0
+            n_lost, w_lost = outside(lost, want, rtol, atol_rms, floor)
+            line += (f"; lost last atom (columns {last}-{d - 1} zero) {n_lost} outside "
+                     f"({w_lost:.1f}x)")
+            if n_lost == 0:
+                fail(f"the {dtype} limit would miss a lost last column atom at S={s} D={d}")
+        log(line)
+        if bad_o:
+            fail(f"the {dtype} flash kernel disagrees with the oracle at Hq={hq} Hkv={hkv} "
+                 f"S={s} D={d} causal={causal}")
+    return max_err
+
+
+def check_f16_matmul(gen) -> float:
+    """The f16 matmul kernel at every built configuration at MM_TIMED (a
+    yi-6b projection) against its plain version at F16_MM_RTOL /
+    F16_MM_ATOL_RMS, the pick through ops.matmul against the f32 oracle,
+    and a dropped last K block per bk that the limit must flag; then both
+    ragged phases' shapes (``check_ragged_matmul``'s, in f16). Returns max
+    |kernel - plain|."""
+    import torch
+    from repro_torch.core.spaces import MatmulSpace
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ops, ref
+
+    m, n, k = MM_TIMED
+    x = torch.randn((m, k), generator=gen, device="cuda").half()
+    y = torch.randn((k, n), generator=gen, device="cuda").half()
+    cfgs = list(MatmulSpace(m, n, k, 2, target_kind="sm90").enumerate(None))
+    if not all(km.built(c["bm"], c["bn"], c["bk"], c["double_buffer"], torch.float16)
+               for c in cfgs):
+        fail("an sm90 configuration is not built in f16")
+    bad_o, w_o = outside(ops.matmul(x, y), ref.matmul(x, y), F16_MM_RTOL, F16_MM_ATOL_RMS)
+    line, max_err = [f"matmul f16 {m}x{n}x{k}: pick vs the oracle {bad_o} outside "
+                     f"(worst {w_o:.3f})"], 0.0
+    for bk in sorted({c["bk"] for c in cfgs}):
+        group = [c for c in cfgs if c["bk"] == bk]
+        want = km.matmul_plain(x, y, group[0]["bm"], group[0]["bn"], bk)
+        worst, err = 0.0, 0.0
+        for c in group:
+            got = km.matmul(x, y, **c)
+            torch.cuda.synchronize()
+            bad, w = outside(got, want, F16_MM_RTOL, F16_MM_ATOL_RMS)
+            worst, err = max(worst, w), max(err, float((got.float() - want.float()).abs().max()))
+            if bad or got.dtype != torch.float16 or not torch.isfinite(got).all():
+                fail(f"the f16 matmul kernel disagrees at {m}x{n}x{k} {c}: {bad} outside")
+        max_err = max(max_err, err)
+        dropped = km.matmul_plain(x[:, :k - bk], y[:k - bk], group[0]["bm"], group[0]["bn"], bk)
+        n_drop, w_drop = outside(dropped, want, F16_MM_RTOL, F16_MM_ATOL_RMS)
+        line.append(f"bk={bk}: {len(group)} configs, 0 outside, worst {worst:.3f}, max err "
+                    f"{err:.3e}; dropped last K block {n_drop} outside ({w_drop:.1f}x)")
+        if n_drop == 0:
+            fail(f"the f16 matmul limit would miss a dropped last K block at bk={bk}")
+    log("; ".join(line))
+    if bad_o:
+        fail(f"the f16 matmul kernel disagrees with the oracle at {m}x{n}x{k}")
+    ragged = check_ragged_matmul(gen, kinds=((torch.float16, "matmul_f16"),), timed=False)
+    return max(max_err, ragged["max_abs_err"]["matmul_f16"])
+
+
+def time_f16_wide(gen) -> dict:
+    """The f16 kernels and the wide builds timed by graph replay, in turns,
+    beside a yardstick the port never calls, the plain version (eager) and
+    the bound at the tensor cores' 16-bit rate: f16 flash at yi-6b's heads
+    (S=TIMED_S, causal) beside the bf16 kernel on the same values and SDPA
+    in f16; the f16 matmul at MM_TIMED beside the bf16 kernel and
+    torch.matmul in f16; each WIDE_HEADS shape at S=TIMED_S, causal, in bf16
+    and f16, against SDPA in the same dtype. Returns {name: [rows]}."""
+    import torch
+    from repro_torch.hw.gpu_h100 import GPU_H100
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ops
+
+    card = nvidia_smi("name,power.limit")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"flash_attention_f16": [], "matmul_f16": [], "flash_attention_wide": []}
+    shapes = [("flash_attention_f16", (1, 32, 4, TIMED_S, 128), torch.float16, "yi-6b's heads")]
+    shapes += [("flash_attention_wide", (1, hq, hkv, TIMED_S, d), dtype, what)
+               for hq, hkv, d, what in WIDE_HEADS for dtype in (torch.bfloat16, torch.float16)]
+    for name, (b, hq, hkv, s, d), dtype, what in shapes:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+        bq, bk = ops.tuned_flash_blocks(s, d, 2)
+        kern = lambda: fa.flash_attention(q, k, v, causal=True, block_q=bq, block_k=bk)
+        lib_fn = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        row = {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "causal": True, "model": what,
+               "dtype": str(dtype), "blocks": [bq, bk]}
+        if name == "flash_attention_f16":
+            qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+            bf16 = lambda: fa.flash_attention(qb, kb, vb, causal=True, block_q=bq, block_k=bk)
+            k1, b1, l1, l2, b2, k2 = (graph_ms(f, iters=20) for f in (kern, bf16, lib_fn,
+                                                                      lib_fn, bf16, kern))
+            row["bf16_ms"], row["bf16_turns_ms"] = (b1 + b2) / 2, [b1, b2]
+        else:
+            k1, l1, l2, k2 = (graph_ms(f, iters=20) for f in (kern, lib_fn, lib_fn, kern))
+        plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True, block_q=bq,
+                                                         block_k=bk), iters=3, warmup=1)
+        flops, nbytes = flash_work(b, hq, hkv, s, d, True, 2)
+        bound_ms, by = bound(flops, nbytes, GPU_H100.peak_flops_bf16)
+        ms, lib = (k1 + k2) / 2, (l1 + l2) / 2
+        row.update({"ms": ms, "turns_ms": [k1, k2], "plain_ms": plain, "library_ms": lib,
+                    "bound_ms": bound_ms, "bound_by": by, "of_bound": ms / bound_ms,
+                    "tflops": flops / ms / 1e9, "card": card})
+        out[name].append(row)
+        log(f"timing {name} {dtype} {what} B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal "
+            f"blocks=({bq},{bk}), graph replay: kernel {ms:.4f} ms [{k1:.4f}, {k2:.4f}] "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {ms / bound_ms:.2f}x the bound)"
+            + (f", bf16 kernel {row['bf16_ms']:.4f} ms" if "bf16_ms" in row else "")
+            + f", sdpa (yardstick) {lib:.4f} ms [{l1:.4f}, {l2:.4f}] ({ms / lib:.2f}x); plain "
+            f"{plain:.4f} ms; bound {bound_ms:.4f} ms by {by} ({card})")
+    m, n, k = MM_TIMED
+    x = torch.randn((m, k), generator=gen, device="cuda").half()
+    y = torch.randn((k, n), generator=gen, device="cuda").half()
+    xb, yb = x.bfloat16(), y.bfloat16()
+    blocks = ops.tuned_matmul_blocks(m, n, k, 2)
+    kern, bf16 = lambda: ops.matmul(x, y), lambda: ops.matmul(xb, yb)
+    lib_fn = lambda: torch.matmul(x, y)
+    k1, b1, l1, l2, b2, k2 = (graph_ms(f) for f in (kern, bf16, lib_fn, lib_fn, bf16, kern))
+    plain = cuda_ms(lambda: km.matmul_plain(x, y, *blocks[:3]), iters=3)
+    flops, nbytes = matmul_work(m, n, k, 2)
+    bound_ms, by = bound(flops, nbytes, GPU_H100.peak_flops_bf16)
+    ms, lib = (k1 + k2) / 2, (l1 + l2) / 2
+    out["matmul_f16"].append({"shape": [m, n, k], "blocks": list(blocks), "ms": ms,
+                              "turns_ms": [k1, k2], "bf16_ms": (b1 + b2) / 2,
+                              "bf16_turns_ms": [b1, b2], "plain_ms": plain, "library_ms": lib,
+                              "bound_ms": bound_ms, "bound_by": by, "of_bound": ms / bound_ms,
+                              "tflops": flops / ms / 1e9, "card": card})
+    log(f"timing matmul_f16 {m}x{n}x{k} blocks={blocks}, graph replay: kernel {ms:.4f} ms "
+        f"[{k1:.4f}, {k2:.4f}] ({flops / ms / 1e9:.1f} TFLOP/s), bf16 kernel "
+        f"{(b1 + b2) / 2:.4f} ms [{b1:.4f}, {b2:.4f}], torch.matmul f16 (yardstick) "
+        f"{lib:.4f} ms [{l1:.4f}, {l2:.4f}] ({ms / lib:.2f}x); plain {plain:.4f} ms; bound "
+        f"{bound_ms:.4f} ms by {by} ({card})")
+    return out
+
+
+def f16_wide_phase(gen) -> dict:
+    """The float16 kernels and the head dims past 128, after the ragged
+    matmul checks (its own generator, so every other phase's draws stay):
+    the bf16 builds' outputs against the parent's digests; the f16 flash
+    kernel at yi-6b's lengths (32/4 heads of 128, causal and not) and at
+    D=64, at every built block pair; the f16 matmul (``check_f16_matmul``);
+    the wide builds at WIDE_HEADS, S in WIDE_S causal and
+    WIDE_NONCAUSAL_S non-causal, in bf16 and f16, at every block pair built
+    for them; then the main path counted (``ops.attention`` at each wide
+    shape in both types and ``ops.matmul`` in f16 at yi-6b's shapes, no
+    blocks given, counts reset just before) and the timing
+    (``time_f16_wide``). Returns its summary."""
+    import torch
+    from repro_torch.benchmarks import flash_ab
+    from repro_torch.benchmarks.topk_ratio import YI6B_SHAPES
+    from repro_torch.kernels import build, ops
+
+    t_phase = time.perf_counter()
+    digests = {kern: flash_ab.digests(kern, build.load(kern)) for kern in ("flash_attention",
+                                                                           "matmul")}
+    same = {kern: sum(PARENT_BF16_DIGESTS.get(kern, {}).get(case) == sha
+                      for case, sha in d.items()) for kern, d in digests.items()}
+    log(f"bf16 builds against the parent's output digests: {same} of "
+        f"{ {kern: len(d) for kern, d in digests.items()} } bit-equal; this build's "
+        f"{json.dumps(digests)}")
+    if any(same[kern] != len(digests[kern]) for kern in digests):
+        fail(f"a bf16 build's output differs from the parent's: {same}")
+
+    log(f"kernel f16: limit {F16_RTOL:.4g}*|want| + {F16_FLIP:.4g}*softmax(scale q k^T)|v| "
+        f"against the plain version and the f32 oracle; every built block pair")
+    f16_cases = ([(1, 32, 4, s, 128, c) for s in sorted(set(KERNEL_S) | set(PROMPT_LENS))
+                  for c in (True, False)] + [(1, 8, 2, 300, 64, True), (1, 8, 2, 77, 64, False)])
+    err_f16 = check_flash_pairs(f16_cases, gen, torch.float16)
+    t_f16 = time.perf_counter() - t_phase
+    err_mm16 = check_f16_matmul(gen)
+    t_mm = time.perf_counter() - t_phase - t_f16
+    wide_cases = [(1, hq, hkv, s, d, True) for hq, hkv, d, _ in WIDE_HEADS for s in WIDE_S]
+    wide_cases += [(1, hq, hkv, WIDE_NONCAUSAL_S, d, False) for hq, hkv, d, _ in WIDE_HEADS]
+    log("kernel at head dims past 128: " + "; ".join(f"{hq}/{hkv} heads of {d}: {what}"
+                                                     for hq, hkv, d, what in WIDE_HEADS))
+    err_wide = {"bfloat16": check_flash_pairs(wide_cases, gen, torch.bfloat16),
+                "float16": check_flash_pairs(wide_cases, gen, torch.float16)}
+    t_wide = time.perf_counter() - t_phase - t_f16 - t_mm
+
+    # the main path, counted: the entry points a user calls, blocks picked
+    ops.reset_launch_counts()
+    for hq, hkv, d, _ in WIDE_HEADS:
+        for dtype in (torch.bfloat16, torch.float16):
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for shape in ((1, hq, TIMED_S, d), (1, hkv, TIMED_S, d),
+                                     (1, hkv, TIMED_S, d)))
+            if not torch.isfinite(ops.attention(q, k, v, causal=True)).all():
+                fail(f"ops.attention {dtype} at {hq}/{hkv} heads of {d}: non-finite output")
+    for m, n, k in YI6B_SHAPES:
+        x = torch.randn((m, k), generator=gen, device="cuda").half()
+        y = torch.randn((k, n), generator=gen, device="cuda").half()
+        if ops.matmul(x, y).shape != (m, n):
+            fail(f"ops.matmul f16 at {m}x{n}x{k}: wrong shape")
+    torch.cuda.synchronize()
+    counted = ops.launch_counts()
+    log(f"f16-wide main path (ops.attention at the wide shapes in bf16 and f16, ops.matmul "
+        f"in f16 at yi-6b's shapes): launches {counted}")
+    want = {"flash_attention": len(WIDE_HEADS), "flash_attention_f16": len(WIDE_HEADS),
+            "matmul_f16": len(YI6B_SHAPES)}
+    if {key: counted[key] for key in want} != want or counted["matmul"] or counted["matmul_f32"]:
+        fail(f"f16-wide main path: launches {counted}, want {want}")
+    del x, y, q, k, v
+    timing = time_f16_wide(gen)
+    summary = {"max_abs_err": {"flash_attention_f16": err_f16, "matmul_f16": err_mm16,
+                               "flash_attention_wide": err_wide},
+               "launches": {"flash_attention_wide": counted["flash_attention"]
+                            + counted["flash_attention_f16"],
+                            "matmul_f16": counted["matmul_f16"]},
+               "timing": timing, "digests_equal": same,
+               "s": {"f16_flash": t_f16, "f16_matmul": t_mm, "wide": t_wide,
+                     "phase": time.perf_counter() - t_phase}}
+    log(f"f16-wide: {summary['s']} s, max errors {summary['max_abs_err']}")
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> None:
     import numpy as np
     import torch
 
+    t_smoke = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs an NVIDIA card")
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1029,28 +1405,45 @@ def main() -> None:
         if serialized:
             fail(f"ptxas serialized wgmma in {name}: {serialized[:2]}")
 
-    def registers(name, kernel, fmt):
+    def registers(name, kernel, fmt, elem=None):
+        """{instantiation: registers} of ``kernel`` in library ``name``; for
+        a 16-bit kernel, those of element type ``elem`` (its mangled name)."""
         text = build.log_path(name).read_text()
         found = {}
         for entry, used in zip(re.findall(r"Compiling entry function '([^']+)'", text),
                                re.findall(r"Used (\d+) registers", text)):
-            m = re.search(kernel + r"ILi(\d+)ELi(\d+)ELi(\d+)E(?:Li(\d+)E)?", entry)
-            if m:
-                found[fmt.format(*m.groups())] = int(used)
+            m = re.search(kernel + r"I(?:\d+(__nv_bfloat16|__half))?"
+                          r"Li(\d+)ELi(\d+)ELi(\d+)E(?:Li(\d+)E)?", entry)
+            if m and m.group(1) == elem:
+                found[fmt.format(*m.groups()[1:])] = int(used)
         return found
 
     pad = fa.padded_head_dim
-    flash_regs = registers("flash_attention", "flash_fwd_wgmma_kernel", "bq{}_bk{}_d{}_dp{}")
+    narrow = ({f"bq{bq}_bk{bk}_d{d}_dp{pad(d)}" for bq in fa.BLOCKS for bk in fa.BLOCKS
+               for d in fa.HEAD_DIMS}
+              | {f"bq{bq}_bk{bk}_d0_dp{dp}" for bq in fa.BLOCKS for bk in fa.BLOCKS
+                 for dp in (64, 128)})
+    wide = {f"bq{bq}_bk{bk}_d0_dp{dp}" for bq in fa.BLOCKS for bk in fa.BLOCKS
+            for dp in (192, 256) if fa.built(bq, bk, dp, torch.bfloat16)}
+    # (library, element type) -> the 16-bit flash instantiations it must hold
+    want_16 = {("flash_attention", "__nv_bfloat16"): narrow,
+               ("flash_attention_f16", "__half"): narrow,
+               ("flash_attention_wide", "__nv_bfloat16"): wide,
+               ("flash_attention_wide", "__half"): wide}
+    regs_16 = {}
+    for (lib, elem), want in want_16.items():
+        regs_16[lib, elem] = registers(lib, "flash_fwd_wgmma_kernel", "bq{}_bk{}_d{}_dp{}",
+                                       elem)
+        if set(regs_16[lib, elem]) != want:
+            fail(f"expected the {len(want)} {elem} flash instantiations {sorted(want)} in "
+                 f"{lib}, found {sorted(regs_16[lib, elem])}")
+    flash_regs = regs_16["flash_attention", "__nv_bfloat16"]
     log(f"build flash registers per instantiation (launch count; the consumer "
         f"warpgroups of BQ=128 raise theirs to 240 with setmaxnreg; d0 is the generic "
-        f"build of its padded width dp, the head dim passed at run time): {flash_regs}")
-    want_flash = ({f"bq{bq}_bk{bk}_d{d}_dp{pad(d)}" for bq in fa.BLOCKS for bk in fa.BLOCKS
-                   for d in fa.HEAD_DIMS}
-                  | {f"bq{bq}_bk{bk}_d0_dp{dp}" for bq in fa.BLOCKS for bk in fa.BLOCKS
-                     for dp in fa.PADDED_WIDTHS})
-    if set(flash_regs) != want_flash:
-        fail(f"expected the {len(want_flash)} bf16 flash instantiations {sorted(want_flash)}, "
-             f"found {sorted(flash_regs)}")
+        f"build of its padded width dp, the head dim passed at run time): bf16 {flash_regs}; "
+        f"f16 {regs_16['flash_attention_f16', '__half']}; wide bf16 "
+        f"{regs_16['flash_attention_wide', '__nv_bfloat16']}, wide f16 "
+        f"{regs_16['flash_attention_wide', '__half']}")
     flash32_regs = registers("flash_attention", "flash_fwd_f32_kernel", "bq{}_bk{}_dp{}")
     log(f"build f32 flash registers per instantiation (SIMT, BQ/8 warps): {flash32_regs}")
     want_flash32 = {f"bq{bq}_bk{bk}_dp{dp}" for bq in fa.BLOCKS for bk in fa.BLOCKS
@@ -1060,13 +1453,15 @@ def main() -> None:
              f"{sorted(flash32_regs)}")
     mm_configs = [(bm, bn, bk, db) for bm in km.BLOCKS["bm"] for bn in km.BLOCKS["bn"]
                   for bk in km.BLOCKS["bk"] for db in (False, True)]
-    mm_regs = registers("matmul", "matmul_wgmma_kernel", "bm{}_bn{}_bk{}_s{}")
+    want_mm = sorted(f"bm{bm}_bn{bn}_bk{bk}_s{2 if db else 1}" for bm, bn, bk, db in mm_configs)
+    mm_regs = registers("matmul", "matmul_wgmma_kernel", "bm{}_bn{}_bk{}_s{}", "__nv_bfloat16")
+    mm16_regs = registers("matmul_f16", "matmul_wgmma_kernel", "bm{}_bn{}_bk{}_s{}", "__half")
     log(f"build matmul registers per instantiation (launch count; the consumer "
-        f"warpgroups of bm=128 raise theirs to 240 with setmaxnreg): {mm_regs}")
-    if sorted(mm_regs) != sorted(f"bm{bm}_bn{bn}_bk{bk}_s{2 if db else 1}"
-                                 for bm, bn, bk, db in mm_configs):
-        fail(f"expected the {len(mm_configs)} matmul instantiations of "
-             f"{km.BLOCKS}, found {sorted(mm_regs)}")
+        f"warpgroups of bm=128 raise theirs to 240 with setmaxnreg): bf16 {mm_regs}; "
+        f"f16 {mm16_regs}")
+    if sorted(mm_regs) != want_mm or sorted(mm16_regs) != want_mm:
+        fail(f"expected the {len(mm_configs)} matmul instantiations of {km.BLOCKS} in bf16 "
+             f"and in f16, found {sorted(mm_regs)} and {sorted(mm16_regs)}")
     mm32_configs = [c for c in mm_configs if km.built(*c, torch.float32)]
     mm32_regs = registers("matmul", "matmul_f32_kernel", "bm{}_bn{}_bk{}_s{}")
     log(f"build f32 matmul registers per instantiation (SIMT, 256 threads): {mm32_regs}")
@@ -1074,10 +1469,11 @@ def main() -> None:
                                    for bm, bn, bk, db in mm32_configs):
         fail(f"expected the {len(mm32_configs)} f32 matmul instantiations, found "
              f"{sorted(mm32_regs)}")
-    sass, sass_fn = sass_counts(build.library_path("flash_attention"))
-    mm_sass, mm_sass_fn = sass_counts(build.library_path("matmul"))
-    log(f"build SASS: flash {sass}, matmul {mm_sass}")
-    for name, counts in (("flash", sass), ("matmul", mm_sass)):
+    lib_sass = {name: sass_counts(build.library_path(name)) for name in build.SOURCES}
+    sass, sass_fn = lib_sass["flash_attention"]
+    mm_sass, mm_sass_fn = lib_sass["matmul"]
+    log("build SASS: " + ", ".join(f"{name} {totals}" for name, (totals, _) in lib_sass.items()))
+    for name, (counts, _) in lib_sass.items():
         if counts["HGMMA"] == 0 or counts["UTMALDG"] == 0:
             fail(f"the {name} library has no wgmma or no TMA instruction: {counts}")
         if counts["HMMA"]:
@@ -1085,6 +1481,17 @@ def main() -> None:
         # ptxas may serialize wgmma without a warning: a wait after every one
         if counts["WARPGROUP.DEPBAR"] >= counts["HGMMA"]:
             fail(f"the {name} library waits on every wgmma alone: {counts}")
+    # every 16-bit kernel: wgmma and TMA in its own SASS, no mma.sync
+    sass_16 = {fn: c for _, (_, per_fn) in lib_sass.items() for fn, c in per_fn.items()
+               if "flash_fwd_wgmma_kernel" in fn or "matmul_wgmma_kernel" in fn}
+    n_16 = sum(len(w) for w in want_16.values()) + 2 * len(mm_configs)
+    short16 = [fn for fn, c in sass_16.items()
+               if c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"]]
+    log(f"build SASS of the {len(sass_16)} 16-bit kernels: each has HGMMA and UTMALDG and no "
+        f"HMMA: {not short16}")
+    if len(sass_16) != n_16 or short16:
+        fail(f"{len(sass_16)} 16-bit kernels in the SASS (want {n_16}); without wgmma or TMA, "
+             f"or with HMMA: {short16[:3]}")
     # the f32 kernels: true f32, FFMA and no tensor-core product of any kind
     f32_sass = {fn: c for fn, c in {**sass_fn, **mm_sass_fn}.items()
                 if "flash_fwd_f32_kernel" in fn or "matmul_f32_kernel" in fn}
@@ -1100,28 +1507,26 @@ def main() -> None:
     for fn, c in f32_sass.items():
         if c["FFMA"] == 0 or c["HGMMA"] or c["HMMA"]:
             fail(f"the f32 kernel {fn} is not FFMA alone: {c}")
+    smem_dims = fa.HEAD_DIMS + OTHER_HEAD_DIMS + (136, 192, 200, 256, 264)
     for bq in fa.BLOCKS:
         for bk in fa.BLOCKS:
-            for d in fa.HEAD_DIMS + OTHER_HEAD_DIMS:
-                lib_bytes = fa.kernel_smem_bytes(bq, bk, d)
-                if lib_bytes != fa.smem_bytes(bq, bk, d) or lib_bytes > GPU_H100.fast_mem_bytes:
-                    fail(f"flash ({bq},{bk}) d={d}: the library launches with {lib_bytes} "
-                         f"B of shared memory, smem_bytes says {fa.smem_bytes(bq, bk, d)}")
-                lib32 = fa.kernel_smem_bytes(bq, bk, d, torch.float32)
-                want32 = (fa.smem_bytes(bq, bk, d, 4) if fa.built(bq, bk, d, torch.float32)
-                          else -1)
-                if lib32 != want32:
-                    fail(f"f32 flash ({bq},{bk}) d={d}: the library launches with {lib32} "
-                         f"B of shared memory, the pickers count {want32}")
+            for d in smem_dims:
+                for dtype, size in ((torch.bfloat16, 2), (torch.float16, 2), (torch.float32, 4)):
+                    lib_bytes = fa.kernel_smem_bytes(bq, bk, d, dtype)
+                    want = fa.smem_bytes(bq, bk, d, size) if fa.built(bq, bk, d, dtype) else -1
+                    if lib_bytes != want or lib_bytes > GPU_H100.fast_mem_bytes:
+                        fail(f"{dtype} flash ({bq},{bk}) d={d}: the library launches with "
+                             f"{lib_bytes} B of shared memory, the pickers count {want}")
     log(f"build flash shared memory: library = smem_bytes <= {GPU_H100.fast_mem_bytes} B "
-        f"at all {len(flash_regs)} bf16 instantiations (d {fa.HEAD_DIMS + OTHER_HEAD_DIMS}) "
+        f"at every bf16 and f16 instantiation (d {smem_dims}, the wide library past 128) "
         f"and, at 4 bytes, the {len(flash32_regs)} f32 ones (-1 where none is built)")
     for bm, bn, bk, db in mm_configs:
-        lib_bytes = km.kernel_smem_bytes(bm, bn, bk, db)
         staged = (2 if db else 1) * km.smem_bytes(bm, bn, bk, 2)
-        if lib_bytes != staged or lib_bytes > GPU_H100.fast_mem_bytes:
-            fail(f"matmul ({bm},{bn},{bk}, {2 if db else 1} stages): the library stages "
-                 f"{lib_bytes} B of shared memory, the sm90 model counts {staged}")
+        for dtype in (torch.bfloat16, torch.float16):
+            lib_bytes = km.kernel_smem_bytes(bm, bn, bk, db, dtype)
+            if lib_bytes != staged or lib_bytes > GPU_H100.fast_mem_bytes:
+                fail(f"{dtype} matmul ({bm},{bn},{bk}, {2 if db else 1} stages): the library "
+                     f"stages {lib_bytes} B of shared memory, the sm90 model counts {staged}")
         lib32 = km.kernel_smem_bytes(bm, bn, bk, db, torch.float32)
         want32 = ((2 if db else 1) * km.smem_bytes(bm, bn, bk, 4)
                   if km.built(bm, bn, bk, db, torch.float32) else -1)
@@ -1129,8 +1534,8 @@ def main() -> None:
             fail(f"f32 matmul ({bm},{bn},{bk}, {2 if db else 1} stages): the library stages "
                  f"{lib32} B, the sm90 model counts {want32}")
     log(f"build matmul shared memory: library = stages x smem_bytes <= "
-        f"{GPU_H100.fast_mem_bytes} B at all {len(mm_configs)} bf16 instantiations and, at "
-        f"4 bytes, the {len(mm32_configs)} f32 ones (-1 where none is built)")
+        f"{GPU_H100.fast_mem_bytes} B at all {len(mm_configs)} bf16 and f16 instantiations "
+        f"and, at 4 bytes, the {len(mm32_configs)} f32 ones (-1 where none is built)")
 
     # -------------------------------------------------------------- kernels
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1276,6 +1681,9 @@ def main() -> None:
     ragged = check_ragged_matmul(torch.Generator(device=dev).manual_seed(RAGGED_SEED))
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------- f16-wide
+    f16w = f16_wide_phase(torch.Generator(device=dev).manual_seed(F16_SEED))
+
     # ---------------------------------------------------------------- tuner
     tuner = tuner_phase(gen, mm_spaces)
     topk, topk_check, fit, mm_launches = (tuner[key] for key in (
@@ -1371,7 +1779,7 @@ def main() -> None:
     check_schedule_store(cfg, model, params, reqs, cap)
 
     # --------------------------------------------------------- golden-bundle
-    check_golden_bundle(reqs, cap)
+    f16_bundle_launches = check_golden_bundle(reqs, cap)
 
     # --------------------------------------------------------------- parity
     prompt = torch.tensor([[int(t) for t in rng.integers(0, cfg.vocab, 513)]],
@@ -1384,6 +1792,11 @@ def main() -> None:
     del model, params, got, want
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ f16-serve
+    t_phase = time.perf_counter()
+    f16_serve = serve_arch(*F16_SERVE, dtype="float16")
+    log(f"f16-serve {F16_SERVE[0]}: {time.perf_counter() - t_phase:.1f} s")
 
     # ---------------------------------------------------------------- train
     t_phase = time.perf_counter()
@@ -1492,6 +1905,9 @@ def main() -> None:
     log(f"flash launches per serve: {serve_launches}")
 
     # -------------------------------------------------------------- results
+    log(f"smoke: {time.perf_counter() - t_smoke:.1f} s from the start of main to the "
+        f"results; the build's seconds per source {secs}, the f16-wide phase's "
+        f"{f16w['s']} ({nvidia_smi('name,power.limit')})")
     print(json.dumps({"topk": {s: {how: row[how] for how in ("static", "calibrated", "hybrid")}
                                for s, row in topk.items()},
                       "check": topk_check, "fit": fit}), flush=True)
@@ -1507,9 +1923,12 @@ def main() -> None:
         "max_abs_err": max_err,
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms, "dtypes": ["bfloat16"],
-        "head_dims": (f"every multiple of 8 from 8 to {fa.MAX_HEAD_DIM}: "
+        "head_dims": (f"every multiple of 8 from 8 to {fa.MAX_HEAD_DIM[torch.bfloat16]} in "
+                      f"bf16 and f16 ({fa.MAX_HEAD_DIM[torch.float32]} in f32): "
                       f"{list(fa.HEAD_DIMS)} built, the rest at run time in the generic "
-                      f"builds of {list(fa.PADDED_WIDTHS)} columns"),
+                      f"builds of {list(fa.PADDED_WIDTHS)} columns (192 and 256 in "
+                      f"flash_attention_wide); see flash_attention_f16 and "
+                      f"flash_attention_wide for the float16 launches"),
         "d80": d80, "other_head_dims": new_timing["flash_attention"], "sass": sass,
         "registers": flash_regs, "sweep": sweep}, {
         "name": "flash_attention_f32", "route": "cuda",
@@ -1522,9 +1941,38 @@ def main() -> None:
            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "library": "scaled_dot_product_attention, f32, efficient or math backend",
         "dtypes": ["float32"],
-        "head_dims": f"every multiple of 8 from 8 to {fa.MAX_HEAD_DIM} (padded to "
-                     f"{list(fa.PADDED_WIDTHS)} columns)",
+        "head_dims": f"every multiple of 8 from 8 to {fa.MAX_HEAD_DIM[torch.float32]} "
+                     f"(padded to 64 or 128 columns)",
         "registers": flash32_regs, "sweep": new_timing["flash_attention_f32"]}, {
+        "name": "flash_attention_f16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_f16.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "launches": f16_serve, "launches_by_serve": {F16_SERVE[0]: f16_serve},
+        "max_abs_err": f16w["max_abs_err"]["flash_attention_f16"],
+        **{key: f16w["timing"]["flash_attention_f16"][0][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bf16_ms")},
+        "library": "scaled_dot_product_attention, f16", "dtypes": ["float16"],
+        "head_dims": (f"as bf16: every multiple of 8 from 8 to 128 here, 136-256 in "
+                      f"flash_attention_wide"),
+        "registers": regs_16["flash_attention_f16", "__half"],
+        "sass": lib_sass["flash_attention_f16"][0]}, {
+        "name": "flash_attention_wide", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_wide.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "launches": f16w["launches"]["flash_attention_wide"],
+        "max_abs_err": max(f16w["max_abs_err"]["flash_attention_wide"].values()),
+        "max_abs_err_by_dtype": f16w["max_abs_err"]["flash_attention_wide"],
+        **{key: f16w["timing"]["flash_attention_wide"][0][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "timed_at": {key: f16w["timing"]["flash_attention_wide"][0][key]
+                     for key in ("Hq", "Hkv", "S", "D", "dtype", "model")},
+        "library": "scaled_dot_product_attention in the same dtype",
+        "dtypes": ["bfloat16", "float16"],
+        "head_dims": "every multiple of 8 from 136 to 256 (padded to 192 or 256 columns)",
+        "registers": {f"{elem}_{key}": r for (lib, elem), regs in regs_16.items()
+                      if lib == "flash_attention_wide" for key, r in regs.items()},
+        "sass": lib_sass["flash_attention_wide"][0],
+        "sweep": f16w["timing"]["flash_attention_wide"]}, {
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:28",
@@ -1546,7 +1994,18 @@ def main() -> None:
         "ragged_check_launches": ragged["launches"]["matmul_f32"],
         "ragged_max_abs_err": ragged["max_abs_err"]["matmul_f32"],
         "ragged": ragged["timed"]["matmul_f32"],
-        "registers": mm32_regs, "sweep": new_timing["matmul_f32"]}]}), flush=True)
+        "registers": mm32_regs, "sweep": new_timing["matmul_f32"]}, {
+        "name": "matmul_f16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/matmul_f16.cu",
+        "replaces": "src/repro/kernels/matmul.py:28",
+        "launches": f16w["launches"]["matmul_f16"] + f16_bundle_launches,
+        "launches_by": {"ops.matmul at yi-6b's shapes": f16w["launches"]["matmul_f16"],
+                        "the bf16 bundle's miss": f16_bundle_launches},
+        "max_abs_err": f16w["max_abs_err"]["matmul_f16"],
+        **{key: f16w["timing"]["matmul_f16"][0][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bf16_ms")},
+        "library": "torch.matmul, f16", "dtypes": ["float16"],
+        "registers": mm16_regs, "sass": lib_sass["matmul_f16"][0]}]}), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1830,14 +2289,19 @@ def check_schedule_store(cfg, model, params, served, cap) -> None:
 COLD_MM_SHAPE = (2048, 4096, 4096)   # a bundled yi-6b shape (the store's)
 
 
-def check_golden_bundle(served, cap) -> None:
+def check_golden_bundle(served, cap) -> int:
     """The ``golden-bundle`` phase: the schedule-store phase's DB promoted
     into a golden release (no-op re-promotion, the regression gate, a
     waiver), a kernel bundle built by the CLI in a subprocess and refused
-    when torn, stale, for the CPU or from other sources, then the two cold
-    starts of yi-6b. Fails on any gate; logs one ``golden-bundle`` line.
-    Everything lives under ``build/golden`` and ``build/cold_start``."""
+    when torn, stale, for the CPU or from other sources; an f16 call at a
+    bundled bf16 shape, which must miss and launch the f16 kernel from the
+    bundle's matmul_f16 library; then the two cold starts of yi-6b. Fails
+    on any gate; logs one ``golden-bundle`` line. Everything lives under
+    ``build/golden`` and ``build/cold_start``. Returns the f16 call's
+    matmul_f16 launches."""
+    import torch
     from repro_torch.core.spaces import MatmulSpace
+    from repro_torch.kernels import build, ops
     from repro_torch.hw.gpu_h100 import GPU_H100
     from repro_torch.tuna.cache import StaleSnapshotError
     from repro_torch.tuna.db import ScheduleDatabase
@@ -1926,6 +2390,40 @@ def check_golden_bundle(served, cap) -> None:
     if any(want_words[n] not in refused[n] for n in cases):
         fail(f"golden-bundle: a refusal did not name its cause: {refused}")
 
+    # an f16 call at a bundled bf16 shape: the entries are keyed by
+    # "bfloat16", so it misses, takes the record's blocks from the bundle's
+    # index and launches the f16 kernel from the bundle's matmul_f16 library
+    gen16 = torch.Generator(device="cuda").manual_seed(F16_SEED)
+    m, n, k = COLD_MM_SHAPE
+    x = torch.randn((m, k), generator=gen16, device="cuda").half()
+    y = torch.randn((k, n), generator=gen16, device="cuda").half()
+    explicit = ops.matmul(x, y, blocks=tuple(mm_rec.config[key] for key in
+                                             ("bm", "bn", "bk", "double_buffer")))
+    t0 = time.perf_counter()
+    ops.use_kernel_bundle(str(latest))
+    try:
+        in_use = ops.get_kernel_bundle()
+        builds, before = ops.kernel_build_counts(), ops.launch_counts()
+        got = ops.matmul(x, y)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        f16_row = {"hits": in_use.exec_hits, "misses": in_use.exec_misses,
+                   "nvcc": {n_: c - builds[n_] for n_, c in ops.kernel_build_counts().items()},
+                   "launches": {n_: c - before[n_] for n_, c in after.items() if c != before[n_]},
+                   "library": str(build.installed().get("matmul_f16")),
+                   "equal_explicit": bool(torch.equal(got, explicit)),
+                   "s": time.perf_counter() - t0}
+    finally:
+        ops.use_kernel_bundle(None)
+    log(f"golden-bundle f16 call at {m}x{n}x{k} with the bf16 records' bundle installed: "
+        f"{f16_row}")
+    if (f16_row["hits"], f16_row["misses"]) != (0, 1) or f16_row["launches"] != {
+            "matmul_f16": 1} or any(f16_row["nvcc"].values()) or not f16_row["equal_explicit"] \
+            or "bundled" not in f16_row["library"]:
+        fail(f"golden-bundle: the f16 call did not miss and launch the bundled f16 kernel: "
+             f"{f16_row}")
+    del x, y, got, explicit
+
     # the two cold starts, each in a fresh process over a copy of the port
     prompts = [list(r.prompt) for r in served]
     arms = {}
@@ -1962,7 +2460,7 @@ def check_golden_bundle(served, cap) -> None:
     summary = {"records": len(records), "release": first.name, "waived_release": waived.name,
                "bundle": path.name, "bundle_bytes": path.stat().st_size,
                "libraries": {n: lib["sha1"] for n, lib in obj["libraries"].items()},
-               "entries": len(bundle), "skipped": len(obj["skipped"]),
+               "entries": len(bundle), "skipped": len(obj["skipped"]), "f16_call": f16_row,
                "bundle_cli_s": bundle_cli_s, "phase_s": time.perf_counter() - t_phase,
                "card": nvidia_smi("name,power.limit")}
     for arm, r in arms.items():
@@ -1983,6 +2481,7 @@ def check_golden_bundle(served, cap) -> None:
     if not bu["mm_equals_explicit"] or bu["mm_sha1"] != un["mm_sha1"]:
         fail("golden-bundle: the bundled matmul differs from the explicit-blocks launch "
              "or from the unbundled start's")
+    return f16_row["launches"]["matmul_f16"]
 
 
 def cold_start_arm(spec_path: str) -> None:
@@ -2198,18 +2697,20 @@ def plain_flash():
         tattn.kops.attention = kernel_attention
 
 
-def check_logits(arch, cfg, got, want, note: str = "", s: int = 513) -> None:
+def check_logits(arch, cfg, got, want, note: str = "", s: int = 513,
+                 tol: float = LOGIT_TOL) -> None:
     """Fail unless the kernel prefill's last logits are finite, [1, 1, V] and
-    within LOGIT_TOL of the plain prefill's (a prompt of ``s`` tokens)."""
+    within ``tol`` of the plain prefill's (a prompt of ``s`` tokens)."""
     import torch
 
+    dtype = got.dtype
     got, want = got.float(), want.float()
     diff = float((got - want).abs().max())
     cos = float(torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0))
-    log(f"parity {arch} S={s} last logits {tuple(got.shape)}{note}: "
-        f"max|kernel-plain|={diff:.4e} (tol {LOGIT_TOL}), cosine {cos:.6f}, |logits| max "
+    log(f"parity {arch} S={s} last logits {tuple(got.shape)} {dtype}{note}: "
+        f"max|kernel-plain|={diff:.4e} (tol {tol}), cosine {cos:.6f}, |logits| max "
         f"{float(want.abs().max()):.3f}, argmax {int(got.argmax())} vs {int(want.argmax())}")
-    if not torch.isfinite(got).all() or got.shape != (1, 1, cfg.vocab) or diff > LOGIT_TOL:
+    if not torch.isfinite(got).all() or got.shape != (1, 1, cfg.vocab) or diff > tol:
         fail(f"{arch}: prefill through the kernel disagrees with the plain version")
 
 
@@ -2385,15 +2886,18 @@ def check_moe_layer(arch, cfg, p, pp, gen) -> None:
         fail(f"{arch}: the MoE layer disagrees with the loop over its kept assignments")
 
 
-def serve_arch(arch: str, n_layers: int) -> int:
+def serve_arch(arch: str, n_layers: int, dtype: str = "") -> int:
     """Serve ``arch`` at full width with ``n_layers`` layers (its own depth,
     or cut to fit the card): init from a seeded generator, the 8 requests
     through the continuous engine (checked and counted), a profiled second
     run, and the S=513 parity of kernel and plain attention. With MoE layers
     also: the same 8 requests served again with the tokens that differ
     counted, the profiled run's MoE drop record, and the parity with the
-    kernel run's routing pinned. Frees the weights. Returns the flash
-    launches of the counted serve."""
+    kernel run's routing pinned. With ``dtype`` ("float16") the config's
+    parameters and compute take that dtype: its flash launches are that
+    dtype's kernel's (the bf16 kernel must launch none), the parity limit
+    is F16_LOGIT_TOL, and there is no profiled second run. Frees the
+    weights. Returns the flash launches of the counted serve."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
@@ -2405,6 +2909,9 @@ def serve_arch(arch: str, n_layers: int) -> int:
 
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=n_layers)
+    if dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    key = {"": "flash_attention", "float16": "flash_attention_f16"}[dtype]
     kinds = [(cfg.mixer_kind(i), cfg.mlp_kind(i)) for i in range(n_layers)]
     count = lambda kind: sum(kind in k for k in kinds)
     n_attn, n_moe = count("attention"), count("moe")
@@ -2421,7 +2928,7 @@ def serve_arch(arch: str, n_layers: int) -> int:
         f"{n_attn} attention, {count('mamba')} mamba, {count('mlstm')} mLSTM, "
         f"{count('slstm')} sLSTM, {n_moe} MoE, {count('dense')} dense; "
         f"{cfg.param_count() / 1e9:.3f} B of {full.param_count() / 1e9:.3f} B parameters "
-        f"by the config's count")
+        f"by the config's count; parameters {cfg.param_dtype}, compute {cfg.compute_dtype}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda")
@@ -2461,11 +2968,17 @@ def serve_arch(arch: str, n_layers: int) -> int:
         fail(f"{arch}: a token outside the vocabulary")
     if stats["prefills"] != len(PROMPT_LENS):
         fail(f"{arch}: {stats['prefills']} prefills for {len(PROMPT_LENS)} requests")
-    if launches["flash_attention"] != stats["prefills"] * n_attn:
-        fail(f"{arch}: flash launches {launches['flash_attention']} != prefills x "
+    if launches[key] != stats["prefills"] * n_attn:
+        fail(f"{arch}: {key} launches {launches[key]} != prefills x "
              f"attention layers {stats['prefills'] * n_attn}")
+    if dtype and launches["flash_attention"]:
+        fail(f"{arch} in {dtype}: the bf16 flash kernel launched "
+             f"{launches['flash_attention']} times")
 
-    if n_moe:
+    if dtype:
+        log(f"profile {arch} {dtype}: no profiled second run (the bf16 serve's covers "
+            f"the same path)")
+    elif n_moe:
         # run-to-run determinism: the combine gathers each token's k slot
         # outputs and sums them in f32 in top-k order, with no atomics, so
         # the same requests must give the same tokens
@@ -2517,11 +3030,11 @@ def serve_arch(arch: str, n_layers: int) -> int:
             f"attention, and {arch} has no attention layer (its flash launches are 0)")
     else:
         got, want, note = prefill_parity(model, params, {"tokens": prompt}, 513, n_moe > 0)
-        check_logits(arch, cfg, got, want, note)
+        check_logits(arch, cfg, got, want, note, tol=F16_LOGIT_TOL if dtype else LOGIT_TOL)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    return launches["flash_attention"]
+    return launches[key]
 
 
 def prefill_parity(model, params, batch, cap: int, pin: bool):

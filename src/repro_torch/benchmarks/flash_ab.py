@@ -14,23 +14,31 @@ with instantiations of their own (64, 80 and 128), or ``matmul_bf16`` at
 yi-6b's prefill products (the tuner's shapes):
 
 - the outputs must be bit-equal (an unchanged instantiation computes the
-  same function in the same order);
+  same function in the same order); each output's sha1 is reported
+  (``digests``), so that a run of one build alone can be held to another's
+  (the smoke holds this checkout's bf16 builds to the digests of the
+  commit before its f16 and wide builds were added);
 - each is timed by CUDA-graph replay (``measure.time_fn``) in turns,
   other, this, this, other, so that clock drift under the card's power
   limit falls on both alike; the ratio this/other is reported per case.
 
-Prints one JSON line with the card's name and power limit, writes it to
-``--out`` and exits 1 if an output differs. Needs one card.
+The inputs are drawn from numpy (seed 0), so the same cases come out on
+any card and torch version. Prints one JSON line with the card's name and
+power limit, writes it to ``--out`` and exits 1 if an output differs.
+Needs one card.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import subprocess
 import sys
 from pathlib import Path
+from typing import Dict
 
+import numpy as np
 import torch
 
 from repro_torch.benchmarks.measure import time_fn
@@ -58,10 +66,14 @@ def _matmul_entry(lib: ctypes.CDLL):
     return fn
 
 
-def _flash_cases(gen, dev):
+def _randn(rng, shape, dev):
+    return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev, torch.bfloat16)
+
+
+def _flash_cases(rng, dev):
     """(the case's fields, its output, a call of a library's entry on it)."""
     for b, hq, hkv, s, d, causal in CASES:
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = (_randn(rng, shape, dev)
                    for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
         blocks = ops.tuned_flash_blocks(s, d, 2)
         yield ({"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "causal": causal,
@@ -70,10 +82,9 @@ def _flash_cases(gen, dev):
                _call(fn, q, k, v, o, blocks, causal))
 
 
-def _matmul_cases(gen, dev):
+def _matmul_cases(rng, dev):
     for m, n, k in YI6B_SHAPES:
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        y = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+        x, y = _randn(rng, (m, k), dev), _randn(rng, (k, n), dev)
         blocks = ops.tuned_matmul_blocks(m, n, k, 2)
 
         def run(fn, o, x=x, y=y, blocks=blocks):
@@ -97,6 +108,22 @@ def _call(fn, q, k, v, o, blocks, causal: bool) -> None:
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd_bf16 failed: cudaError_t {err}")
+
+
+def _sha1(t: torch.Tensor) -> str:
+    return hashlib.sha1(t.cpu().view(torch.int16).numpy().tobytes()).hexdigest()
+
+
+def digests(kernel: str, lib: ctypes.CDLL) -> Dict[str, str]:
+    """The sha1 of each case's output through ``lib``'s bf16 entry, keyed by
+    the case's fields (as JSON): what two builds that are bit-equal share."""
+    entry, cases = KERNELS[kernel]
+    fn, dev, out = entry(lib), torch.device("cuda"), {}
+    for fields, o, run in cases(np.random.default_rng(0), dev):
+        run(fn, o)
+        torch.cuda.synchronize()
+        out[json.dumps(fields, sort_keys=True)] = _sha1(o)
+    return out
 
 
 def build_other(root: Path, kernel: str = "flash_attention") -> Path:
@@ -127,9 +154,8 @@ def main(argv=None) -> int:
     entry, cases = KERNELS[args.kernel]
     libs = {"other": entry(ctypes.CDLL(str(build_other(Path(args.other), args.kernel)))),
             "this": entry(build.load(args.kernel))}
-    gen = torch.Generator(device=dev).manual_seed(0)
     rows, differ = [], 0
-    for fields, out, run in cases(gen, dev):
+    for fields, out, run in cases(np.random.default_rng(0), dev):
         outs = {name: torch.empty_like(out) for name in libs}
         for name, fn in libs.items():
             run(fn, outs[name])
@@ -142,7 +168,8 @@ def main(argv=None) -> int:
             times[name].append(time_fn(lambda: run(fn, o), dev, iters=args.iters,
                                        reps=10) * 1e3)
         ms = {name: sum(t) / len(t) for name, t in times.items()}
-        rows.append({**fields, "bit_equal": equal, "other_ms": ms["other"],
+        rows.append({**fields, "bit_equal": equal, "sha1": _sha1(outs["this"]),
+                     "other_sha1": _sha1(outs["other"]), "other_ms": ms["other"],
                      "this_ms": ms["this"], "ratio": ms["this"] / ms["other"],
                      "turns_ms": times})
         print(f"[flash_ab] {args.kernel} {fields}: other {ms['other']:.4f} ms "

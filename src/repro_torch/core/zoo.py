@@ -274,13 +274,13 @@ def sm90_padded_head_dim(d: int) -> int:
 def sm90_flash_smem_bytes(block_q: int, block_k: int, d: int,
                           dtype_bytes: int = 2) -> int:
     """Dynamic shared memory of the Hopper kernel at these blocks, as its
-    ``Cfg`` computes it. In bf16 (``dtype_bytes=2``): the Q tile, two
+    ``Cfg`` computes it. In bf16 and f16 (``dtype_bytes=2``): the Q tile, two
     stages of K and V tiles at the padded head dim, 128 bytes of barriers
     and 1024 bytes of slack to align the tiles to the 1024-byte swizzle
     period. In f32 (``dtype_bytes=4``, the SIMT kernel's ``CfgF32``): the
     same tiles in f32 and the [block_q, block_k] f32 probability tile, with
     no barrier and no slack (cp.async needs 16-byte alignment only). No
-    kernel takes another width; it is counted as bf16."""
+    kernel takes another width; it is counted as 16-bit."""
     dp = sm90_padded_head_dim(d)
     if dtype_bytes == 4:
         return 4 * (dp * (block_q + 2 * 2 * block_k) + block_q * block_k)

@@ -1,8 +1,9 @@
 """Build the port's CUDA sources into shared libraries, at first use.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` on its own into ``build/kernels/<name>-<digest>.so`` at the root of
-the checkout (a directory ``.gitignore`` lists), then loaded with ``ctypes``.
+``nvcc`` on its own (with the ``csrc/*.cuh`` headers it includes) into
+``build/kernels/<name>-<digest>.so`` at the root of the checkout (a
+directory ``.gitignore`` lists), then loaded with ``ctypes``.
 Sources that need building are compiled in parallel, one ``nvcc`` each.
 The digest covers the sources and the flags, so an edited kernel is rebuilt
 and an unchanged one is reused.
@@ -24,13 +25,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention", "matmul")
+# one library per source; the 16-bit kernels' templates are in the
+# ``.cuh`` headers, instantiated per dtype and width across the sources so
+# that no one nvcc carries them all
+SOURCES = ("flash_attention", "flash_attention_f16", "flash_attention_wide", "matmul",
+           "matmul_f16")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -94,13 +100,25 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
                                 text=True)
         NVCC_RUNS[n] = NVCC_RUNS.get(n, 0) + 1
         running[n] = (proc, tmp, lib, time.perf_counter())
-    failed = []
-    for n, (proc, tmp, lib, t0) in running.items():
-        out, _ = proc.communicate()
+    # each source's own seconds: one waiter thread per nvcc, so that a
+    # source is timed when it ends, not when the ones before it were read
+    outs: Dict[str, str] = {}
+
+    def wait(n: str, proc, t0: float) -> None:
+        outs[n], _ = proc.communicate()
         secs[n] = time.perf_counter() - t0
-        log_path(n).write_text(out)
+
+    waiters = [threading.Thread(target=wait, args=(n, proc, t0))
+               for n, (proc, _, _, t0) in running.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    failed = []
+    for n, (proc, tmp, lib, _) in running.items():
+        log_path(n).write_text(outs[n])
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {n}:\n{out}")
+            failed.append(f"nvcc failed for {n}:\n{outs[n]}")
         else:
             os.replace(tmp, lib)
     if failed:

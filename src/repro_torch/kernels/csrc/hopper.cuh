@@ -5,17 +5,21 @@
 // include path beyond the CUDA toolkit's.
 //
 // Conventions used by the callers:
-// - Tiles are stored as 128-byte-swizzled atoms: rows of 64 bf16 (128 B),
-//   8 rows (1024 B) per swizzle period, each atom 1024-byte aligned. A
-//   row wider than 64 bf16 is split into column blocks of 64, each block a
-//   tile of its own. TMA writes this layout with CU_TENSOR_MAP_SWIZZLE_128B
-//   and a box 64 elements wide; wgmma reads it through a descriptor with
-//   layout type B128.
+// - The 16-bit element type T is __nv_bfloat16 or __half: wgmma, TMA and
+//   the packed stores take either at the same shapes and rate.
+// - Tiles are stored as 128-byte-swizzled atoms: rows of 64 16-bit
+//   elements (128 B), 8 rows (1024 B) per swizzle period, each atom
+//   1024-byte aligned. A row wider than 64 elements is split into column
+//   blocks of 64, each block a tile of its own. TMA writes this layout
+//   with CU_TENSOR_MAP_SWIZZLE_128B and a box 64 elements wide; wgmma
+//   reads it through a descriptor with layout type B128.
 // - Shared addresses are 32-bit (`__cvta_generic_to_shared`).
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -144,131 +148,127 @@ __device__ __forceinline__ void fence_operand(uint32_t& r) {
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define HOPPER_D32 HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
 #define HOPPER_D64 HOPPER_D32, HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
+#define HOPPER_D96 \
+  HOPPER_D64, HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88)
 #define HOPPER_D128                                                          \
   HOPPER_D64, HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88),     \
       HOPPER_D8(96), HOPPER_D8(104), HOPPER_D8(112), HOPPER_D8(120)
-#define HOPPER_REGS32                                                            \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
-  "%31}, "
-#define HOPPER_REGS64                                                            \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
-  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
-  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
-  "%61, %62, %63}, "
+#define HOPPER_REGS32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31}, "
+#define HOPPER_REGS64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63}, "
+#define HOPPER_REGS96 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
 #define HOPPER_REGS128 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
-  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
-  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
-  "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
-  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, " \
-  "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, " \
-  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, " \
-  "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127}, "
 
-// D[64 x N] (+)= A[64 x 16] * B[16 x N], bf16 in, f32 accumulator, both
-// operands in shared memory. A is K-major; B is K-major (TRANS_B = 0) or
-// MN-major (TRANS_B = 1). scale_d = 0 overwrites D.
-template <int N, int TRANS_B>
+// D[64 x N] (+)= A[64 x 16] * B[16 x N], T (bf16 or f16) in, f32
+// accumulator, both operands in shared memory. A is K-major; B is K-major
+// (TRANS_B = 0) or MN-major (TRANS_B = 1). scale_d = 0 overwrites D. The
+// two element types share every fragment layout; only the PTX names them.
+template <typename T, int N, int TRANS_B>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64, 0>(float (&d)[32], uint64_t desc_a,
-                                                uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_REGS32
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : HOPPER_D32
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128, 0>(float (&d)[64], uint64_t desc_a,
-                                                 uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_REGS64
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : HOPPER_D64
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// B MN-major: row-major [K][N] tiles read through the transpose bit
-template <>
-__device__ __forceinline__ void wgmma_ss<64, 1>(float (&d)[32], uint64_t desc_a,
-                                                uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_REGS32
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
-      : HOPPER_D32
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128, 1>(float (&d)[64], uint64_t desc_a,
-                                                 uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_REGS64
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : HOPPER_D64
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<256, 1>(float (&d)[128], uint64_t desc_a,
-                                                 uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_REGS128
-      "%128, %129, p, 1, 1, 0, 1;\n}\n"
-      : HOPPER_D128
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
 
 // D[64 x N] (+)= A[64 x 16] * B[16 x N] with A in registers: the four
 // 32-bit registers of a thread hold the m16n8k16 A fragment of its warp's
 // 16 rows (a0: row g, cols 2t..2t+1; a1: row g+8; a2: row g, cols 2t+8..;
 // a3: row g+8, cols 2t+8..; g = lane / 4, t = lane % 4), the same layout as
-// a 16-column slice of the f32 accumulator once packed to bf16 pairs.
-template <int N, int TRANS_B>
+// a 16-column slice of the f32 accumulator once packed to T pairs.
+template <typename T, int N, int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d);
 
-template <>
-__device__ __forceinline__ void wgmma_rs<64, 1>(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_REGS32
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : HOPPER_D32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
+// One specialization per element type, N and B's major-ness. DREGS/REGS
+// are the accumulator's operands and their list; A, B and P number the
+// descriptors (or A's registers) and the scale-d predicate after them.
+#define HOPPER_WGMMA_SS(T, PTX, N, TRANS_B, DREGS, REGS, A, B, P)                        \
+  template <>                                                                         \
+  __device__ __forceinline__ void wgmma_ss<T, N, TRANS_B>(                             \
+      float(&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d) {               \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                      \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." PTX "." PTX " " REGS \
+                 "%" #A ", %" #B ", p, 1, 1, 0, " #TRANS_B ";\n}\n"                    \
+                 : DREGS                                                               \
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d));                            \
+  }
+#define HOPPER_WGMMA_RS(T, PTX, N, TRANS_B, DREGS, REGS, A0, A1, A2, A3, B, P)            \
+  template <>                                                                          \
+  __device__ __forceinline__ void wgmma_rs<T, N, TRANS_B>(                              \
+      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t desc_b, int scale_d) {          \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                       \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." PTX "." PTX " " REGS  \
+                 "{%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1, " #TRANS_B \
+                 ";\n}\n"                                                               \
+                 : DREGS                                                                \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),             \
+                   "r"(scale_d));                                                       \
+  }
+#define HOPPER_WGMMA_FORMS(T, PTX)                                                    \
+  HOPPER_WGMMA_SS(T, PTX, 64, 0, HOPPER_D32, HOPPER_REGS32, 32, 33, 34)                \
+  HOPPER_WGMMA_SS(T, PTX, 128, 0, HOPPER_D64, HOPPER_REGS64, 64, 65, 66)              \
+  /* B MN-major: row-major [K][N] tiles read through the transpose bit */            \
+  HOPPER_WGMMA_SS(T, PTX, 64, 1, HOPPER_D32, HOPPER_REGS32, 32, 33, 34)                \
+  HOPPER_WGMMA_SS(T, PTX, 128, 1, HOPPER_D64, HOPPER_REGS64, 64, 65, 66)              \
+  HOPPER_WGMMA_SS(T, PTX, 256, 1, HOPPER_D128, HOPPER_REGS128, 128, 129, 130)         \
+  HOPPER_WGMMA_RS(T, PTX, 64, 1, HOPPER_D32, HOPPER_REGS32, 32, 33, 34, 35, 36, 37)    \
+  HOPPER_WGMMA_RS(T, PTX, 128, 1, HOPPER_D64, HOPPER_REGS64, 64, 65, 66, 67, 68, 69)   \
+  HOPPER_WGMMA_RS(T, PTX, 192, 1, HOPPER_D96, HOPPER_REGS96, 96, 97, 98, 99, 100, 101) \
+  HOPPER_WGMMA_RS(T, PTX, 256, 1, HOPPER_D128, HOPPER_REGS128, 128, 129, 130, 131, 132, \
+                  133)
 
-template <>
-__device__ __forceinline__ void wgmma_rs<128, 1>(float (&d)[64], const uint32_t (&a)[4],
-                                                 uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_REGS64
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : HOPPER_D64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
+HOPPER_WGMMA_FORMS(__nv_bfloat16, "bf16")
+HOPPER_WGMMA_FORMS(__half, "f16")
 
+#undef HOPPER_WGMMA_FORMS
+#undef HOPPER_WGMMA_SS
+#undef HOPPER_WGMMA_RS
 #undef HOPPER_D8
 #undef HOPPER_D32
 #undef HOPPER_D64
+#undef HOPPER_D96
 #undef HOPPER_D128
 #undef HOPPER_REGS32
 #undef HOPPER_REGS64
+#undef HOPPER_REGS96
 #undef HOPPER_REGS128
+
+// two floats rounded to nearest as a packed pair of T (the low half first)
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // ----------------------------------------------------------------- setmaxnreg
 
@@ -312,8 +312,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// [bh, s, d] bf16, read in boxes of 64 columns x `rows` rows, 128B-swizzled;
-// out-of-range rows read as zeros
+// TMA's name for a 16-bit element type
+template <typename T>
+constexpr CUtensorMapDataType tma_type();
+template <>
+constexpr CUtensorMapDataType tma_type<__nv_bfloat16>() {
+  return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+template <>
+constexpr CUtensorMapDataType tma_type<__half>() {
+  return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+
+// [bh, s, d] of T (bf16 or f16), read in boxes of 64 columns x `rows`
+// rows, 128B-swizzled; out-of-range rows read as zeros
+template <typename T>
 inline bool make_map(CUtensorMap* map, const void* ptr, int bh, int s, int d, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
@@ -321,7 +334,7 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int bh, int s, int d, in
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+  return encode(map, tma_type<T>(), 3, const_cast<void*>(ptr), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -3,18 +3,22 @@ torch version.
 
 Replaces the TPU kernel ``_flash_kernel`` of
 ``src/repro/kernels/flash_attention.py`` (``flash_attention_pallas``). The
-kernel is ``csrc/flash_attention.cu``: one thread block per (batch*q-head,
-q-tile), a producer warp that streams K/V tiles with TMA through a ring of
-two shared-memory stages, and one or two consumer warpgroups of 64 query
-rows whose products are ``wgmma`` (bf16 in, f32 accumulation). Head dims 64,
-80 and 128 have instantiations of their own; any other head dim the kernels
-take (``supports_head_dim``: a multiple of 8 from 8 to 128) runs a generic
-build of its padded width, 64 or 128 columns (``padded_head_dim``: 80 is
+16-bit kernel is ``csrc/flash_attention.cuh``: one thread block per
+(batch*q-head, q-tile), a producer warp that streams K/V tiles with TMA
+through a ring of two shared-memory stages, and one or two consumer
+warpgroups of 64 query rows whose products are ``wgmma`` (bf16 or f16 in,
+f32 accumulation). Head dims 64, 80 and 128 have instantiations of their
+own; any other head dim the kernels take (``supports_head_dim``: a multiple
+of 8 from 8 to 256 in bf16 and f16, to 128 in f32) runs a generic build of
+its padded width, 64, 128, 192 or 256 columns (``padded_head_dim``: 80 is
 staged at 128 too), with the head dim passed at run time. f32 tensors
-launch the source's second kernel, ``flash_attention_fwd_f32``: SIMT, true
-f32 products by FFMA, K/V tiles double-buffered with cp.async, at the
-blocks whose shared memory fits (``built``). Its source says what bounds
-each kernel on the H100 and what the design does about it.
+launch a second kernel, ``flash_attention_fwd_f32``: SIMT, true f32
+products by FFMA, K/V tiles double-buffered with cp.async. Each dtype and
+width is built at the blocks whose shared memory fits one block
+(``built``). The instantiations are split over three libraries, one nvcc
+each, built in parallel (``SOURCE``): bf16 up to 128 with f32, f16 up to
+128, and both 16-bit types past 128. The sources say what bounds each
+kernel on the H100 and what the design does about it.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors, and for nothing else: on a CUDA
@@ -43,23 +47,39 @@ from repro_torch.kernels import build
 from repro_torch.spans import span
 
 _NEG_INF = -1e30
-# bf16 head dims with an instantiation of their own; every other head dim
-# that ``supports_head_dim`` admits runs the generic build of its padded
-# width (one of PADDED_WIDTHS)
+# 16-bit head dims with an instantiation of their own; every other head
+# dim that ``supports_head_dim`` admits runs the generic build of its
+# padded width (one of PADDED_WIDTHS)
 HEAD_DIMS = (64, 80, 128)
-PADDED_WIDTHS = (64, 128)
-MAX_HEAD_DIM = 128
-# the kernels' entry points by input dtype (q, k and v alike)
+PADDED_WIDTHS = (64, 128, 192, 256)
+# the largest head dim each dtype's kernel takes: the f32 kernel's tiles
+# (and its probability tile) fit one block's shared memory only up to 128
+MAX_HEAD_DIM = {torch.bfloat16: 256, torch.float16: 256, torch.float32: 128}
+# head dims past this run the wide builds (padded widths 192 and 256)
+NARROW = 128
+# the kernels' entry points by input dtype (q, k and v alike), at head dims
+# up to NARROW and past it
 ENTRY = {torch.bfloat16: "flash_attention_fwd_bf16",
+         torch.float16: "flash_attention_fwd_f16",
          torch.float32: "flash_attention_fwd_f32"}
+WIDE_ENTRY = {torch.bfloat16: "flash_attention_wide_fwd_bf16",
+              torch.float16: "flash_attention_wide_fwd_f16"}
+# the library (a csrc source) each entry point is in
+SOURCE = {"flash_attention_fwd_bf16": "flash_attention",
+          "flash_attention_fwd_f32": "flash_attention",
+          "flash_attention_fwd_f16": "flash_attention_f16",
+          "flash_attention_wide_fwd_bf16": "flash_attention_wide",
+          "flash_attention_wide_fwd_f16": "flash_attention_wide"}
 # block_q / block_k values the kernel is built for (the knobs of the
 # ``flash`` family's ``sm90`` space)
 BLOCKS = SM90_FLASH_BLOCKS
 
-# kernel launches in this process (the main-path witness), the bf16 and
-# the f32 kernel's apart; reset via ``ops.reset_launch_counts``
+# kernel launches in this process (the main-path witness), per input
+# dtype: bf16 (any head dim), f32 and f16 apart; reset via
+# ``ops.reset_launch_counts``
 LAUNCHES = 0
 LAUNCHES_F32 = 0
+LAUNCHES_F16 = 0
 
 # the width the kernel stages a head dim at, and its dynamic shared memory
 # at given blocks (the block picker's pruning): one definition, in core
@@ -67,17 +87,25 @@ padded_head_dim = sm90_padded_head_dim
 smem_bytes = sm90_flash_smem_bytes
 
 
-def supports_head_dim(d: int) -> bool:
-    """The head dims the kernels take: a multiple of 8 (TMA's 16-byte row
-    stride in bf16) from 8 to 128. Anything else raises without a launch."""
-    return 8 <= d <= MAX_HEAD_DIM and d % 8 == 0
+def supports_head_dim(d: int, dtype: torch.dtype) -> bool:
+    """The head dims the kernels take in ``dtype``: a multiple of 8 (TMA's
+    16-byte row stride in 16 bits) from 8 to 256 in bf16 and f16, to 128 in
+    f32. Anything else raises without a launch."""
+    return dtype in MAX_HEAD_DIM and 8 <= d <= MAX_HEAD_DIM[dtype] and d % 8 == 0
+
+
+def entry_for(dtype: torch.dtype, d: int) -> str:
+    """The entry point that runs ``dtype`` at head dim ``d``."""
+    return WIDE_ENTRY[dtype] if d > NARROW else ENTRY[dtype]
 
 
 def built(block_q: int, block_k: int, d: int, dtype: torch.dtype) -> bool:
     """Whether a kernel is built for head dim ``d`` at these blocks in
-    ``dtype``: bf16 at every block pair of BLOCKS, f32 where its shared
-    memory (the probability tile included) fits one H100 block."""
-    if (dtype not in ENTRY or not supports_head_dim(d) or block_q not in BLOCKS
+    ``dtype``: where its shared memory at d's padded width (in f32 the
+    probability tile included) fits one H100 block, the count the block
+    picker prunes with. In bf16 and f16 that is every block pair of BLOCKS
+    up to 128 columns, three at 192 and two at 256."""
+    if (not supports_head_dim(d, dtype) or block_q not in BLOCKS
             or block_k not in BLOCKS):
         return False
     size = torch.empty((), dtype=dtype).element_size()
@@ -153,7 +181,7 @@ def flash_attention_plain(
 
 @functools.lru_cache(maxsize=None)
 def _kernel(entry: str = "flash_attention_fwd_bf16"):
-    fn = getattr(build.load("flash_attention"), entry)
+    fn = getattr(build.load(SOURCE[entry]), entry)
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -254,10 +282,14 @@ def kernel_smem_bytes(block_q: int, block_k: int, d: int,
                       dtype: torch.dtype = torch.bfloat16) -> int:
     """The built library's own count of the shared memory it launches head
     dim d at (block_q, block_k) in ``dtype`` with; -1 where none is built.
-    Loads (and if needed builds) the library: for checks on the card."""
-    name = {torch.bfloat16: "flash_attention_smem_bytes",
-            torch.float32: "flash_attention_f32_smem_bytes"}[dtype]
-    fn = getattr(build.load("flash_attention"), name)
+    Loads (and if needed builds) the library that would run it: for checks
+    on the card."""
+    wide = d > NARROW and dtype in WIDE_ENTRY
+    name = ("flash_attention_wide_smem_bytes" if wide else
+            {torch.bfloat16: "flash_attention_smem_bytes",
+             torch.float16: "flash_attention_f16_smem_bytes",
+             torch.float32: "flash_attention_f32_smem_bytes"}[dtype])
+    fn = getattr(build.load(SOURCE[WIDE_ENTRY[dtype] if wide else ENTRY[dtype]]), name)
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
     return fn(d, block_q, block_k)
@@ -265,27 +297,28 @@ def kernel_smem_bytes(block_q: int, block_k: int, d: int,
 
 def _launch(q, k, v, causal: bool, scale: float, block_q: int,
             block_k: int) -> torch.Tensor:
-    global LAUNCHES, LAUNCHES_F32
+    global LAUNCHES, LAUNCHES_F32, LAUNCHES_F16
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype not in ENTRY or t.dtype != q.dtype:
-            raise TypeError(f"the flash kernels take bfloat16 or float32, q, k "
-                            f"and v alike; {name} is {t.dtype}, q {q.dtype}")
+            raise TypeError(f"the flash kernels take bfloat16, float16 or float32, "
+                            f"q, k and v alike; {name} is {t.dtype}, q {q.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if not supports_head_dim(d):
+    if not supports_head_dim(d, q.dtype):
         raise ValueError(f"the flash kernels take head dims that are multiples "
-                         f"of 8 from 8 to {MAX_HEAD_DIM}, not {d}")
+                         f"of 8 from 8 to {MAX_HEAD_DIM[q.dtype]} in {q.dtype}, "
+                         f"not {d}")
     if not built(block_q, block_k, d, q.dtype):
         raise ValueError(f"blocks ({block_q}, {block_k}) are not built for "
-                         f"{q.dtype} at head dim {d}; bf16 is built for {BLOCKS} "
-                         f"x {BLOCKS}, f32 where its shared memory fits")
+                         f"{q.dtype} at head dim {d}: of {BLOCKS} x {BLOCKS}, "
+                         f"those whose shared memory fits")
     if -(-s // block_q) > 65535:
         raise ValueError(f"{-(-s // block_q)} q-tiles exceed the grid's y extent")
-    fn = _kernel(ENTRY[q.dtype])
+    fn = _kernel(entry_for(q.dtype, d))
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -295,6 +328,8 @@ def _launch(q, k, v, causal: bool, scale: float, block_q: int,
         raise RuntimeError(f"flash_attention launch failed: cudaError_t {err}")
     if q.dtype == torch.float32:
         LAUNCHES_F32 += 1
+    elif q.dtype == torch.float16:
+        LAUNCHES_F16 += 1
     else:
         LAUNCHES += 1
     return o

@@ -2,15 +2,18 @@
 version.
 
 Replaces the TPU kernel ``_matmul_kernel`` of ``src/repro/kernels/matmul.py``
-(``matmul_pallas``). The kernel is ``csrc/matmul.cu``: persistent blocks that
+(``matmul_pallas``). The kernel runs persistent blocks that
 walk the (bm, bn) output tiles, a producer warp that streams A and B tiles
 with TMA through one or two shared-memory stages, and one or two consumer
-warpgroups of 64 rows whose products are ``wgmma`` (bf16 in, f32
-accumulation), written once as bf16 at the end of each tile. f32 tensors
-launch the source's second kernel, ``matmul_f32``: SIMT, true f32 products
-by FFMA over the same (bm, bn, bk) tiles and one or two TMA stages, built at
-the configurations whose stages fit shared memory (``built``). Its source
-says what bounds each kernel on the H100 and what the design does about it.
+warpgroups of 64 rows whose products are ``wgmma`` (bf16 or f16 in, f32
+accumulation), written once in the input dtype at the end of each tile:
+the 16-bit kernel of ``csrc/matmul.cuh``, built in bf16 into the
+``matmul`` library and in f16 into ``matmul_f16`` (one nvcc each, in
+parallel; ``SOURCE``). f32 tensors launch a second kernel, ``matmul_f32``:
+SIMT, true f32 products by FFMA over the same (bm, bn, bk) tiles and one or
+two TMA stages, built at the configurations whose stages fit shared memory
+(``built``). The sources say what bounds each kernel on the H100 and what
+the design does about it.
 
 ``matmul`` launches the kernel for CUDA tensors and runs ``matmul_plain`` for
 CPU tensors, and for nothing else: on a CUDA tensor it launches or raises.
@@ -30,7 +33,7 @@ Hopper kernel with 64-row wgmma tiles cannot offer the reference's 8-row
 blocks, and a ragged tile is how it covers the reference's shapes (M = 8,
 M = 96, K = 80). The launch refuses N or K that TMA cannot address: its
 global row stride must be a multiple of 16 bytes, so N and K are multiples
-of 8 in bf16 and of 4 in f32.
+of 8 in bf16 and f16 and of 4 in f32.
 """
 from __future__ import annotations
 
@@ -48,13 +51,17 @@ BLOCKS = SM90_MATMUL_TILES  # bm / bn / bk values the kernel is built for
 # shared memory of one stage: the A and B tiles, unpadded (the C tile stays
 # in registers); the tuner's sm90 space prunes with the same function
 smem_bytes = sm90_matmul_smem_bytes
-# the kernels' entry points by input dtype (A and B alike)
-ENTRY = {torch.bfloat16: "matmul_bf16", torch.float32: "matmul_f32"}
+# the kernels' entry points by input dtype (A and B alike), and the
+# library (a csrc source) each is in
+ENTRY = {torch.bfloat16: "matmul_bf16", torch.float16: "matmul_f16",
+         torch.float32: "matmul_f32"}
+SOURCE = {"matmul_bf16": "matmul", "matmul_f32": "matmul", "matmul_f16": "matmul_f16"}
 
-# kernel launches in this process (the main-path witness), the bf16 and
-# the f32 kernel's apart; reset via ``ops.reset_launch_counts``
+# kernel launches in this process (the main-path witness), per input
+# dtype: bf16, f32 and f16 apart; reset via ``ops.reset_launch_counts``
 LAUNCHES = 0
 LAUNCHES_F32 = 0
+LAUNCHES_F16 = 0
 
 
 def check_shapes(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -90,10 +97,10 @@ def resolve_blocks(m: int, n: int, k: int, bm: int, bn: int,
 
 def built(bm: int, bn: int, bk: int, double_buffer: bool,
           dtype: torch.dtype) -> bool:
-    """Whether a kernel is built for these tiles in ``dtype``: bf16 at every
-    tile of BLOCKS with one or two stages; f32 where its stages fit one H100
-    block's shared memory, the configurations the sm90 cost model scores
-    without overflow."""
+    """Whether a kernel is built for these tiles in ``dtype``: bf16 and f16
+    at every tile of BLOCKS with one or two stages; f32 where its stages
+    fit one H100 block's shared memory, the configurations the sm90 cost
+    model scores without overflow."""
     if dtype not in ENTRY or any(v not in BLOCKS[name] for name, v in
                                  (("bm", bm), ("bn", bn), ("bk", bk))):
         return False
@@ -128,7 +135,7 @@ def k_slices(x: torch.Tensor, y: torch.Tensor, bk: int) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _kernel(entry: str = "matmul_bf16"):
-    fn = getattr(build.load("matmul"), entry)
+    fn = getattr(build.load(SOURCE[entry]), entry)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -145,9 +152,9 @@ def kernel_smem_bytes(bm: int, bn: int, bk: int, double_buffer: bool,
     instantiation in ``dtype`` stages for A and B over its one or two
     stages; -1 where none is built. Loads (and if needed builds) the
     library: for checks on the card."""
-    name = {torch.bfloat16: "matmul_smem_bytes",
+    name = {torch.bfloat16: "matmul_smem_bytes", torch.float16: "matmul_f16_smem_bytes",
             torch.float32: "matmul_f32_smem_bytes"}[dtype]
-    fn = getattr(build.load("matmul"), name)
+    fn = getattr(build.load(SOURCE[ENTRY[dtype]]), name)
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
     return fn(bm, bn, bk, int(double_buffer))
@@ -155,15 +162,15 @@ def kernel_smem_bytes(bm: int, bn: int, bk: int, double_buffer: bool,
 
 def _launch(x, y, bm: int, bn: int, bk: int,
             double_buffer: bool) -> torch.Tensor:
-    global LAUNCHES, LAUNCHES_F32
+    global LAUNCHES, LAUNCHES_F32, LAUNCHES_F16
     m, k = x.shape
     n = y.shape[1]
     for name, t in (("A", x), ("B", y)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, A on {x.device}")
         if t.dtype not in ENTRY or t.dtype != x.dtype:
-            raise TypeError(f"the matmul kernels take bfloat16 or float32, A and "
-                            f"B alike; {name} is {t.dtype}, A {x.dtype}")
+            raise TypeError(f"the matmul kernels take bfloat16, float16 or float32, "
+                            f"A and B alike; {name} is {t.dtype}, A {x.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if (n * x.element_size()) % 16 or (k * x.element_size()) % 16:
@@ -185,6 +192,8 @@ def _launch(x, y, bm: int, bn: int, bk: int,
         raise RuntimeError(f"matmul launch failed: cudaError_t {err}")
     if x.dtype == torch.float32:
         LAUNCHES_F32 += 1
+    elif x.dtype == torch.float16:
+        LAUNCHES_F16 += 1
     else:
         LAUNCHES += 1
     return out

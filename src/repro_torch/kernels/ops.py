@@ -87,18 +87,21 @@ def _bundle_executable(kernel: str, args, params: Optional[Dict] = None):
 
 def launch_counts() -> Dict[str, int]:
     """How many times each hand-written kernel has launched in this process
-    (the bf16 kernels under their source's name, the f32 ones with
-    ``_f32``)."""
+    (the bf16 kernels under their family's name, the f32 and f16 ones with
+    ``_f32`` and ``_f16``)."""
     return {"flash_attention": _flash_mod.LAUNCHES,
             "matmul": _matmul_mod.LAUNCHES,
             "flash_attention_f32": _flash_mod.LAUNCHES_F32,
-            "matmul_f32": _matmul_mod.LAUNCHES_F32}
+            "matmul_f32": _matmul_mod.LAUNCHES_F32,
+            "flash_attention_f16": _flash_mod.LAUNCHES_F16,
+            "matmul_f16": _matmul_mod.LAUNCHES_F16}
 
 
 def reset_launch_counts() -> None:
     for mod in (_flash_mod, _matmul_mod):
         mod.LAUNCHES = 0
         mod.LAUNCHES_F32 = 0
+        mod.LAUNCHES_F16 = 0
 
 
 def matmul(
@@ -110,7 +113,10 @@ def matmul(
     """Tuna-tuned blocked matmul. ``blocks`` is (bm, bn, bk) or (bm, bn,
     bk, double_buffer), the latter defaulting to two stages; without it the
     installed kernel bundle's entry for this call serves it, else the
-    static tuner picks all four for this shape."""
+    static tuner picks all four for this shape. The pick is keyed by the
+    element width: f16 takes bf16's picks (``dtype_bytes=2``), as the two
+    kernels share their tiles, shared memory and rate; a bundle entry is
+    keyed by the dtype's name, so an f16 call never hits a bf16 entry."""
     _matmul_mod.check_shapes(x, y)
     if blocks is None:
         fn = _bundle_executable("matmul", (x, y))
@@ -139,8 +145,10 @@ def tuned_flash_blocks(s: int, d: int, dtype_bytes: int = 2) -> Tuple[int, int]:
     width (``smem_bytes``: the q tile and two stages of k and v tiles, and
     in f32 the probability tile; the softmax statistics and the accumulator
     stay in registers) exceeds what one H100 block may use are pruned: in
-    f32 those are the blocks the kernel is not built for. The pick is written back to a writable default DB under
-    strategy ``flash_grid``."""
+    f32, and in 16 bits at widths 192 and 256, those are the blocks the
+    kernel is not built for. f16 takes bf16's picks (``dtype_bytes=2``):
+    the two share the kernel's tiles, shared memory and rate. The pick is
+    written back to a writable default DB under strategy ``flash_grid``."""
     target = GPU_H100
     space = op_registry.make_space(
         "flash", {"s": s, "d": d, "dtype_bytes": dtype_bytes}, target.kind)

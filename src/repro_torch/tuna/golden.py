@@ -71,8 +71,6 @@ BUNDLE_POINTER_SCHEMA = "tuna-bundle-pointer-v1"
 BACKENDS = {"cuda": "torch-cuda", "cpu": "torch-cpu"}
 ARCH = "sm_90a"                  # what the libraries are compiled for
 CAPABILITY = (9, 0)              # the cards that run them
-# the library a kernel family launches from (a kernels/csrc source name)
-LIBRARY_OF = {"matmul": "matmul", "flash": "flash_attention"}
 
 
 class GoldenError(RuntimeError):
@@ -364,15 +362,36 @@ def _atomic_write_json(path: str, obj: Dict, sort_keys: bool = False,
 # -- kernel bundles ---------------------------------------------------------
 
 
-def dtype_name(dtype) -> Optional[str]:
-    """A torch dtype's name in bundle keys: ``op_registry.DTYPE_BY_BYTES``'s
-    ``"bfloat16"``/``"float32"``, the names the bundle hooks write (never
-    ``str(torch.dtype)``); None for a dtype no bundle entry has."""
+def _kernel_dtypes() -> Dict:
+    """The dtypes the Hopper kernels take, by their name in bundle keys:
+    ``op_registry.DTYPE_BY_BYTES``'s ``"bfloat16"``/``"float32"`` (the names
+    the bundle hooks write, never ``str(torch.dtype)``) and ``"float16"``,
+    which no record's signature names (its width is bf16's) but a call's
+    tensors may."""
     import torch
 
-    names = {torch.bfloat16: op_registry.DTYPE_BY_BYTES[2],
-             torch.float32: op_registry.DTYPE_BY_BYTES[4]}
-    return names.get(dtype)
+    return {op_registry.DTYPE_BY_BYTES[2]: torch.bfloat16,
+            op_registry.DTYPE_BY_BYTES[4]: torch.float32,
+            "float16": torch.float16}
+
+
+def dtype_name(dtype) -> Optional[str]:
+    """A torch dtype's name in bundle keys (``_kernel_dtypes``); None for a
+    dtype no kernel takes. An f16 call's key names float16, so it misses
+    every entry a bf16 record made."""
+    return {v: k for k, v in _kernel_dtypes().items()}.get(dtype)
+
+
+def _library(kernel: str, in_avals) -> str:
+    """The library (a kernels/csrc source name) a plan's kernel launches
+    from: its entry point's, by dtype and, for flash, head dim."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as km
+
+    dtype = _kernel_dtypes()[in_avals[0][1]]
+    if kernel == "matmul":
+        return km.SOURCE[km.ENTRY[dtype]]
+    return fa.SOURCE[fa.entry_for(dtype, in_avals[0][0][-1])]
 
 
 @dataclasses.dataclass
@@ -390,14 +409,11 @@ def _cuda_skip(kernel: str, in_avals, config: Dict) -> Optional[str]:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as km
 
-    import torch
-
-    dtypes = {op_registry.DTYPE_BY_BYTES[2]: torch.bfloat16,
-              op_registry.DTYPE_BY_BYTES[4]: torch.float32}
+    dtypes = _kernel_dtypes()
     names = {dtype for _, dtype in in_avals}
     if len(names) != 1 or not names <= set(dtypes):
-        return (f"the Hopper kernels take bfloat16 or float32 inputs alike, "
-                f"not {sorted(names)} (ROADMAP Queue B)")
+        return (f"the Hopper kernels take bfloat16, float16 or float32 inputs "
+                f"alike, not {sorted(names)} (ROADMAP Queue B)")
     dtype = dtypes[names.pop()]
     if kernel == "matmul":
         (m, k), (_, n) = (shape for shape, _ in in_avals)
@@ -411,9 +427,9 @@ def _cuda_skip(kernel: str, in_avals, config: Dict) -> Optional[str]:
                     f"exceed shared memory")
         return None
     d = in_avals[0][0][-1]
-    if not fa.supports_head_dim(d):
-        return (f"head dim {d} is not built (multiples of 8 up to "
-                f"{fa.MAX_HEAD_DIM}; ROADMAP Queue B)")
+    if not fa.supports_head_dim(d, dtype):
+        return (f"head dim {d} is not built for {dtype} (multiples of 8 up to "
+                f"{fa.MAX_HEAD_DIM[dtype]}; ROADMAP Queue B)")
     if not fa.built(config["block_q"], config["block_k"], d, dtype):
         return (f"blocks ({config['block_q']}, {config['block_k']}) not built "
                 f"for {dtype} at head dim {d}")
@@ -525,7 +541,7 @@ def build_kernel_bundle(records: Sequence[ScheduleRecord], out_dir: str,
             }
     entries = []
     for plan in plans:
-        lib = LIBRARY_OF[plan.kernel] if kind == "cuda" else None
+        lib = _library(plan.kernel, plan.in_avals) if kind == "cuda" else None
         entries.append({
             "op": plan.record.op,
             "kernel": plan.kernel,

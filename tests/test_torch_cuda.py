@@ -4,6 +4,7 @@ Imports no jax, so it runs where only the port is installed:
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 Without a card every test here skips.
 """
+import functools
 import itertools
 
 import numpy as np
@@ -26,6 +27,32 @@ MM_F32_TOL = 2e-4
 # the bf16 head dims of the generic builds (one or two 64-column atoms)
 OTHER_HEAD_DIMS = (16, 32, 48, 96)
 FLASH_BLOCKS = [(64, 64), (64, 128), (128, 64), (128, 128)]
+# f16 flash, per element (as in chip_smoke.py): |kernel - plain| <=
+# F16_RTOL*|plain| + F16_FLIP*softmax(scale q k^T)|v|: two f16 ulps of the
+# output, and one f16 ulp (2^-10 relative) of every p times |v|, the most
+# the f16 cast of p moves an output where ex2.approx and torch.exp put a p
+# on either side of a rounding point
+F16_RTOL, F16_FLIP = 2**-9, 2**-10
+# head dims past 128: the wide builds' padded widths 192 and 256, and two
+# head dims staged inside them
+WIDE_HEAD_DIMS = (136, 192, 200, 256)
+
+
+def _within(got, want, rtol, atol_rms):
+    """(elements outside rtol*|want| + atol_rms*rms(want), worst share)."""
+    got, want = got.float(), want.float()
+    limit = rtol * want.abs() + atol_rms * want.pow(2).mean().sqrt()
+    ratio = (got - want).abs() / limit
+    return int((ratio > 1).sum()), float(ratio.max())
+
+
+def _f16_within(got, want, q, k, v, causal):
+    """(elements outside the f16 flash limit, worst share)."""
+    from repro_torch.kernels import ref
+
+    flips = F16_FLIP * ref.attention(q.float(), k.float(), v.float().abs(), causal=causal)
+    ratio = (got.float() - want.float()).abs() / (F16_RTOL * want.float().abs() + flips)
+    return int((ratio > 1).sum()), float(ratio.max())
 
 
 @pytest.fixture
@@ -125,27 +152,34 @@ def test_f32_kernel_matches_plain(card, s, d, blocks, causal):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [8, 16, 64, 80, 96, 128])
+@pytest.mark.parametrize("d", [8, 16, 64, 80, 96, 128, 136, 192, 200, 256])
 def test_flash_library_stages_what_the_pickers_count(card, d):
     """The shared memory each library kernel launches with is the pickers'
     count (``smem_bytes`` at the dtype's width), and -1 where none is
-    built."""
+    built: bf16 and f16 (the wide library past 128), f32."""
     for bq, bk in FLASH_BLOCKS:
-        assert kflash.kernel_smem_bytes(bq, bk, d) == kflash.smem_bytes(bq, bk, d, 2)
+        for dtype in (torch.bfloat16, torch.float16):
+            lib = kflash.kernel_smem_bytes(bq, bk, d, dtype)
+            if kflash.built(bq, bk, d, dtype):
+                assert lib == kflash.smem_bytes(bq, bk, d, 2) <= 232_448
+            else:
+                assert d > 128 and lib == -1
         f32 = kflash.kernel_smem_bytes(bq, bk, d, torch.float32)
         if kflash.built(bq, bk, d, torch.float32):
             assert f32 == kflash.smem_bytes(bq, bk, d, 4) <= 232_448
         else:
             assert f32 == -1
-    assert kflash.kernel_smem_bytes(64, 64, 136) == -1
+    assert kflash.kernel_smem_bytes(64, 64, 264) == -1
     assert kflash.kernel_smem_bytes(64, 64, 20, torch.float32) == -1
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.bfloat16, 136),
-                                     (torch.bfloat16, 20), (torch.float32, 136)])
+@pytest.mark.parametrize("dtype,d", [(torch.float64, 64), (torch.bfloat16, 264),
+                                     (torch.bfloat16, 20), (torch.float32, 136),
+                                     (torch.float16, 264), (torch.float16, 20)])
 def test_kernel_refuses_what_it_was_not_built_for(card, dtype, d):
-    """Still refused, with no launch: f16, D > 128 and D % 8 != 0."""
+    """Still refused, with no launch: f64, f32 at D > 128, 16 bits at D >
+    256, D % 8 != 0."""
     q, k, v = (t.to(dtype) for t in _qkv(1, 2, 1, 8, d, card))
     before = ops.launch_counts()
     with pytest.raises((ValueError, TypeError)):
@@ -211,9 +245,7 @@ def test_matmul_kernel_matches_plain(card, shape, blocks, double_buffer):
 
 
 def _matmul_within_limit(got, want):
-    want = want.float()
-    limit = RTOL * want.abs() + MM_ATOL_RMS * want.pow(2).mean().sqrt()
-    return int(((got.float() - want).abs() > limit).sum()) == 0
+    return _within(got, want, RTOL, MM_ATOL_RMS)[0] == 0
 
 
 @pytest.mark.gpu
@@ -292,13 +324,13 @@ def test_matmul_on_the_card_never_runs_the_plain_version(card, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["f16", "f32-unbuilt", "non-contiguous", "stride",
+@pytest.mark.parametrize("case", ["f64", "f32-unbuilt", "non-contiguous", "stride",
                                   "unbuilt", "no-longer-built"])
 def test_matmul_kernel_refuses(card, case):
     a, b = _ab(256, 256, 256, card)
     blocks = (64, 64, 64)
-    if case == "f16":  # f32 launches its own kernel since it was added
-        a, b, err = a.half(), b.half(), TypeError
+    if case == "f64":  # f32 and f16 launch their own kernels since they were added
+        a, b, err = a.double(), b.double(), TypeError
     elif case == "f32-unbuilt":  # two f32 stages of (128, 128, 128) do not fit
         a, b, blocks, err = a.float(), b.float(), (128, 128, 128), ValueError
     elif case == "non-contiguous":
@@ -344,15 +376,16 @@ MM_ALL_CONFIGS = [(bm, bn, bk, db) for bm, bn, bk in itertools.product(
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", RAGGED_MM_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 def test_matmul_ragged_tiles_match_plain(card, shape, dtype):
     """Every built configuration as explicit blocks (the tiles they resolve
     to are ragged here), then the tuner's pick through ops.matmul: one
     launch each, within the limit of the plain version (bf16: one ulp and
-    an rms floor; f32: the reference's)."""
+    an rms floor; f16 the same at its precision; f32: the reference's)."""
     m, n, k = shape
     a, b = (t.to(dtype) for t in _ab(m, n, k, card))
-    key = "matmul" if dtype == torch.bfloat16 else "matmul_f32"
+    key = {torch.bfloat16: "matmul", torch.float32: "matmul_f32",
+           torch.float16: "matmul_f16"}[dtype]
     configs = [c for c in MM_ALL_CONFIGS if kmatmul.built(
         *kmatmul.resolve_blocks(m, n, k, *c[:3]), c[3], dtype)]
     for config in configs + [None]:
@@ -365,6 +398,8 @@ def test_matmul_ragged_tiles_match_plain(card, shape, dtype):
         want = kmatmul.matmul_plain(a, b, *used[:3])
         if dtype == torch.bfloat16:
             assert _matmul_within_limit(got, want), config
+        elif dtype == torch.float16:
+            assert _within(got, want, F16_RTOL, MM_ATOL_RMS / 8)[0] == 0, config
         else:
             np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                        rtol=MM_F32_TOL, atol=MM_F32_TOL * np.sqrt(k),
@@ -476,6 +511,83 @@ def test_mamba_forward_on_the_card_matches_stepped_decode(card, s, chunk):
         assert bad == 0, f"{bad} outside, worst at {worst:.3f} of the limit"
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 77, 513, 1024, 2047])
+@pytest.mark.parametrize("d", HEAD_DIMS + (96,))
+@pytest.mark.parametrize("blocks", FLASH_BLOCKS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_f16_kernel_matches_plain(card, s, d, blocks, causal):
+    """The f16 kernel (its own library) at every block pair, the built head
+    dims and a generic one, within the f16 limit of the plain version in
+    f16; one f16 launch and no bf16 one."""
+    q, k, v = (t.half() for t in _qkv(2, 8, 2, s, d, card))
+    before = ops.launch_counts()
+    got = ops.attention(q, k, v, causal=causal, blocks=blocks)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float16
+    assert ops.launch_counts() == dict(
+        before, flash_attention_f16=before["flash_attention_f16"] + 1)
+    want = flash_attention_plain(q, k, v, causal=causal, block_q=blocks[0],
+                                 block_k=blocks[1])
+    bad, worst = _f16_within(got, want, q, k, v, causal)
+    assert bad == 0, f"{bad} outside, worst at {worst:.3f} of the limit"
+
+
+WIDE_CASES = [(d, blocks) for d in WIDE_HEAD_DIMS for blocks in FLASH_BLOCKS
+              if kflash.built(*blocks, d, torch.bfloat16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 77, 513, 1024])
+@pytest.mark.parametrize("d,blocks", WIDE_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_kernel_matches_plain(card, s, d, blocks, dtype, causal):
+    """Head dims past 128 (the wide library, padded to 192 or 256 columns)
+    at every block pair built for them, in both 16-bit types, within each
+    type's limit of the plain version; the last 64-column atom carries
+    data, and a kernel that lost it would be flagged."""
+    q, k, v = (t.to(dtype) for t in _qkv(2, 8, 2, s, d, card))
+    key = "flash_attention" if dtype == torch.bfloat16 else "flash_attention_f16"
+    before = ops.launch_counts()[key]
+    got = ops.attention(q, k, v, causal=causal, blocks=blocks)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[key] == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, block_q=blocks[0],
+                                 block_k=blocks[1])
+    within = (functools.partial(_within, rtol=RTOL, atol_rms=ATOL_RMS)
+              if dtype == torch.bfloat16 else
+              lambda g, w: _f16_within(g, w, q, k, v, causal))
+    bad, worst = within(got, want)
+    assert bad == 0, f"{bad} outside, worst at {worst:.3f} of the limit"
+    last = (kflash.padded_head_dim(d) - 64)
+    lost = got.clone()
+    lost[..., last:] = 0
+    assert within(lost, want)[0] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(256, 512, 384), (2048, 4096, 4096), (2048, 512, 4096)])
+def test_f16_matmul_kernel_matches_plain(card, shape):
+    """The f16 matmul (its own library) at every built configuration, then
+    the tuner's pick (bf16's: the same width) through ops.matmul, within
+    the f16 limit of the plain version; the library stages what the sm90
+    model counts."""
+    a, b = (t.half() for t in _ab(*shape, card))
+    for config in MM_ALL_CONFIGS + [None]:
+        before = ops.launch_counts()
+        got = ops.matmul(a, b, blocks=config)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == dict(before, matmul_f16=before["matmul_f16"] + 1)
+        used = config or ops.tuned_matmul_blocks(*shape, 2)
+        want = kmatmul.matmul_plain(a, b, *used[:3])
+        assert got.dtype == torch.float16
+        assert _within(got, want, F16_RTOL, MM_ATOL_RMS / 8)[0] == 0, config
+    for bm, bn, bk, db in MM_ALL_CONFIGS:
+        assert (kmatmul.kernel_smem_bytes(bm, bn, bk, db, torch.float16)
+                == kmatmul.kernel_smem_bytes(bm, bn, bk, db))
+
+
 @pytest.fixture
 def bundle_records():
     """A bf16 matmul, an f32 matmul and a bf16 flash record the Hopper
@@ -545,6 +657,42 @@ def test_cuda_bundle_launches_its_library_with_no_build(card, tmp_path, bundle_r
         ops.use_kernel_bundle(None)
     assert build.installed() == {}
     assert build.load("matmul")._name == str(build.library_path("matmul"))
+
+
+@pytest.mark.gpu
+def test_cuda_bundle_of_bf16_records_sends_f16_calls_to_the_f16_kernel(
+        card, tmp_path, bundle_records):
+    """An f16 call at a bundled bf16 record's shape misses the bundle (its
+    entries are keyed by "bfloat16"), takes the record's blocks from the
+    bundle's index and launches the f16 kernel from the bundled matmul_f16
+    library, with no nvcc run: bit for bit the explicit f16 launch, and no
+    bf16 launch."""
+    from repro_torch.kernels import build
+    from repro_torch.tuna.golden import build_kernel_bundle
+
+    info = build_kernel_bundle(bundle_records, str(tmp_path), "gpu_h100")
+    rng = np.random.default_rng(1)
+    x, y = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(card, torch.float16) for s in ((256, 512), (512, 256)))
+    q = torch.from_numpy(rng.standard_normal((1, 1, 256, 128)).astype(np.float32))
+    q = q.to(card, torch.float16)
+    want_mm = ops.matmul(x, y, blocks=(128, 128, 64, True))
+    want_att = ops.attention(q, q, q, blocks=(128, 64))
+    ops.use_kernel_bundle(info.path)
+    try:
+        builds, launches = ops.kernel_build_counts(), ops.launch_counts()
+        got_mm, got_att = ops.matmul(x, y), ops.attention(q, q, q)
+        torch.cuda.synchronize()
+        bundle = ops.get_kernel_bundle()
+        assert (bundle.exec_hits, bundle.exec_misses) == (0, 2)
+        assert ops.kernel_build_counts() == builds
+        assert ops.launch_counts() == dict(
+            launches, matmul_f16=launches["matmul_f16"] + 1,
+            flash_attention_f16=launches["flash_attention_f16"] + 1)
+        assert build.load("matmul_f16")._name == str(build.installed()["matmul_f16"])
+        assert torch.equal(got_mm, want_mm) and torch.equal(got_att, want_att)
+    finally:
+        ops.use_kernel_bundle(None)
 
 
 @pytest.mark.gpu

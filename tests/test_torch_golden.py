@@ -208,12 +208,13 @@ class TestKernelBundle:
         assert skip[0] == "conv2d[foo=1]" and "no kernel" in skip[1]
 
     def test_cuda_plan_keeps_f32_records_index_only(self):
-        """The Hopper kernels take bf16 and f32: a CUDA bundle plans the f32
-        records beside the bf16 one, and keeps in its schedule index only,
-        as skips with their reason, the records no kernel is built for: an
-        f32 matmul whose two stages exceed shared memory, an f32 flash
-        record at blocks whose probability tile does not fit, and a head
-        dim past 128."""
+        """The Hopper kernels take bf16 and f32 (and f16, which no record's
+        signature names): a CUDA bundle plans the f32 records beside the
+        bf16 ones, a 16-bit head dim past 128 among them (the wide builds),
+        and keeps in its schedule index only, as skips with their reason,
+        the records no kernel is built for: an f32 matmul whose two stages
+        exceed shared memory, an f32 flash record at blocks whose
+        probability tile does not fit, and a head dim past 256."""
         bf16 = ScheduleRecord(op="matmul[K=256,M=256,N=256,dtype_bytes=2]",
                               target=TGT, score=1e-6,
                               config={"bm": 128, "bn": 128, "bk": 64,
@@ -226,14 +227,23 @@ class TestKernelBundle:
                               score=1e-6, config={"block_q": 128, "block_k": 128})
         d136 = ScheduleRecord(op="flash[d=136,dtype_bytes=2,s=256]", target=TGT,
                               score=1e-6, config={"block_q": 64, "block_k": 64})
-        plans, skipped = plan_bundle_entries(mk_records() + [bf16, big, wide, d136],
-                                             device="cuda")
-        assert sorted(p.record.op for p in plans) == sorted([MM_OP, FL_OP, bf16.op])
+        d264 = ScheduleRecord(op="flash[d=264,dtype_bytes=2,s=256]", target=TGT,
+                              score=1e-6, config={"block_q": 64, "block_k": 64})
+        plans, skipped = plan_bundle_entries(
+            mk_records() + [bf16, big, wide, d136, d264], device="cuda")
+        assert sorted(p.record.op for p in plans) == sorted([MM_OP, FL_OP, bf16.op,
+                                                             d136.op])
         why = dict(skipped)
         assert "shared memory" in why[big.op]
         assert "not built for torch.float32" in why[wide.op]
-        assert "head dim 136" in why[d136.op]
+        assert "head dim 264" in why[d264.op]
         assert "no kernel" in why["conv2d[foo=1]"]
+        # each plan launches from its entry point's library
+        from repro_torch.tuna.golden import _library
+
+        libs = {p.record.op: _library(p.kernel, p.in_avals) for p in plans}
+        assert libs == {MM_OP: "matmul", FL_OP: "flash_attention", bf16.op: "matmul",
+                        d136.op: "flash_attention_wide"}
 
     @pytest.mark.parametrize("kernel,avals,config,ok", [
         # the tune --smoke store's dense_256 matmul record at 4 bytes
@@ -244,15 +254,28 @@ class TestKernelBundle:
                    ((1, 2, 64, 16), "float32")], {"block_q": 64, "block_k": 64}, True),
         ("flash", [((1, 4, 64, 16), "bfloat16"), ((1, 2, 64, 16), "bfloat16"),
                    ((1, 2, 64, 16), "bfloat16")], {"block_q": 128, "block_k": 128}, True),
-        # still skipped: D=136, f16, and inputs of two dtypes
+        # admitted since the f16 kernels and the wide builds: bf16 at D=136,
+        # f16 matmul and flash
         ("flash", [((1, 4, 64, 136), "bfloat16"), ((1, 2, 64, 136), "bfloat16"),
-                   ((1, 2, 64, 136), "bfloat16")], {"block_q": 64, "block_k": 64}, False),
+                   ((1, 2, 64, 136), "bfloat16")], {"block_q": 64, "block_k": 64}, True),
         ("matmul", [((256, 256), "float16"), ((256, 256), "float16")],
-         {"bm": 64, "bn": 64, "bk": 64, "double_buffer": True}, False),
+         {"bm": 64, "bn": 64, "bk": 64, "double_buffer": True}, True),
         ("flash", [((1, 4, 64, 16), "float16"), ((1, 2, 64, 16), "float16"),
-                   ((1, 2, 64, 16), "float16")], {"block_q": 64, "block_k": 64}, False),
+                   ((1, 2, 64, 16), "float16")], {"block_q": 64, "block_k": 64}, True),
+        # still skipped: inputs of two dtypes, f32 past 128, 16 bits past
+        # 256, a head dim TMA cannot stride, wide blocks that do not fit
         ("matmul", [((256, 256), "float32"), ((256, 256), "bfloat16")],
          {"bm": 64, "bn": 64, "bk": 64, "double_buffer": True}, False),
+        ("flash", [((1, 4, 64, 136), "float32"), ((1, 2, 64, 136), "float32"),
+                   ((1, 2, 64, 136), "float32")], {"block_q": 64, "block_k": 64}, False),
+        ("flash", [((1, 4, 64, 264), "float16"), ((1, 2, 64, 264), "float16"),
+                   ((1, 2, 64, 264), "float16")], {"block_q": 64, "block_k": 64}, False),
+        ("flash", [((1, 4, 64, 20), "bfloat16"), ((1, 2, 64, 20), "bfloat16"),
+                   ((1, 2, 64, 20), "bfloat16")], {"block_q": 64, "block_k": 64}, False),
+        ("flash", [((1, 4, 64, 256), "float16"), ((1, 2, 64, 256), "float16"),
+                   ((1, 2, 64, 256), "float16")], {"block_q": 64, "block_k": 128}, False),
+        ("flash", [((1, 4, 64, 16), "float64"), ((1, 2, 64, 16), "float64"),
+                   ((1, 2, 64, 16), "float64")], {"block_q": 64, "block_k": 64}, False),
     ])
     def test_cuda_skip_admits_f32_and_other_head_dims(self, kernel, avals, config, ok):
         """``_cuda_skip`` admits what a kernel is built for and states why
@@ -263,6 +286,49 @@ class TestKernelBundle:
         assert (why is None) is ok
         if not ok:
             assert why
+
+    def test_f16_call_misses_a_bundle_of_bf16_records(self, tmp_path, monkeypatch):
+        """A bundle made from bf16 records keys its entries by "bfloat16":
+        an f16 call of the same shape misses every entry, takes the record's
+        blocks from the bundle's schedule index (f16 has bf16's width) and
+        runs the f16 path: the plain version here, on the card the f16
+        kernel from matmul_f16's library (``_library``). No entry's callable
+        is ever made for f16 data, so no bf16 code sees it."""
+        from repro_torch.tuna.golden import _library
+
+        mm = ScheduleRecord(op="matmul[K=128,M=128,N=256,dtype_bytes=2]", target=TGT,
+                            score=1e-6, config={"bm": 64, "bn": 128, "bk": 64,
+                                                "double_buffer": True})
+        fl = ScheduleRecord(op="flash[d=64,dtype_bytes=2,s=128]", target=TGT,
+                            score=2e-6, config={"block_q": 128, "block_k": 64})
+        mgr = GoldenManager(str(tmp_path))
+        info = mgr.promote([mm, fl], TGT, source="bf16")
+        _, release = mgr.load_release(info.path)
+        binfo = build_kernel_bundle(release, str(tmp_path), TGT, golden_name=info.name,
+                                    device="cpu")
+        bundle = KernelBundle.load(binfo.path, device="cpu")
+        assert binfo.entries == 2
+        tuner.set_default_bundle(bundle)
+        x, y = _t((128, 128)).half(), _t((128, 256)).half()
+        got = ops.matmul(x, y)
+        assert (bundle.exec_hits, bundle.exec_misses) == (0, 1)
+        assert got.dtype == torch.float16
+        assert torch.equal(got, kmatmul.matmul_plain(x, y, 64, 128, 64))
+        q = _t((1, 1, 128, 64)).half()  # the shape the flash record's entry has
+        out = ops.attention(q, q, q)
+        assert (bundle.exec_hits, bundle.exec_misses) == (0, 2)
+        assert torch.equal(out, kflash.flash_attention_plain(q, q, q, block_q=128,
+                                                            block_k=64))
+        # the same shapes in bf16 hit their entries
+        ops.matmul(x.bfloat16(), y.bfloat16())
+        ops.attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+        assert (bundle.exec_hits, bundle.exec_misses) == (2, 2)
+        assert all('"bfloat16"' in key for key in bundle._loaded)
+        # on the card the f16 calls launch from the f16 libraries
+        assert _library("matmul", [((128, 128), "float16"), ((128, 256), "float16")]) \
+            == "matmul_f16"
+        assert _library("flash", [((1, 1, 128, 64), "float16")] * 3) == "flash_attention_f16"
+        assert kmatmul.ENTRY[torch.float16] == "matmul_f16"
 
     def test_cuda_bundle_build_needs_nvcc(self, tmp_path, monkeypatch):
         import torch.utils.cpp_extension as cpp_ext
@@ -563,7 +629,9 @@ class TestPrebuiltLibraries:
         build.build(["matmul"])
         build.build(["matmul"])  # built already: no second run
         build.build()
-        assert ops.kernel_build_counts() == {"flash_attention": 1, "matmul": 1}
+        assert ops.kernel_build_counts() == {"flash_attention": 1, "flash_attention_f16": 1,
+                                             "flash_attention_wide": 1, "matmul": 1,
+                                             "matmul_f16": 1}
         assert build.library_path("matmul").read_bytes() == b"built"
 
 

@@ -29,6 +29,9 @@ from repro_torch.models.attention import chunked_attention
 RNG = np.random.default_rng(42)
 F32_TOL = dict(atol=3e-5, rtol=3e-4)  # f32: summation order only
 BF16_TOL = dict(atol=5e-2, rtol=5e-2)  # bf16 output rounding + bf16 p
+# f16 output rounding (2^-10 relative, an ulp, on each side) + f16 p: the
+# bf16 limit scaled by the 2^-3 between the two types' unit roundoffs
+F16_TOL = dict(atol=5e-2 / 8, rtol=5e-2 / 8)
 
 
 def _qkv(b, hq, hkv, s, d):
@@ -149,6 +152,62 @@ def test_flash_bf16():
     np.testing.assert_allclose(_np(got), _np(jref.attention(*jarrs)), **BF16_TOL)
 
 
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("s", [128, 77])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f16_matches_pallas_and_oracle(d, s, causal):
+    """f16 through ops.attention (the plain version on CPU tensors) at the
+    blocks the picker gives (f16 takes bf16's: the same width), GQA 4/2,
+    at head dims up to the wide builds' 256, against the Pallas kernel in
+    f16 (interpreted; at S=77 with one S-sized block, as the ragged tests
+    run it) and the oracle, within F16_TOL."""
+    arrs = _qkv(1, 4, 2, s, d)
+    bq, bk = ops.tuned_flash_blocks(s, d, 2)
+    assert kflash.built(bq, bk, d, torch.float16)
+    got = ops.attention(*_torch(arrs, torch.float16), causal=causal)
+    assert got.dtype == torch.float16 and got.shape == (1, 4, s, d)
+    assert torch.equal(got, flash_attention_plain(*_torch(arrs, torch.float16),
+                                                  causal=causal, block_q=bq, block_k=bk))
+    jarrs = [jnp.asarray(a, jnp.float16) for a in arrs]
+    pq, pk = (bq, bk) if s % bq == 0 and s % bk == 0 else (s, s)
+    want = flash_attention_pallas(*jarrs, causal=causal, block_q=pq, block_k=pk,
+                                  interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **F16_TOL)
+    np.testing.assert_allclose(_np(got), _np(jref.attention(*jarrs, causal=causal)),
+                               **F16_TOL)
+
+
+@pytest.mark.parametrize("d", [136, 192, 200, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_at_wide_head_dims(d, causal):
+    """bf16 at head dims past 128 (the wide builds' padded widths 192 and
+    256, and 136 and 200 staged inside them), GQA 4/2, through ops.attention
+    at the picked blocks, against the Pallas kernel at the same blocks and
+    the oracle, within BF16_TOL."""
+    arrs = _qkv(1, 4, 2, 128, d)
+    bq, bk = ops.tuned_flash_blocks(128, d, 2)
+    assert kflash.built(bq, bk, d, torch.bfloat16) and padded_head_dim(d) in (192, 256)
+    got = ops.attention(*_torch(arrs, torch.bfloat16), causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 4, 128, d)
+    jarrs = [jnp.asarray(a, jnp.bfloat16) for a in arrs]
+    want = flash_attention_pallas(*jarrs, causal=causal, block_q=bq, block_k=bk,
+                                  interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **BF16_TOL)
+    np.testing.assert_allclose(_np(got), _np(jref.attention(*jarrs, causal=causal)),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("s", [1, 77, 513, 1024, 2047])
+@pytest.mark.parametrize("d", [136, 192, 256])
+def test_tuned_flash_blocks_at_wide_head_dims_are_built(s, d):
+    """Every 16-bit pick past 128 columns is a block pair the wide builds
+    have: the picker prunes by the same shared-memory count as ``built``."""
+    bq, bk = ops.tuned_flash_blocks(s, d, 2)
+    assert kflash.built(bq, bk, d, torch.bfloat16) and kflash.built(bq, bk, d, torch.float16)
+    assert kflash.entry_for(torch.float16, d) == "flash_attention_wide_fwd_f16"
+    assert kflash.SOURCE[kflash.entry_for(torch.bfloat16, d)] == "flash_attention_wide"
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_torch_oracle_matches_reference_oracle(causal):
     arrs = _qkv(2, 4, 2, 64, 16)
@@ -203,29 +262,46 @@ def _macro(src: str, name: str):
 
 
 def test_flash_source_instantiates_exactly_the_built_blocks():
-    """The (block_q, block_k, d) triples csrc/flash_attention.cu builds in
-    bf16 are BLOCKS x BLOCKS x HEAD_DIMS, its generic builds BLOCKS x BLOCKS
-    x PADDED_WIDTHS, and its f32 builds the (block_q, block_k, padded
-    width) that ``built`` admits; the bf16 products are wgmma, the f32
-    kernel's are not."""
-    src = (build.CSRC / "flash_attention.cu").read_text()
-    assert _macro(src, "FLASH_BUILT") == {
+    """The (block_q, block_k, d) triples the 16-bit kernel
+    (csrc/flash_attention.cuh) is built for up to 128 columns are BLOCKS x
+    BLOCKS x HEAD_DIMS and, generically, BLOCKS x BLOCKS x (64, 128), in
+    bf16 (flash_attention.cu) and f16 (flash_attention_f16.cu); its wide
+    builds (flash_attention_wide.cu, both types) and the f32 builds
+    (flash_attention.cu) are the (block_q, block_k, padded width) that
+    ``built`` admits; the 16-bit products are wgmma, the f32 kernel's are
+    not. Each entry point is in the library ``SOURCE`` names."""
+    read = lambda name: (build.CSRC / name).read_text()
+    head, src = read("flash_attention.cuh"), read("flash_attention.cu")
+    f16, wide = read("flash_attention_f16.cu"), read("flash_attention_wide.cu")
+    assert _macro(head, "FLASH_BUILT") == {
         (bq, bk, d) for bq in BLOCKS for bk in BLOCKS for d in HEAD_DIMS}
-    assert HEAD_DIMS == (64, 80, 128) and PADDED_WIDTHS == (64, 128)
-    assert _macro(src, "FLASH_ANY_D_BUILT") == {
-        (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in PADDED_WIDTHS}
+    assert HEAD_DIMS == (64, 80, 128) and PADDED_WIDTHS == (64, 128, 192, 256)
+    assert _macro(head, "FLASH_ANY_D_BUILT") == {
+        (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in (64, 128)}
+    for dtype in (torch.bfloat16, torch.float16):
+        assert _macro(wide, "FLASH_WIDE_BUILT") == {
+            (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in (192, 256)
+            if kflash.built(bq, bk, dp, dtype)}
+    assert len(_macro(wide, "FLASH_WIDE_BUILT")) == 5
     assert _macro(src, "FLASH_F32_BUILT") == {
         (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in PADDED_WIDTHS
         if kflash.built(bq, bk, dp, torch.float32)}
-    assert "wgmma_ss" in src and "wgmma_rs" in src and "mma.sync" not in src
+    assert "wgmma_ss" in head and "wgmma_rs" in head and "mma.sync" not in head
     # tiles and accumulator at the padded width, the store at the real one
-    assert "int DP = (D + 63) / 64 * 64" in src and "wgmma_rs<C::kDP, 1>" in src
-    assert "col >= dd" in src
-    # the f32 entry points beside the bf16 ones; the f32 kernel stages with
-    # cp.async and multiplies by FFMA (fmaf), with no tensor-core product
-    for entry in ("flash_attention_fwd_bf16", "flash_attention_fwd_f32",
-                  "flash_attention_smem_bytes", "flash_attention_f32_smem_bytes"):
-        assert f'extern "C" int {entry}(' in src
+    assert "int DP = (D + 63) / 64 * 64" in head and "wgmma_rs<T, C::kDP, 1>" in head
+    assert "col >= dd" in head and "pack2<T>(" in head and "make_map<T>(" in head
+    # each type's instantiations in its own library
+    assert "narrow_fwd<bf16>" in src and "narrow_fwd<__half>" in f16
+    assert "wide_fwd<__nv_bfloat16>" in wide and "wide_fwd<__half>" in wide
+    for lib, text in (("flash_attention", src), ("flash_attention_f16", f16),
+                      ("flash_attention_wide", wide)):
+        entries = re.findall(r'extern "C" int (\w+)\(', text)
+        assert [e for e in entries if "_fwd_" in e] == [
+            e for e, source in kflash.SOURCE.items() if source == lib]
+        assert any(e.endswith("smem_bytes") for e in entries)
+    assert "flash_attention_f32_smem_bytes" in src
+    # the f32 kernel stages with cp.async and multiplies by FFMA (fmaf),
+    # with no tensor-core product
     f32 = src[src.index("f32, SIMT"):src.index("// ---------------------------"
                                                  "---------------------------------------- host")]
     assert "cp.async.cg.shared.global" in f32 and "fmaf(" in f32
@@ -260,12 +336,20 @@ def test_flash_at_other_head_dims(d, dtype, causal):
 
 @pytest.mark.parametrize("d,ok", [(0, False), (4, False), (8, True), (12, False),
                                   (16, True), (20, False), (120, True), (128, True),
-                                  (132, False), (136, False)])
+                                  (132, False), (136, False), (192, False),
+                                  (200, False), (256, False), (260, False),
+                                  (264, False)])
 def test_supports_head_dim_at_the_rules_edges(d, ok):
-    """A multiple of 8 (TMA's 16-byte row stride in bf16) from 8 to 128."""
-    assert supports_head_dim(d) is ok
-    assert kflash.built(64, 64, d, torch.bfloat16) is ok
+    """f32: a multiple of 8 (TMA's 16-byte row stride) from 8 to 128
+    (``ok``); bf16 and f16: the same and the multiples of 8 from 136 to 256
+    (the wide builds, padded to 192 or 256 columns)."""
+    wide = 128 < d <= 256 and d % 8 == 0
+    assert supports_head_dim(d, torch.float32) is ok
     assert kflash.built(64, 64, d, torch.float32) is ok
+    for dtype in (torch.bfloat16, torch.float16):
+        assert supports_head_dim(d, dtype) is (ok or wide)
+        assert kflash.built(64, 64, d, dtype) is (ok or wide)
+    assert not supports_head_dim(d, torch.float64)
 
 
 @pytest.mark.parametrize("bq", BLOCKS)
@@ -274,11 +358,19 @@ def test_supports_head_dim_at_the_rules_edges(d, ok):
 def test_f32_flash_smem_is_the_kernels_count(bq, bk, dp):
     """The f32 kernel stages Q [bq][dp], two stages of K and V [bk][dp] and
     P [bq][bk], all f32, with no barrier and no slack; it is built exactly
-    where that fits one H100 block."""
+    where that fits one H100 block, up to 128 columns. The 16-bit kernels
+    are built where their own count fits: every pair up to 128 columns,
+    three at 192, two at 256."""
     hand = 4 * (bq * dp + 2 * 2 * bk * dp + bq * bk)
     assert smem_bytes(bq, bk, dp, 4) == hand == smem_bytes(bq, bk, dp - 8, 4)
-    assert kflash.built(bq, bk, dp, torch.float32) is (hand <= GPU_H100.fast_mem_bytes)
-    assert kflash.built(bq, bk, dp, torch.bfloat16)
+    assert kflash.built(bq, bk, dp, torch.float32) is (
+        hand <= GPU_H100.fast_mem_bytes and dp <= 128)
+    # the 16-bit kernels: built wherever their own count fits
+    fits = smem_bytes(bq, bk, dp, 2) <= GPU_H100.fast_mem_bytes
+    assert kflash.built(bq, bk, dp, torch.bfloat16) is fits
+    assert kflash.built(bq, bk, dp, torch.float16) is fits
+    wide = {192: {(64, 64), (64, 128), (128, 64)}, 256: {(64, 64), (128, 64)}}
+    assert fits is (dp <= 128 or (bq, bk) in wide[dp])
     assert smem_bytes(bq, bk, dp, 2) == smem_bytes(bq, bk, dp)
 
 
@@ -292,11 +384,16 @@ def test_tuned_flash_blocks_fit_the_f32_kernel(s, d):
 
 
 @pytest.mark.parametrize("dtype,d,blocks,err", [
-    (torch.float16, 64, (64, 64), TypeError),     # f16: no kernel
-    (torch.float32, 136, (64, 64), ValueError),   # D > 128
+    (torch.float64, 64, (64, 64), TypeError),     # f64: no kernel
+    (torch.float32, 136, (64, 64), ValueError),   # f32 at D > 128
     (torch.bfloat16, 20, (64, 64), ValueError),   # D % 8 != 0
     (torch.float32, 128, (128, 128), ValueError),  # f32 blocks that do not fit
     (torch.bfloat16, 64, (32, 64), ValueError),   # blocks never built
+    (torch.bfloat16, 264, (64, 64), ValueError),  # D > 256
+    (torch.float16, 264, (64, 64), ValueError),
+    (torch.float16, 20, (64, 64), ValueError),
+    (torch.float16, 256, (64, 128), ValueError),  # 16-bit blocks that do not fit
+    (torch.bfloat16, 192, (128, 128), ValueError),
 ])
 def test_flash_launch_refuses_what_no_kernel_is_built_for(monkeypatch, dtype, d,
                                                           blocks, err):
@@ -328,8 +425,12 @@ def test_launch_counter_only_counts_kernel_launches():
     arrs = _torch(_qkv(1, 2, 1, 8, 64))
     ops.attention(*arrs)  # CPU: the plain versions, not launches
     ops.matmul(torch.ones((64, 64)), torch.ones((64, 64)))
+    ops.attention(*(t.half() for t in arrs))
+    ops.matmul(torch.ones((64, 64), dtype=torch.float16),
+               torch.ones((64, 64), dtype=torch.float16))
     assert ops.launch_counts() == {"flash_attention": 0, "matmul": 0,
-                                   "flash_attention_f32": 0, "matmul_f32": 0}
+                                   "flash_attention_f32": 0, "matmul_f32": 0,
+                                   "flash_attention_f16": 0, "matmul_f16": 0}
 
 
 def test_kernel_library_is_keyed_by_source_digest():
@@ -384,7 +485,12 @@ def test_kernel_builds_run_in_parallel(tmp_path, monkeypatch):
 
 # the reference's TestMatmulKernel tolerances: TOL * sqrt(k) atol, TOL rtol
 MATMUL_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-1}
-JDTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+JDTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+          torch.float16: jnp.float16}
+# f16: the reference's grid has none; both sides sum exact f16 products in
+# f32 and round once to f16 (an ulp, 2^-10 relative), so the bf16 limit
+# scaled by the 2^-3 between the unit roundoffs
+MATMUL_F16_TOL = 2e-1 / 8
 
 
 def _xy(m, n, k):
@@ -414,6 +520,37 @@ def test_matmul_matches_pallas_and_oracle(m, n, k, bm, bn, bk, dtype):
     np.testing.assert_allclose(_np(got), _np(jref.matmul(jx, jy)), **tol)
     np.testing.assert_allclose(_np(ref.matmul(*_torch((x, y), dtype))),
                                _np(jref.matmul(jx, jy)), **tol)
+
+
+@pytest.mark.parametrize("shape,blocks", [
+    ((128, 256, 128), (64, 128, 64)),    # tiles that divide
+    ((256, 128, 512), None),             # the tuner's pick
+    ((96, 256, 80), (64, 64, 64)),       # ragged M and K
+    ((8, 4096, 256), None),              # decode-sized M
+])
+def test_matmul_f16_matches_pallas_and_oracle(shape, blocks):
+    """f16 through ops.matmul (the plain version on CPU tensors), with
+    explicit tiles and with the tuner's pick (f16 takes bf16's: the same
+    width), against the Pallas kernel in f16 (interpreted, at blocks that
+    divide, or at the reference's own pick where the port's tile is
+    ragged) and the oracle, within MATMUL_F16_TOL * sqrt(K) + MATMUL_F16_TOL
+    * |want|."""
+    m, n, k = shape
+    x, y = _xy(m, n, k)
+    tx, ty = _torch((x, y), torch.float16)
+    got = ops.matmul(tx, ty, blocks=blocks)
+    assert got.dtype == torch.float16 and got.shape == (m, n)
+    used = blocks or ops.tuned_matmul_blocks(m, n, k, 2)
+    assert kmatmul.built(*kmatmul.resolve_blocks(m, n, k, *used[:3]),
+                         (used[3] if len(used) > 3 else True), torch.float16)
+    assert torch.equal(got, kmatmul.matmul_plain(tx, ty, *used[:3]))
+    jx, jy = (jnp.asarray(a, jnp.float16) for a in (x, y))
+    jb = (blocks if blocks and all(dim % b == 0 for dim, b in zip((m, n, k), blocks))
+          else jtuned_matmul_blocks(m, n, k, 2))
+    want = matmul_pallas(jx, jy, bm=jb[0], bn=jb[1], bk=jb[2], interpret=True)
+    tol = dict(atol=MATMUL_F16_TOL * np.sqrt(k), rtol=MATMUL_F16_TOL)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    np.testing.assert_allclose(_np(got), _np(jref.matmul(jx, jy)), **tol)
 
 
 def test_matmul_f32_is_exact_to_summation_order():
@@ -543,20 +680,29 @@ def test_matmul_refuses_bad_shapes_and_devices():
 
 
 def test_matmul_source_instantiates_exactly_the_built_tiles():
-    """The (bm, bn, bk) tiles csrc/matmul.cu instantiates (each with one and
-    two stages) are exactly the sm90 knob values the tuner ranks
+    """The (bm, bn, bk) tiles the 16-bit kernel (csrc/matmul.cuh)
+    instantiates (each with one and two stages), in bf16 (matmul.cu) and in
+    f16 (matmul_f16.cu), are exactly the sm90 knob values the tuner ranks
     (core/spaces.SM90_MATMUL_TILES): bm {64, 128}, bn {64, 128, 256}, bk
     {64, 128}. Its products are wgmma and its loads TMA."""
+    head = (build.CSRC / "matmul.cuh").read_text()
+    f16 = (build.CSRC / "matmul_f16.cu").read_text()
     src = (build.CSRC / "matmul.cu").read_text()
-    macro = re.search(r"#define MM_BUILT\(X\)(.*?)\n\n", src, re.S).group(1)
+    macro = re.search(r"#define MM_BUILT\(X\)(.*?)\n\n", head, re.S).group(1)
     built = [tuple(map(int, t)) for t in re.findall(r"X\((\d+), (\d+), (\d+)\)", macro)]
     assert SM90_MATMUL_TILES == kmatmul.BLOCKS == {
         "bm": (64, 128), "bn": (64, 128, 256), "bk": (64, 128)}
     assert sorted(built) == sorted(itertools.product(*SM90_MATMUL_TILES.values()))
-    assert "launch<BM_, BN_, BK_, 2>" in src and "launch<BM_, BN_, BK_, 1>" in src
-    assert "wgmma_ss<BN, 1>" in src and "tma_load_3d" in src
-    assert "mma.sync" not in src and "cp.async" not in src
-    assert not re.search(r"gemm|gemv|xmma|nvjet", src, re.IGNORECASE)
+    assert "launch<T, BM_, BN_, BK_, 2>" in head and "launch<T, BM_, BN_, BK_, 1>" in head
+    assert "wgmma_ss<T, BN, 1>" in head and "tma_load_3d" in head
+    assert "mm16<__nv_bfloat16>" in src and "mm16<__half>" in f16
+    for text in (head, src, f16):
+        assert "mma.sync" not in text and "cp.async" not in text
+        assert not re.search(r"gemm|gemv|xmma|nvjet", text, re.IGNORECASE)
+    for entry, lib in kmatmul.SOURCE.items():
+        text = {"matmul": src, "matmul_f16": f16}[lib]
+        assert f'extern "C" int {entry}(' in text
+        assert f'extern "C" int {entry.replace("_bf16", "")}_smem_bytes(' in text
     # the f32 kernel: every (bm, bn, bk, stages) whose stages fit, FFMA
     # products over TMA-staged tiles, its own entry points
     assert _macro(src, "MM_F32_BUILT") == {
@@ -604,7 +750,7 @@ def test_f32_matmul_is_built_where_the_cost_model_sees_no_overflow():
 
 
 @pytest.mark.parametrize("dtype,n,k,blocks,err", [
-    (torch.float16, 128, 128, (64, 64, 64, True), TypeError),     # f16: no kernel
+    (torch.float64, 128, 128, (64, 64, 64, True), TypeError),     # f64: no kernel
     (torch.float32, 128, 128, (128, 128, 128, True), ValueError),  # two stages do not fit
     (torch.float32, 256, 128, (128, 256, 128, True), ValueError),
     (torch.bfloat16, 128, 128, (64, 64, 32, True), ValueError),   # bk never built
@@ -613,6 +759,8 @@ def test_f32_matmul_is_built_where_the_cost_model_sees_no_overflow():
     (torch.bfloat16, 128, 100, (64, 64, 64, True), ValueError),
     (torch.bfloat16, 100, 128, (64, 64, 64, True), ValueError),
     (torch.float32, 98, 128, (64, 64, 64, True), ValueError),
+    (torch.float16, 100, 128, (64, 64, 64, True), ValueError),
+    (torch.float16, 128, 100, (64, 64, 64, True), ValueError),
 ])
 def test_matmul_launch_refuses_what_no_kernel_is_built_for(monkeypatch, dtype, n, k,
                                                            blocks, err):
