@@ -267,8 +267,10 @@ SM90_FLASH_BLOCKS: Tuple[int, ...] = (64, 128)
 
 def sm90_padded_head_dim(d: int) -> int:
     """The width the Hopper kernel stages a head dim at: whole 64-column
-    swizzle atoms (80 -> 128; the columns past ``d`` are TMA's zero fill)."""
-    return -(-d // 64) * 64
+    swizzle atoms (80 -> 128; the columns past ``d`` are TMA's zero fill),
+    and past 256 whole pairs of them (384 or 512: two output chunks of
+    whole atoms)."""
+    return -(-d // 64) * 64 if d <= 256 else -(-d // 128) * 128
 
 
 def sm90_flash_smem_bytes(block_q: int, block_k: int, d: int,
@@ -277,13 +279,18 @@ def sm90_flash_smem_bytes(block_q: int, block_k: int, d: int,
     ``Cfg`` computes it. In bf16 and f16 (``dtype_bytes=2``): the Q tile, two
     stages of K and V tiles at the padded head dim, 128 bytes of barriers
     and 1024 bytes of slack to align the tiles to the 1024-byte swizzle
-    period. In f32 (``dtype_bytes=4``, the SIMT kernel's ``CfgF32``): the
-    same tiles in f32 and the [block_q, block_k] f32 probability tile, with
-    no barrier and no slack (cp.async needs 16-byte alignment only). No
-    kernel takes another width; it is counted as 16-bit."""
+    period; past 256 columns one stage, of a K tile at the padded width and
+    a V tile of one output chunk (half of it). In f32 (``dtype_bytes=4``,
+    the SIMT kernel's ``CfgF32``): the same tiles in f32 and the [block_q,
+    block_k] f32 probability tile, with no barrier and no slack (cp.async
+    needs 16-byte alignment only), two K/V stages up to 128 columns and one
+    past it. No kernel takes another width; it is counted as 16-bit."""
     dp = sm90_padded_head_dim(d)
     if dtype_bytes == 4:
-        return 4 * (dp * (block_q + 2 * 2 * block_k) + block_q * block_k)
+        stages = 2 if dp <= 128 else 1
+        return 4 * (dp * (block_q + 2 * stages * block_k) + block_q * block_k)
+    if dp > 256:
+        return 2 * (dp * (block_q + block_k) + dp // 2 * block_k) + 128 + 1024
     return 2 * dp * (block_q + 2 * 2 * block_k) + 128 + 1024
 
 

@@ -35,8 +35,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # one library per source; the 16-bit kernels' templates are in the
 # ``.cuh`` headers, instantiated per dtype and width across the sources so
 # that no one nvcc carries them all
-SOURCES = ("flash_attention", "flash_attention_f16", "flash_attention_wide", "matmul",
-           "matmul_f16")
+SOURCES = ("flash_attention", "flash_attention_f16", "flash_attention_wide",
+           "flash_attention_chunked", "matmul", "matmul_f16")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -2,9 +2,9 @@
 // and f32: this library's entry points. The bf16 kernel is the 16-bit
 // kernel of flash_attention.cuh (its design and bound are described
 // there), instantiated for __nv_bfloat16; its f16 instantiations are in
-// flash_attention_f16.cu and both types' head dims 129-256 in
-// flash_attention_wide.cu, each a library of its own so that the build
-// compiles them in parallel.
+// flash_attention_f16.cu, both types' head dims 129-256 in
+// flash_attention_wide.cu and 257-512 in flash_attention_chunked.cu, each a
+// library of its own so that the build compiles them in parallel.
 //
 // Replaces the TPU kernel `_flash_kernel` (src/repro/kernels/flash_attention.py,
 // launched by `flash_attention_pallas`).
@@ -35,6 +35,14 @@
 //   stored.
 // - Shared memory: 4 * (DP * (BQ + 4 * BK) + BQ * BK) bytes, built at the
 //   (BQ, BK, DP) that fit one block's 232,448.
+// - Widths 192 and 256 (head dims 136-256): two stages fit at no block
+//   pair (262,144 B at (64, 64) and 192), so these builds keep one K/V
+//   stage, 4 * (DP * (BQ + 2 * BK) + BQ * BK) bytes, and tile i+1 is copied
+//   only once every warp is done with tile i: the copy no longer overlaps
+//   the products. BQ is 64: at BQ = 128 the block's 512 threads get at most
+//   128 registers each, (128, 64) at width 128 already takes 126, and 6 or
+//   8 accumulator columns a lane would spill. Built at (64, 64) at 192 and
+//   256 ((64, 128) needs 278,528 B at 192).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -66,11 +74,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <int BQ, int BK, int DP>
+template <int BQ, int BK, int DP, int ST = 2>
 struct CfgF32 {
   static_assert(BQ == 64 || BQ == 128, "BQ is 8 or 16 warps of 8 rows");
   static_assert(BK == 64 || BK == 128, "BK is 2 or 4 keys a lane");
-  static_assert(DP == 64 || DP == 128, "DP is 2 or 4 columns a lane");
+  static_assert(DP == 64 || DP == 128 || DP == 192 || DP == 256,
+                "DP is 2, 4, 6 or 8 columns a lane");
+  static_assert(ST == 1 || ST == 2, "one or two K/V stages");
+  static constexpr int kStages = ST;
   static constexpr int kRows = 8;                 // query rows a warp owns
   static constexpr int kThreads = 32 * BQ / kRows;
   static constexpr int kKJ = BK / 32;             // keys a lane owns
@@ -79,18 +90,18 @@ struct CfgF32 {
   // then P [BQ][BK]
   static constexpr int kKV = BK * DP;
   static constexpr int kKOff = BQ * DP;
-  static constexpr int kPOff = kKOff + 2 * 2 * kKV;
+  static constexpr int kPOff = kKOff + ST * 2 * kKV;
   static constexpr int kSmem = 4 * (kPOff + BQ * BK);
-  static_assert(kSmem == 4 * (DP * (BQ + 4 * BK) + BQ * BK), "the pickers' count");
+  static_assert(kSmem == 4 * (DP * (BQ + 2 * ST * BK) + BQ * BK), "the pickers' count");
   static_assert(kSmem <= 232448, "fits one block's shared memory");
 };
 
-template <int BQ, int BK, int DP>
-__global__ void __launch_bounds__(CfgF32<BQ, BK, DP>::kThreads, 1)
+template <int BQ, int BK, int DP, int ST>
+__global__ void __launch_bounds__(CfgF32<BQ, BK, DP, ST>::kThreads, 1)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o, int hq,
                          int hkv, int s, int d, float scale_log2, int causal) {
-  using C = CfgF32<BQ, BK, DP>;
+  using C = CfgF32<BQ, BK, DP, ST>;
   constexpr int R = C::kRows, KJ = C::kKJ, DJ = C::kDJ;
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
@@ -109,9 +120,9 @@ __global__ void __launch_bounds__(CfgF32<BQ, BK, DP>::kThreads, 1)
   const int tid = threadIdx.x;
   const int nc = d / 4;  // 16-byte chunks in a row
 
-  // V's columns d..DP-1 are never loaded: zero them once in both stages,
+  // V's columns d..DP-1 are never loaded: zero them once in every stage,
   // so the accumulator's columns past d stay zero
-  for (int st = 0; st < 2; ++st) {
+  for (int st = 0; st < ST; ++st) {
     for (int e = tid; e < BK * (DP - d); e += C::kThreads) {
       const int row = e / (DP - d);
       smem[v_off(st) + row * DP + d + e % (DP - d)] = 0.f;
@@ -131,13 +142,13 @@ __global__ void __launch_bounds__(CfgF32<BQ, BK, DP>::kThreads, 1)
     }
   };
   auto load_kv = [&](int i) {
-    load_rows(kh, i * BK, BK, k_off(i & 1), true);
-    load_rows(vh, i * BK, BK, v_off(i & 1), false);
+    load_rows(kh, i * BK, BK, k_off(i % ST), true);
+    load_rows(vh, i * BK, BK, v_off(i % ST), false);
   };
   load_rows(qh, q0, BQ, 0, false);
   load_kv(0);
   cp_async_commit();
-  if (n_tiles > 1) {
+  if (ST == 2 && n_tiles > 1) {
     load_kv(1);
     cp_async_commit();
   }
@@ -154,14 +165,14 @@ __global__ void __launch_bounds__(CfgF32<BQ, BK, DP>::kThreads, 1)
   }
 
   for (int i = 0; i < n_tiles; ++i) {
-    if (i + 1 < n_tiles) {
+    if (ST == 2 && i + 1 < n_tiles) {
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // tile i (and Q) landed for every thread's copies
-    const float* k_s = smem + k_off(i & 1);
-    const float* v_s = smem + v_off(i & 1);
+    const float* k_s = smem + k_off(i % ST);
+    const float* v_s = smem + v_off(i % ST);
 
     // S = Q K^T over the d columns: a float4 of Q (broadcast) against a
     // float4 of each of the lane's keys; chunk c of key row j lies at chunk
@@ -250,8 +261,8 @@ __global__ void __launch_bounds__(CfgF32<BQ, BK, DP>::kThreads, 1)
       }
     }
     __syncthreads();  // every warp is done with this stage (and its P)
-    if (i + 2 < n_tiles) {
-      load_kv(i + 2);
+    if (i + ST < n_tiles) {
+      load_kv(i + ST);
       cp_async_commit();
     }
   }
@@ -274,12 +285,12 @@ __global__ void __launch_bounds__(CfgF32<BQ, BK, DP>::kThreads, 1)
 
 // ------------------------------------------------------------------- host
 
-template <int BQ, int BK, int DP>
+template <int BQ, int BK, int DP, int ST>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int b,
                        int hq, int hkv, int s, int d, float scale, int causal,
                        cudaStream_t stream) {
-  using C = CfgF32<BQ, BK, DP>;
-  auto kern = flash_fwd_f32_kernel<BQ, BK, DP>;
+  using C = CfgF32<BQ, BK, DP, ST>;
+  auto kern = flash_fwd_f32_kernel<BQ, BK, DP, ST>;
   static bool raised[kMaxDevices] = {};
   cudaError_t err = raise_smem(kern, C::kSmem, raised);
   if (err != cudaSuccess) return err;
@@ -291,10 +302,18 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
-// f32, every (BQ, BK, DP) whose shared memory fits one block
+// f32, every (BQ, BK, DP) whose shared memory fits one block: two K/V
+// stages up to 128 columns, one past it, where BQ is 64 (registers)
 #define FLASH_F32_BUILT(X) \
   X(64, 64, 64) X(64, 128, 64) X(128, 64, 64) X(128, 128, 64) \
-  X(64, 64, 128) X(128, 64, 128)
+  X(64, 64, 128) X(128, 64, 128) \
+  X(64, 64, 192) X(64, 64, 256)
+
+// the K/V stages of the f32 build at padded width DP
+constexpr int f32_stages(int dp) { return dp > 128 ? 1 : 2; }
+
+// a head dim the f32 kernel takes: a multiple of 8 from 8 to 256
+inline bool f32_head_dim_ok(int d) { return d >= 8 && d <= 256 && d % 8 == 0; }
 
 }  // namespace
 
@@ -306,10 +325,10 @@ extern "C" int flash_attention_smem_bytes(int d, int block_q, int block_k) {
 
 // The same for the f32 kernel.
 extern "C" int flash_attention_f32_smem_bytes(int d, int block_q, int block_k) {
-  if (!head_dim_ok(d)) return -1;
+  if (!f32_head_dim_ok(d)) return -1;
 #define FLASH_SMEM_F32(BQ_, BK_, DP_)                           \
   if (padded(d) == DP_ && block_q == BQ_ && block_k == BK_) \
-    return CfgF32<BQ_, BK_, DP_>::kSmem;
+    return CfgF32<BQ_, BK_, DP_, f32_stages(DP_)>::kSmem;
   FLASH_F32_BUILT(FLASH_SMEM_F32)
 #undef FLASH_SMEM_F32
   return -1;
@@ -327,19 +346,21 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
                           stream);
 }
 
-// The same in f32 (q, k, v, o float32), for the (block_q, block_k) that
-// FLASH_F32_BUILT holds at d's padded width.
+// The same in f32 (q, k, v, o float32; d a multiple of 8 from 8 to 256),
+// for the (block_q, block_k) that FLASH_F32_BUILT holds at d's padded
+// width.
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                                        void* o, int b, int hq, int hkv, int s, int d,
                                        int block_q, int block_k, float scale,
                                        int causal, void* stream) {
-  if (b <= 0 || hq <= 0 || hkv <= 0 || s <= 0 || hq % hkv != 0 || !head_dim_ok(d)) {
+  if (b <= 0 || hq <= 0 || hkv <= 0 || s <= 0 || hq % hkv != 0 || !f32_head_dim_ok(d)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE_F32(BQ_, BK_, DP_)                                         \
-  if (padded(d) == DP_ && block_q == BQ_ && block_k == BK_)                   \
-    return launch_f32<BQ_, BK_, DP_>(q, k, v, o, b, hq, hkv, s, d, scale, causal, st);
+#define FLASH_CASE_F32(BQ_, BK_, DP_)                                            \
+  if (padded(d) == DP_ && block_q == BQ_ && block_k == BK_)                      \
+    return launch_f32<BQ_, BK_, DP_, f32_stages(DP_)>(q, k, v, o, b, hq, hkv, s, d, \
+                                                      scale, causal, st);
   FLASH_F32_BUILT(FLASH_CASE_F32)
 #undef FLASH_CASE_F32
   return cudaErrorInvalidValue;

@@ -5,7 +5,8 @@
 // the build compiles them in parallel (one nvcc per source):
 // flash_attention.cu bf16 at head dims up to 128 (beside the f32 kernel),
 // flash_attention_f16.cu the same in f16, flash_attention_wide.cu both
-// types at head dims 129-256.
+// types at head dims 129-256, flash_attention_chunked.cu both types at head
+// dims 257-512.
 //
 // Replaces the TPU kernel `_flash_kernel` (src/repro/kernels/flash_attention.py,
 // launched by `flash_attention_pallas`). The TPU kernel walks a sequential
@@ -76,6 +77,20 @@
 //   one block's 232,448: (64, 64), (64, 128) and (128, 64) at 192, (64, 64)
 //   and (128, 64) at 256. With BQ = 128 the two consumer warpgroups need
 //   `setmaxnreg`'s 240 registers to hold them without a spill.
+// - Past 256 columns the accumulator is what bounds the kernel: a 64-row
+//   warpgroup holds at most a 64 x 256 f32 accumulator (128 registers a
+//   thread). Widths 384 and 512 (head dims 264-512, padded to whole
+//   128-column pairs of atoms) split the output's columns into two chunks
+//   of VW = DP / 2 (192 or 256), one per blockIdx.z: each block stages Q
+//   and K at the full width, computes S = Q K^T over all of it and its own
+//   softmax (the same scores in both chunks, so the same statistics), and
+//   multiplies P by its chunk of V (TMA boxes from column blockIdx.z * VW;
+//   those past d are zero fill). Q K^T is repeated once per chunk: at
+//   DP = 512 the forward does 1.5x its work. One K/V stage: two do not
+//   fit ((64, 64) at 512 would need 256 KiB), so the next tile's loads
+//   wait for this tile's products. Shared memory 2*(DP*(BQ + BK) +
+//   VW*BK) + 1152 bytes: built at (64, 64), (64, 128), (128, 64) at 384
+//   and (64, 64), (128, 64) at 512.
 //
 // Layout: q [B*Hq, S, D], k/v [B*Hkv, S, D], o [B*Hq, S, D], all contiguous.
 // Block (h, .) reads KV row (h / Hq) * Hkv + (h % Hq) / (Hq / Hkv).
@@ -94,28 +109,39 @@ using namespace hopper;
 
 constexpr float kNegInf = -1e30f;  // the reference's mask value
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kStages = 2;
 constexpr int kAtomBytes = 128;  // one swizzled row: 64 16-bit elements
 constexpr int kMaxDevices = 64;
 
-// D is a built head dim, or 0: any head dim d <= DP, passed at run time
-template <int BQ, int BK, int D, int DP = (D + 63) / 64 * 64>
+// D is a built head dim, or 0: any head dim d <= DP, passed at run time.
+// VW is the width of the V tile and of the accumulator one block holds:
+// DP, or past 256 columns half of it, the output's columns in DP / VW
+// chunks, one per blockIdx.z. ST is the number of K/V stages.
+template <int BQ, int BK, int D, int DP = (D + 63) / 64 * 64, int VW = DP, int ST = 2>
 struct Cfg {
   static_assert(BQ == 64 || BQ == 128, "BQ is one or two warpgroups of 64 rows");
   static_assert(BK == 64 || BK == 128, "BK is the N of an m64nBKk16 wgmma");
   static_assert(D == 64 || D == 80 || D == 128 || D == 0, "D is a built head dim or 0");
-  static_assert(DP == 64 || DP == 128 || DP == 192 || DP == 256,
-                "DP is one to four 64-column atoms");
+  static_assert(DP == 64 || DP == 128 || DP == 192 || DP == 256 || DP == 384 || DP == 512,
+                "DP is whole 64-column atoms, past 256 two chunks of whole atoms");
   static_assert(D == 0 || DP == (D + 63) / 64 * 64, "a built D is padded to whole atoms");
+  static_assert(VW == DP || (DP > 256 && 2 * VW == DP),
+                "the accumulator is the whole width, or past 256 one of two chunks");
+  static_assert(VW <= 256, "a 64-row warpgroup holds at most a 64 x 256 f32 accumulator");
+  static_assert(ST == 1 || ST == 2, "one or two K/V stages");
   static constexpr int kConsumers = BQ / 64;              // consumer warpgroups
   static constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
   static constexpr int kDP = DP;                  // D padded to whole atoms
-  static constexpr int kCols = kDP / 64;           // atoms per row
+  static constexpr int kCols = kDP / 64;           // atoms per Q or K row
+  static constexpr int kVW = VW;                   // V and accumulator columns
+  static constexpr int kVCols = VW / 64;           // atoms per V row
+  static constexpr int kChunks = DP / VW;          // blocks per (head, q-tile)
+  static constexpr int kStages = ST;
   // whole boxes, out-of-bounds fill included: what TMA completes per tile
   static constexpr int kQBytes = BQ * kDP * 2;
-  static constexpr int kKVBytes = BK * kDP * 2;  // one K or one V tile
+  static constexpr int kKBytes = BK * kDP * 2;  // one K tile
+  static constexpr int kVBytes = BK * VW * 2;   // one V tile (chunk)
   static constexpr int kKOff = kQBytes;        // stage st: K, then V
-  static constexpr int kBarOff = kQBytes + kStages * 2 * kKVBytes;
+  static constexpr int kBarOff = kQBytes + ST * (kKBytes + kVBytes);
   // barriers at kBarOff: q_full and a full and an empty barrier for each
   // stage's K and V (8 B each, 128 B reserved), and 1024 B of slack to
   // align the tiles' base to the swizzle period
@@ -149,24 +175,27 @@ __device__ __forceinline__ void scale_scores(float (&sc)[BK / 2], float scale_lo
   }
 }
 
-template <typename T, int BQ, int BK, int D, int DP>
-__global__ void __launch_bounds__(Cfg<BQ, BK, D, DP>::kThreads, 1)
+template <typename T, int BQ, int BK, int D, int DP, int VW, int ST>
+__global__ void __launch_bounds__(Cfg<BQ, BK, D, DP, VW, ST>::kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            T* __restrict__ o, int hq, int hkv, int s, int d,
                            float scale_log2, int causal) {
-  using C = Cfg<BQ, BK, D, DP>;
+  using C = Cfg<BQ, BK, D, DP, VW, ST>;
+  constexpr int kStages = C::kStages;
   // the head dim: the built one, or the run-time d of a generic build
   const int dd = D > 0 ? D : d;
+  // the first output column of this block's chunk (0 but past 256 columns)
+  const int col0 = blockIdx.z * C::kVW;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
   // barriers: q_full, then per stage full_k, full_v, empty_k, empty_v
   const uint32_t bar_q = base + C::kBarOff;
   auto bar = [&](int kind, int st) { return bar_q + 8u * (1 + kind * kStages + st); };
-  auto k_s = [&](int st) { return base + C::kKOff + st * 2u * C::kKVBytes; };
-  auto v_s = [&](int st) { return k_s(st) + C::kKVBytes; };
+  auto k_s = [&](int st) { return base + C::kKOff + st * (C::kKBytes + C::kVBytes); };
+  auto v_s = [&](int st) { return k_s(st) + C::kKBytes; };
   constexpr int kFullK = 0, kFullV = 1, kEmptyK = 2, kEmptyV = 3;
 
   const int h = blockIdx.x;
@@ -203,18 +232,18 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D, DP>::kThreads, 1)
         // K, then V, each once the consumers released tile i - kStages' copy
         const uint32_t parity = ((i / kStages) - 1) & 1;
         if (i >= kStages) mbar_wait(bar(kEmptyK, st), parity);
-        mbar_arrive_expect_tx(bar(kFullK, st), C::kKVBytes);
+        mbar_arrive_expect_tx(bar(kFullK, st), C::kKBytes);
 #pragma unroll
         for (int c = 0; c < C::kCols; ++c) {
           tma_load_3d(k_s(st) + c * BK * kAtomBytes, &tk, bar(kFullK, st), c * 64, i * BK,
                       kvrow);
         }
         if (i >= kStages) mbar_wait(bar(kEmptyV, st), parity);
-        mbar_arrive_expect_tx(bar(kFullV, st), C::kKVBytes);
+        mbar_arrive_expect_tx(bar(kFullV, st), C::kVBytes);
 #pragma unroll
-        for (int c = 0; c < C::kCols; ++c) {
-          tma_load_3d(v_s(st) + c * BK * kAtomBytes, &tv, bar(kFullV, st), c * 64, i * BK,
-                      kvrow);
+        for (int c = 0; c < C::kVCols; ++c) {
+          tma_load_3d(v_s(st) + c * BK * kAtomBytes, &tv, bar(kFullV, st), col0 + c * 64,
+                      i * BK, kvrow);
         }
       }
     }
@@ -228,9 +257,9 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D, DP>::kThreads, 1)
     const int wg_row_min = q0 + wg * 64;
     const uint32_t q_wg = q_s + wg * 64 * kAtomBytes;
 
-    float acc[C::kDP / 2];  // columns D..kDP-1 stay zero (V's fill)
+    float acc[C::kVW / 2];  // columns past D stay zero (V's fill)
 #pragma unroll
-    for (int i = 0; i < C::kDP / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < C::kVW / 2; ++i) acc[i] = 0.f;
     uint32_t pf[BK / 16][4];           // P of the previous tile as T A fragments
     float m0 = kNegInf, m1 = kNegInf;  // running max (log2 domain) of row0, row0+8
     float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
@@ -238,12 +267,34 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D, DP>::kThreads, 1)
     // S = Q K^T of tile i: D/16 k-steps (the zero fill past D adds nothing),
     // step kk 32 bytes into column atom kk/4
     auto issue_s = [&](int i, float (&sc)[BK / 2]) {
+      if constexpr (DP > 256) {
+        // past 256 columns, with one K stage, every k-step's Q and K
+        // descriptor is the same in every tile: hoisted out of the tile
+        // loop they would hold 2 x DP/16 64-bit registers beside the 64 x
+        // 256 accumulator. An opaque copy of the two base descriptors per
+        // tile keeps them in the loop, one add each per k-step (a
+        // descriptor's address field is the byte address >> 4).
+        uint64_t dq = smem_desc_sw128(q_wg, 16, 1024);
+        uint64_t dk = smem_desc_sw128(k_s(i % kStages), 16, 1024);
+        asm volatile("" : "+l"(dq), "+l"(dk));
 #pragma unroll
-      for (int kk = 0; kk < (D > 0 ? D : DP) / 16; ++kk) {
-        const uint32_t a = q_wg + (kk / 4) * BQ * kAtomBytes + (kk % 4) * 32;
-        const uint32_t b = k_s(i % kStages) + (kk / 4) * BK * kAtomBytes + (kk % 4) * 32;
-        wgmma_ss<T, BK, 0>(sc, smem_desc_sw128(a, 16, 1024), smem_desc_sw128(b, 16, 1024),
-                        kk > 0);
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint64_t step = (kk % 4) * 32 / 16;
+          wgmma_ss<T, BK, 0>(sc, dq + (kk / 4) * (BQ * kAtomBytes / 16) + step,
+                             dk + (kk / 4) * (BK * kAtomBytes / 16) + step, kk > 0);
+        }
+      } else {
+        // up to 256 columns the descriptors are made per k-step as before:
+        // the opaque form above, used here too, computed the same outputs
+        // bit for bit but took 1.016x the time at D 128 and 1.005-1.009x
+        // at D 64 (0.993x at D 80; repro_torch.benchmarks.flash_ab, H100)
+#pragma unroll
+        for (int kk = 0; kk < (D > 0 ? D : DP) / 16; ++kk) {
+          const uint32_t a = q_wg + (kk / 4) * BQ * kAtomBytes + (kk % 4) * 32;
+          const uint32_t b = k_s(i % kStages) + (kk / 4) * BK * kAtomBytes + (kk % 4) * 32;
+          wgmma_ss<T, BK, 0>(sc, smem_desc_sw128(a, 16, 1024), smem_desc_sw128(b, 16, 1024),
+                          kk > 0);
+        }
       }
     };
     // O += P V of tile i: V is [BK keys][D], MN-major here; step kk starts 16
@@ -251,7 +302,7 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D, DP>::kThreads, 1)
     auto issue_pv = [&](int i) {
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        wgmma_rs<T, C::kDP, 1>(acc, pf[kk],
+        wgmma_rs<T, C::kVW, 1>(acc, pf[kk],
                               smem_desc_sw128(v_s(i % kStages) + kk * 16 * kAtomBytes,
                                               BK * kAtomBytes, 1024),
                               1);
@@ -302,7 +353,7 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D, DP>::kThreads, 1)
     // p to v's dtype before p.v)
     auto rescale_and_pack = [&](const float (&sc)[BK / 2], float c0, float c1) {
 #pragma unroll
-      for (int j = 0; j < (D > 0 ? D : DP) / 8; ++j) {
+      for (int j = 0; j < (D > 0 ? D : VW) / 8; ++j) {
         acc[4 * j] *= c0;
         acc[4 * j + 1] *= c0;
         acc[4 * j + 2] *= c1;
@@ -319,7 +370,7 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D, DP>::kThreads, 1)
     };
     auto fence_acc_and_p = [&]() {
 #pragma unroll
-      for (int j = 0; j < C::kDP / 2; ++j) fence_operand(acc[j]);
+      for (int j = 0; j < C::kVW / 2; ++j) fence_operand(acc[j]);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
@@ -392,11 +443,12 @@ __global__ void __launch_bounds__(Cfg<BQ, BK, D, DP>::kThreads, 1)
     const float d0 = fmaxf(l0, 1e-30f);
     const float d1 = fmaxf(l1, 1e-30f);
     // the real D columns only, at row stride D (a generic build: a
-    // run-time guard, col < d; d is even, so col + 1 < d too)
+    // run-time guard, col < d; d is even, so col + 1 < d too); past 256
+    // columns this block's chunk, from column col0
     T* oh = o + (size_t)h * s * dd;
 #pragma unroll
-    for (int j = 0; j < (D > 0 ? D : DP) / 8; ++j) {
-      const int col = 8 * j + 2 * t;
+    for (int j = 0; j < (D > 0 ? D : VW) / 8; ++j) {
+      const int col = col0 + 8 * j + 2 * t;
       if (D == 0 && col >= dd) continue;
       if (row0 < s) {
         *reinterpret_cast<uint32_t*>(oh + (size_t)row0 * dd + col) =
@@ -427,11 +479,12 @@ cudaError_t raise_smem(K kern, int bytes, bool (&raised)[kMaxDevices]) {
   return cudaSuccess;
 }
 
-template <typename T, int BQ, int BK, int D, int DP = (D + 63) / 64 * 64>
+template <typename T, int BQ, int BK, int D, int DP = (D + 63) / 64 * 64, int VW = DP,
+          int ST = 2>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int hq,
                    int hkv, int s, int d, float scale, int causal, cudaStream_t stream) {
-  using C = Cfg<BQ, BK, D, DP>;
-  auto kern = flash_fwd_wgmma_kernel<T, BQ, BK, D, DP>;
+  using C = Cfg<BQ, BK, D, DP, VW, ST>;
+  auto kern = flash_fwd_wgmma_kernel<T, BQ, BK, D, DP, VW, ST>;
   static bool raised[kMaxDevices] = {};
   cudaError_t err = raise_smem(kern, C::kSmem, raised);
   if (err != cudaSuccess) return err;
@@ -440,7 +493,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
       !make_map<T>(&tv, v, b * hkv, s, d, BK)) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid(b * hq, (s + BQ - 1) / BQ);
+  const dim3 grid(b * hq, (s + BQ - 1) / BQ, C::kChunks);
   kern<<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, static_cast<T*>(o), hq,
                                                 hkv, s, d, scale * kLog2e, causal);
   return cudaGetLastError();

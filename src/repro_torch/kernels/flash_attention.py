@@ -5,20 +5,33 @@ Replaces the TPU kernel ``_flash_kernel`` of
 ``src/repro/kernels/flash_attention.py`` (``flash_attention_pallas``). The
 16-bit kernel is ``csrc/flash_attention.cuh``: one thread block per
 (batch*q-head, q-tile), a producer warp that streams K/V tiles with TMA
-through a ring of two shared-memory stages, and one or two consumer
-warpgroups of 64 query rows whose products are ``wgmma`` (bf16 or f16 in,
-f32 accumulation). Head dims 64, 80 and 128 have instantiations of their
-own; any other head dim the kernels take (``supports_head_dim``: a multiple
-of 8 from 8 to 256 in bf16 and f16, to 128 in f32) runs a generic build of
-its padded width, 64, 128, 192 or 256 columns (``padded_head_dim``: 80 is
-staged at 128 too), with the head dim passed at run time. f32 tensors
-launch a second kernel, ``flash_attention_fwd_f32``: SIMT, true f32
-products by FFMA, K/V tiles double-buffered with cp.async. Each dtype and
-width is built at the blocks whose shared memory fits one block
-(``built``). The instantiations are split over three libraries, one nvcc
+through a ring of shared-memory stages, and one or two consumer warpgroups
+of 64 query rows whose products are ``wgmma`` (bf16 or f16 in, f32
+accumulation). Head dims 64, 80 and 128 have instantiations of their own;
+every other head dim runs a generic build of its padded width
+(``padded_head_dim``): 64, 128, 192 or 256 columns, and past 256 columns
+384 or 512, whose output columns are computed in two chunks of 192 or 256
+by two blocks that each repeat Q Kᵀ (a 64-row warpgroup holds at most a
+64 x 256 f32 accumulator). f32 tensors launch a second kernel,
+``flash_attention_fwd_f32``: SIMT, true f32 products by FFMA, K/V tiles
+copied with cp.async, two stages up to 128 columns and one past it. Each
+dtype and width is built at the blocks whose shared memory fits one block
+(``built``). The instantiations are split over four libraries, one nvcc
 each, built in parallel (``SOURCE``): bf16 up to 128 with f32, f16 up to
-128, and both 16-bit types past 128. The sources say what bounds each
-kernel on the H100 and what the design does about it.
+128, both 16-bit types at 129-256 and at 257-512. The sources say what
+bounds each kernel on the H100 and what the design does about it.
+
+What launches: in bf16 and f16 every head dim from 1 to 512, in f32 from 1
+to 256 (``MAX_HEAD_DIM``, ``supports_head_dim``). A kernel runs head dims
+that are a multiple of 8 (TMA's 16-byte row stride in 16 bits); any other
+head dim, and an operand that is not contiguous or not 16-byte aligned, is
+staged first (``kernels/stage.py``): q, k and v are copied, zero-padded
+along D to the next multiple of 8 (``staged_head_dim``), the kernel runs
+at that width with the caller's scale (the real D's ``D ** -0.5`` by
+default), and the output's first D columns are copied back out. Zero columns add nothing to Q Kᵀ, and V's zero columns only fill
+the dropped output columns. What still raises, with no launch: f64 and
+other dtypes, q, k and v of mixed dtypes, blocks that are not built, and
+head dims past the ceiling.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors, and for nothing else: on a CUDA
@@ -36,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -44,6 +57,7 @@ from repro_torch.core.zoo import (SM90_FLASH_BLOCKS, sm90_flash_smem_bytes,
                                   sm90_padded_head_dim)
 from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.kernels import build
+from repro_torch.kernels import stage
 from repro_torch.spans import span
 
 _NEG_INF = -1e30
@@ -51,25 +65,34 @@ _NEG_INF = -1e30
 # dim that ``supports_head_dim`` admits runs the generic build of its
 # padded width (one of PADDED_WIDTHS)
 HEAD_DIMS = (64, 80, 128)
-PADDED_WIDTHS = (64, 128, 192, 256)
-# the largest head dim each dtype's kernel takes: the f32 kernel's tiles
-# (and its probability tile) fit one block's shared memory only up to 128
-MAX_HEAD_DIM = {torch.bfloat16: 256, torch.float16: 256, torch.float32: 128}
-# head dims past this run the wide builds (padded widths 192 and 256)
-NARROW = 128
+PADDED_WIDTHS = (64, 128, 192, 256, 384, 512)
+# The largest head dim each dtype's kernel takes. 16 bits: past 256 the
+# output's columns run in two chunks of at most 256 (a 64-row warpgroup
+# holds at most a 64 x 256 f32 accumulator), and at 512 one stage of Q, K
+# and a 256-wide V chunk is what fits one block's shared memory at (64,
+# 64) and (128, 64). f32: the SIMT kernel's Q, one K/V stage and its
+# probability tile fit one block up to 256 columns.
+MAX_HEAD_DIM = {torch.bfloat16: 512, torch.float16: 512, torch.float32: 256}
+# head dims (staged) past NARROW run the wide builds (padded widths 192 and
+# 256), past WIDE the chunked ones (384 and 512)
+NARROW, WIDE = 128, 256
 # the kernels' entry points by input dtype (q, k and v alike), at head dims
-# up to NARROW and past it
+# up to NARROW, up to WIDE and past it
 ENTRY = {torch.bfloat16: "flash_attention_fwd_bf16",
          torch.float16: "flash_attention_fwd_f16",
          torch.float32: "flash_attention_fwd_f32"}
 WIDE_ENTRY = {torch.bfloat16: "flash_attention_wide_fwd_bf16",
               torch.float16: "flash_attention_wide_fwd_f16"}
+CHUNKED_ENTRY = {torch.bfloat16: "flash_attention_chunked_fwd_bf16",
+                 torch.float16: "flash_attention_chunked_fwd_f16"}
 # the library (a csrc source) each entry point is in
 SOURCE = {"flash_attention_fwd_bf16": "flash_attention",
           "flash_attention_fwd_f32": "flash_attention",
           "flash_attention_fwd_f16": "flash_attention_f16",
           "flash_attention_wide_fwd_bf16": "flash_attention_wide",
-          "flash_attention_wide_fwd_f16": "flash_attention_wide"}
+          "flash_attention_wide_fwd_f16": "flash_attention_wide",
+          "flash_attention_chunked_fwd_bf16": "flash_attention_chunked",
+          "flash_attention_chunked_fwd_f16": "flash_attention_chunked"}
 # block_q / block_k values the kernel is built for (the knobs of the
 # ``flash`` family's ``sm90`` space)
 BLOCKS = SM90_FLASH_BLOCKS
@@ -80,6 +103,11 @@ BLOCKS = SM90_FLASH_BLOCKS
 LAUNCHES = 0
 LAUNCHES_F32 = 0
 LAUNCHES_F16 = 0
+# the same launches per build (``build_of``): which entry point and, in
+# f32, which instantiation ran; reset with the rest
+BUILDS = ("flash_attention", "flash_attention_f16", "flash_attention_f32",
+          "flash_attention_f32_wide", "flash_attention_wide", "flash_attention_chunked")
+BUILD_LAUNCHES: Dict[str, int] = {name: 0 for name in BUILDS}
 
 # the width the kernel stages a head dim at, and its dynamic shared memory
 # at given blocks (the block picker's pruning): one definition, in core
@@ -88,28 +116,61 @@ smem_bytes = sm90_flash_smem_bytes
 
 
 def supports_head_dim(d: int, dtype: torch.dtype) -> bool:
-    """The head dims the kernels take in ``dtype``: a multiple of 8 (TMA's
-    16-byte row stride in 16 bits) from 8 to 256 in bf16 and f16, to 128 in
-    f32. Anything else raises without a launch."""
-    return dtype in MAX_HEAD_DIM and 8 <= d <= MAX_HEAD_DIM[dtype] and d % 8 == 0
+    """The head dims the wrapper takes in ``dtype``: 1 to 512 in bf16 and
+    f16, 1 to 256 in f32 (``MAX_HEAD_DIM``); one that is not a multiple of
+    8 is staged (``staged_head_dim``). Anything else raises without a
+    launch."""
+    return dtype in MAX_HEAD_DIM and 1 <= d <= MAX_HEAD_DIM[dtype]
+
+
+def staged_head_dim(d: int) -> int:
+    """The head dim the kernel runs ``d`` at: the next multiple of 8 (TMA's
+    16-byte row stride in 16 bits; the kernels take multiples of 8 in f32
+    too), the columns past ``d`` zero."""
+    return -(-d // 8) * 8
 
 
 def entry_for(dtype: torch.dtype, d: int) -> str:
     """The entry point that runs ``dtype`` at head dim ``d``."""
-    return WIDE_ENTRY[dtype] if d > NARROW else ENTRY[dtype]
+    d = staged_head_dim(d)
+    if dtype == torch.float32 or d <= NARROW:
+        return ENTRY[dtype]
+    return (WIDE_ENTRY if d <= WIDE else CHUNKED_ENTRY)[dtype]
+
+
+def build_of(dtype: torch.dtype, d: int) -> str:
+    """The build (one of ``BUILDS``) that runs ``dtype`` at head dim ``d``:
+    the entry point's library, with f32's one-stage instantiations past
+    NARROW apart (``flash_attention_f32_wide``) and both 16-bit types under
+    one name past it."""
+    if dtype == torch.float32:
+        return "flash_attention_f32_wide" if staged_head_dim(d) > NARROW else "flash_attention_f32"
+    return SOURCE[entry_for(dtype, d)]
+
+
+def fits(block_q: int, block_k: int, d: int, size: int) -> bool:
+    """Whether the kernel of ``size``-byte elements is built at these
+    blocks for head dim ``d``: its shared memory at d's padded width (in
+    f32 the probability tile included) fits one H100 block, and in f32 past
+    128 columns block_q is 64 (at 128 the SIMT kernel's 512 threads get at
+    most 128 registers each, too few for 6 or 8 accumulator columns a
+    lane). The block picker prunes with it."""
+    if size == 4 and padded_head_dim(d) > 128 and block_q != 64:
+        return False
+    return smem_bytes(block_q, block_k, d, size) <= GPU_H100.fast_mem_bytes
 
 
 def built(block_q: int, block_k: int, d: int, dtype: torch.dtype) -> bool:
     """Whether a kernel is built for head dim ``d`` at these blocks in
-    ``dtype``: where its shared memory at d's padded width (in f32 the
-    probability tile included) fits one H100 block, the count the block
-    picker prunes with. In bf16 and f16 that is every block pair of BLOCKS
-    up to 128 columns, three at 192 and two at 256."""
+    ``dtype`` (``fits`` at the staged head dim). In bf16 and f16 that is
+    every block pair of BLOCKS up to 128 columns, three at 192 and at 384,
+    two at 256 and at 512; in f32 four up to 64 columns, two at 128, one at
+    192 and at 256."""
     if (not supports_head_dim(d, dtype) or block_q not in BLOCKS
             or block_k not in BLOCKS):
         return False
     size = torch.empty((), dtype=dtype).element_size()
-    return smem_bytes(block_q, block_k, d, size) <= GPU_H100.fast_mem_bytes
+    return fits(block_q, block_k, staged_head_dim(d), size)
 
 
 def _check_shapes(q, k, v) -> None:
@@ -284,15 +345,13 @@ def kernel_smem_bytes(block_q: int, block_k: int, d: int,
     dim d at (block_q, block_k) in ``dtype`` with; -1 where none is built.
     Loads (and if needed builds) the library that would run it: for checks
     on the card."""
-    wide = d > NARROW and dtype in WIDE_ENTRY
-    name = ("flash_attention_wide_smem_bytes" if wide else
-            {torch.bfloat16: "flash_attention_smem_bytes",
-             torch.float16: "flash_attention_f16_smem_bytes",
-             torch.float32: "flash_attention_f32_smem_bytes"}[dtype])
-    fn = getattr(build.load(SOURCE[WIDE_ENTRY[dtype] if wide else ENTRY[dtype]]), name)
+    entry = entry_for(dtype, d)
+    name = ("flash_attention_f32_smem_bytes" if dtype == torch.float32
+            else SOURCE[entry] + "_smem_bytes")
+    fn = getattr(build.load(SOURCE[entry]), name)
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
-    return fn(d, block_q, block_k)
+    return fn(staged_head_dim(d), block_q, block_k)
 
 
 def _launch(q, k, v, causal: bool, scale: float, block_q: int,
@@ -306,12 +365,12 @@ def _launch(q, k, v, causal: bool, scale: float, block_q: int,
         if t.dtype not in ENTRY or t.dtype != q.dtype:
             raise TypeError(f"the flash kernels take bfloat16, float16 or float32, "
                             f"q, k and v alike; {name} is {t.dtype}, q {q.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if not supports_head_dim(d, q.dtype):
-        raise ValueError(f"the flash kernels take head dims that are multiples "
-                         f"of 8 from 8 to {MAX_HEAD_DIM[q.dtype]} in {q.dtype}, "
-                         f"not {d}")
+        what = ("Q, one K/V stage and the probability tile in f32"
+                if q.dtype == torch.float32 else "Q, K and one 256-column V chunk")
+        raise ValueError(f"the flash kernels take head dims from 1 to "
+                         f"{MAX_HEAD_DIM[q.dtype]} in {q.dtype}, not {d}: past it "
+                         f"{what} no longer fit one block's shared memory")
     if not built(block_q, block_k, d, q.dtype):
         raise ValueError(f"blocks ({block_q}, {block_k}) are not built for "
                          f"{q.dtype} at head dim {d}: of {BLOCKS} x {BLOCKS}, "
@@ -319,10 +378,15 @@ def _launch(q, k, v, causal: bool, scale: float, block_q: int,
     if -(-s // block_q) > 65535:
         raise ValueError(f"{-(-s // block_q)} q-tiles exceed the grid's y extent")
     fn = _kernel(entry_for(q.dtype, d))
-    o = torch.empty_like(q)
+    # an operand TMA cannot address as it is goes through an aligned copy,
+    # zero-padded to the staged head dim; the fast path copies nothing
+    dk = staged_head_dim(d)
+    q, k, v = stage.stage("flash_attention", (q, k, v),
+                          ((b, hq, s, dk), (b, hkv, s, dk), (b, hkv, s, dk)))
+    o = torch.empty((b, hq, s, dk), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 b, hq, hkv, s, d, block_q, block_k, scale, int(causal),
+                 b, hq, hkv, s, dk, block_q, block_k, scale, int(causal),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError_t {err}")
@@ -332,7 +396,8 @@ def _launch(q, k, v, causal: bool, scale: float, block_q: int,
         LAUNCHES_F16 += 1
     else:
         LAUNCHES += 1
-    return o
+    BUILD_LAUNCHES[build_of(q.dtype, d)] += 1
+    return stage.unstaged("flash_attention", o, d)
 
 
 def flash_attention(

@@ -31,9 +31,21 @@ results: the reference asserts that each clamped block divides its
 dimension, so (64, 64, 64) at M = 100 runs here and is refused there. A
 Hopper kernel with 64-row wgmma tiles cannot offer the reference's 8-row
 blocks, and a ragged tile is how it covers the reference's shapes (M = 8,
-M = 96, K = 80). The launch refuses N or K that TMA cannot address: its
-global row stride must be a multiple of 16 bytes, so N and K are multiples
-of 8 in bf16 and f16 and of 4 in f32.
+M = 96, K = 80).
+
+Every N and K launches. TMA's global row stride must be a multiple of 16
+bytes, so the kernels take N and K that are multiples of 8 in bf16 and f16
+and of 4 in f32, contiguous and 16-byte aligned. An operand that breaks
+one of these (K = 100 in bf16, a transposed B, a view at an odd offset) is
+staged first (``kernels/stage.py``): A is copied into [M, K'] and B into
+[K', N'], K' and N' the next aligned sizes, zero-padded (zero columns of A
+meet zero rows of B), the tiles are resolved at the real shape, the kernel
+writes a padded [M, N'] buffer, and its first N columns are copied out as
+the result. The epilogue stores T pairs, which at an odd N would be
+misaligned at stride N, so it is not asked to store at the real stride. What still raises, with no launch: f64 and other dtypes, A and
+B of mixed dtypes (the reference's ``matmul_pallas`` takes bf16 A with f32
+B and returns bf16; no caller of the port does), and blocks that are not
+built.
 """
 from __future__ import annotations
 
@@ -45,7 +57,7 @@ import torch
 
 from repro_torch.core.spaces import SM90_MATMUL_TILES, sm90_matmul_smem_bytes
 from repro_torch.hw.gpu_h100 import GPU_H100
-from repro_torch.kernels import build
+from repro_torch.kernels import build, stage
 
 BLOCKS = SM90_MATMUL_TILES  # bm / bn / bk values the kernel is built for
 # shared memory of one stage: the A and B tiles, unpadded (the C tile stays
@@ -171,21 +183,21 @@ def _launch(x, y, bm: int, bn: int, bk: int,
         if t.dtype not in ENTRY or t.dtype != x.dtype:
             raise TypeError(f"the matmul kernels take bfloat16, float16 or float32, "
                             f"A and B alike; {name} is {t.dtype}, A {x.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if (n * x.element_size()) % 16 or (k * x.element_size()) % 16:
-        raise ValueError(f"N={n} and K={k} must be multiples of "
-                         f"{16 // x.element_size()} in {x.dtype}: TMA's global row "
-                         f"stride is a multiple of 16 bytes")
+    # the tiles at the real shape, as the caller's picker saw it
     bm, bn, bk = resolve_blocks(m, n, k, bm, bn, bk)
     if not built(bm, bn, bk, double_buffer, x.dtype):
         raise ValueError(f"({bm}, {bn}, {bk}) with {2 if double_buffer else 1} "
                          f"stages is not built for {x.dtype}: its stages exceed "
                          f"one block's shared memory")
     fn = _kernel(ENTRY[x.dtype])
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    # N and K at TMA's 16-byte row stride; an operand off it, or not
+    # contiguous or aligned, goes through a zero-padded copy (none on the
+    # fast path)
+    kp, np_ = (stage.aligned_cols(v, x.element_size()) for v in (k, n))
+    x, y = stage.stage("matmul", (x, y), ((m, kp), (kp, np_)))
+    out = torch.empty((m, np_), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k, bm, bn,
+        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, np_, kp, bm, bn,
                  bk, int(double_buffer),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -196,7 +208,7 @@ def _launch(x, y, bm: int, bn: int, bk: int,
         LAUNCHES_F16 += 1
     else:
         LAUNCHES += 1
-    return out
+    return stage.unstaged("matmul", out, n)
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int, bn: int, bk: int,

@@ -34,7 +34,7 @@ from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import flash_attention as _flash_mod
 from repro_torch.kernels import matmul as _matmul_mod
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, stage
 from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention,
                                                 padded_head_dim, smem_bytes)
 
@@ -97,11 +97,35 @@ def launch_counts() -> Dict[str, int]:
             "matmul_f16": _matmul_mod.LAUNCHES_F16}
 
 
+def build_launch_counts() -> Dict[str, int]:
+    """The flash launches of ``launch_counts`` per build that ran them
+    (``flash_attention.build_of``): the narrow bf16, f16 and f32 builds,
+    f32's one-stage build past 128 columns, and the 16-bit wide (129-256)
+    and chunked (257-512) builds, bf16 and f16 together."""
+    return dict(_flash_mod.BUILD_LAUNCHES)
+
+
+def stage_counts() -> Dict[str, Dict[str, int]]:
+    """Per kernel family, the launches that first copied an operand into an
+    aligned, zero-padded buffer (``kernels/stage.py``: a head dim or an N or
+    K that TMA cannot step, a non-contiguous or misaligned operand) and the
+    bytes of the buffers those copies wrote. A launch that needed no copy
+    counts in ``launch_counts`` only."""
+    return {kern: {"launches": stage.STAGED[kern], "bytes": stage.STAGED_BYTES[kern]}
+            for kern in stage.STAGED}
+
+
 def reset_launch_counts() -> None:
+    """Zero ``launch_counts``, ``build_launch_counts`` and ``stage_counts``."""
     for mod in (_flash_mod, _matmul_mod):
         mod.LAUNCHES = 0
         mod.LAUNCHES_F32 = 0
         mod.LAUNCHES_F16 = 0
+    for name in _flash_mod.BUILD_LAUNCHES:
+        _flash_mod.BUILD_LAUNCHES[name] = 0
+    for kern in stage.STAGED:
+        stage.STAGED[kern] = 0
+        stage.STAGED_BYTES[kern] = 0
 
 
 def matmul(
@@ -141,12 +165,11 @@ def tuned_flash_blocks(s: int, d: int, dtype_bytes: int = 2) -> Tuple[int, int]:
     step a fixed matrix-unit cost plus the staged q/k/v bytes over the
     memory rate, times the number of (q-tile, kv-tile) steps, with ragged
     tiles counted whole, and the head dim at the width the kernel stages it
-    (``padded_head_dim``). Candidates whose shared memory at this dtype
-    width (``smem_bytes``: the q tile and two stages of k and v tiles, and
-    in f32 the probability tile; the softmax statistics and the accumulator
-    stay in registers) exceeds what one H100 block may use are pruned: in
-    f32, and in 16 bits at widths 192 and 256, those are the blocks the
-    kernel is not built for. f16 takes bf16's picks (``dtype_bytes=2``):
+    (``padded_head_dim``). Candidates the kernel is not built for at this
+    dtype width are pruned (``flash_attention.fits``: their shared memory,
+    ``smem_bytes``, the q tile and the k and v stages, and in f32 the
+    probability tile, exceeds what one H100 block may use, or in f32 past
+    128 columns block_q is 128). f16 takes bf16's picks (``dtype_bytes=2``):
     the two share the kernel's tiles, shared memory and rate. The pick is
     written back to a writable default DB under strategy ``flash_grid``."""
     target = GPU_H100
@@ -161,7 +184,7 @@ def tuned_flash_blocks(s: int, d: int, dtype_bytes: int = 2) -> Tuple[int, int]:
     for cfg in space.enumerate(None):
         bq, bk = cfg["block_q"], cfg["block_k"]
         evals += 1
-        if smem_bytes(bq, bk, dp, dtype_bytes) > target.fast_mem_bytes:
+        if not _flash_mod.fits(bq, bk, dp, dtype_bytes):
             continue
         tiles = (bq // 128 or 1) * (bk // 128 or 1) * max(1, dp // 128)
         dma = (bq * dp + 2 * bk * dp) * dtype_bytes

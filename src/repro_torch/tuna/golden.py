@@ -426,10 +426,12 @@ def _cuda_skip(kernel: str, in_avals, config: Dict) -> Optional[str]:
             return (f"({bm}, {bn}, {bk}) is not built for {dtype}: its stages "
                     f"exceed shared memory")
         return None
+    # a head dim off TMA's row stride, or an N or K, launches through the
+    # kernels' staging copy, so only the ceiling and the blocks skip
     d = in_avals[0][0][-1]
     if not fa.supports_head_dim(d, dtype):
-        return (f"head dim {d} is not built for {dtype} (multiples of 8 up to "
-                f"{fa.MAX_HEAD_DIM[dtype]}; ROADMAP Queue B)")
+        return (f"head dim {d} is past the {dtype} kernels' ceiling, "
+                f"{fa.MAX_HEAD_DIM[dtype]} (ROADMAP Queue B)")
     if not fa.built(config["block_q"], config["block_k"], d, dtype):
         return (f"blocks ({config['block_q']}, {config['block_k']}) not built "
                 f"for {dtype} at head dim {d}")

@@ -178,6 +178,21 @@ def test_port_registry_holds_the_legacy_families_only():
     assert isinstance(space, MatmulSpace) and space.knobs["bn"] == [64, 128, 256]
 
 
+def test_no_reference_pin_covers_the_sm90_flash_count():
+    """``zoo.sm90_flash_smem_bytes`` (the Hopper flash kernel's shared
+    memory, which the block picker prunes with) is the port's own: the
+    reference has no ``sm90`` kind, and no case pinned against
+    ``repro.core`` here runs one, so its change past 128 columns in f32
+    and past 256 in 16 bits moves no pinned feature or score."""
+    from repro.core import zoo as jzoo
+    from repro_torch.core import zoo
+
+    assert not hasattr(jzoo, "sm90_flash_smem_bytes")
+    assert hasattr(zoo, "sm90_flash_smem_bytes")
+    assert all(kind != "sm90" for _, _, kind in CASES)
+    assert all(kind != "sm90" for _, _, kind, _ in PAIRS)
+
+
 def test_knob_feature_union_is_the_reference_s():
     def names(reg):
         return [(kf.name, kf.kind, kf.choices, kf.feature_names())

@@ -152,11 +152,13 @@ def test_f32_kernel_matches_plain(card, s, d, blocks, causal):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [8, 16, 64, 80, 96, 128, 136, 192, 200, 256])
+@pytest.mark.parametrize("d", [8, 16, 64, 80, 96, 128, 136, 192, 200, 256, 20, 264, 320,
+                               512])
 def test_flash_library_stages_what_the_pickers_count(card, d):
     """The shared memory each library kernel launches with is the pickers'
     count (``smem_bytes`` at the dtype's width), and -1 where none is
-    built: bf16 and f16 (the wide library past 128), f32."""
+    built: bf16 and f16 (the wide library past 128, the chunked one past
+    256), f32; a head dim off 8 at its staged width."""
     for bq, bk in FLASH_BLOCKS:
         for dtype in (torch.bfloat16, torch.float16):
             lib = kflash.kernel_smem_bytes(bq, bk, d, dtype)
@@ -169,8 +171,25 @@ def test_flash_library_stages_what_the_pickers_count(card, d):
             assert f32 == kflash.smem_bytes(bq, bk, d, 4) <= 232_448
         else:
             assert f32 == -1
-    assert kflash.kernel_smem_bytes(64, 64, 264) == -1
-    assert kflash.kernel_smem_bytes(64, 64, 20, torch.float32) == -1
+    assert kflash.kernel_smem_bytes(64, 64, 520) == -1
+    assert kflash.kernel_smem_bytes(64, 64, 264, torch.float32) == -1
+
+
+_COUNT_KEY = {torch.bfloat16: "flash_attention", torch.float16: "flash_attention_f16",
+              torch.float32: "flash_attention_f32"}
+
+
+def _flash_limit(dtype, q, k, v, causal):
+    """The dtype's limit against the plain version, as (got, want) ->
+    (elements outside, worst share)."""
+    if dtype == torch.float32:
+        def f32(got, want):
+            ratio = (got - want).abs() / (F32_ATOL + F32_RTOL * want.abs())
+            return int((ratio > 1).sum()), float(ratio.max())
+        return f32
+    if dtype == torch.float16:
+        return lambda got, want: _f16_within(got, want, q, k, v, causal)
+    return functools.partial(_within, rtol=RTOL, atol_rms=ATOL_RMS)
 
 
 @pytest.mark.gpu
@@ -178,13 +197,23 @@ def test_flash_library_stages_what_the_pickers_count(card, d):
                                      (torch.bfloat16, 20), (torch.float32, 136),
                                      (torch.float16, 264), (torch.float16, 20)])
 def test_kernel_refuses_what_it_was_not_built_for(card, dtype, d):
-    """Still refused, with no launch: f64, f32 at D > 128, 16 bits at D >
-    256, D % 8 != 0."""
+    """Still refused, with no launch: f64. Launched since the staging copy
+    and the new builds, within the dtype's limit of the plain version: f32
+    at D > 128, 16 bits at D > 256, D % 8 != 0."""
     q, k, v = (t.to(dtype) for t in _qkv(1, 2, 1, 8, d, card))
     before = ops.launch_counts()
-    with pytest.raises((ValueError, TypeError)):
-        ops.attention(q, k, v, blocks=(64, 64))
-    assert ops.launch_counts() == before
+    if dtype == torch.float64:
+        with pytest.raises(TypeError):
+            ops.attention(q, k, v, blocks=(64, 64))
+        assert ops.launch_counts() == before
+        return
+    got = ops.attention(q, k, v, blocks=(64, 64))
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict(before, **{_COUNT_KEY[dtype]: before[_COUNT_KEY[dtype]]
+                                                 + 1})
+    want = flash_attention_plain(q, k, v, block_q=64, block_k=64)
+    assert got.shape == q.shape
+    assert _flash_limit(dtype, q, k, v, True)(got.float(), want.float())[0] == 0
 
 
 @pytest.mark.gpu
@@ -209,9 +238,19 @@ def test_kernel_on_the_card_never_runs_the_plain_version(card, monkeypatch):
 
 @pytest.mark.gpu
 def test_kernel_refuses_non_contiguous(card):
+    """A non-contiguous q (refused before the staging copy) is copied into
+    a contiguous buffer, one staged launch, and matches the plain version."""
     q, k, v = _qkv(1, 2, 1, 64, 64, card)
-    with pytest.raises(ValueError):
-        ops.attention(q.transpose(2, 3), k, v)
+    ops.reset_launch_counts()
+    got = ops.attention(q.transpose(2, 3), k, v)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.stage_counts()["flash_attention"] == {"launches": 1,
+                                                     "bytes": q.numel() * 2}
+    want = flash_attention_plain(q.transpose(2, 3), k, v,
+                                 block_q=ops.tuned_flash_blocks(64, 64, 2)[0],
+                                 block_k=ops.tuned_flash_blocks(64, 64, 2)[1])
+    assert _within(got, want, RTOL, ATOL_RMS)[0] == 0
 
 
 # matmul: |kernel - plain| <= 2^-7 * |plain| + MM_ATOL_RMS * rms(plain). Both
@@ -333,16 +372,23 @@ def test_matmul_kernel_refuses(card, case):
         a, b, err = a.double(), b.double(), TypeError
     elif case == "f32-unbuilt":  # two f32 stages of (128, 128, 128) do not fit
         a, b, blocks, err = a.float(), b.float(), (128, 128, 128), ValueError
-    elif case == "non-contiguous":
-        b, err = b.t(), ValueError
-    elif case == "stride":  # bf16 K = 100: rows of 200 bytes, which TMA cannot step
+    elif case == "non-contiguous":  # staged since the aligned copy: launches
+        b, err = b.t(), None
+    elif case == "stride":  # bf16 K = 100: rows of 200 bytes, staged at 104
         a, b = _ab(256, 256, 100, card)
-        err = ValueError
+        err = None
     elif case == "unbuilt":
         blocks, err = (16, 64, 64), ValueError
     else:  # 32 left the built set with wgmma's 64-row warpgroup tiles
         blocks, err = (32, 32, 32), ValueError
     before = ops.launch_counts()
+    if err is None:
+        got = ops.matmul(a, b, blocks=blocks)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == dict(before, matmul=before["matmul"] + 1)
+        want = kmatmul.matmul_plain(a, b, *blocks)
+        assert _within(got, want, RTOL, MM_ATOL_RMS)[0] == 0
+        return
     with pytest.raises(err):
         ops.matmul(a, b, blocks=blocks)
     assert ops.launch_counts() == before
@@ -865,3 +911,128 @@ def test_one_by_one_nccl_mesh_train_step_is_bit_equal_on_the_card(card):
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()
+
+
+# The kernels' other inputs: head dims off 8 (staged), f32 past 128 (one
+# K/V stage), 16 bits past 256 (two output chunks), N and K off TMA's row
+# stride, transposed and offset operands.
+NEW_FLASH_CASES = ([(d, dt) for d in (4, 20, 100)
+                    for dt in (torch.bfloat16, torch.float16, torch.float32)]
+                   + [(d, torch.float32) for d in (136, 192, 256)]
+                   + [(d, dt) for d in (264, 320, 512)
+                      for dt in (torch.bfloat16, torch.float16)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [77, 1024])
+@pytest.mark.parametrize("d,dtype", NEW_FLASH_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_new_flash_inputs_match_plain(card, s, d, dtype, causal):
+    """Each new path at every block pair built for it, one launch of its
+    dtype's kernel each (a staged one where D % 8 != 0), within the dtype's
+    limit of the plain version at the real D; with its control flagged: a
+    staged copy padded with noise instead of zeros (D % 8 != 0; a constant
+    would shift every score alike), a lost second output chunk (past 256),
+    a dropped last 8 columns (f32)."""
+    q, k, v = (t.to(dtype) for t in _qkv(1, 8, 2, s, d, card))
+    limit = _flash_limit(dtype, q, k, v, causal)
+    pairs = [p for p in FLASH_BLOCKS if kflash.built(*p, d, dtype)]
+    assert pairs and ops.tuned_flash_blocks(s, d, q.element_size()) in pairs
+    for bq, bk in pairs:
+        ops.reset_launch_counts()
+        got = ops.attention(q, k, v, causal=causal, blocks=(bq, bk))
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[_COUNT_KEY[dtype]] == 1
+        assert ops.stage_counts()["flash_attention"]["launches"] == int(d % 8 != 0)
+        want = flash_attention_plain(q, k, v, causal=causal, block_q=bq, block_k=bk)
+        assert got.shape == q.shape and got.dtype == dtype
+        bad, worst = limit(got.float(), want.float())
+        assert bad == 0, f"({bq}, {bk}): {bad} outside, worst at {worst:.3f} of the limit"
+    if d % 8:
+        dk = kflash.staged_head_dim(d)
+        noisy = [torch.cat([t, torch.randn_like(t[..., :dk - d])], -1) for t in (q, k, v)]
+        control = flash_attention_plain(*noisy, causal=causal, scale=d ** -0.5,
+                                        block_q=bq, block_k=bk)[..., :d]
+    elif d > 256:
+        control = got.clone()
+        control[..., kflash.padded_head_dim(d) // 2:] = 0
+    else:
+        control = got.clone()
+        control[..., d - 8:] = 0
+    assert limit(control.float(), want.float())[0] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k,form", [(256, 36, 100, "rows"), (100, 4096, 4090, "rows"),
+                                        (2048, 4096, 4096, "transposed"),
+                                        (256, 256, 256, "offset")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_staged_matmul_matches_plain(card, m, n, k, form, dtype):
+    """ops.matmul at N and K off TMA's row stride (in f32, 36 and 100 are on
+    it), a transposed B and an A at an odd offset: one launch of the dtype's
+    kernel, staged where an operand is off the stride, transposed or
+    offset, within its limit of the plain version at the real shape; a
+    control padded with noise instead of zeros is flagged."""
+    a, b = (t.to(dtype) for t in _ab(m, n, k, card))
+    if form == "transposed":
+        b = b.t().contiguous().t()
+    elif form == "offset":
+        a = torch.cat([a.flatten(), a.flatten()[:1]])[1:].view(m, k)
+    key = {torch.bfloat16: "matmul", torch.float16: "matmul_f16",
+           torch.float32: "matmul_f32"}[dtype]
+    ops.reset_launch_counts()
+    got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    off = form != "rows" or any((v * a.element_size()) % 16 for v in (n, k))
+    assert ops.launch_counts()[key] == 1
+    assert ops.stage_counts()["matmul"]["launches"] == int(off)
+    blocks = ops.tuned_matmul_blocks(m, n, k, a.element_size())
+    want = kmatmul.matmul_plain(a, b.contiguous(), *blocks[:3])
+    assert got.shape == (m, n) and got.dtype == dtype
+    if dtype == torch.float32:
+        tol = MM_F32_TOL * (k ** 0.5) + MM_F32_TOL * want.abs()
+        assert int(((got - want).abs() > tol).sum()) == 0
+    else:
+        rtol, atol = (RTOL, MM_ATOL_RMS) if dtype == torch.bfloat16 else (F16_RTOL, MM_ATOL_RMS / 8)
+        assert _within(got, want, rtol, atol)[0] == 0
+    if (k * a.element_size()) % 16:
+        from repro_torch.kernels import stage
+
+        kp = stage.aligned_cols(k, a.element_size())
+        noisy_a = torch.cat([a, torch.randn_like(a[:, :kp - k])], 1)
+        noisy_b = torch.cat([b, torch.randn_like(b[:kp - k])], 0)
+        control = kmatmul.matmul_plain(noisy_a, noisy_b, *blocks[:3])
+        assert _within(control, want, RTOL, MM_ATOL_RMS)[0] > 0
+
+
+@pytest.mark.gpu
+def test_cuda_bundle_launches_a_staged_record(card, tmp_path):
+    """A bundled matmul record at K = 100 (bf16 rows of 200 bytes, off
+    TMA's stride): the call without blocks launches the bundled library
+    through the staging copy, with no nvcc run, bit for bit the explicit
+    call."""
+    from repro_torch.core.spaces import MatmulSpace
+    from repro_torch.tuna.db import ScheduleRecord
+    from repro_torch.tuna.golden import build_kernel_bundle
+
+    pick = ops.tuned_matmul_blocks(256, 256, 100, 2)
+    rec = ScheduleRecord(op=MatmulSpace(256, 256, 100, 2, target_kind="sm90").signature(),
+                         target="gpu_h100", score=1e-6,
+                         config=dict(zip(("bm", "bn", "bk", "double_buffer"), pick)))
+    info = build_kernel_bundle([rec], str(tmp_path), "gpu_h100")
+    assert (info.entries, len(info.skipped)) == (1, 0)
+    x, y = _ab(256, 256, 100, card)
+    want = ops.matmul(x, y, blocks=pick)
+    ops.use_kernel_bundle(info.path)
+    try:
+        builds = ops.kernel_build_counts()
+        ops.reset_launch_counts()
+        got = ops.matmul(x, y)
+        torch.cuda.synchronize()
+        assert ops.get_kernel_bundle().exec_hits == 1
+        assert ops.kernel_build_counts() == builds
+        assert ops.launch_counts()["matmul"] == 1
+        assert ops.stage_counts()["matmul"]["launches"] == 1
+    finally:
+        ops.use_kernel_bundle(None)
+    assert torch.equal(got, want)

@@ -210,11 +210,12 @@ class TestKernelBundle:
     def test_cuda_plan_keeps_f32_records_index_only(self):
         """The Hopper kernels take bf16 and f32 (and f16, which no record's
         signature names): a CUDA bundle plans the f32 records beside the
-        bf16 ones, a 16-bit head dim past 128 among them (the wide builds),
-        and keeps in its schedule index only, as skips with their reason,
-        the records no kernel is built for: an f32 matmul whose two stages
-        exceed shared memory, an f32 flash record at blocks whose
-        probability tile does not fit, and a head dim past 256."""
+        bf16 ones, 16-bit head dims past 128 among them (the wide builds)
+        and past 256 (the chunked ones), and keeps in its schedule index
+        only, as skips with their reason, the records no kernel is built
+        for: an f32 matmul whose two stages exceed shared memory, an f32
+        flash record at blocks whose probability tile does not fit, and a
+        head dim past 512."""
         bf16 = ScheduleRecord(op="matmul[K=256,M=256,N=256,dtype_bytes=2]",
                               target=TGT, score=1e-6,
                               config={"bm": 128, "bn": 128, "bk": 64,
@@ -229,21 +230,23 @@ class TestKernelBundle:
                               score=1e-6, config={"block_q": 64, "block_k": 64})
         d264 = ScheduleRecord(op="flash[d=264,dtype_bytes=2,s=256]", target=TGT,
                               score=1e-6, config={"block_q": 64, "block_k": 64})
+        d520 = ScheduleRecord(op="flash[d=520,dtype_bytes=2,s=256]", target=TGT,
+                              score=1e-6, config={"block_q": 64, "block_k": 64})
         plans, skipped = plan_bundle_entries(
-            mk_records() + [bf16, big, wide, d136, d264], device="cuda")
+            mk_records() + [bf16, big, wide, d136, d264, d520], device="cuda")
         assert sorted(p.record.op for p in plans) == sorted([MM_OP, FL_OP, bf16.op,
-                                                             d136.op])
+                                                             d136.op, d264.op])
         why = dict(skipped)
         assert "shared memory" in why[big.op]
         assert "not built for torch.float32" in why[wide.op]
-        assert "head dim 264" in why[d264.op]
+        assert "head dim 520" in why[d520.op]
         assert "no kernel" in why["conv2d[foo=1]"]
         # each plan launches from its entry point's library
         from repro_torch.tuna.golden import _library
 
         libs = {p.record.op: _library(p.kernel, p.in_avals) for p in plans}
         assert libs == {MM_OP: "matmul", FL_OP: "flash_attention", bf16.op: "matmul",
-                        d136.op: "flash_attention_wide"}
+                        d136.op: "flash_attention_wide", d264.op: "flash_attention_chunked"}
 
     @pytest.mark.parametrize("kernel,avals,config,ok", [
         # the tune --smoke store's dense_256 matmul record at 4 bytes
@@ -262,20 +265,30 @@ class TestKernelBundle:
          {"bm": 64, "bn": 64, "bk": 64, "double_buffer": True}, True),
         ("flash", [((1, 4, 64, 16), "float16"), ((1, 2, 64, 16), "float16"),
                    ((1, 2, 64, 16), "float16")], {"block_q": 64, "block_k": 64}, True),
-        # still skipped: inputs of two dtypes, f32 past 128, 16 bits past
-        # 256, a head dim TMA cannot stride, wide blocks that do not fit
+        # skipped: inputs of two dtypes
         ("matmul", [((256, 256), "float32"), ((256, 256), "bfloat16")],
          {"bm": 64, "bn": 64, "bk": 64, "double_buffer": True}, False),
+        # admitted since f32 flash past 128, 16 bits past 256 and the
+        # staging copy (a head dim, N or K TMA cannot stride)
         ("flash", [((1, 4, 64, 136), "float32"), ((1, 2, 64, 136), "float32"),
-                   ((1, 2, 64, 136), "float32")], {"block_q": 64, "block_k": 64}, False),
+                   ((1, 2, 64, 136), "float32")], {"block_q": 64, "block_k": 64}, True),
         ("flash", [((1, 4, 64, 264), "float16"), ((1, 2, 64, 264), "float16"),
-                   ((1, 2, 64, 264), "float16")], {"block_q": 64, "block_k": 64}, False),
+                   ((1, 2, 64, 264), "float16")], {"block_q": 64, "block_k": 64}, True),
         ("flash", [((1, 4, 64, 20), "bfloat16"), ((1, 2, 64, 20), "bfloat16"),
-                   ((1, 2, 64, 20), "bfloat16")], {"block_q": 64, "block_k": 64}, False),
+                   ((1, 2, 64, 20), "bfloat16")], {"block_q": 64, "block_k": 64}, True),
+        # still skipped: blocks that do not fit, the ceilings, f64
         ("flash", [((1, 4, 64, 256), "float16"), ((1, 2, 64, 256), "float16"),
                    ((1, 2, 64, 256), "float16")], {"block_q": 64, "block_k": 128}, False),
         ("flash", [((1, 4, 64, 16), "float64"), ((1, 2, 64, 16), "float64"),
                    ((1, 2, 64, 16), "float64")], {"block_q": 64, "block_k": 64}, False),
+        ("matmul", [((256, 100), "bfloat16"), ((100, 36), "bfloat16")],
+         {"bm": 64, "bn": 64, "bk": 128, "double_buffer": True}, True),
+        ("flash", [((1, 4, 64, 520), "bfloat16"), ((1, 2, 64, 520), "bfloat16"),
+                   ((1, 2, 64, 520), "bfloat16")], {"block_q": 64, "block_k": 64}, False),
+        ("flash", [((1, 4, 64, 264), "float32"), ((1, 2, 64, 264), "float32"),
+                   ((1, 2, 64, 264), "float32")], {"block_q": 64, "block_k": 64}, False),
+        ("flash", [((1, 4, 64, 192), "float32"), ((1, 2, 64, 192), "float32"),
+                   ((1, 2, 64, 192), "float32")], {"block_q": 128, "block_k": 64}, False),
     ])
     def test_cuda_skip_admits_f32_and_other_head_dims(self, kernel, avals, config, ok):
         """``_cuda_skip`` admits what a kernel is built for and states why
@@ -630,7 +643,8 @@ class TestPrebuiltLibraries:
         build.build(["matmul"])  # built already: no second run
         build.build()
         assert ops.kernel_build_counts() == {"flash_attention": 1, "flash_attention_f16": 1,
-                                             "flash_attention_wide": 1, "matmul": 1,
+                                             "flash_attention_wide": 1,
+                                             "flash_attention_chunked": 1, "matmul": 1,
                                              "matmul_f16": 1}
         assert build.library_path("matmul").read_bytes() == b"built"
 

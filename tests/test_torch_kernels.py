@@ -17,7 +17,7 @@ from repro.kernels.matmul import matmul_pallas
 from repro.models.attention import chunked_attention as jchunked
 from repro_torch.core.spaces import SM90_MATMUL_TILES
 from repro_torch.hw.gpu_h100 import GPU_H100
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, ops, ref, stage
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels.flash_attention import (BLOCKS, HEAD_DIMS, PADDED_WIDTHS,
@@ -266,16 +266,18 @@ def test_flash_source_instantiates_exactly_the_built_blocks():
     (csrc/flash_attention.cuh) is built for up to 128 columns are BLOCKS x
     BLOCKS x HEAD_DIMS and, generically, BLOCKS x BLOCKS x (64, 128), in
     bf16 (flash_attention.cu) and f16 (flash_attention_f16.cu); its wide
-    builds (flash_attention_wide.cu, both types) and the f32 builds
+    builds (flash_attention_wide.cu, both types), its chunked builds past
+    256 (flash_attention_chunked.cu, both types) and the f32 builds
     (flash_attention.cu) are the (block_q, block_k, padded width) that
     ``built`` admits; the 16-bit products are wgmma, the f32 kernel's are
     not. Each entry point is in the library ``SOURCE`` names."""
     read = lambda name: (build.CSRC / name).read_text()
     head, src = read("flash_attention.cuh"), read("flash_attention.cu")
     f16, wide = read("flash_attention_f16.cu"), read("flash_attention_wide.cu")
+    chunked = read("flash_attention_chunked.cu")
     assert _macro(head, "FLASH_BUILT") == {
         (bq, bk, d) for bq in BLOCKS for bk in BLOCKS for d in HEAD_DIMS}
-    assert HEAD_DIMS == (64, 80, 128) and PADDED_WIDTHS == (64, 128, 192, 256)
+    assert HEAD_DIMS == (64, 80, 128) and PADDED_WIDTHS == (64, 128, 192, 256, 384, 512)
     assert _macro(head, "FLASH_ANY_D_BUILT") == {
         (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in (64, 128)}
     for dtype in (torch.bfloat16, torch.float16):
@@ -283,18 +285,27 @@ def test_flash_source_instantiates_exactly_the_built_blocks():
             (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in (192, 256)
             if kflash.built(bq, bk, dp, dtype)}
     assert len(_macro(wide, "FLASH_WIDE_BUILT")) == 5
+    for dtype in (torch.bfloat16, torch.float16):
+        assert _macro(chunked, "FLASH_CHUNKED_BUILT") == {
+            (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in (384, 512)
+            if kflash.built(bq, bk, dp, dtype)}
+    assert len(_macro(chunked, "FLASH_CHUNKED_BUILT")) == 5
+    # past 256: two output chunks of dp / 2 columns, one K/V stage
+    assert "launch<T, BQ_, BK_, 0, DP_, DP_ / 2, 1>" in chunked
+    assert "Cfg<BQ_, BK_, 0, DP_, DP_ / 2, 1>::kSmem" in chunked
     assert _macro(src, "FLASH_F32_BUILT") == {
         (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in PADDED_WIDTHS
         if kflash.built(bq, bk, dp, torch.float32)}
     assert "wgmma_ss" in head and "wgmma_rs" in head and "mma.sync" not in head
     # tiles and accumulator at the padded width, the store at the real one
-    assert "int DP = (D + 63) / 64 * 64" in head and "wgmma_rs<T, C::kDP, 1>" in head
+    assert "int DP = (D + 63) / 64 * 64" in head and "wgmma_rs<T, C::kVW, 1>" in head
     assert "col >= dd" in head and "pack2<T>(" in head and "make_map<T>(" in head
     # each type's instantiations in its own library
     assert "narrow_fwd<bf16>" in src and "narrow_fwd<__half>" in f16
     assert "wide_fwd<__nv_bfloat16>" in wide and "wide_fwd<__half>" in wide
+    assert "chunked_fwd<__nv_bfloat16>" in chunked and "chunked_fwd<__half>" in chunked
     for lib, text in (("flash_attention", src), ("flash_attention_f16", f16),
-                      ("flash_attention_wide", wide)):
+                      ("flash_attention_wide", wide), ("flash_attention_chunked", chunked)):
         entries = re.findall(r'extern "C" int (\w+)\(', text)
         assert [e for e in entries if "_fwd_" in e] == [
             e for e, source in kflash.SOURCE.items() if source == lib]
@@ -334,44 +345,54 @@ def test_flash_at_other_head_dims(d, dtype, causal):
     np.testing.assert_allclose(_np(got), _np(jref.attention(*jarrs, causal=causal)), **tol)
 
 
-@pytest.mark.parametrize("d,ok", [(0, False), (4, False), (8, True), (12, False),
-                                  (16, True), (20, False), (120, True), (128, True),
-                                  (132, False), (136, False), (192, False),
-                                  (200, False), (256, False), (260, False),
-                                  (264, False)])
+@pytest.mark.parametrize("d,ok", [(0, False), (4, True), (8, True), (12, True),
+                                  (16, True), (20, True), (120, True), (128, True),
+                                  (132, True), (136, True), (192, True),
+                                  (200, True), (256, True), (260, False),
+                                  (264, False), (1, True), (257, False), (512, False),
+                                  (513, False)])
 def test_supports_head_dim_at_the_rules_edges(d, ok):
-    """f32: a multiple of 8 (TMA's 16-byte row stride) from 8 to 128
-    (``ok``); bf16 and f16: the same and the multiples of 8 from 136 to 256
-    (the wide builds, padded to 192 or 256 columns)."""
-    wide = 128 < d <= 256 and d % 8 == 0
+    """f32: every head dim from 1 to 256 (``ok``); bf16 and f16: the same
+    and 257 to 512 (the chunked builds, padded to 384 or 512 columns). A
+    head dim that is not a multiple of 8 is staged at the next one, where a
+    kernel is built at (64, 64)."""
+    chunked = 256 < d <= 512
     assert supports_head_dim(d, torch.float32) is ok
     assert kflash.built(64, 64, d, torch.float32) is ok
     for dtype in (torch.bfloat16, torch.float16):
-        assert supports_head_dim(d, dtype) is (ok or wide)
-        assert kflash.built(64, 64, d, dtype) is (ok or wide)
+        assert supports_head_dim(d, dtype) is (ok or chunked)
+        assert kflash.built(64, 64, d, dtype) is (ok or chunked)
     assert not supports_head_dim(d, torch.float64)
+    if ok or chunked:
+        assert kflash.staged_head_dim(d) % 8 == 0 and 0 <= kflash.staged_head_dim(d) - d < 8
 
 
 @pytest.mark.parametrize("bq", BLOCKS)
 @pytest.mark.parametrize("bk", BLOCKS)
 @pytest.mark.parametrize("dp", PADDED_WIDTHS)
 def test_f32_flash_smem_is_the_kernels_count(bq, bk, dp):
-    """The f32 kernel stages Q [bq][dp], two stages of K and V [bk][dp] and
-    P [bq][bk], all f32, with no barrier and no slack; it is built exactly
-    where that fits one H100 block, up to 128 columns. The 16-bit kernels
-    are built where their own count fits: every pair up to 128 columns,
-    three at 192, two at 256."""
-    hand = 4 * (bq * dp + 2 * 2 * bk * dp + bq * bk)
+    """The f32 kernel stages Q [bq][dp], two stages of K and V [bk][dp] up
+    to 128 columns and one past it, and P [bq][bk], all f32, with no barrier
+    and no slack; it is built exactly where that fits one H100 block, up to
+    256 columns, with bq = 64 past 128 (registers). The 16-bit kernels are
+    built where their own count fits: every pair up to 128 columns, three
+    at 192 and 384, two at 256 and 512 (past 256: Q and K at the full
+    width, one V chunk of dp / 2, one stage)."""
+    stages = 2 if dp <= 128 else 1
+    hand = 4 * (bq * dp + 2 * stages * bk * dp + bq * bk)
     assert smem_bytes(bq, bk, dp, 4) == hand == smem_bytes(bq, bk, dp - 8, 4)
     assert kflash.built(bq, bk, dp, torch.float32) is (
-        hand <= GPU_H100.fast_mem_bytes and dp <= 128)
+        hand <= GPU_H100.fast_mem_bytes and (dp <= 128 or (bq == 64 and dp <= 256)))
     # the 16-bit kernels: built wherever their own count fits
     fits = smem_bytes(bq, bk, dp, 2) <= GPU_H100.fast_mem_bytes
     assert kflash.built(bq, bk, dp, torch.bfloat16) is fits
     assert kflash.built(bq, bk, dp, torch.float16) is fits
-    wide = {192: {(64, 64), (64, 128), (128, 64)}, 256: {(64, 64), (128, 64)}}
+    wide = {192: {(64, 64), (64, 128), (128, 64)}, 256: {(64, 64), (128, 64)},
+            384: {(64, 64), (64, 128), (128, 64)}, 512: {(64, 64), (128, 64)}}
     assert fits is (dp <= 128 or (bq, bk) in wide[dp])
     assert smem_bytes(bq, bk, dp, 2) == smem_bytes(bq, bk, dp)
+    if dp > 256:
+        assert smem_bytes(bq, bk, dp) == 2 * (dp * (bq + bk) + dp // 2 * bk) + 1152
 
 
 @pytest.mark.parametrize("s", [1, 12, 64, 77, 513, 1024, 2047])
@@ -383,26 +404,68 @@ def test_tuned_flash_blocks_fit_the_f32_kernel(s, d):
     assert smem_bytes(bq, bk, d, 4) <= GPU_H100.fast_mem_bytes
 
 
+class _FakeLibrary:
+    """Stands in for a kernel's library on the CPU: records each call's
+    arguments and returns cudaSuccess, so that a launch's staging and
+    arguments are tested without a card."""
+
+    def __init__(self, monkeypatch, module):
+        import contextlib
+        import types
+
+        self.entries, self.calls = [], []
+        monkeypatch.setattr(module, "_kernel", self._kernel)
+        monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+
+    def _kernel(self, entry):
+        self.entries.append(entry)
+        return lambda *args: self.calls.append(args) or 0
+
+
 @pytest.mark.parametrize("dtype,d,blocks,err", [
     (torch.float64, 64, (64, 64), TypeError),     # f64: no kernel
-    (torch.float32, 136, (64, 64), ValueError),   # f32 at D > 128
-    (torch.bfloat16, 20, (64, 64), ValueError),   # D % 8 != 0
+    (torch.float32, 136, (64, 64), None),         # f32 at D > 128: one K/V stage
+    (torch.bfloat16, 20, (64, 64), None),         # D % 8 != 0: staged at 24
     (torch.float32, 128, (128, 128), ValueError),  # f32 blocks that do not fit
     (torch.bfloat16, 64, (32, 64), ValueError),   # blocks never built
-    (torch.bfloat16, 264, (64, 64), ValueError),  # D > 256
-    (torch.float16, 264, (64, 64), ValueError),
-    (torch.float16, 20, (64, 64), ValueError),
+    (torch.bfloat16, 264, (64, 64), None),        # D > 256: two output chunks
+    (torch.float16, 264, (64, 64), None),
+    (torch.float16, 20, (64, 64), None),
     (torch.float16, 256, (64, 128), ValueError),  # 16-bit blocks that do not fit
     (torch.bfloat16, 192, (128, 128), ValueError),
+    (torch.bfloat16, 520, (64, 64), ValueError),  # past the 16-bit ceiling
+    (torch.float32, 264, (64, 64), ValueError),   # past the f32 ceiling
+    (torch.float32, 192, (128, 64), ValueError),  # f32 past 128: block_q 64
+    (torch.float16, 512, (64, 128), ValueError),  # chunked blocks that do not fit
 ])
 def test_flash_launch_refuses_what_no_kernel_is_built_for(monkeypatch, dtype, d,
                                                           blocks, err):
-    """The wrapper's launch refuses before it loads a library."""
-    monkeypatch.setattr(kflash, "_kernel", lambda entry: pytest.fail("loaded"))
+    """The wrapper's launch refuses before it loads a library; what it
+    takes (``err`` None) reaches the library's entry point for its dtype
+    and staged head dim, with aligned, contiguous operands of that width
+    and the caller's scale, and its output comes back at the real D."""
+    lib = _FakeLibrary(monkeypatch, kflash)
     q = torch.zeros((1, 2, 8, d), dtype=dtype)
     k = torch.zeros((1, 1, 8, d), dtype=dtype)
-    with pytest.raises(err):
-        kflash._launch(q, k, k, True, 1.0, *blocks)
+    if err is not None:
+        with pytest.raises(err):
+            kflash._launch(q, k, k, True, 1.0, *blocks)
+        assert lib.entries == []
+        return
+    ops.reset_launch_counts()
+    out = kflash._launch(q, k, k, True, 0.25, *blocks)
+    dk = kflash.staged_head_dim(d)
+    assert lib.entries == [kflash.entry_for(dtype, d)]
+    (qp, kp, vp, op, b, hq, hkv, s, dd, bq, bk, scale, causal, _), = lib.calls
+    assert (b, hq, hkv, s, dd, bq, bk, scale, causal) == (1, 2, 1, 8, dk, *blocks, 0.25, 1)
+    assert all(p % 16 == 0 for p in (qp, kp, vp, op))
+    assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
+    staged = ops.stage_counts()["flash_attention"]
+    assert staged["launches"] == int(dk != d)
+    # q, k and v copied at the staged width, the output copied back at D
+    assert staged["bytes"] == ((32 * dk + 16 * d) * q.element_size() if dk != d else 0)
 
 
 def test_wrapper_has_no_fallback_off_cpu():
@@ -431,6 +494,37 @@ def test_launch_counter_only_counts_kernel_launches():
     assert ops.launch_counts() == {"flash_attention": 0, "matmul": 0,
                                    "flash_attention_f32": 0, "matmul_f32": 0,
                                    "flash_attention_f16": 0, "matmul_f16": 0}
+    assert set(ops.build_launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("dtype,d,build_name", [
+    (torch.bfloat16, 64, "flash_attention"),
+    (torch.bfloat16, 20, "flash_attention"),
+    (torch.float16, 128, "flash_attention_f16"),
+    (torch.float32, 12, "flash_attention_f32"),
+    (torch.float32, 128, "flash_attention_f32"),
+    (torch.float32, 132, "flash_attention_f32_wide"),
+    (torch.float32, 256, "flash_attention_f32_wide"),
+    (torch.bfloat16, 136, "flash_attention_wide"),
+    (torch.float16, 256, "flash_attention_wide"),
+    (torch.bfloat16, 264, "flash_attention_chunked"),
+    (torch.float16, 500, "flash_attention_chunked"),
+])
+def test_build_launch_counts_name_the_build_that_ran(monkeypatch, dtype, d, build_name):
+    """Each launch adds one to the count of the build it ran and to no
+    other (f32's one-stage build past 128 columns apart from its narrow
+    one), beside its dtype's count; a refusal adds nothing."""
+    _FakeLibrary(monkeypatch, kflash)
+    q = torch.zeros((1, 2, 8, d), dtype=dtype)
+    k = torch.zeros((1, 1, 8, d), dtype=dtype)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError):
+        kflash._launch(q, k, k, True, 1.0, 32, 64)
+    assert set(ops.build_launch_counts().values()) == {0}
+    kflash._launch(q, k, k, True, 1.0, 64, 64)
+    assert ops.build_launch_counts() == {name: int(name == build_name)
+                                         for name in kflash.BUILDS}
+    assert sum(ops.launch_counts().values()) == 1
 
 
 def test_kernel_library_is_keyed_by_source_digest():
@@ -754,20 +848,204 @@ def test_f32_matmul_is_built_where_the_cost_model_sees_no_overflow():
     (torch.float32, 128, 128, (128, 128, 128, True), ValueError),  # two stages do not fit
     (torch.float32, 256, 128, (128, 256, 128, True), ValueError),
     (torch.bfloat16, 128, 128, (64, 64, 32, True), ValueError),   # bk never built
-    # TMA's global row stride is a multiple of 16 bytes: N and K multiples
-    # of 8 in bf16, of 4 in f32
-    (torch.bfloat16, 128, 100, (64, 64, 64, True), ValueError),
-    (torch.bfloat16, 100, 128, (64, 64, 64, True), ValueError),
-    (torch.float32, 98, 128, (64, 64, 64, True), ValueError),
-    (torch.float16, 100, 128, (64, 64, 64, True), ValueError),
-    (torch.float16, 128, 100, (64, 64, 64, True), ValueError),
+    # N or K off TMA's 16-byte row stride (not a multiple of 8 in 16 bits,
+    # of 4 in f32): staged, zero-padded to the next one
+    (torch.bfloat16, 128, 100, (64, 64, 64, True), None),
+    (torch.bfloat16, 100, 128, (64, 64, 64, True), None),
+    (torch.float32, 98, 128, (64, 64, 64, True), None),
+    (torch.float16, 100, 128, (64, 64, 64, True), None),
+    (torch.float16, 128, 100, (64, 64, 64, True), None),
 ])
 def test_matmul_launch_refuses_what_no_kernel_is_built_for(monkeypatch, dtype, n, k,
                                                            blocks, err):
     """The wrapper's launch refuses before it loads a library; the f32 one
-    at (128, 128, 128) launches with one stage."""
-    monkeypatch.setattr(kmatmul, "_kernel", lambda entry: pytest.fail("loaded"))
+    at (128, 128, 128) launches with one stage. An N or K off TMA's row
+    stride reaches the library at the padded N' and K', with the tiles
+    resolved at the real shape, and comes back [M, N]."""
+    lib = _FakeLibrary(monkeypatch, kmatmul)
     x, y = torch.zeros((128, k), dtype=dtype), torch.zeros((k, n), dtype=dtype)
-    with pytest.raises(err):
-        kmatmul._launch(x, y, *blocks)
+    if err is not None:
+        with pytest.raises(err):
+            kmatmul._launch(x, y, *blocks)
+        assert lib.entries == []
+    else:
+        ops.reset_launch_counts()
+        out = kmatmul._launch(x, y, *blocks)
+        (xp, yp, cp, m, n_, k_, bm, bn, bk, db, _), = lib.calls
+        kp, np_ = (stage.aligned_cols(v, x.element_size()) for v in (k, n))
+        assert (m, n_, k_) == (128, np_, kp) and (n_, k_) != (n, k)
+        assert (bm, bn, bk) == kmatmul.resolve_blocks(128, n, k, *blocks[:3])
+        assert all(p % 16 == 0 for p in (xp, yp, cp))
+        assert out.shape == (128, n) and out.dtype == dtype and out.is_contiguous()
+        assert ops.stage_counts()["matmul"]["launches"] == 1
     assert kmatmul.built(128, 128, 128, False, torch.float32)
+
+
+# The kernels' other inputs, through the staging copy (kernels/stage.py):
+# head dims that are not a multiple of 8 in each dtype, f32 past 128 and 16
+# bits past 256, (D, dtypes)
+STAGED_FLASH = ([(d, dt) for d in (4, 12, 20, 100)
+                 for dt in (torch.float32, torch.bfloat16, torch.float16)]
+                + [(d, torch.float32) for d in (136, 192, 200, 256)]
+                + [(d, dt) for d in (264, 320, 512) for dt in (torch.bfloat16, torch.float16)])
+FLASH_TOL = {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL, torch.float16: F16_TOL}
+
+
+def _staged_plain(q, k, v, causal, bq, bk):
+    """What the card computes for q, k, v: the operands through the staging
+    helper at the staged head dim, the plain version there (a kernel's
+    stand-in) with the caller's scale, the output copied back to D."""
+    d = q.shape[-1]
+    dk = kflash.staged_head_dim(d)
+    shapes = [(*t.shape[:-1], dk) for t in (q, k, v)]
+    qs, ks, vs = stage.stage("flash_attention", (q, k, v), shapes)
+    out = flash_attention_plain(qs, ks, vs, causal=causal, scale=d ** -0.5,
+                                block_q=bq, block_k=bk)
+    return stage.unstaged("flash_attention", out, d)
+
+
+@pytest.mark.parametrize("d,dtype", STAGED_FLASH)
+@pytest.mark.parametrize("s", [77, 128])
+def test_staged_flash_matches_pallas_and_oracle(d, dtype, s):
+    """Every head dim the kernels take only through the staging copy (D % 8
+    != 0 in each dtype) or the new builds (f32 past 128, 16 bits past 256),
+    GQA 4/2 at the picked blocks (causal at S=77, not at 128): the port's
+    plain version on the staged operands, copied back, against the Pallas
+    kernel at the real D (interpreted; at S=77 with one S-sized block, as
+    the ragged tests run it) and the oracle, at the dtype's tolerance; and
+    bit for bit the plain version at the real D in f32."""
+    causal = s == 77
+    arrs = _qkv(1, 4, 2, s, d)
+    size = torch.empty((), dtype=dtype).element_size()
+    bq, bk = ops.tuned_flash_blocks(s, d, size)
+    assert kflash.built(bq, bk, d, dtype)
+    ops.reset_launch_counts()
+    got = _staged_plain(*_torch(arrs, dtype), causal, bq, bk)
+    assert got.shape == (1, 4, s, d) and got.dtype == dtype
+    assert ops.stage_counts()["flash_attention"]["launches"] == int(d % 8 != 0)
+    jarrs = [jnp.asarray(a, JDTYPE[dtype]) for a in arrs]
+    pq, pk = (bq, bk) if s % bq == 0 and s % bk == 0 else (s, s)
+    want = flash_attention_pallas(*jarrs, causal=causal, block_q=pq, block_k=pk,
+                                  interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **FLASH_TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(jref.attention(*jarrs, causal=causal)),
+                               **FLASH_TOL[dtype])
+    if dtype == torch.float32:
+        np.testing.assert_allclose(
+            _np(got), _np(ops.attention(*_torch(arrs), causal=causal)), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("n,k", [(36, 100), (100, 36), (36, 36), (100, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_staged_matmul_matches_pallas_and_oracle(n, k, dtype):
+    """N and K off TMA's 16-byte row stride: A and B through the staging
+    helper at N' and K', the plain version there at the tiles resolved at
+    the real shape, copied back to N, against the Pallas kernel
+    (interpreted, at the reference's own pick) and the oracle, within the
+    reference's tolerance."""
+    m = 256
+    x, y = _xy(m, n, k)
+    tx, ty = _torch((x, y), dtype)
+    size = tx.element_size()
+    blocks = ops.tuned_matmul_blocks(m, n, k, size)
+    tiles = kmatmul.resolve_blocks(m, n, k, *blocks[:3])
+    kp, np_ = (stage.aligned_cols(v, size) for v in (k, n))
+    xs, ys = stage.stage("matmul", (tx, ty), ((m, kp), (kp, np_)))
+    assert xs.shape == (m, kp) and ys.shape == (kp, np_)
+    assert kmatmul.built(*tiles, blocks[3], dtype)
+    got = stage.unstaged("matmul", kmatmul.k_slices(xs, ys, tiles[2]), n)
+    assert got.shape == (m, n) and got.dtype == dtype
+    rtol = MATMUL_F16_TOL if dtype == torch.float16 else MATMUL_TOL[dtype]
+    tol = dict(atol=rtol * np.sqrt(k), rtol=rtol)
+    jx, jy = (jnp.asarray(a, JDTYPE[dtype]) for a in (x, y))
+    jbm, jbn, jbk = jtuned_matmul_blocks(m, n, k, size)
+    want = matmul_pallas(jx, jy, bm=jbm, bn=jbn, bk=jbk, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    np.testing.assert_allclose(_np(got), _np(jref.matmul(jx, jy)), **tol)
+    np.testing.assert_allclose(_np(got), _np(ops.matmul(tx, ty)), **tol)
+
+
+def test_staging_zero_pads_into_aligned_contiguous_buffers():
+    """A staged buffer is fresh, contiguous, 16-byte aligned, its rows a
+    multiple of 16 bytes, the operand in its leading corner and zeros
+    elsewhere: also from a transposed view and from a view at an odd
+    offset."""
+    base = torch.arange(1, 3 * 101 + 1, dtype=torch.bfloat16)
+    for t in (base[:300].reshape(3, 100), base[1:301].reshape(3, 100),
+              base[:300].reshape(100, 3).t()):
+        assert stage.needs_copy(t, (3, 104))
+        buf = stage.staged(t, (3, 104))
+        assert buf.is_contiguous() and buf.data_ptr() % 16 == 0
+        assert (buf.shape[-1] * buf.element_size()) % 16 == 0
+        assert torch.equal(buf[:, :100], t) and not buf[:, 100:].any()
+        assert buf.data_ptr() != t.data_ptr()
+    b = stage.staged(base[:300].reshape(100, 3), (104, 8))
+    assert torch.equal(b[:100, :3], base[:300].reshape(100, 3)) and not b[100:].any()
+    assert not b[:, 3:].any()
+    assert [stage.aligned_cols(n, 2) for n in (1, 8, 20, 100)] == [8, 8, 24, 104]
+    assert [stage.aligned_cols(n, 4) for n in (1, 4, 98, 100)] == [4, 4, 100, 100]
+
+
+def test_staging_copies_nothing_on_an_aligned_input():
+    """An operand the kernel takes as it is comes back as itself, and the
+    launch counts no staging."""
+    ops.reset_launch_counts()
+    q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+    x = torch.zeros((64, 128), dtype=torch.float32)
+    for kern, ts, shapes in (("flash_attention", (q, q, q), [q.shape] * 3),
+                             ("matmul", (x, x.t().contiguous()), [(64, 128), (128, 64)])):
+        out = stage.stage(kern, ts, shapes)
+        assert all(a is b for a, b in zip(out, ts))
+    assert ops.stage_counts() == {"flash_attention": {"launches": 0, "bytes": 0},
+                                  "matmul": {"launches": 0, "bytes": 0}}
+    # a transposed operand is not contiguous, so it is staged, unpadded
+    xt, = stage.stage("matmul", (x.t(),), [(128, 64)])
+    assert xt.is_contiguous() and torch.equal(xt, x.t())
+    assert ops.stage_counts()["matmul"] == {"launches": 1, "bytes": 128 * 64 * 4}
+
+
+def test_staged_flash_keeps_the_real_head_dims_scale():
+    """The kernel runs the staged width with the caller's scale, the real
+    D's D**-0.5: the zero columns change no score. At the padded width's
+    own scale the output would differ."""
+    arrs = _torch(_qkv(1, 4, 2, 77, 20))
+    want = flash_attention_plain(*arrs, causal=True, block_q=64, block_k=64)
+    got = _staged_plain(*arrs, True, 64, 64)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-6, rtol=1e-6)
+    padded = [stage.staged(t, (*t.shape[:-1], 24)) for t in arrs]
+    wrong = flash_attention_plain(*padded, causal=True, block_q=64, block_k=64)[..., :20]
+    assert float((wrong - want).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("s", [1, 77, 513, 1024, 2047])
+@pytest.mark.parametrize("d,size", [(4, 2), (20, 2), (100, 2), (264, 2), (320, 2),
+                                    (384, 2), (512, 2), (4, 4), (12, 4), (136, 4),
+                                    (192, 4), (200, 4), (256, 4)])
+def test_tuned_flash_blocks_at_new_head_dims_are_built(s, d, size):
+    """Every pick at a head dim the kernels take through the staging copy
+    or the new builds is a block pair built for it, in each dtype of that
+    width; f32 at 192 picks (64, 64), the one pair built there."""
+    bq, bk = ops.tuned_flash_blocks(s, d, size)
+    for dtype in ((torch.float32,) if size == 4 else (torch.bfloat16, torch.float16)):
+        assert kflash.built(bq, bk, d, dtype)
+    if size == 4 and d > 128:
+        assert (bq, bk) == (64, 64)
+
+
+@pytest.mark.parametrize("size", [2, 4])
+def test_flash_smem_count_is_unchanged_where_a_kernel_was_built(size):
+    """The shared-memory count the picker prunes with keeps its value at
+    every (block_q, block_k, width) a kernel was built for before f32
+    reached past 128 and 16 bits past 256: two K/V stages at the padded
+    width (in f32 with the probability tile), so no pick there moves."""
+    for bq in BLOCKS:
+        for bk in BLOCKS:
+            for d in range(8, (257 if size == 2 else 129), 8):
+                dp = -(-d // 64) * 64
+                if size == 2:
+                    before = 2 * dp * (bq + 4 * bk) + 128 + 1024
+                else:
+                    before = 4 * (dp * (bq + 4 * bk) + bq * bk)
+                if before <= GPU_H100.fast_mem_bytes:
+                    assert smem_bytes(bq, bk, d, size) == before
+                    assert kflash.fits(bq, bk, d, size)
