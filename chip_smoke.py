@@ -20,10 +20,12 @@ Phases, in order; any failure exits non-zero before the last line:
              no HMMA; expect the 16-bit flash instantiations (in bf16 and in
              f16: 12 built head dims, 8 generic ones of padded width 64 or
              128; in each type 5 of width 192 or 256 and 5 of width 384 or
-             512), the 24 matmul ones in each type, the 8 f32 flash (6 with
-             two K/V stages, 2 past 128 columns with one) and the 21 f32
-             matmul ones, and fail
-             unless each f32 kernel's SASS has FFMA and no HGMMA or HMMA;
+             512), the 24 matmul ones in each type, the 7 f32 flash (5 of
+             three TF32 passes on wgmma up to 128 columns, 2 SIMT past it)
+             and the 21 f32 matmul ones (three TF32 passes), and fail
+             unless each three-pass f32 kernel's SASS has HGMMA and UTMALDG
+             and the SIMT one's FFMA and no HGMMA, none with HMMA or local
+             memory (LDL/STL);
              check that the shared memory each library reports for every
              instantiation is what ``flash_attention.smem_bytes`` (the block
              picker's pruning) and ``matmul.smem_bytes`` (the tuner's
@@ -47,9 +49,9 @@ Phases, in order; any failure exits non-zero before the last line:
              the reduced configs' shapes (4/2 and 4/4 heads of 16, S = 1,
              12, 64, 77), and the f32 matmul kernel at every built
              configuration of the reference's matmul grid and dense_256/512
-             (the tuner's pick at 4 bytes among them), at the reference's
-             f32 limits, which must flag the plain version run on
-             TF32-rounded inputs at the reference's grids.
+             (the tuner's pick at 4 bytes among them) and at 256x256x16384,
+             at the reference's f32 limits, which must flag the plain
+             version run on TF32-rounded inputs at the reference's grids.
 3. timing  — at every prompt length of the serve, causal: the kernel, its
              plain version and, as a yardstick only, torch's
              scaled_dot_product_attention (the port never calls it), with
@@ -61,8 +63,9 @@ Phases, in order; any failure exits non-zero before the last line:
              f32 (efficient or math backend), the bf16 generic builds at
              D=16 and 96 against SDPA, and the f32 matmul at 2048x4096x4096
              and 256^3 against torch.matmul with TF32 off, each in turns by
-             graph replay, beside its plain version and its bound (f32 at
-             the FP32 rate, 67 TFLOP/s).
+             graph replay, beside its plain version and its bound (f32 in
+             three TF32 passes, each product three times at 495 TFLOP/s,
+             with the bound at the FP32 rate, 67 TFLOP/s, beside it).
 3b. reduced — the ten archs' ``.reduced()`` configs (f32, head dim 16) on
              the card through their normal entry points, counted: see
              ``reduced_phase``. One ``reduced {...}`` JSON line.
@@ -496,6 +499,10 @@ F32_FLASH_GRID = ((1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 32),
 F32_MM_SHAPES = ((128, 128, 128), (256, 128, 512), (64, 256, 128), (384, 256, 256),
                  (256, 256, 256), (512, 512, 512))
 F32_MM_TIMED = ((2048, 4096, 4096), (256, 256, 256))
+# and a long K, where the tensor cores' f32 accumulation error grows with
+# the wgmma summed into one accumulator (the kernel adds it to C every 1024
+# columns), from a generator of its own so that no earlier draw moves
+F32_MM_LONG_K, F32_LONG_K_SEED = ((256, 256, 16384),), 5
 # the bf16 head dims of the generic builds the smoke checks and times
 OTHER_HEAD_DIMS = (16, 32, 48, 96)
 # The reduced phase: the ten archs' .reduced() configs (f32, 4 heads of 16,
@@ -701,6 +708,23 @@ def bound(flops, nbytes, peak_flops):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+# the H100's dense TF32 tensor-core rate (NVIDIA's data sheet, SXM, 700 W)
+TF32_FLOPS = 495e12
+
+
+def peak_for(dtype, simt: bool = False) -> float:
+    """The rate a kernel's products run at: bf16 and f16 on the tensor
+    cores; f32 in three TF32 passes on them (each product three times at
+    the TF32 rate), or with ``simt`` (the f32 flash kernel past 128 columns)
+    one FFMA each at the FP32 rate."""
+    import torch
+    from repro_torch.hw.gpu_h100 import GPU_H100
+
+    if dtype != torch.float32:
+        return GPU_H100.peak_flops_bf16
+    return GPU_H100.peak_flops_f32 if simt else TF32_FLOPS / 3
+
+
 def time_new_kernels(gen) -> dict:
     """The timing phase's part for the kernels' other inputs, each by graph
     replay beside its plain version (eager) and a yardstick the port never
@@ -744,17 +768,20 @@ def time_new_kernels(gen) -> dict:
         plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True, block_q=bq,
                                                          block_k=bk), iters=3, warmup=1)
         flops, nbytes = flash_work(b, hq, hkv, s, d, True, size)
-        peak = GPU_H100.peak_flops_f32 if dtype == torch.float32 else GPU_H100.peak_flops_bf16
-        bound_ms, by = bound(flops, nbytes, peak)
+        bound_ms, by = bound(flops, nbytes, peak_for(dtype))
+        fp32_ms = bound(flops, nbytes, GPU_H100.peak_flops_f32)[0]
         out[name].append({"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "causal": True,
                           "dtype": str(dtype), "blocks": [bq, bk], "ms": ms,
                           "plain_ms": plain, "library_ms": lib, "bound_ms": bound_ms,
-                          "bound_by": by, "tflops": flops / ms / 1e9})
+                          "bound_by": by, "tflops": flops / ms / 1e9,
+                          **({"bound_fp32_ms": fp32_ms} if dtype == torch.float32 else {})})
         log(f"timing {name} {dtype} B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal "
             f"blocks=({bq},{bk}), graph replay: kernel {ms:.4f} ms [{k1:.4f}, {k2:.4f}] "
             f"({flops / ms / 1e9:.2f} TFLOP/s), sdpa (yardstick) {lib:.4f} ms [{l1:.4f}, "
             f"{l2:.4f}] ({ms / lib:.2f}x); plain {plain:.4f} ms; bound {bound_ms:.4f} ms "
-            f"by {by} ({nvidia_smi('name,power.limit')})")
+            f"by {by}" + (f" (three TF32 passes; at the FP32 rate {fp32_ms:.4f} ms)"
+                          if dtype == torch.float32 else "")
+            + f" ({nvidia_smi('name,power.limit')})")
     for m, n, k in F32_MM_TIMED:
         x = torch.randn((m, k), generator=gen, device="cuda")
         y = torch.randn((k, n), generator=gen, device="cuda")
@@ -765,15 +792,17 @@ def time_new_kernels(gen) -> dict:
         ms, lib = (k1 + k2) / 2, (l1 + l2) / 2
         plain = cuda_ms(lambda: km.matmul_plain(x, y, *blocks[:3]), iters=3)
         flops, nbytes = matmul_work(m, n, k, 4)
-        bound_ms, by = bound(flops, nbytes, GPU_H100.peak_flops_f32)
+        bound_ms, by = bound(flops, nbytes, peak_for(torch.float32))
+        fp32_ms = bound(flops, nbytes, GPU_H100.peak_flops_f32)[0]
         out["matmul_f32"].append({"shape": [m, n, k], "blocks": list(blocks), "ms": ms,
                                   "plain_ms": plain, "library_ms": lib,
                                   "bound_ms": bound_ms, "bound_by": by,
-                                  "tflops": flops / ms / 1e9})
+                                  "bound_fp32_ms": fp32_ms, "tflops": flops / ms / 1e9})
         log(f"timing matmul_f32 {m}x{n}x{k} blocks={blocks}, graph replay: kernel "
             f"{ms:.4f} ms [{k1:.4f}, {k2:.4f}] ({flops / ms / 1e9:.2f} TFLOP/s), "
             f"torch.matmul f32, TF32 off (yardstick) {lib:.4f} ms [{l1:.4f}, {l2:.4f}] "
             f"({ms / lib:.2f}x); plain {plain:.4f} ms; bound {bound_ms:.4f} ms by {by} "
+            f"(three TF32 passes; at the FP32 rate {fp32_ms:.4f} ms) "
             f"({nvidia_smi('name,power.limit')})")
     return out
 
@@ -1106,7 +1135,7 @@ def check_ragged_matmul(gen, kinds=None, timed: bool = True) -> dict:
                 f"outside (worst {w_o:.3f}); " + "; ".join(controls))
             if bad_o:
                 fail(f"the {dtype} matmul kernel disagrees with the oracle at {m}x{n}x{k}")
-        peak = GPU_H100.peak_flops_f32 if dtype == torch.float32 else GPU_H100.peak_flops_bf16
+        peak = peak_for(dtype)
         for m, n, k in (RAGGED_MM_TIMED if timed else ()):
             x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
             y = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
@@ -1692,8 +1721,8 @@ def time_other_inputs(gen) -> dict:
         plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True, block_q=bq,
                                                          block_k=bk), iters=1, warmup=1)
         flops, nbytes = flash_work(b, hq, hkv, s, d, True, size)
-        peak = GPU_H100.peak_flops_f32 if dtype == torch.float32 else GPU_H100.peak_flops_bf16
-        bound_ms, by = bound(flops, nbytes, peak)
+        bound_ms, by = bound(flops, nbytes,
+                             peak_for(dtype, simt=fa.build_of(dtype, d) == "flash_attention_f32_wide"))
         row = {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "causal": True, "dtype": name,
                "entry": fa.entry_for(dtype, d), "kernel_d": fa.staged_head_dim(d),
                "blocks": [bq, bk], "ms": ms, "turns_ms": [k1, k2], "plain_ms": plain,
@@ -1859,8 +1888,13 @@ def main() -> None:
         f"{regs_16['flash_attention_wide', '__half']}; chunked (two output chunks of "
         f"dp/2, one K/V stage) bf16 {regs_16['flash_attention_chunked', '__nv_bfloat16']}, "
         f"f16 {regs_16['flash_attention_chunked', '__half']}")
-    flash32_regs = registers("flash_attention", "flash_fwd_f32_kernel", "bq{}_bk{}_dp{}")
-    log(f"build f32 flash registers per instantiation (SIMT, BQ/8 warps): {flash32_regs}")
+    # f32 flash: three TF32 passes on wgmma up to 128 columns, SIMT past it
+    flash32_regs = {**registers("flash_attention", "flash_fwd_f32_kernel", "bq{}_bk{}_dp{}"),
+                    **registers("flash_attention", "flash_fwd_f32_simt_kernel",
+                                "bq{}_bk{}_dp{}")}
+    log(f"build f32 flash registers per instantiation (three TF32 passes up to 128 "
+        f"columns, the consumer warpgroups of BQ=128 raised to 216 with setmaxnreg; SIMT, "
+        f"BQ/8 warps, past 128): {flash32_regs}")
     want_flash32 = {f"bq{bq}_bk{bk}_dp{dp}" for bq in fa.BLOCKS for bk in fa.BLOCKS
                     for dp in fa.PADDED_WIDTHS if fa.built(bq, bk, dp, torch.float32)}
     if set(flash32_regs) != want_flash32:
@@ -1879,7 +1913,8 @@ def main() -> None:
              f"and in f16, found {sorted(mm_regs)} and {sorted(mm16_regs)}")
     mm32_configs = [c for c in mm_configs if km.built(*c, torch.float32)]
     mm32_regs = registers("matmul", "matmul_f32_kernel", "bm{}_bn{}_bk{}_s{}")
-    log(f"build f32 matmul registers per instantiation (SIMT, 256 threads): {mm32_regs}")
+    log(f"build f32 matmul registers per instantiation (three TF32 passes; the consumer "
+        f"warpgroups of bn >= 128 raised to 232 with setmaxnreg): {mm32_regs}")
     if sorted(mm32_regs) != sorted(f"bm{bm}_bn{bn}_bk{bk}_s{2 if db else 1}"
                                    for bm, bn, bk, db in mm32_configs):
         fail(f"expected the {len(mm32_configs)} f32 matmul instantiations, found "
@@ -1907,21 +1942,27 @@ def main() -> None:
     if len(sass_16) != n_16 or short16:
         fail(f"{len(sass_16)} 16-bit kernels in the SASS (want {n_16}); without wgmma or TMA, "
              f"or with HMMA: {short16[:3]}")
-    # the f32 kernels: true f32, FFMA and no tensor-core product of any kind
+    # the f32 kernels: the three-pass TF32 ones wgmma (HGMMA) and TMA
+    # (UTMALDG) with no mma.sync (HMMA); the SIMT one past 128 columns FFMA
+    # with no tensor-core product of any kind; none with local memory
     f32_sass = {fn: c for fn, c in {**sass_fn, **mm_sass_fn}.items()
-                if "flash_fwd_f32_kernel" in fn or "matmul_f32_kernel" in fn}
-    short = {fn: re.sub(r".*?(flash_fwd_f32|matmul_f32)_kernel", r"\1", fn)[:40]
-             for fn in f32_sass}
-    log("build SASS of the f32 kernels (FFMA/HGMMA/HMMA/LDL+STL local memory) per "
+                if re.search(r"(flash_fwd_f32|flash_fwd_f32_simt|matmul_f32)_kernel", fn)}
+    short = {fn: re.sub(r".*?(flash_fwd_f32|flash_fwd_f32_simt|matmul_f32)_kernel", r"\1",
+                        fn)[:44] for fn in f32_sass}
+    log("build SASS of the f32 kernels (HGMMA/UTMALDG/HMMA/FFMA/LDL+STL local memory) per "
         "instantiation: " + ", ".join(
-            f"{short[fn]} {c['FFMA']}/{c['HGMMA']}/{c['HMMA']}/{c['LDL'] + c['STL']}"
-            for fn, c in sorted(f32_sass.items())))
+            f"{short[fn]} {c['HGMMA']}/{c['UTMALDG']}/{c['HMMA']}/{c['FFMA']}/"
+            f"{c['LDL'] + c['STL']}" for fn, c in sorted(f32_sass.items())))
     if len(f32_sass) != len(want_flash32) + len(mm32_configs):
         fail(f"found {len(f32_sass)} f32 kernels in the SASS, want "
              f"{len(want_flash32) + len(mm32_configs)}")
     for fn, c in f32_sass.items():
-        if c["FFMA"] == 0 or c["HGMMA"] or c["HMMA"]:
-            fail(f"the f32 kernel {fn} is not FFMA alone: {c}")
+        if c["LDL"] or c["STL"] or c["HMMA"]:
+            fail(f"the f32 kernel {fn} has local memory or mma.sync: {c}")
+        if "simt" in fn and (c["FFMA"] == 0 or c["HGMMA"]):
+            fail(f"the SIMT f32 kernel {fn} is not FFMA alone: {c}")
+        if "simt" not in fn and (c["HGMMA"] == 0 or c["UTMALDG"] == 0):
+            fail(f"the three-pass TF32 kernel {fn} has no wgmma or no TMA: {c}")
     smem_dims = fa.HEAD_DIMS + OTHER_HEAD_DIMS + (136, 192, 200, 256, 264, 20, 320, 512,
                                                   520)
     for bq in fa.BLOCKS:
@@ -2000,6 +2041,8 @@ def main() -> None:
         [(1, 4, hkv, s, 16, c) for hkv in (2, 4) for s in REDUCED_LENS for c in (True, False)],
         gen_new, control=False))
     mm_err32 = check_matmul_f32(F32_MM_SHAPES, gen_new)
+    mm_err32 = max(mm_err32, check_matmul_f32(
+        F32_MM_LONG_K, torch.Generator(device=dev).manual_seed(F32_LONG_K_SEED)))
     log(f"f32 kernels checked in {time.perf_counter() - t_f32:.1f} s")
 
     # --------------------------------------------------------------- timing
@@ -2370,13 +2413,17 @@ def main() -> None:
         "launches_by_reduced": {a: r["launches"] for a, r in reduced["archs"].items()},
         "max_abs_err": max_err32,
         **{key: new_timing["flash_attention_f32"][0][key]
-           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                       "bound_fp32_ms")},
         "library": "scaled_dot_product_attention, f32, efficient or math backend",
         "dtypes": ["float32"],
-        "head_dims": f"every head dim from 1 to {fa.MAX_HEAD_DIM[torch.float32]} (padded "
-                     f"to 64 or 128 columns with two K/V stages, 192 or 256 with one; "
-                     f"off 8 staged at the next multiple of 8)",
-        "registers": flash32_regs, "sweep": new_timing["flash_attention_f32"]}, {
+        "products": "three TF32 passes on wgmma (hi.lo + lo.hi + hi.hi); bound_ms at "
+                    "the TF32 rate, bound_fp32_ms at the FP32 rate",
+        "head_dims": "1-128 (padded to 64 or 128 columns; off 8 staged at the next "
+                     "multiple of 8); 136-256 in flash_attention_f32_wide",
+        "registers": {key: r for key, r in flash32_regs.items()
+                      if not key.endswith(("dp192", "dp256"))},
+        "sweep": new_timing["flash_attention_f32"]}, {
         "name": "flash_attention_f32_wide", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",
@@ -2464,8 +2511,11 @@ def main() -> None:
         "replaces": "src/repro/kernels/matmul.py:28",
         "launches": reduced["launches"]["matmul_f32"], "max_abs_err": mm_err32,
         **{key: new_timing["matmul_f32"][0][key]
-           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                       "bound_fp32_ms")},
         "library": "torch.matmul, f32, TF32 off", "dtypes": ["float32"],
+        "products": "three TF32 passes on wgmma (C^T = B^T A^T, hi.lo + lo.hi + hi.hi); "
+                    "bound_ms at the TF32 rate, bound_fp32_ms at the FP32 rate",
         "ragged_check_launches": ragged["launches"]["matmul_f32"],
         "ragged_max_abs_err": ragged["max_abs_err"]["matmul_f32"],
         "ragged": ragged["timed"]["matmul_f32"],

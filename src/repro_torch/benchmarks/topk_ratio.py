@@ -35,8 +35,10 @@ train``.
         [--db F [--collect]] [--learned ARTIFACT [--check]] [--out F]
 
 runs on the card (and raises without one) at the yi-6b projections of a
-2048-token prefill by default; ``--device cpu`` times the plain version at
-small shapes, which exercises the plumbing and measures nothing of the card.
+2048-token prefill by default, in bf16, or with ``--dtype-bytes 4`` in f32
+(the f32 kernel at its built configurations, the space scored at 4 bytes);
+``--device cpu`` times the plain version at small shapes, which exercises
+the plumbing and measures nothing of the card.
 ``--check`` exits 1 unless the hybrid's mean ratio@k is at least the static
 one's.
 """
@@ -57,6 +59,7 @@ from repro_torch.core.spaces import MatmulSpace
 from repro_torch.core.tuner import _score_config, record_version
 from repro_torch.hw import resolve_device
 from repro_torch.hw.gpu_h100 import GPU_H100
+from repro_torch.kernels import matmul as kmatmul
 
 # (M, N, K) of every yi-6b projection for a 2048-token prefill (d_model 4096,
 # 4 kv heads of 128, d_ff 11008), then the unembed (vocab 64000)
@@ -97,9 +100,11 @@ def topk_ratio_matmul(M: int, N: int, K: int, n_configs: int = 128,
                       seed: int = 0, device="cuda", calibrated: bool = False,
                       db=None, limit: Optional[int] = None, learned=None,
                       rerank_top: int = 12, collect: bool = False,
-                      measured: Optional[Sequence[Dict]] = None) -> Dict:
+                      measured: Optional[Sequence[Dict]] = None,
+                      dtype_bytes: int = 2) -> Dict:
     """Static ranking vs measured times over the Hopper matmul space at
-    (M, N, K), bf16. Returns ``ratio@k`` for each k, ``top1_ratio``,
+    (M, N, K), bf16, or f32 with ``dtype_bytes=4`` (the space at 4 bytes,
+    the configurations the f32 kernel is built for). Returns ``ratio@k`` for each k, ``top1_ratio``,
     ``best_static_ms``, ``best_oracle_ms``, ``static_s``, ``measure_s``,
     ``n_configs``, ``space_size``, ``sample_truncated``, ``rank_corr``
     (Spearman's rank correlation of static score and measured time over the
@@ -132,8 +137,10 @@ def topk_ratio_matmul(M: int, N: int, K: int, n_configs: int = 128,
         from repro_torch.core.calibrate import cached_coeffs, coeffs_for_scoring
 
         coeffs = coeffs_for_scoring(cached_coeffs(GPU_H100.name, dev))
-    space = MatmulSpace(M, N, K, 2, target_kind=GPU_H100.kind)
-    cfgs = sample_space(space, n_configs, seed, limit=limit)
+    dtype = {2: torch.bfloat16, 4: torch.float32}[dtype_bytes]
+    space = MatmulSpace(M, N, K, dtype_bytes, target_kind=GPU_H100.kind)
+    cfgs = [c for c in sample_space(space, n_configs, seed, limit=limit)
+            if kmatmul.built(c["bm"], c["bn"], c["bk"], c["double_buffer"], dtype)]
     if not cfgs:
         raise ValueError(f"{space.signature()}: no built tile divides the shape")
     if measured is not None and sorted(map(_tkey, cfgs)) != sorted(
@@ -150,8 +157,8 @@ def topk_ratio_matmul(M: int, N: int, K: int, n_configs: int = 128,
         times = {_tkey(e["config"]): e["ms"] / 1e3 for e in measured}
     else:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        a = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
-        b = torch.randn((K, N), generator=gen, device=dev).to(torch.bfloat16)
+        a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+        b = torch.randn((K, N), generator=gen, device=dev).to(dtype)
         times = {_tkey(cfg): measure_config(a, b, cfg, iters=iters)
                  for cfg, _ in scores}
     measure_s = time.perf_counter() - t0
@@ -344,6 +351,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--check", action="store_true",
                    help="exit 1 unless the mean hybrid ratio@k >= the mean "
                         "static ratio@k (requires --learned)")
+    p.add_argument("--dtype-bytes", type=int, default=2, choices=(2, 4),
+                   help="2: bf16 (the default); 4: f32")
     p.add_argument("--out", default=None, help="write the results as JSON here")
     args = p.parse_args(argv)
     if args.collect and not args.db:
@@ -364,7 +373,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         res = topk_ratio_matmul(m, n, k, iters=args.iters, seed=args.seed,
                                 device=dev, calibrated=args.calibrated,
                                 db=args.db, limit=args.limit, learned=learned,
-                                rerank_top=args.rerank_top, collect=args.collect)
+                                rerank_top=args.rerank_top, collect=args.collect,
+                                dtype_bytes=args.dtype_bytes)
         results[f"{m}x{n}x{k}"] = res
         pairs = ", ".join(f"{key}={v:.4f}" for key, v in res.items()
                           if key.startswith(("ratio@", "top1", "best_", "rank_",
@@ -373,7 +383,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"{m}x{n}x{k} on {where}: {pairs}, static {res['static_s']:.3f} s, "
               f"measured {res['n_configs']}/{res['space_size']} configs in "
               f"{res['measure_s']:.3f} s", flush=True)
-    summary = {"device": where, "results": results,
+    summary = {"device": where, "dtype_bytes": args.dtype_bytes, "results": results,
                "static_mean_ratio": mean_ratios(results, "ratio"),
                "hybrid_mean_ratio": mean_ratios(results, "hybrid_ratio")}
     if args.check:

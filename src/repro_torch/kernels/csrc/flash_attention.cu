@@ -9,40 +9,72 @@
 // Replaces the TPU kernel `_flash_kernel` (src/repro/kernels/flash_attention.py,
 // launched by `flash_attention_pallas`).
 //
-// The f32 kernel (`flash_attention_fwd_f32`, below) is SIMT:
-// true f32 products by FFMA. TF32 tensor-core products miss the reference's
-// f32 tolerance (atol 3e-5, rtol 3e-4), and wgmma takes tf32 operands only
-// K-major, which V is not. Its bound is the FP32 rate, 67 TFLOP/s: at yi-6b's
-// heads with S=1024 causal, 8.6 GFLOP take 128 us against 38 MB of q/k/v/o,
-// 11 us at 3.35 TB/s, so the products bound it and the design keeps the
-// FFMA units fed from shared memory:
+// The f32 kernel (`flash_attention_fwd_f32`, below) runs on the tensor
+// cores in three TF32 passes up to 128 columns. Its bound: FFMA caps a SIMT
+// kernel at the FP32 rate, 67 TFLOP/s (at yi-6b's heads with S=1024
+// causal, 8.6 GFLOP take 128 us, against 38 MB of q/k/v/o, 11 us at 3.35
+// TB/s); the tensor cores take tf32 at 495 TFLOP/s, and three passes of
+// 8.6 GFLOP take 52 us there. One TF32 pass misses the reference's f32
+// limit (atol 3e-5, rtol 3e-4); three do not: each operand splits as x =
+// hi + lo (`split_tf32`, cvt.rna), and each product is accumulated in f32
+// as hi.lo, lo.hi and hi.hi in that order, each part-product exact in f32
+// and the dropped lo.lo about 2^-22 relative. The design keeps the tensor
+// cores fed:
 //
-// - One block per (batch*q-head, q-tile), the bf16 kernel's grid and GQA row
-//   map; BQ/8 warps of 8 query rows each (256 or 512 threads).
-// - Q, and a ring of two K/V stages, are copied into shared memory with
-//   16-byte cp.async (zero-filled past S), so tile i+1 lands while tile i is
-//   multiplied.
-// - S = Q K^T: lane l of a warp owns keys l, l+32, ...; each step reads a
-//   float4 of Q (one address for the warp: a broadcast) and a float4 of
-//   each of its keys. K rows are stored with their 16-byte chunks XOR-
-//   swizzled by key % 8, so the eight lanes of a quarter-warp hit distinct
-//   banks with no padding.
-// - The online softmax runs in registers in the log2 domain (the bf16
-//   kernel's scale fold, mask and causal tile skip); each warp writes its
-//   rows of P to shared memory, and O += P V reads P as float4 broadcasts
-//   and V rows as 32 consecutive floats. Lane l owns output columns l,
-//   l+32, ..., below DP; the columns past d are zero in V and never
-//   stored.
-// - Shared memory: 4 * (DP * (BQ + 4 * BK) + BQ * BK) bytes, built at the
-//   (BQ, BK, DP) that fit one block's 232,448.
-// - Widths 192 and 256 (head dims 136-256): two stages fit at no block
-//   pair (262,144 B at (64, 64) and 192), so these builds keep one K/V
-//   stage, 4 * (DP * (BQ + 2 * BK) + BQ * BK) bytes, and tile i+1 is copied
-//   only once every warp is done with tile i: the copy no longer overlaps
-//   the products. BQ is 64: at BQ = 128 the block's 512 threads get at most
-//   128 registers each, (128, 64) at width 128 already takes 126, and 6 or
-//   8 accumulator columns a lane would spill. Built at (64, 64) at 192 and
-//   256 ((64, 128) needs 278,528 B at 192).
+// - One block per (batch*q-head, q-tile), the 16-bit kernel's grid, GQA
+//   row map, online softmax in the log2 domain, scale fold, mask, causal
+//   tile skip and heaviest-first q-tile order. Each consumer warpgroup
+//   owns 64 query rows; with BQ = 128 the two take turns issuing (named
+//   barriers), so one's softmax runs under the other's products.
+// - S = Q K^T: Q and K are both K-major (D contiguous), so it is an SS
+//   wgmma m64n{BK}k8, three per k8 step. TMA lands Q and K in 128-byte-
+//   swizzled boxes of 32 floats (one tf32 atom), the columns past d zero.
+//   Q's hi and lo are split once per block (Q is reused by every key
+//   tile), K's hi in place and its lo into a tile of its own per key tile.
+// - O += P V: P is the register operand, the score accumulator after the
+//   softmax split in registers, as the 16-bit kernel keeps P. A tf32 A
+//   fragment holds columns t and t+4 where the accumulator holds 2t and
+//   2t+1, so each k8 step's keys are taken in the order 0, 2, 4, 6, 1, 3,
+//   5, 7: the fragment is the accumulator's registers as they are, and V^T
+//   is written in the same key order. V is N-major, so it lands unswizzled
+//   ([BK][DP]) and the converter warps write V^T's hi and lo as K-major
+//   swizzled tiles ([DP][32 keys] per 32 keys): BK*DP elements a tile
+//   against 6*BQ*BK*DP flops.
+// - The producer warpgroup's warp 0 issues the TMA loads; its warps 1-3
+//   (with BQ = 128 and a second warpgroup, 7 warps) split Q, then each K
+//   tile and write each V^T tile in the order the consumers take them.
+//   Each buffer has a full barrier (TMA), a ready barrier (split, after a
+//   fence to the async proxy) and an empty one, so K of tile i+1 lands
+//   and is split while tile i's softmax and P V run, and V of tile i while
+//   tile i+1's Q K^T runs. The splits cost: a build without them took
+//   0.114 ms at yi-6b's heads, S=1024, against 0.185 (H100,
+//   benchmarks/flash_ab.py), about the share of shared-memory traffic
+//   they add (192 of about 544 KB a tile at (64, 64), width 128). With 7
+//   converter warps instead of 3 the kernel took 0.98x the time there and
+//   0.91-0.92x at BQ = 128, so BQ = 64 keeps 3 and its 256 threads, whose
+//   consumers may take up to 255 registers with no setmaxnreg.
+// - With BQ = 128 `setmaxnreg` leaves the producer side 40 registers and
+//   gives a consumer thread 216 (512 threads, 128 at launch).
+// - Shared memory, one buffer of each: Q hi and lo, K (hi) and its lo, V
+//   as it lands, V^T hi and lo: 4 * (2 * BQ * DP + 5 * BK * DP) bytes plus
+//   128 of barriers and 1024 of alignment slack. That fits one block at
+//   (64, 64), (64, 128), (128, 64) and (128, 128) at width 64 and (64, 64)
+//   at 128, the f32 pairs built there. With BK = 64 a warpgroup issues
+//   tile i's Q K^T and tile i-1's P V back to back and runs tile i's
+//   softmax under P V (P of tile i-1, 64 registers of hi and lo, stays
+//   live beside the scores of tile i); with BK = 128 P is 128 registers
+//   and the warpgroup runs Q K^T, softmax and P V in turn.
+//
+// Widths 192 and 256 (head dims 136-256) stay SIMT (`flash_fwd_f32_simt_
+// kernel`): the design above needs 344,064 B at (64, 64) and 192 columns.
+// There Q, one K/V stage and the probability tile are copied into shared
+// memory with 16-byte cp.async, each lane owns keys l, l+32, ... of S =
+// Q K^T (K rows XOR-swizzled by key % 8) and output columns l, l+32, ...
+// of O += P V, P written to shared memory by each warp: 4 * (DP * (BQ + 2
+// * BK) + BQ * BK) bytes, built at (64, 64). BQ is 64: at 128 the block's
+// 512 threads get at most 128 registers each, too few for 6 or 8
+// accumulator columns a lane. Tile i+1 is copied once every warp is done
+// with tile i.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -54,7 +86,401 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// ------------------------------------------------------------- f32, SIMT
+// ---------------------------------------------------- f32, three-pass TF32
+
+constexpr int kF32Atom = 32;  // f32 columns of one 128-byte swizzle atom
+
+template <int BQ, int BK, int DP>
+struct CfgTf32 {
+  static_assert(BQ == 64 || BQ == 128, "BQ is one or two warpgroups of 64 rows");
+  static_assert(BK == 64 || BK == 128, "BK is the N of an m64nBKk8 wgmma");
+  static_assert(DP == 64 || DP == 128, "DP is the N of an m64nDPk8 wgmma");
+  static constexpr int kConsumers = BQ / 64;
+  // + the producer warpgroup (warp 0 issues TMA, 1-3 convert) and, with
+  // two consumer warpgroups, a converter warpgroup: 3 or 7 converter warps
+  static constexpr int kProducers = kConsumers;
+  static constexpr int kThreads = 128 * (kConsumers + kProducers);
+  static constexpr int kConverters = 128 * kProducers - 32;
+  // with 512 threads (128 registers each at launch) setmaxnreg leaves the
+  // producer side 40 and gives a consumer thread what that frees
+  static_assert(kConsumers == 1 || 256 * 40 + 256 * 216 <= 512 * 128,
+                "setmaxnreg moves no more registers than the launch holds");
+  static constexpr int kCols = DP / kF32Atom;              // atoms per Q or K row
+  static constexpr int kQBytes = BQ * DP * 4;
+  static constexpr int kKVBytes = BK * DP * 4;
+  // Q hi and lo, K (hi in place) and K lo, V as it lands, V^T hi and lo
+  static constexpr int kQLo = kQBytes;
+  static constexpr int kK = 2 * kQBytes;
+  static constexpr int kKLo = kK + kKVBytes;
+  static constexpr int kV = kKLo + kKVBytes;
+  static constexpr int kVtHi = kV + kKVBytes;
+  static constexpr int kVtLo = kVtHi + kKVBytes;
+  static constexpr int kBarOff = kVtLo + kKVBytes;
+  // nine barriers (8 B each, 128 B reserved) and 1024 B of slack to align
+  // the tiles' base to the swizzle period
+  static constexpr int kSmem = kBarOff + 128 + 1024;
+  static_assert(kSmem == 4 * (2 * BQ * DP + 5 * BK * DP) + 1152, "the pickers' count");
+  static_assert(kSmem <= 232448, "fits one block's shared memory");
+  // P V of tile i-1 under tile i's softmax, where P's registers allow it
+  static constexpr bool kOverlap = BK == 64;
+};
+
+template <int BQ, int BK, int DP>
+__global__ void __launch_bounds__(CfgTf32<BQ, BK, DP>::kThreads, 1)
+    flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
+                         int hq, int hkv, int s, int d, float scale_log2, int causal) {
+  using C = CfgTf32<BQ, BK, DP>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  auto ptr = [&](int off) { return base_ptr + off; };
+  const uint32_t q_s = base, q_lo = base + C::kQLo;
+  const uint32_t k_s = base + C::kK, k_lo = base + C::kKLo;
+  const uint32_t v_s = base + C::kV, vt_hi = base + C::kVtHi, vt_lo = base + C::kVtLo;
+  const uint32_t bar = base + C::kBarOff;
+  const uint32_t q_full = bar, q_ready = bar + 8, k_full = bar + 16, k_ready = bar + 24,
+                 k_empty = bar + 32, v_full = bar + 40, v_free = bar + 48,
+                 vt_ready = bar + 56, vt_empty = bar + 64;
+
+  const int h = blockIdx.x;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int kvrow = (h / hq) * hkv + (h % hq) / (hq / hkv);
+  const int nk = (s + BK - 1) / BK;
+  const int n_tiles = causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_ready, C::kConverters);  // the converter warps split Q, K and V
+    mbar_init(k_full, 1);
+    mbar_init(k_ready, C::kConverters);
+    mbar_init(k_empty, 128 * C::kConsumers);
+    mbar_init(v_full, 1);
+    mbar_init(v_free, C::kConverters);
+    mbar_init(vt_ready, C::kConverters);
+    mbar_init(vt_empty, 128 * C::kConsumers);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg >= C::kConsumers) {
+    // ------------------------------------------- producer and converters
+    if constexpr (C::kConsumers == 2) setmaxnreg_dec<40>();
+    const int pt = threadIdx.x - 128 * C::kConsumers;
+    if (pt == 0) {
+      mbar_arrive_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < C::kCols; ++c) {
+        tma_load_3d(q_s + c * BQ * kAtomBytes, &tq, q_full, c * kF32Atom, q0, h);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        // K once Q K^T of tile i-1 is done (its hi and lo are free), V once
+        // tile i-1's V was written out as V^T
+        if (i > 0) mbar_wait(k_empty, (i - 1) & 1);
+        mbar_arrive_expect_tx(k_full, C::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < C::kCols; ++c) {
+          tma_load_3d(k_s + c * BK * kAtomBytes, &tk, k_full, c * kF32Atom, i * BK, kvrow);
+        }
+        if (i > 0) mbar_wait(v_free, (i - 1) & 1);
+        mbar_arrive_expect_tx(v_full, C::kKVBytes);
+        tma_load_3d(v_s, &tv, v_full, 0, i * BK, kvrow);
+      }
+    } else if (pt >= 32) {
+      // the converter warps: Q once, then each K tile (hi in place, lo
+      // beside it) and each V tile as V^T hi and lo, in the order the
+      // consumers take them
+      const int ct = pt - 32;
+      constexpr int NC = C::kConverters;
+      mbar_wait(q_full, 0);
+      split_tf32_tile(reinterpret_cast<float4*>(ptr(0)),
+                      reinterpret_cast<float4*>(ptr(C::kQLo)), C::kQBytes / 16, ct, NC);
+      fence_proxy_async();
+      mbar_arrive(q_ready);
+      auto split_k = [&](int i) {
+        mbar_wait(k_full, i & 1);
+        split_tf32_tile(reinterpret_cast<float4*>(ptr(C::kK)),
+                        reinterpret_cast<float4*>(ptr(C::kKLo)), C::kKVBytes / 16, ct, NC);
+        fence_proxy_async();
+        mbar_arrive(k_ready);
+      };
+      // V^T is K-major, one [DP][32] swizzled tile per 32 keys. Item (b,
+      // ch, col): chunk ch (4 slots) of row col of tile b holds keys 32b +
+      // 8(ch/2) + ch%2 + {0, 2, 4, 6}, the fragment's key order; lanes take
+      // consecutive columns (one V row read without conflict, 8 chunks a
+      // quarter-warp apart)
+      const float* vs = reinterpret_cast<const float*>(ptr(C::kV));
+      auto write_vt = [&](int i) {
+        mbar_wait(v_full, i & 1);
+        if (i > 0) mbar_wait(vt_empty, (i - 1) & 1);  // P V of tile i-1 is done
+        for (int e = ct; e < (BK / kF32Atom) * 8 * DP; e += NC) {
+          const int col = e % DP, ch = (e / DP) % 8, b = e / (8 * DP);
+          const float* src = vs + (kF32Atom * b + 8 * (ch >> 1) + (ch & 1)) * DP + col;
+          uint4 hi, lo;
+          split_tf32(src[0], hi.x, lo.x);
+          split_tf32(src[2 * DP], hi.y, lo.y);
+          split_tf32(src[4 * DP], hi.z, lo.z);
+          split_tf32(src[6 * DP], hi.w, lo.w);
+          const int off = b * DP * kAtomBytes + col * kAtomBytes + ((ch ^ (col & 7)) << 4);
+          *reinterpret_cast<uint4*>(ptr(C::kVtHi + off)) = hi;
+          *reinterpret_cast<uint4*>(ptr(C::kVtLo + off)) = lo;
+        }
+        fence_proxy_async();
+        mbar_arrive(v_free);
+        mbar_arrive(vt_ready);
+      };
+      // with the overlap, step i needs K of tile i and V of tile i-1, and V
+      // of tile i waits for P V of tile i-1: K runs a tile ahead of V
+      split_k(0);
+      for (int i = 0; i < n_tiles; ++i) {
+        if (C::kOverlap && i + 1 < n_tiles) split_k(i + 1);
+        write_vt(i);
+        if (!C::kOverlap && i + 1 < n_tiles) split_k(i + 1);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    if constexpr (C::kConsumers == 2) setmaxnreg_inc<216>();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int t = lane & 3;                                         // column pair
+    const int row0 = q0 + wg * 64 + (tid / 32) * 16 + (lane >> 2);  // and row0 + 8
+    const int wg_row_min = q0 + wg * 64;
+    const uint32_t qh_wg = q_s + wg * 64 * kAtomBytes, ql_wg = q_lo + wg * 64 * kAtomBytes;
+
+    float acc[DP / 2];  // columns past d stay zero (V's fill)
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    uint32_t phi[BK / 8][4] = {}, plo[BK / 8][4] = {};  // P as tf32 A fragments
+    float m0 = kNegInf, m1 = kNegInf;  // running max (log2 domain) of row0, row0+8
+    float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
+
+    // Every tile sits at the same address in every key tile (one buffer
+    // each), so the k-steps' descriptors are the same in every tile: made
+    // per k-step, ptxas hoisted them out of the tile loop (4 x DP/8 64-bit
+    // registers for Q K^T) and the (64, 64) build at width 128 spilled. An
+    // opaque copy of each base descriptor per call keeps them in the loop,
+    // one add per k-step (a descriptor's address field is the byte address
+    // >> 4, and no offset carries out of it).
+    auto opaque_desc = [&](uint32_t addr) {
+      uint64_t desc = smem_desc_sw128(addr, 16, 1024);
+      asm volatile("" : "+l"(desc));
+      return desc;
+    };
+    // S = Q K^T: DP/8 k-steps (the zero fill past d adds nothing), step kk
+    // 32 bytes into column atom kk/4; hi.lo, lo.hi, hi.hi
+    auto issue_s = [&](float (&sc)[BK / 2]) {
+      const uint64_t dqh = opaque_desc(qh_wg), dql = opaque_desc(ql_wg);
+      const uint64_t dkh = opaque_desc(k_s), dkl = opaque_desc(k_lo);
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        const uint64_t oq = ((kk / 4) * BQ * kAtomBytes + (kk % 4) * 32) >> 4;
+        const uint64_t ok = ((kk / 4) * BK * kAtomBytes + (kk % 4) * 32) >> 4;
+        wgmma_tf32_ss<BK>(sc, dqh + oq, dkl + ok, kk > 0);
+        wgmma_tf32_ss<BK>(sc, dql + oq, dkh + ok, 1);
+        wgmma_tf32_ss<BK>(sc, dqh + oq, dkh + ok, 1);
+      }
+    };
+    // O += P V: V^T is [DP][BK keys], K-major; step kk 32 bytes into key
+    // atom kk/4
+    auto issue_pv = [&]() {
+      const uint64_t dvh = opaque_desc(vt_hi), dvl = opaque_desc(vt_lo);
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        const uint64_t ov = ((kk / 4) * DP * kAtomBytes + (kk % 4) * 32) >> 4;
+        wgmma_tf32_rs<DP>(acc, phi[kk], dvl + ov, 1);
+        wgmma_tf32_rs<DP>(acc, plo[kk], dvh + ov, 1);
+        wgmma_tf32_rs<DP>(acc, phi[kk], dvh + ov, 1);
+      }
+    };
+    // the scores (landed) -> probabilities in place; updates m and l and
+    // returns the factors the accumulator must be rescaled by
+    auto softmax = [&](int i, float (&sc)[BK / 2], float& c0, float& c1) {
+      const int k0 = i * BK;
+      if (k0 + BK > s || (causal && k0 + BK - 1 > wg_row_min)) {
+        scale_scores<true, BK>(sc, scale_log2, k0, t, row0, s, causal);
+      } else {
+        scale_scores<false, BK>(sc, scale_log2, k0, t, row0, s, causal);
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      // a row's 8-column tiles are spread over the 4 lanes of one quad
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      c0 = exp2_ftz(m0 - mx0);
+      c1 = exp2_ftz(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        sc[4 * j] = exp2_ftz(sc[4 * j] - mx0);
+        sc[4 * j + 1] = exp2_ftz(sc[4 * j + 1] - mx0);
+        sc[4 * j + 2] = exp2_ftz(sc[4 * j + 2] - mx1);
+        sc[4 * j + 3] = exp2_ftz(sc[4 * j + 3] - mx1);
+        ps0 += sc[4 * j] + sc[4 * j + 1];
+        ps1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = l0 * c0 + ps0;
+      l1 = l1 * c1 + ps1;
+    };
+    // once no P V is in flight: rescale the accumulator and split P. k-step
+    // kk of P V is key tile kk of the scores, slot t its key 2t and slot
+    // t + 4 its key 2t + 1 (V^T's key order)
+    auto rescale_and_split = [&](const float (&sc)[BK / 2], float c0, float c1) {
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        acc[4 * j] *= c0;
+        acc[4 * j + 1] *= c0;
+        acc[4 * j + 2] *= c1;
+        acc[4 * j + 3] *= c1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        split_tf32(sc[4 * kk], phi[kk][0], plo[kk][0]);      // row g, key 2t
+        split_tf32(sc[4 * kk + 2], phi[kk][1], plo[kk][1]);  // row g + 8, key 2t
+        split_tf32(sc[4 * kk + 1], phi[kk][2], plo[kk][2]);  // row g, key 2t + 1
+        split_tf32(sc[4 * kk + 3], phi[kk][3], plo[kk][3]);  // row g + 8, key 2t + 1
+      }
+    };
+    auto fence_scores = [&](float (&sc)[BK / 2]) {
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) fence_operand(sc[j]);
+    };
+    auto fence_acc_and_p = [&]() {
+#pragma unroll
+      for (int j = 0; j < DP / 2; ++j) fence_operand(acc[j]);
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          fence_operand(phi[kk][e]);
+          fence_operand(plo[kk][e]);
+        }
+      }
+    };
+    // Two consumer warpgroups take turns issuing their products (named
+    // barriers 1 and 2), warpgroup 0 first; each passes every turn on but
+    // warpgroup 1's last.
+    auto take_turn = [&]() {
+      if constexpr (C::kConsumers == 2) named_barrier_sync(1 + wg, 256);
+    };
+    auto pass_turn = [&](bool last) {
+      if constexpr (C::kConsumers == 2) {
+        if (wg == 0 || !last) named_barrier_arrive(2 - wg, 256);
+      }
+    };
+    if (C::kConsumers == 2 && wg == 1) named_barrier_arrive(1, 256);
+    mbar_wait(q_ready, 0);
+
+    if constexpr (C::kOverlap) {
+      {  // tile 0: its scores alone (n_tiles + 1 turns)
+        float sc[BK / 2], c0, c1;
+        mbar_wait(k_ready, 0);
+        take_turn();
+        wgmma_fence();
+        issue_s(sc);
+        wgmma_commit();
+        pass_turn(false);
+        wgmma_wait<0>();
+        fence_scores(sc);
+        mbar_arrive(k_empty);
+        softmax(0, sc, c0, c1);
+        rescale_and_split(sc, c0, c1);
+      }
+      // step i issues tile i's S and tile i-1's P V back to back, then
+      // runs tile i's softmax while P V is still on the tensor cores
+      for (int i = 1; i < n_tiles; ++i) {
+        float sc[BK / 2], c0, c1;
+        mbar_wait(k_ready, i & 1);
+        mbar_wait(vt_ready, (i - 1) & 1);
+        take_turn();
+        wgmma_fence();
+        issue_s(sc);
+        wgmma_commit();
+        issue_pv();
+        wgmma_commit();
+        pass_turn(false);
+        wgmma_wait<1>();  // S of tile i has landed; P V may still run
+        fence_scores(sc);
+        mbar_arrive(k_empty);
+        softmax(i, sc, c0, c1);
+        wgmma_wait<0>();  // P V of tile i-1 is done: acc, P and V^T are free
+        fence_acc_and_p();
+        mbar_arrive(vt_empty);
+        rescale_and_split(sc, c0, c1);
+      }
+      {  // the last tile's P V
+        mbar_wait(vt_ready, (n_tiles - 1) & 1);
+        take_turn();
+        wgmma_fence();
+        issue_pv();
+        wgmma_commit();
+        pass_turn(true);
+        wgmma_wait<0>();
+        fence_acc_and_p();
+      }
+    } else {
+      // Q K^T, softmax and P V in turn (2 n_tiles turns)
+      for (int i = 0; i < n_tiles; ++i) {
+        float sc[BK / 2], c0, c1;
+        mbar_wait(k_ready, i & 1);
+        take_turn();
+        wgmma_fence();
+        issue_s(sc);
+        wgmma_commit();
+        pass_turn(false);
+        wgmma_wait<0>();
+        fence_scores(sc);
+        mbar_arrive(k_empty);
+        softmax(i, sc, c0, c1);
+        rescale_and_split(sc, c0, c1);
+        mbar_wait(vt_ready, i & 1);
+        take_turn();
+        wgmma_fence();
+        issue_pv();
+        wgmma_commit();
+        pass_turn(i == n_tiles - 1);
+        wgmma_wait<0>();
+        fence_acc_and_p();
+        mbar_arrive(vt_empty);
+      }
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float d0 = fmaxf(l0, 1e-30f);
+    const float d1 = fmaxf(l1, 1e-30f);
+    // the real d columns only (d is a multiple of 8: a pair is whole)
+    float* oh = o + (size_t)h * s * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col >= d) continue;
+      if (row0 < s) {
+        *reinterpret_cast<float2*>(oh + (size_t)row0 * d + col) =
+            make_float2(acc[4 * j] / d0, acc[4 * j + 1] / d0);
+      }
+      if (row0 + 8 < s) {
+        *reinterpret_cast<float2*>(oh + (size_t)(row0 + 8) * d + col) =
+            make_float2(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+      }
+    }
+  }
+}
+
+// --------------------------------------------------- f32 past 128, SIMT
 
 // 16-byte asynchronous copy global -> shared; `bytes` < 16 zero-fills the
 // rest (0: all zeros, nothing read)
@@ -68,48 +494,43 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// waits until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int BQ, int BK, int DP, int ST = 2>
-struct CfgF32 {
-  static_assert(BQ == 64 || BQ == 128, "BQ is 8 or 16 warps of 8 rows");
+template <int BQ, int BK, int DP>
+struct CfgSimt {
+  static_assert(BQ == 64, "BQ is 8 warps of 8 rows (registers)");
   static_assert(BK == 64 || BK == 128, "BK is 2 or 4 keys a lane");
-  static_assert(DP == 64 || DP == 128 || DP == 192 || DP == 256,
-                "DP is 2, 4, 6 or 8 columns a lane");
-  static_assert(ST == 1 || ST == 2, "one or two K/V stages");
-  static constexpr int kStages = ST;
+  static_assert(DP == 192 || DP == 256, "DP is 6 or 8 columns a lane");
   static constexpr int kRows = 8;                 // query rows a warp owns
   static constexpr int kThreads = 32 * BQ / kRows;
   static constexpr int kKJ = BK / 32;             // keys a lane owns
   static constexpr int kDJ = DP / 32;             // output columns a lane owns
-  // floats: Q [BQ][DP], then per stage K [BK][DP] (swizzled) and V [BK][DP],
-  // then P [BQ][BK]
+  // floats: Q [BQ][DP], K [BK][DP] (swizzled), V [BK][DP], P [BQ][BK]
   static constexpr int kKV = BK * DP;
   static constexpr int kKOff = BQ * DP;
-  static constexpr int kPOff = kKOff + ST * 2 * kKV;
+  static constexpr int kVOff = kKOff + kKV;
+  static constexpr int kPOff = kVOff + kKV;
   static constexpr int kSmem = 4 * (kPOff + BQ * BK);
-  static_assert(kSmem == 4 * (DP * (BQ + 2 * ST * BK) + BQ * BK), "the pickers' count");
+  static_assert(kSmem == 4 * (DP * (BQ + 2 * BK) + BQ * BK), "the pickers' count");
   static_assert(kSmem <= 232448, "fits one block's shared memory");
 };
 
-template <int BQ, int BK, int DP, int ST>
-__global__ void __launch_bounds__(CfgF32<BQ, BK, DP, ST>::kThreads, 1)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o, int hq,
-                         int hkv, int s, int d, float scale_log2, int causal) {
-  using C = CfgF32<BQ, BK, DP, ST>;
+template <int BQ, int BK, int DP>
+__global__ void __launch_bounds__(CfgSimt<BQ, BK, DP>::kThreads, 1)
+    flash_fwd_f32_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, float* __restrict__ o, int hq,
+                              int hkv, int s, int d, float scale_log2, int causal) {
+  using C = CfgSimt<BQ, BK, DP>;
   constexpr int R = C::kRows, KJ = C::kKJ, DJ = C::kDJ;
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
   const uint32_t smem_base = smem_u32(smem);
   float* q_s = smem;
+  const float* k_s = smem + C::kKOff;
+  float* v_s = smem + C::kVOff;
   float* p_s = smem + C::kPOff;
-  auto k_off = [&](int st) { return C::kKOff + st * 2 * C::kKV; };
-  auto v_off = [&](int st) { return k_off(st) + C::kKV; };
 
   const int h = blockIdx.x;
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -120,13 +541,11 @@ __global__ void __launch_bounds__(CfgF32<BQ, BK, DP, ST>::kThreads, 1)
   const int tid = threadIdx.x;
   const int nc = d / 4;  // 16-byte chunks in a row
 
-  // V's columns d..DP-1 are never loaded: zero them once in every stage,
-  // so the accumulator's columns past d stay zero
-  for (int st = 0; st < ST; ++st) {
-    for (int e = tid; e < BK * (DP - d); e += C::kThreads) {
-      const int row = e / (DP - d);
-      smem[v_off(st) + row * DP + d + e % (DP - d)] = 0.f;
-    }
+  // V's columns d..DP-1 are never loaded: zero them once, so the
+  // accumulator's columns past d stay zero
+  for (int e = tid; e < BK * (DP - d); e += C::kThreads) {
+    const int row = e / (DP - d);
+    v_s[row * DP + d + e % (DP - d)] = 0.f;
   }
   const float* qh = q + (size_t)h * s * d;
   const float* kh = k + (size_t)kvrow * s * d;
@@ -142,16 +561,12 @@ __global__ void __launch_bounds__(CfgF32<BQ, BK, DP, ST>::kThreads, 1)
     }
   };
   auto load_kv = [&](int i) {
-    load_rows(kh, i * BK, BK, k_off(i % ST), true);
-    load_rows(vh, i * BK, BK, v_off(i % ST), false);
+    load_rows(kh, i * BK, BK, C::kKOff, true);
+    load_rows(vh, i * BK, BK, C::kVOff, false);
   };
   load_rows(qh, q0, BQ, 0, false);
   load_kv(0);
   cp_async_commit();
-  if (ST == 2 && n_tiles > 1) {
-    load_kv(1);
-    cp_async_commit();
-  }
 
   const int w = tid / 32, lane = tid % 32;
   const int r0 = w * R;  // the warp's first row in the tile
@@ -165,14 +580,8 @@ __global__ void __launch_bounds__(CfgF32<BQ, BK, DP, ST>::kThreads, 1)
   }
 
   for (int i = 0; i < n_tiles; ++i) {
-    if (ST == 2 && i + 1 < n_tiles) {
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait_all();
     __syncthreads();  // tile i (and Q) landed for every thread's copies
-    const float* k_s = smem + k_off(i % ST);
-    const float* v_s = smem + v_off(i % ST);
 
     // S = Q K^T over the d columns: a float4 of Q (broadcast) against a
     // float4 of each of the lane's keys; chunk c of key row j lies at chunk
@@ -260,9 +669,9 @@ __global__ void __launch_bounds__(CfgF32<BQ, BK, DP, ST>::kThreads, 1)
         }
       }
     }
-    __syncthreads();  // every warp is done with this stage (and its P)
-    if (i + ST < n_tiles) {
-      load_kv(i + ST);
+    __syncthreads();  // every warp is done with this tile (and its P)
+    if (i + 1 < n_tiles) {
+      load_kv(i + 1);
       cp_async_commit();
     }
   }
@@ -285,12 +694,34 @@ __global__ void __launch_bounds__(CfgF32<BQ, BK, DP, ST>::kThreads, 1)
 
 // ------------------------------------------------------------------- host
 
-template <int BQ, int BK, int DP, int ST>
+template <int BQ, int BK, int DP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int b,
                        int hq, int hkv, int s, int d, float scale, int causal,
                        cudaStream_t stream) {
-  using C = CfgF32<BQ, BK, DP, ST>;
-  auto kern = flash_fwd_f32_kernel<BQ, BK, DP, ST>;
+  using C = CfgTf32<BQ, BK, DP>;
+  auto kern = flash_fwd_f32_kernel<BQ, BK, DP>;
+  static bool raised[kMaxDevices] = {};
+  cudaError_t err = raise_smem(kern, C::kSmem, raised);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  // Q and K in swizzled boxes [rows][32]; V in one unswizzled box [BK][DP]
+  if (!make_map_f32_sw128(&tq, q, b * hq, s, d, BQ) ||
+      !make_map_f32_sw128(&tk, k, b * hkv, s, d, BK) ||
+      !make_map_f32(&tv, v, b * hkv, s, d, BK, DP)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(b * hq, (s + BQ - 1) / BQ);
+  kern<<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, static_cast<float*>(o), hq,
+                                                hkv, s, d, scale * kLog2e, causal);
+  return cudaGetLastError();
+}
+
+template <int BQ, int BK, int DP>
+cudaError_t launch_f32_simt(const void* q, const void* k, const void* v, void* o, int b,
+                            int hq, int hkv, int s, int d, float scale, int causal,
+                            cudaStream_t stream) {
+  using C = CfgSimt<BQ, BK, DP>;
+  auto kern = flash_fwd_f32_simt_kernel<BQ, BK, DP>;
   static bool raised[kMaxDevices] = {};
   cudaError_t err = raise_smem(kern, C::kSmem, raised);
   if (err != cudaSuccess) return err;
@@ -302,17 +733,14 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
-// f32, every (BQ, BK, DP) whose shared memory fits one block: two K/V
-// stages up to 128 columns, one past it, where BQ is 64 (registers)
+// f32, every (BQ, BK, DP) whose shared memory fits one block: three-pass
+// TF32 up to 128 columns, SIMT with one K/V stage past it (BQ 64, registers)
 #define FLASH_F32_BUILT(X) \
-  X(64, 64, 64) X(64, 128, 64) X(128, 64, 64) X(128, 128, 64) \
-  X(64, 64, 128) X(128, 64, 128) \
-  X(64, 64, 192) X(64, 64, 256)
+  X(64, 64, 64) X(64, 128, 64) X(128, 64, 64) X(128, 128, 64) X(64, 64, 128)
 
-// the K/V stages of the f32 build at padded width DP
-constexpr int f32_stages(int dp) { return dp > 128 ? 1 : 2; }
+#define FLASH_F32_SIMT_BUILT(X) X(64, 64, 192) X(64, 64, 256)
 
-// a head dim the f32 kernel takes: a multiple of 8 from 8 to 256
+// a head dim the f32 kernels take: a multiple of 8 from 8 to 256
 inline bool f32_head_dim_ok(int d) { return d >= 8 && d <= 256 && d % 8 == 0; }
 
 }  // namespace
@@ -326,11 +754,16 @@ extern "C" int flash_attention_smem_bytes(int d, int block_q, int block_k) {
 // The same for the f32 kernel.
 extern "C" int flash_attention_f32_smem_bytes(int d, int block_q, int block_k) {
   if (!f32_head_dim_ok(d)) return -1;
-#define FLASH_SMEM_F32(BQ_, BK_, DP_)                           \
+#define FLASH_SMEM_F32(BQ_, BK_, DP_)                       \
   if (padded(d) == DP_ && block_q == BQ_ && block_k == BK_) \
-    return CfgF32<BQ_, BK_, DP_, f32_stages(DP_)>::kSmem;
+    return CfgTf32<BQ_, BK_, DP_>::kSmem;
   FLASH_F32_BUILT(FLASH_SMEM_F32)
 #undef FLASH_SMEM_F32
+#define FLASH_SMEM_F32_SIMT(BQ_, BK_, DP_)                  \
+  if (padded(d) == DP_ && block_q == BQ_ && block_k == BK_) \
+    return CfgSimt<BQ_, BK_, DP_>::kSmem;
+  FLASH_F32_SIMT_BUILT(FLASH_SMEM_F32_SIMT)
+#undef FLASH_SMEM_F32_SIMT
   return -1;
 }
 
@@ -357,11 +790,16 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void*
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE_F32(BQ_, BK_, DP_)                                            \
-  if (padded(d) == DP_ && block_q == BQ_ && block_k == BK_)                      \
-    return launch_f32<BQ_, BK_, DP_, f32_stages(DP_)>(q, k, v, o, b, hq, hkv, s, d, \
-                                                      scale, causal, st);
+#define FLASH_CASE_F32(BQ_, BK_, DP_)                                         \
+  if (padded(d) == DP_ && block_q == BQ_ && block_k == BK_)                   \
+    return launch_f32<BQ_, BK_, DP_>(q, k, v, o, b, hq, hkv, s, d, scale, causal, st);
   FLASH_F32_BUILT(FLASH_CASE_F32)
 #undef FLASH_CASE_F32
+#define FLASH_CASE_F32_SIMT(BQ_, BK_, DP_)                                         \
+  if (padded(d) == DP_ && block_q == BQ_ && block_k == BK_)                        \
+    return launch_f32_simt<BQ_, BK_, DP_>(q, k, v, o, b, hq, hkv, s, d, scale, causal, \
+                                          st);
+  FLASH_F32_SIMT_BUILT(FLASH_CASE_F32_SIMT)
+#undef FLASH_CASE_F32_SIMT
   return cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives as inline PTX, shared by the port's kernels:
-// mbarriers, TMA tensor loads, wgmma with shared-memory descriptors, and
-// setmaxnreg; and, on the host, the TMA tensor maps both kernels load
+// mbarriers, TMA tensor loads, wgmma with shared-memory descriptors (bf16,
+// f16 and tf32), the tf32 split of the f32 kernels' three passes, and
+// setmaxnreg; and, on the host, the TMA tensor maps the kernels load
 // through. Plain PTX keeps the build to one nvcc call per source with no
 // include path beyond the CUDA toolkit's.
 //
@@ -12,7 +13,9 @@
 //   1024-byte aligned. A row wider than 64 elements is split into column
 //   blocks of 64, each block a tile of its own. TMA writes this layout
 //   with CU_TENSOR_MAP_SWIZZLE_128B and a box 64 elements wide; wgmma
-//   reads it through a descriptor with layout type B128.
+//   reads it through a descriptor with layout type B128. An f32 row of the
+//   same 128 B holds 32 elements (the f32 kernels' atom): a tf32 k8 step
+//   is 32 bytes of it, as a 16-bit k16 step is.
 // - Shared addresses are 32-bit (`__cvta_generic_to_shared`).
 
 #pragma once
@@ -241,6 +244,49 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 HOPPER_WGMMA_FORMS(__nv_bfloat16, "bf16")
 HOPPER_WGMMA_FORMS(__half, "f16")
 
+// D[64 x N] (+)= A[64 x 8] * B[8 x N], tf32 in (f32 words whose low 13
+// bits are zero, as `tf32_rna` makes them), f32 accumulator. tf32 has no
+// transpose bit: a shared-memory operand is K-major (its 8 K-values, 32
+// bytes, contiguous in a swizzled row), so the descriptors are those of a
+// 16-bit K-major operand, a k8 step 32 bytes further into the atom. In the
+// register form the four registers of a thread hold the m16n8k8 tf32 A
+// fragment of its warp's 16 rows: a0 (row g, col t), a1 (row g+8, col t),
+// a2 (row g, col t+4), a3 (row g+8, col t+4); g = lane / 4, t = lane % 4.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d);
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d);
+
+#define HOPPER_TF32_SS(N, DREGS, REGS, A, B, P)                                         \
+  template <>                                                                          \
+  __device__ __forceinline__ void wgmma_tf32_ss<N>(float(&d)[N / 2], uint64_t desc_a,    \
+                                                   uint64_t desc_b, int scale_d) {      \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                       \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 " REGS         \
+                 "%" #A ", %" #B ", p, 1, 1;\n}\n"                                      \
+                 : DREGS                                                                \
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d));                             \
+  }
+#define HOPPER_TF32_RS(N, DREGS, REGS, A0, A1, A2, A3, B, P)                             \
+  template <>                                                                          \
+  __device__ __forceinline__ void wgmma_tf32_rs<N>(                                     \
+      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t desc_b, int scale_d) {          \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                       \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 " REGS         \
+                 "{%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1;\n}\n"       \
+                 : DREGS                                                                \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),             \
+                   "r"(scale_d));                                                       \
+  }
+HOPPER_TF32_SS(64, HOPPER_D32, HOPPER_REGS32, 32, 33, 34)
+HOPPER_TF32_SS(128, HOPPER_D64, HOPPER_REGS64, 64, 65, 66)
+HOPPER_TF32_RS(64, HOPPER_D32, HOPPER_REGS32, 32, 33, 34, 35, 36, 37)
+HOPPER_TF32_RS(128, HOPPER_D64, HOPPER_REGS64, 64, 65, 66, 67, 68, 69)
+#undef HOPPER_TF32_SS
+#undef HOPPER_TF32_RS
+
 #undef HOPPER_WGMMA_FORMS
 #undef HOPPER_WGMMA_SS
 #undef HOPPER_WGMMA_RS
@@ -268,6 +314,44 @@ template <>
 __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
   __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------------------------------ three-pass tf32
+
+// x rounded to tf32, to nearest with ties away from zero: an f32 word with
+// its low 13 bits zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo (to about 2^-22 of x), both tf32: hi = tf32(x) and lo =
+// tf32(x - hi), where x - hi is exact in f32. A product of two such parts
+// is exact in f32, so hi.lo + lo.hi + hi.hi is x.y but for lo.lo (about
+// 2^-22 relative) and the accumulator's own rounding.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// Splits `n` float4 of shared memory from `src` in place (their hi) and
+// writes their lo at the same offsets from `lo`, the i-th float4 by thread
+// i % threads of the `threads` that call it (`tid` in [0, threads)). An
+// element keeps its position, so a swizzled tile stays swizzled.
+__device__ __forceinline__ void split_tf32_tile(float4* src, float4* lo, int n, int tid,
+                                                int threads) {
+#pragma unroll 4
+  for (int i = tid; i < n; i += threads) {
+    const float4 x = src[i];
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    reinterpret_cast<uint4*>(src)[i] = h;
+    reinterpret_cast<uint4*>(lo)[i] = l;
+  }
 }
 
 // ----------------------------------------------------------------- setmaxnreg
@@ -355,6 +439,23 @@ inline bool make_map_f32(CUtensorMap* map, const void* ptr, int outer, int rows,
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// [outer, rows, cols] f32, read in boxes of 32 columns (128 bytes) x
+// `box_rows` rows, 128B-swizzled: the K-major layout of a tf32 wgmma
+// operand, one 32-column atom per box; out-of-range elements read as zeros
+inline bool make_map_f32_sw128(CUtensorMap* map, const void* ptr, int outer, int rows,
+                               int cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 4, (cuuint64_t)rows * cols * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -12,11 +12,14 @@ every other head dim runs a generic build of its padded width
 (``padded_head_dim``): 64, 128, 192 or 256 columns, and past 256 columns
 384 or 512, whose output columns are computed in two chunks of 192 or 256
 by two blocks that each repeat Q Kᵀ (a 64-row warpgroup holds at most a
-64 x 256 f32 accumulator). f32 tensors launch a second kernel,
-``flash_attention_fwd_f32``: SIMT, true f32 products by FFMA, K/V tiles
-copied with cp.async, two stages up to 128 columns and one past it. Each
-dtype and width is built at the blocks whose shared memory fits one block
-(``built``). The instantiations are split over four libraries, one nvcc
+64 x 256 f32 accumulator). f32 tensors launch a second entry point,
+``flash_attention_fwd_f32``: up to 128 columns a kernel of the same shape
+whose products are three TF32 passes on ``wgmma`` (each operand split as
+hi + lo in the kernel, hi·lo + lo·hi + hi·hi accumulated in f32: within
+the reference's f32 limits, where one TF32 pass is not), and past 128
+columns a SIMT kernel of true f32 products by FFMA with one K/V stage
+copied by cp.async. Each dtype and width is built at the blocks whose
+shared memory fits one block (``built``). The instantiations are split over four libraries, one nvcc
 each, built in parallel (``SOURCE``): bf16 up to 128 with f32, f16 up to
 128, both 16-bit types at 129-256 and at 257-512. The sources say what
 bounds each kernel on the H100 and what the design does about it.
@@ -70,8 +73,8 @@ PADDED_WIDTHS = (64, 128, 192, 256, 384, 512)
 # output's columns run in two chunks of at most 256 (a 64-row warpgroup
 # holds at most a 64 x 256 f32 accumulator), and at 512 one stage of Q, K
 # and a 256-wide V chunk is what fits one block's shared memory at (64,
-# 64) and (128, 64). f32: the SIMT kernel's Q, one K/V stage and its
-# probability tile fit one block up to 256 columns.
+# 64) and (128, 64). f32: past 128 columns the SIMT kernel's Q, one K/V
+# stage and its probability tile fit one block up to 256 columns.
 MAX_HEAD_DIM = {torch.bfloat16: 512, torch.float16: 512, torch.float32: 256}
 # head dims (staged) past NARROW run the wide builds (padded widths 192 and
 # 256), past WIDE the chunked ones (384 and 512)
@@ -140,9 +143,9 @@ def entry_for(dtype: torch.dtype, d: int) -> str:
 
 def build_of(dtype: torch.dtype, d: int) -> str:
     """The build (one of ``BUILDS``) that runs ``dtype`` at head dim ``d``:
-    the entry point's library, with f32's one-stage instantiations past
-    NARROW apart (``flash_attention_f32_wide``) and both 16-bit types under
-    one name past it."""
+    the entry point's library, with f32's SIMT instantiations past NARROW
+    apart (``flash_attention_f32_wide``) and both 16-bit types under one
+    name past it."""
     if dtype == torch.float32:
         return "flash_attention_f32_wide" if staged_head_dim(d) > NARROW else "flash_attention_f32"
     return SOURCE[entry_for(dtype, d)]
@@ -151,10 +154,11 @@ def build_of(dtype: torch.dtype, d: int) -> str:
 def fits(block_q: int, block_k: int, d: int, size: int) -> bool:
     """Whether the kernel of ``size``-byte elements is built at these
     blocks for head dim ``d``: its shared memory at d's padded width (in
-    f32 the probability tile included) fits one H100 block, and in f32 past
-    128 columns block_q is 64 (at 128 the SIMT kernel's 512 threads get at
-    most 128 registers each, too few for 6 or 8 accumulator columns a
-    lane). The block picker prunes with it."""
+    f32 up to 128 columns the hi and lo tiles of the three TF32 passes, past
+    it the probability tile) fits one H100 block, and in f32 past 128
+    columns block_q is 64 (at 128 the SIMT kernel's 512 threads get at most
+    128 registers each, too few for 6 or 8 accumulator columns a lane). The
+    block picker prunes with it."""
     if size == 4 and padded_head_dim(d) > 128 and block_q != 64:
         return False
     return smem_bytes(block_q, block_k, d, size) <= GPU_H100.fast_mem_bytes
@@ -164,8 +168,8 @@ def built(block_q: int, block_k: int, d: int, dtype: torch.dtype) -> bool:
     """Whether a kernel is built for head dim ``d`` at these blocks in
     ``dtype`` (``fits`` at the staged head dim). In bf16 and f16 that is
     every block pair of BLOCKS up to 128 columns, three at 192 and at 384,
-    two at 256 and at 512; in f32 four up to 64 columns, two at 128, one at
-    192 and at 256."""
+    two at 256 and at 512; in f32 four up to 64 columns, one at 128, 192
+    and 256 ((64, 64))."""
     if (not supports_head_dim(d, dtype) or block_q not in BLOCKS
             or block_k not in BLOCKS):
         return False

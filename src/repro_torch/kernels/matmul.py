@@ -9,10 +9,13 @@ warpgroups of 64 rows whose products are ``wgmma`` (bf16 or f16 in, f32
 accumulation), written once in the input dtype at the end of each tile:
 the 16-bit kernel of ``csrc/matmul.cuh``, built in bf16 into the
 ``matmul`` library and in f16 into ``matmul_f16`` (one nvcc each, in
-parallel; ``SOURCE``). f32 tensors launch a second kernel, ``matmul_f32``:
-SIMT, true f32 products by FFMA over the same (bm, bn, bk) tiles and one or
-two TMA stages, built at the configurations whose stages fit shared memory
-(``built``). The sources say what bounds each kernel on the H100 and what
+parallel; ``SOURCE``). f32 tensors launch a second kernel, ``matmul_f32``,
+over the same (bm, bn, bk) tiles and one or two TMA stages: three TF32
+passes on ``wgmma`` (each operand split as hi + lo in the kernel, hi·lo +
+lo·hi + hi·hi accumulated in f32: within the reference's f32 limits, where
+one TF32 pass is not), computed as Cᵀ = Bᵀ·Aᵀ so that the row-major B is
+the register operand; built at the configurations whose stages fit shared
+memory (``built``). The sources say what bounds each kernel on the H100 and what
 the design does about it.
 
 ``matmul`` launches the kernel for CUDA tensors and runs ``matmul_plain`` for

@@ -167,7 +167,8 @@ def tuned_flash_blocks(s: int, d: int, dtype_bytes: int = 2) -> Tuple[int, int]:
     tiles counted whole, and the head dim at the width the kernel stages it
     (``padded_head_dim``). Candidates the kernel is not built for at this
     dtype width are pruned (``flash_attention.fits``: their shared memory,
-    ``smem_bytes``, the q tile and the k and v stages, and in f32 the
+    ``smem_bytes``, the q tile and the k and v stages, and in f32 the hi
+    and lo tiles of its three TF32 passes or past 128 columns the
     probability tile, exceeds what one H100 block may use, or in f32 past
     128 columns block_q is 128). f16 takes bf16's picks (``dtype_bytes=2``):
     the two share the kernel's tiles, shared memory and rate. The pick is

@@ -137,8 +137,8 @@ F32_FLASH_CASES = [(d, blocks) for d in (16, 32, 64, 80, 96, 128) for blocks in 
 @pytest.mark.parametrize("d,blocks", F32_FLASH_CASES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_f32_kernel_matches_plain(card, s, d, blocks, causal):
-    """The f32 SIMT kernel at every block pair it is built for, within the
-    reference's f32 limit of the plain version in f32."""
+    """The f32 kernel (three TF32 passes) at every block pair it is built
+    for, within the reference's f32 limit of the plain version in f32."""
     q, k, v = (t.float() for t in _qkv(2, 8, 2, s, d, card))
     before = ops.launch_counts()["flash_attention_f32"]
     got = ops.attention(q, k, v, causal=causal, blocks=blocks)
@@ -320,11 +320,12 @@ def test_matmul_library_stages_what_the_model_counts(card, bm, bn, bk):
         assert staged == (2 if db else 1) * kmatmul.smem_bytes(bm, bn, bk, 2)
         assert staged == (2 if db else 1) * (bm * bk + bk * bn) * 2
         assert staged + 128 + 1024 <= 232_448  # + barriers and alignment slack
-        # the f32 kernel, where it is built
+        # the f32 kernel, where it is built: its stages, then the lo ring
+        # of two [bm][32] slices, barriers and alignment slack
         f32 = kmatmul.kernel_smem_bytes(bm, bn, bk, db, torch.float32)
         if kmatmul.built(bm, bn, bk, db, torch.float32):
             assert f32 == (2 if db else 1) * kmatmul.smem_bytes(bm, bn, bk, 4)
-            assert f32 + 128 + 128 <= 232_448
+            assert f32 + 2 * bm * 128 + 256 + 1024 <= 232_448
         else:
             assert f32 == -1
     assert kmatmul.kernel_smem_bytes(32, bn, bk, True) == -1
@@ -458,12 +459,14 @@ MM_F32_CASES = [(bm, bn, bk, db) for bm, bn, bk in itertools.product(*kmatmul.BL
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(256, 512, 384), (128, 256, 128), (256, 256, 256),
-                                   (2048, 512, 4096)])
+                                   (2048, 512, 4096), (256, 36, 100), (100, 260, 36)])
 @pytest.mark.parametrize("config", MM_F32_CASES)
 def test_matmul_f32_kernel_matches_plain(card, shape, config):
-    """The f32 SIMT kernel at every configuration it is built for (blocks
-    clamped to the shape, as the reference clamps them), within the
-    reference's f32 limit of the plain version."""
+    """The f32 kernel (three TF32 passes) at every configuration it is
+    built for (blocks clamped to the shape, as the reference clamps them),
+    within the reference's f32 limit of the plain version; at K = 100 and
+    36 (not a multiple of the 32-column slots: the lo ring's last slice is
+    part zero fill) with ragged M and N."""
     m, n, k = shape
     a, b = (t.float() for t in _ab(m, n, k, card))
     before = ops.launch_counts()["matmul_f32"]
@@ -474,6 +477,21 @@ def test_matmul_f32_kernel_matches_plain(card, shape, config):
     want = kmatmul.matmul_plain(a, b, *config[:3])
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=MM_F32_TOL,
                                atol=MM_F32_TOL * np.sqrt(k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(256, 256, 16384), (2048, 4096, 11008)])
+def test_matmul_f32_kernel_holds_the_limit_at_long_k(card, shape):
+    """At a long K the tuner's pick stays within the reference's f32 limit
+    of an f64 oracle: the tensor cores' f32 accumulation error grows with
+    the number of wgmma summed into one accumulator, so the kernel adds it
+    to C in f32 every 1024 columns of K."""
+    m, n, k = shape
+    a, b = (t.float() for t in _ab(m, n, k, card))
+    got = ops.matmul(a, b).double()
+    want = a.double() @ b.double()
+    limit = MM_F32_TOL * np.sqrt(k) + MM_F32_TOL * want.abs()
+    assert bool(((got - want).abs() <= limit).all())
 
 
 # --------------------------------------------------------------------------

@@ -269,8 +269,10 @@ def test_flash_source_instantiates_exactly_the_built_blocks():
     builds (flash_attention_wide.cu, both types), its chunked builds past
     256 (flash_attention_chunked.cu, both types) and the f32 builds
     (flash_attention.cu) are the (block_q, block_k, padded width) that
-    ``built`` admits; the 16-bit products are wgmma, the f32 kernel's are
-    not. Each entry point is in the library ``SOURCE`` names."""
+    ``built`` admits; the 16-bit products are wgmma, and so are the f32
+    kernel's up to 128 columns, in three TF32 passes, while past it the f32
+    products are FFMA. Each entry point is in the library ``SOURCE``
+    names."""
     read = lambda name: (build.CSRC / name).read_text()
     head, src = read("flash_attention.cuh"), read("flash_attention.cu")
     f16, wide = read("flash_attention_f16.cu"), read("flash_attention_wide.cu")
@@ -294,8 +296,11 @@ def test_flash_source_instantiates_exactly_the_built_blocks():
     assert "launch<T, BQ_, BK_, 0, DP_, DP_ / 2, 1>" in chunked
     assert "Cfg<BQ_, BK_, 0, DP_, DP_ / 2, 1>::kSmem" in chunked
     assert _macro(src, "FLASH_F32_BUILT") == {
-        (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in PADDED_WIDTHS
+        (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in (64, 128)
         if kflash.built(bq, bk, dp, torch.float32)}
+    assert _macro(src, "FLASH_F32_SIMT_BUILT") == {
+        (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in PADDED_WIDTHS
+        if dp > 128 and kflash.built(bq, bk, dp, torch.float32)}
     assert "wgmma_ss" in head and "wgmma_rs" in head and "mma.sync" not in head
     # tiles and accumulator at the padded width, the store at the real one
     assert "int DP = (D + 63) / 64 * 64" in head and "wgmma_rs<T, C::kVW, 1>" in head
@@ -311,12 +316,20 @@ def test_flash_source_instantiates_exactly_the_built_blocks():
             e for e, source in kflash.SOURCE.items() if source == lib]
         assert any(e.endswith("smem_bytes") for e in entries)
     assert "flash_attention_f32_smem_bytes" in src
-    # the f32 kernel stages with cp.async and multiplies by FFMA (fmaf),
-    # with no tensor-core product
-    f32 = src[src.index("f32, SIMT"):src.index("// ---------------------------"
-                                                 "---------------------------------------- host")]
-    assert "cp.async.cg.shared.global" in f32 and "fmaf(" in f32
-    assert "wgmma" not in f32 and "tf32" not in f32
+    # the f32 kernel up to 128 columns: TMA loads, tf32 wgmma (S = Q K^T
+    # from shared memory, P V with P in registers), the operands split in
+    # the kernel, no FFMA product; past 128 it stages with cp.async and
+    # multiplies by FFMA (fmaf), with no tensor-core product
+    tf32 = src[src.index("f32, three-pass TF32"):src.index("f32 past 128, SIMT")]
+    assert "wgmma_tf32_ss<BK>" in tf32 and "wgmma_tf32_rs<DP>" in tf32
+    assert "split_tf32" in tf32 and "tma_load_3d" in tf32 and "fmaf(" not in tf32
+    assert "make_map_f32_sw128(&tq, q, b * hq, s, d, BQ)" in src
+    simt = src[src.index("f32 past 128, SIMT"):src.index("// ---------------------------"
+                                                           "---------------------------------------- host")]
+    assert "cp.async.cg.shared.global" in simt and "fmaf(" in simt
+    assert "wgmma" not in simt and "tf32" not in simt
+    hopper = read("hopper.cuh")
+    assert "cvt.rna.tf32.f32" in hopper and "k8.f32.tf32.tf32" in hopper
 
 
 # the head dims of the generic bf16 builds and the f32 kernel (a multiple of
@@ -371,15 +384,19 @@ def test_supports_head_dim_at_the_rules_edges(d, ok):
 @pytest.mark.parametrize("bk", BLOCKS)
 @pytest.mark.parametrize("dp", PADDED_WIDTHS)
 def test_f32_flash_smem_is_the_kernels_count(bq, bk, dp):
-    """The f32 kernel stages Q [bq][dp], two stages of K and V [bk][dp] up
-    to 128 columns and one past it, and P [bq][bk], all f32, with no barrier
-    and no slack; it is built exactly where that fits one H100 block, up to
-    256 columns, with bq = 64 past 128 (registers). The 16-bit kernels are
-    built where their own count fits: every pair up to 128 columns, three
-    at 192 and 384, two at 256 and 512 (past 256: Q and K at the full
-    width, one V chunk of dp / 2, one stage)."""
-    stages = 2 if dp <= 128 else 1
-    hand = 4 * (bq * dp + 2 * stages * bk * dp + bq * bk)
+    """The f32 kernel up to 128 columns (three TF32 passes) stages Q's hi
+    and lo [bq][dp], K [bk][dp] and its lo, V as it lands and V^T's hi and
+    lo, all f32, with 128 bytes of barriers and 1024 of slack; past 128
+    (SIMT) Q [bq][dp], one stage of K and V [bk][dp] and P [bq][bk], with no
+    barrier and no slack. It is built exactly where that fits one H100
+    block, up to 256 columns, with bq = 64 past 128 (registers). The
+    16-bit kernels are built where their own count fits: every pair up to
+    128 columns, three at 192 and 384, two at 256 and 512 (past 256: Q and
+    K at the full width, one V chunk of dp / 2, one stage)."""
+    if dp <= 128:
+        hand = 4 * (2 * bq * dp + 5 * bk * dp) + 128 + 1024
+    else:
+        hand = 4 * (bq * dp + 2 * bk * dp + bq * bk)
     assert smem_bytes(bq, bk, dp, 4) == hand == smem_bytes(bq, bk, dp - 8, 4)
     assert kflash.built(bq, bk, dp, torch.float32) is (
         hand <= GPU_H100.fast_mem_bytes and (dp <= 128 or (bq == 64 and dp <= 256)))
@@ -657,6 +674,86 @@ def test_matmul_f32_is_exact_to_summation_order():
     np.testing.assert_allclose(_np(got), _np(want), atol=5e-5, rtol=1e-5)
 
 
+# --------------------------------------------------------------------------
+# the f32 kernels' three TF32 passes, emulated
+# --------------------------------------------------------------------------
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits, to nearest even), as the smoke's
+    ``tf32`` rounds it: an f32 word with its low 13 bits zero."""
+    i = x.float().contiguous().view(torch.int32).to(torch.int64)
+    i = (i + 0xFFF + ((i >> 13) & 1)) & ~0x1FFF
+    return i.to(torch.int32).view(torch.float32)
+
+
+def _three_pass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the f32 kernels form it on the tensor cores: each operand
+    split as hi = tf32(x) and lo = tf32(x - hi), and hi·lo, lo·hi and hi·hi,
+    each a product of tf32 values (exact in f32), summed in f32 in that
+    order."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def _one_pass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with each operand rounded to tf32 once: one TF32 pass."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _attention_by(product, q, k, v, causal: bool) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v in f32 with both products formed by
+    ``product`` (k and v expanded to the query heads)."""
+    d, group = q.shape[-1], q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    sc = product(q, k.transpose(-1, -2)) * d ** -0.5
+    if causal:
+        s = q.shape[2]
+        sc = sc.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1), float("-inf"))
+    return product(torch.softmax(sc, dim=-1), v)
+
+
+def _outside(got, want, atol, rtol) -> int:
+    return int((np.abs(_np(got) - _np(want)) > atol + rtol * np.abs(_np(want))).sum())
+
+
+# the smoke's f32 grids: the reference's TestMatmulKernel shapes and the
+# dense presets, its TestFlashAttentionKernel (B, Hq, Hkv, S, D)
+F32_MM_SHAPES = [(128, 128, 128), (256, 128, 512), (64, 256, 128), (384, 256, 256),
+                 (256, 256, 256), (512, 512, 512)]
+F32_FLASH_GRID = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 32),
+                  (2, 4, 4, 512, 128)]
+
+
+@pytest.mark.parametrize("m,n,k", F32_MM_SHAPES)
+def test_three_tf32_passes_meet_the_f32_matmul_limit(m, n, k):
+    """The f32 matmul kernel's three TF32 passes, emulated in torch, are
+    within the reference's f32 limit (atol 2e-4 sqrt(K), rtol 2e-4) of the
+    JAX reference at its grid; one TF32 pass is not, which is why the
+    kernel takes three."""
+    x, y = _xy(m, n, k)
+    want = jref.matmul(jnp.asarray(x), jnp.asarray(y))
+    tol = dict(atol=MATMUL_TOL[torch.float32] * np.sqrt(k), rtol=MATMUL_TOL[torch.float32])
+    tx, ty = _torch((x, y))
+    np.testing.assert_allclose(_np(_three_pass(tx, ty)), _np(want), **tol)
+    assert _outside(_one_pass(tx, ty), want, **tol) > 0
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", F32_FLASH_GRID)
+@pytest.mark.parametrize("causal", [True, False])
+def test_three_tf32_passes_meet_the_f32_flash_limit(b, hq, hkv, s, d, causal):
+    """Attention with Q K^T and P V each formed in three TF32 passes, as
+    the f32 flash kernel forms them, emulated in torch, is within the
+    reference's f32 limit (atol 3e-5, rtol 3e-4) of the JAX reference; with
+    one TF32 pass each it is not."""
+    arrs = _qkv(b, hq, hkv, s, d)
+    want = jref.attention(*map(jnp.asarray, arrs), causal=causal)
+    tq, tk, tv = _torch(arrs)
+    np.testing.assert_allclose(_np(_attention_by(_three_pass, tq, tk, tv, causal)),
+                               _np(want), **F32_TOL)
+    assert _outside(_attention_by(_one_pass, tq, tk, tv, causal), want, **F32_TOL) > 0
+
+
 def test_matmul_picks_tuned_blocks_when_none_given():
     x, y = _xy(256, 384, 512)
     blocks = ops.tuned_matmul_blocks(256, 384, 512, 4)
@@ -797,8 +894,10 @@ def test_matmul_source_instantiates_exactly_the_built_tiles():
         text = {"matmul": src, "matmul_f16": f16}[lib]
         assert f'extern "C" int {entry}(' in text
         assert f'extern "C" int {entry.replace("_bf16", "")}_smem_bytes(' in text
-    # the f32 kernel: every (bm, bn, bk, stages) whose stages fit, FFMA
-    # products over TMA-staged tiles, its own entry points
+    # the f32 kernel: every (bm, bn, bk, stages) whose stages fit, three
+    # TF32 passes on wgmma (B^T from registers, A K-major from swizzled TMA
+    # boxes), the operands split in the kernel, no FFMA product; its own
+    # entry points
     assert _macro(src, "MM_F32_BUILT") == {
         (bm, bn, bk, 2 if db else 1)
         for bm, bn, bk in itertools.product(*SM90_MATMUL_TILES.values())
@@ -808,8 +907,9 @@ def test_matmul_source_instantiates_exactly_the_built_tiles():
     assert 'extern "C" int matmul_f32_smem_bytes(' in src
     f32 = src[src.index("struct CfgF32"):src.index("// ---------------------------"
                                                      "---------------------------------------- host")]
-    assert "fmaf(" in f32 and "tma_load_3d" in f32 and "wgmma" not in f32
-    assert "make_map_f32(&ta, a, 1, m, k, BM, BK)" in src
+    assert "wgmma_tf32_rs<BM>" in f32 and "split_tf32" in f32 and "tma_load_3d" in f32
+    assert "fmaf(" not in f32 and "__syncthreads" not in f32[f32.index("for (int f"):]
+    assert "make_map_f32_sw128(&ta, a, 1, m, k, BM)" in src
 
 
 @pytest.mark.parametrize("shape", [(128, 128, 128), (256, 128, 512), (64, 256, 128),
@@ -1035,17 +1135,26 @@ def test_tuned_flash_blocks_at_new_head_dims_are_built(s, d, size):
 @pytest.mark.parametrize("size", [2, 4])
 def test_flash_smem_count_is_unchanged_where_a_kernel_was_built(size):
     """The shared-memory count the picker prunes with keeps its value at
-    every (block_q, block_k, width) a kernel was built for before f32
-    reached past 128 and 16 bits past 256: two K/V stages at the padded
-    width (in f32 with the probability tile), so no pick there moves."""
+    every (block_q, block_k, width) a 16-bit kernel was built for before
+    16 bits reached past 256: two K/V stages at the padded width, so no
+    pick there moves. In f32 up to 128 columns it is the three-pass TF32
+    kernel's count (Q's hi and lo, one K, K lo, V, V^T hi and lo tile, 128
+    bytes of barriers, 1024 of slack), and of the pairs the SIMT kernel it
+    replaced was built at (two K/V stages and the probability tile) every
+    one but (128, 64) at 128 columns stays built, so no other pick moves."""
     for bq in BLOCKS:
         for bk in BLOCKS:
             for d in range(8, (257 if size == 2 else 129), 8):
                 dp = -(-d // 64) * 64
                 if size == 2:
                     before = 2 * dp * (bq + 4 * bk) + 128 + 1024
-                else:
-                    before = 4 * (dp * (bq + 4 * bk) + bq * bk)
-                if before <= GPU_H100.fast_mem_bytes:
-                    assert smem_bytes(bq, bk, d, size) == before
-                    assert kflash.fits(bq, bk, d, size)
+                    if before <= GPU_H100.fast_mem_bytes:
+                        assert smem_bytes(bq, bk, d, size) == before
+                        assert kflash.fits(bq, bk, d, size)
+                    continue
+                now = 4 * (2 * bq * dp + 5 * bk * dp) + 128 + 1024
+                assert smem_bytes(bq, bk, d, 4) == now
+                assert kflash.fits(bq, bk, d, 4) is (now <= GPU_H100.fast_mem_bytes)
+                simt = 4 * (dp * (bq + 4 * bk) + bq * bk)
+                if simt <= GPU_H100.fast_mem_bytes and (bq, bk, dp) != (128, 64, 128):
+                    assert kflash.fits(bq, bk, d, 4)
