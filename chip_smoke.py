@@ -20,11 +20,11 @@ Phases, in order; any failure exits non-zero before the last line:
              no HMMA; expect the 16-bit flash instantiations (in bf16 and in
              f16: 12 built head dims, 8 generic ones of padded width 64 or
              128; in each type 5 of width 192 or 256 and 5 of width 384 or
-             512), the 24 matmul ones in each type, the 7 f32 flash (5 of
-             three TF32 passes on wgmma up to 128 columns, 2 SIMT past it)
-             and the 21 f32 matmul ones (three TF32 passes), and fail
-             unless each three-pass f32 kernel's SASS has HGMMA and UTMALDG
-             and the SIMT one's FFMA and no HGMMA, none with HMMA or local
+             512), the 24 matmul ones in each type, the 7 f32 flash ones
+             (three TF32 passes on wgmma: 5 of whole tiles up to 128
+             columns, 2 of 64-column K/V chunks at 192 and 256) and the 21
+             f32 matmul ones (three TF32 passes), and fail unless each f32
+             kernel's SASS has HGMMA and UTMALDG, none with HMMA or local
              memory (LDL/STL);
              check that the shared memory each library reports for every
              instantiation is what ``flash_attention.smem_bytes`` (the block
@@ -45,9 +45,10 @@ Phases, in order; any failure exits non-zero before the last line:
              kernel that dropped the last 8 columns. Then, with TF32 off
              everywhere, the f32 flash kernel at every block pair it is
              built for against its plain version and the oracle at the
-             reference's grid (tests/test_kernels.py, causal and not) and at
+             reference's grid (tests/test_kernels.py, causal and not), at
              the reduced configs' shapes (4/2 and 4/4 heads of 16, S = 1,
-             12, 64, 77), and the f32 matmul kernel at every built
+             12, 64, 77) and past 128 columns (F32_WIDE_FLASH_GRID: D 136
+             to 256, 4/2 to 32/4 heads, S to 4096), and the f32 matmul kernel at every built
              configuration of the reference's matmul grid and dense_256/512
              (the tuner's pick at 4 bytes among them) and at 256x256x16384,
              at the reference's f32 limits, which must flag the plain
@@ -101,8 +102,8 @@ Phases, in order; any failure exits non-zero before the last line:
              4, 20, 100, 264, 320, 512; f32 at 12, 136, 192, 256), S = 77
              and 1024, causal and not, 8/2 heads, against its plain version
              and the oracle, with a dropped tail tile, a copy padded with
-             noise and a lost output chunk that the limits must flag;
-             ops.matmul at 256x36x100, 100x4096x4090 and a transposed B at
+             noise, a lost output chunk and (f32 past 128) one TF32 pass
+             that the limits must flag; ops.matmul at 256x36x100, 100x4096x4090 and a transposed B at
              2048x4096x4096 in each dtype; the launches, the flash
              launches per build (the wrapper's counts) and the staged
              launches counted around these calls, each equal to the cases
@@ -212,8 +213,11 @@ Phases, in order; any failure exits non-zero before the last line:
              the next: the same 8 requests, every request gets its tokens,
              flash launches = prefills x layers, a profiled second run, the
              parity of phase 7.
-11. recurrent-serve — xlstm-1.3b uncut (48 layers: 42 mLSTM, 6 sLSTM, no
-             attention) through the same serve: the first mLSTM layer's
+11. recurrent-serve — xlstm-1.3b at full width, its depth cut to 16 of
+             48 layers (two periods: 14 mLSTM, 2 sLSTM, no attention;
+             uncut it took 226.3 s of an 1121.4 s smoke on an H100 80GB
+             HBM3 whose host served slowly)
+             through the same serve: the first mLSTM layer's
              chunkwise prefill at S=300 (4 tokens per chunk) and S=77 (one)
              and the first sLSTM layer's scan against their decode stepped
              in f32 (in f32, output and final state; in bf16, the output
@@ -447,7 +451,10 @@ STATE_RTOL = 2**-5
 XLSTM_F32_RTOL, XLSTM_F32_ATOL_RMS = 2**-10, 2**-10
 XLSTM_BF16_MULTIPLE = 2.0
 MLSTM_S = (300, 77)   # 4 tokens per chunk, and one (77 is odd)
-RECURRENT_SERVES = (("xlstm-1.3b", 48),)
+# xlstm-1.3b cut to two of its six 8-layer periods (14 mLSTM, 2 sLSTM): the
+# serve's time grows with the layers' host-bound launches, and uncut it took
+# 226.3 s of an 1121.4 s smoke on an H100 80GB HBM3 (the limit is 1200 s)
+RECURRENT_SERVES = (("xlstm-1.3b", 16),)
 # whisper-large-v3's published decoder context (max_target_positions): its
 # prompts are the PROMPT_LENS whose 16 new tokens fit in it
 WHISPER_CONTEXT = 448
@@ -503,6 +510,12 @@ F32_MM_TIMED = ((2048, 4096, 4096), (256, 256, 256))
 # the wgmma summed into one accumulator (the kernel adds it to C every 1024
 # columns), from a generator of its own so that no earlier draw moves
 F32_MM_LONG_K, F32_LONG_K_SEED = ((256, 256, 16384),), 5
+# f32 flash past 128 columns (K and V in 64-column chunks) at GQA 4/2 and
+# 32/4, head dims 136-256, and at S=4096, where P V's accumulator sums 64
+# key tiles; from a generator of its own
+F32_WIDE_FLASH_GRID = ((1, 4, 2, 77, 136), (1, 4, 2, 1024, 200), (1, 32, 4, 1024, 192),
+                       (1, 8, 2, 4096, 256))
+F32_WIDE_SEED = 6
 # the bf16 head dims of the generic builds the smoke checks and times
 OTHER_HEAD_DIMS = (16, 32, 48, 96)
 # The reduced phase: the ten archs' .reduced() configs (f32, 4 heads of 16,
@@ -712,17 +725,16 @@ def bound(flops, nbytes, peak_flops):
 TF32_FLOPS = 495e12
 
 
-def peak_for(dtype, simt: bool = False) -> float:
+def peak_for(dtype) -> float:
     """The rate a kernel's products run at: bf16 and f16 on the tensor
     cores; f32 in three TF32 passes on them (each product three times at
-    the TF32 rate), or with ``simt`` (the f32 flash kernel past 128 columns)
-    one FFMA each at the FP32 rate."""
+    the TF32 rate)."""
     import torch
     from repro_torch.hw.gpu_h100 import GPU_H100
 
     if dtype != torch.float32:
         return GPU_H100.peak_flops_bf16
-    return GPU_H100.peak_flops_f32 if simt else TF32_FLOPS / 3
+    return TF32_FLOPS / 3
 
 
 def time_new_kernels(gen) -> dict:
@@ -1492,7 +1504,8 @@ def other_inputs_phase(gen) -> dict:
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     want_launches = {k_: 0 for k_ in key.values()}
-    want_staged, controls = 0, {"dropped tail": 0, "noise padding": 0, "lost chunk": 0}
+    want_staged, controls = 0, {"dropped tail": 0, "noise padding": 0, "lost chunk": 0,
+                                "one TF32 pass": 0}
 
     def noise(like):
         """What a copy whose padding was not zeroed could hold there."""
@@ -1570,6 +1583,16 @@ def other_inputs_phase(gen) -> dict:
                         if n_lost == 0:
                             fail(f"the {name} limit would miss a lost chunk at S={s} D={d}")
                         controls["lost chunk"] += 1
+                    if dtype == torch.float32 and d > 128:
+                        # the chunked kernel's products are three TF32 passes: one
+                        # pass (the plain version on TF32-rounded inputs) must show
+                        one = fa.flash_attention_plain(tf32(q), tf32(k), tf32(v),
+                                                       causal=causal, block_q=bq, block_k=bk)
+                        n_one, w_one = lim(one, want)
+                        line += f"; one TF32 pass {n_one} outside ({w_one:.1f}x)"
+                        if n_one == 0:
+                            fail(f"the f32 limit would miss one TF32 pass at S={s} D={d}")
+                        controls["one TF32 pass"] += 1
                     log(line)
                     if (bad or bad_o or got.shape != q.shape or got.dtype != dtype
                             or not torch.isfinite(got).all()):
@@ -1682,8 +1705,8 @@ def time_other_inputs(gen) -> dict:
     """The new builds and the staging copies timed by graph replay, in
     turns with a yardstick the port never calls (kernel, library, library,
     kernel), beside the plain version (eager) and the bound (16 bits at the
-    tensor cores' rate, f32 at the FP32 rate; the bytes of q, k, v and o at
-    the real D): each OTHER_TIMED flash case through ``flash_attention``
+    tensor cores' rate, f32 in three TF32 passes there, with the FP32 rate's
+    beside it; the bytes of q, k, v and o at the real D): each OTHER_TIMED flash case through ``flash_attention``
     (the staging copy included where D % 8 != 0) against SDPA in the same
     dtype (f32 through its efficient or math backend on key heads expanded
     to the query heads), and the copy alone with its bytes bound; each
@@ -1721,13 +1744,14 @@ def time_other_inputs(gen) -> dict:
         plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True, block_q=bq,
                                                          block_k=bk), iters=1, warmup=1)
         flops, nbytes = flash_work(b, hq, hkv, s, d, True, size)
-        bound_ms, by = bound(flops, nbytes,
-                             peak_for(dtype, simt=fa.build_of(dtype, d) == "flash_attention_f32_wide"))
+        bound_ms, by = bound(flops, nbytes, peak_for(dtype))
         row = {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "causal": True, "dtype": name,
                "entry": fa.entry_for(dtype, d), "kernel_d": fa.staged_head_dim(d),
                "blocks": [bq, bk], "ms": ms, "turns_ms": [k1, k2], "plain_ms": plain,
                "library_ms": lib, "bound_ms": bound_ms, "bound_by": by,
                "of_bound": ms / bound_ms, "tflops": flops / ms / 1e9, "card": card}
+        if dtype == torch.float32:
+            row["bound_fp32_ms"] = bound(flops, nbytes, GPU_H100.peak_flops_f32)[0]
         if d % 8:
             # the copies in, and the padded output's first d columns out
             dk = fa.staged_head_dim(d)
@@ -1745,8 +1769,10 @@ def time_other_inputs(gen) -> dict:
             f"{ms:.4f} ms [{k1:.4f}, {k2:.4f}] ({ms / bound_ms:.2f}x the bound, "
             f"{flops / ms / 1e9:.1f} TFLOP/s), sdpa (yardstick) {lib:.4f} ms [{l1:.4f}, "
             f"{l2:.4f}] ({ms / lib:.2f}x); plain {plain:.4f} ms; bound {bound_ms:.4f} ms by "
-            f"{by}" + (f"; the copy alone {row['copy_ms']:.4f} ms [{c1:.4f}, {c2:.4f}], its "
-                       f"bytes bound {row['copy_bound_ms']:.4f} ms" if d % 8 else "")
+            f"{by}" + (f" (three TF32 passes; at the FP32 rate {row['bound_fp32_ms']:.4f} ms)"
+                       if dtype == torch.float32 else "")
+            + (f"; the copy alone {row['copy_ms']:.4f} ms [{c1:.4f}, {c2:.4f}], its "
+               f"bytes bound {row['copy_bound_ms']:.4f} ms" if d % 8 else "")
             + f" ({card})")
         del q, k, v
     for (m, n, k), form, (am, an, ak) in OTHER_MM_TIMED:
@@ -1888,13 +1914,15 @@ def main() -> None:
         f"{regs_16['flash_attention_wide', '__half']}; chunked (two output chunks of "
         f"dp/2, one K/V stage) bf16 {regs_16['flash_attention_chunked', '__nv_bfloat16']}, "
         f"f16 {regs_16['flash_attention_chunked', '__half']}")
-    # f32 flash: three TF32 passes on wgmma up to 128 columns, SIMT past it
+    # f32 flash: three TF32 passes on wgmma, whole tiles up to 128 columns,
+    # 64-column K/V chunks past it
     flash32_regs = {**registers("flash_attention", "flash_fwd_f32_kernel", "bq{}_bk{}_dp{}"),
-                    **registers("flash_attention", "flash_fwd_f32_simt_kernel",
+                    **registers("flash_attention", "flash_fwd_f32_wide_kernel",
                                 "bq{}_bk{}_dp{}")}
-    log(f"build f32 flash registers per instantiation (three TF32 passes up to 128 "
-        f"columns, the consumer warpgroups of BQ=128 raised to 216 with setmaxnreg; SIMT, "
-        f"BQ/8 warps, past 128): {flash32_regs}")
+    log(f"build f32 flash registers per instantiation (three TF32 passes; up to 128 "
+        f"columns whole tiles, the consumer warpgroups of BQ=128 raised to 216 with "
+        f"setmaxnreg; at 192 and 256 Q resident and a ring of 64-column K/V chunks, 256 "
+        f"threads): {flash32_regs}")
     want_flash32 = {f"bq{bq}_bk{bk}_dp{dp}" for bq in fa.BLOCKS for bk in fa.BLOCKS
                     for dp in fa.PADDED_WIDTHS if fa.built(bq, bk, dp, torch.float32)}
     if set(flash32_regs) != want_flash32:
@@ -1942,12 +1970,11 @@ def main() -> None:
     if len(sass_16) != n_16 or short16:
         fail(f"{len(sass_16)} 16-bit kernels in the SASS (want {n_16}); without wgmma or TMA, "
              f"or with HMMA: {short16[:3]}")
-    # the f32 kernels: the three-pass TF32 ones wgmma (HGMMA) and TMA
-    # (UTMALDG) with no mma.sync (HMMA); the SIMT one past 128 columns FFMA
-    # with no tensor-core product of any kind; none with local memory
+    # the f32 kernels, every one three TF32 passes: wgmma (HGMMA) and TMA
+    # (UTMALDG) with no mma.sync (HMMA) and no local memory
     f32_sass = {fn: c for fn, c in {**sass_fn, **mm_sass_fn}.items()
-                if re.search(r"(flash_fwd_f32|flash_fwd_f32_simt|matmul_f32)_kernel", fn)}
-    short = {fn: re.sub(r".*?(flash_fwd_f32|flash_fwd_f32_simt|matmul_f32)_kernel", r"\1",
+                if re.search(r"(flash_fwd_f32|flash_fwd_f32_wide|matmul_f32)_kernel", fn)}
+    short = {fn: re.sub(r".*?(flash_fwd_f32|flash_fwd_f32_wide|matmul_f32)_kernel", r"\1",
                         fn)[:44] for fn in f32_sass}
     log("build SASS of the f32 kernels (HGMMA/UTMALDG/HMMA/FFMA/LDL+STL local memory) per "
         "instantiation: " + ", ".join(
@@ -1959,9 +1986,7 @@ def main() -> None:
     for fn, c in f32_sass.items():
         if c["LDL"] or c["STL"] or c["HMMA"]:
             fail(f"the f32 kernel {fn} has local memory or mma.sync: {c}")
-        if "simt" in fn and (c["FFMA"] == 0 or c["HGMMA"]):
-            fail(f"the SIMT f32 kernel {fn} is not FFMA alone: {c}")
-        if "simt" not in fn and (c["HGMMA"] == 0 or c["UTMALDG"] == 0):
+        if c["HGMMA"] == 0 or c["UTMALDG"] == 0:
             fail(f"the three-pass TF32 kernel {fn} has no wgmma or no TMA: {c}")
     smem_dims = fa.HEAD_DIMS + OTHER_HEAD_DIMS + (136, 192, 200, 256, 264, 20, 320, 512,
                                                   520)
@@ -2040,6 +2065,11 @@ def main() -> None:
     max_err32 = max(max_err32, check_flash_f32(
         [(1, 4, hkv, s, 16, c) for hkv in (2, 4) for s in REDUCED_LENS for c in (True, False)],
         gen_new, control=False))
+    log(f"kernel f32 past 128 columns at {F32_WIDE_FLASH_GRID} (B, Hq, Hkv, S, D), causal "
+        f"and not")
+    wide_err32 = check_flash_f32(
+        [(*g, c) for g in F32_WIDE_FLASH_GRID for c in (True, False)],
+        torch.Generator(device=dev).manual_seed(F32_WIDE_SEED))
     mm_err32 = check_matmul_f32(F32_MM_SHAPES, gen_new)
     mm_err32 = max(mm_err32, check_matmul_f32(
         F32_MM_LONG_K, torch.Generator(device=dev).manual_seed(F32_LONG_K_SEED)))
@@ -2428,15 +2458,19 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",
         "launches": other["builds"]["flash_attention_f32_wide"],
-        "max_abs_err": other["max_abs_err_by_build"]["flash_attention_f32_wide"],
+        "max_abs_err": max(other["max_abs_err_by_build"]["flash_attention_f32_wide"],
+                           wide_err32),
         **{key: other["timing"]["flash"][1][key]
-           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                       "bound_fp32_ms")},
         "timed_at": {key: other["timing"]["flash"][1][key]
                      for key in ("Hq", "Hkv", "S", "D", "dtype", "blocks")},
         "library": "scaled_dot_product_attention, f32, efficient or math backend",
         "dtypes": ["float32"],
-        "head_dims": "136-256: the SIMT kernel at 192 or 256 columns, one K/V stage, "
-                     "block_q 64",
+        "products": "three TF32 passes on wgmma (hi.lo + lo.hi + hi.hi); bound_ms at "
+                    "the TF32 rate, bound_fp32_ms at the FP32 rate",
+        "head_dims": "136-256: 192 or 256 columns, Q resident, K and V streamed through a "
+                     "ring of 64-column chunks, blocks (64, 64)",
         "registers": {key: r for key, r in flash32_regs.items()
                       if key.endswith(("dp192", "dp256"))},
         "sweep": [r for r in other["timing"]["flash"] if r["dtype"] == "float32"]}, {

@@ -63,13 +63,17 @@ from repro_torch.kernels import build, ops, ref
 CASES = ((1, 32, 4, 1024, 128, True), (1, 32, 32, 1024, 80, True),
          (1, 20, 20, 1500, 64, False), (1, 8, 2, 1024, 64, True))
 # f32: the smoke's grid (the reference's TestFlashAttentionKernel, causal and
-# not), yi-6b's heads at S=1024 and the reduced configs' shape (train_tiny's
-# 8 x 64 tokens, 4/2 heads of 16); its matmul shapes (the reference's
+# not), yi-6b's heads at S=1024, the reduced configs' shape (train_tiny's
+# 8 x 64 tokens, 4/2 heads of 16), 32/4 heads of 192 and 256 at S=1024 (the
+# kernel of 64-column K/V chunks) and 8/2 of 256 at S=4096, where P V sums
+# 64 key tiles into one accumulator; its matmul shapes (the reference's
 # TestMatmulKernel, dense_256/512), the one it times, and two long K (yi-6b's
 # 11008 and 16384), where the tensor cores' accumulation error shows
 F32_CASES = tuple((b, hq, hkv, s, d, c) for b, hq, hkv, s, d in (
     (1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 32), (2, 4, 4, 512, 128))
-    for c in (True, False)) + ((1, 32, 4, 1024, 128, True), (8, 4, 2, 64, 16, True))
+    for c in (True, False)) + ((1, 32, 4, 1024, 128, True), (8, 4, 2, 64, 16, True),
+                               (1, 32, 4, 1024, 192, True), (1, 32, 4, 1024, 256, True),
+                               (1, 8, 2, 4096, 256, True))
 F32_MM_SHAPES = ((128, 128, 128), (256, 128, 512), (64, 256, 128), (384, 256, 256),
                  (256, 256, 256), (512, 512, 512), (2048, 4096, 4096),
                  (2048, 4096, 11008), (1024, 1024, 16384))

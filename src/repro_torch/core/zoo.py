@@ -280,19 +280,20 @@ def sm90_flash_smem_bytes(block_q: int, block_k: int, d: int,
     stages of K and V tiles at the padded head dim, 128 bytes of barriers
     and 1024 bytes of slack to align the tiles to the 1024-byte swizzle
     period; past 256 columns one stage, of a K tile at the padded width and
-    a V tile of one output chunk (half of it). In f32 (``dtype_bytes=4``)
-    up to 128 columns, the three-pass TF32 kernel's ``CfgTf32``: Q's hi and
-    lo, one K tile (its hi) and its lo, one V tile as it lands and V^T's hi
-    and lo, all f32, with 128 bytes of barriers and 1024 of slack; past 128
-    columns the SIMT kernel's ``CfgSimt``: Q, one K/V stage and the
-    [block_q, block_k] probability tile in f32, with no barrier and no slack
-    (cp.async needs 16-byte alignment only). No kernel takes another width;
-    it is counted as 16-bit."""
+    a V tile of one output chunk (half of it). In f32 (``dtype_bytes=4``),
+    the three-pass TF32 kernels, with 128 bytes of barriers and 1024 of
+    slack: up to 128 columns ``CfgTf32``, Q's hi and lo, one K tile (its
+    hi) and its lo, one V tile as it lands and V^T's hi and lo, all f32;
+    past 128 columns ``CfgTf32Wide``, Q's hi and lo and a ring of stages,
+    each a 64-column K or V chunk's hi and lo (block_k x 64 f32 each), 4 at
+    192 columns and 3 at 256 (what fits beside Q at (64, 64)). No kernel
+    takes another width; it is counted as 16-bit."""
     dp = sm90_padded_head_dim(d)
     if dtype_bytes == 4:
         if dp <= 128:
             return 4 * (2 * block_q * dp + 5 * block_k * dp) + 128 + 1024
-        return 4 * (dp * (block_q + 2 * block_k) + block_q * block_k)
+        stages = 4 if dp == 192 else 3
+        return 4 * (2 * block_q * dp + stages * 2 * block_k * 64) + 128 + 1024
     if dp > 256:
         return 2 * (dp * (block_q + block_k) + dp // 2 * block_k) + 128 + 1024
     return 2 * dp * (block_q + 2 * 2 * block_k) + 128 + 1024

@@ -9,8 +9,8 @@
 // Replaces the TPU kernel `_flash_kernel` (src/repro/kernels/flash_attention.py,
 // launched by `flash_attention_pallas`).
 //
-// The f32 kernel (`flash_attention_fwd_f32`, below) runs on the tensor
-// cores in three TF32 passes up to 128 columns. Its bound: FFMA caps a SIMT
+// The f32 kernels (`flash_attention_fwd_f32`, below) run on the tensor
+// cores in three TF32 passes at every width. Their bound: FFMA caps a SIMT
 // kernel at the FP32 rate, 67 TFLOP/s (at yi-6b's heads with S=1024
 // causal, 8.6 GFLOP take 128 us, against 38 MB of q/k/v/o, 11 us at 3.35
 // TB/s); the tensor cores take tf32 at 495 TFLOP/s, and three passes of
@@ -30,51 +30,69 @@
 //   wgmma m64n{BK}k8, three per k8 step. TMA lands Q and K in 128-byte-
 //   swizzled boxes of 32 floats (one tf32 atom), the columns past d zero.
 //   Q's hi and lo are split once per block (Q is reused by every key
-//   tile), K's hi in place and its lo into a tile of its own per key tile.
+//   tile), K's hi in place and its lo into a tile of its own.
 // - O += P V: P is the register operand, the score accumulator after the
 //   softmax split in registers, as the 16-bit kernel keeps P. A tf32 A
 //   fragment holds columns t and t+4 where the accumulator holds 2t and
 //   2t+1, so each k8 step's keys are taken in the order 0, 2, 4, 6, 1, 3,
 //   5, 7: the fragment is the accumulator's registers as they are, and V^T
 //   is written in the same key order. V is N-major, so it lands unswizzled
-//   ([BK][DP]) and the converter warps write V^T's hi and lo as K-major
-//   swizzled tiles ([DP][32 keys] per 32 keys): BK*DP elements a tile
-//   against 6*BQ*BK*DP flops.
+//   and the converter warps write V^T's hi and lo as K-major swizzled
+//   tiles ([columns][32 keys] per 32 keys): BK*DP elements a tile against
+//   6*BQ*BK*DP flops.
 // - The producer warpgroup's warp 0 issues the TMA loads; its warps 1-3
 //   (with BQ = 128 and a second warpgroup, 7 warps) split Q, then each K
 //   tile and write each V^T tile in the order the consumers take them.
 //   Each buffer has a full barrier (TMA), a ready barrier (split, after a
-//   fence to the async proxy) and an empty one, so K of tile i+1 lands
-//   and is split while tile i's softmax and P V run, and V of tile i while
-//   tile i+1's Q K^T runs. The splits cost: a build without them took
-//   0.114 ms at yi-6b's heads, S=1024, against 0.185 (H100,
-//   benchmarks/flash_ab.py), about the share of shared-memory traffic
-//   they add (192 of about 544 KB a tile at (64, 64), width 128). With 7
-//   converter warps instead of 3 the kernel took 0.98x the time there and
-//   0.91-0.92x at BQ = 128, so BQ = 64 keeps 3 and its 256 threads, whose
-//   consumers may take up to 255 registers with no setmaxnreg.
-// - With BQ = 128 `setmaxnreg` leaves the producer side 40 registers and
-//   gives a consumer thread 216 (512 threads, 128 at launch).
-// - Shared memory, one buffer of each: Q hi and lo, K (hi) and its lo, V
-//   as it lands, V^T hi and lo: 4 * (2 * BQ * DP + 5 * BK * DP) bytes plus
-//   128 of barriers and 1024 of alignment slack. That fits one block at
-//   (64, 64), (64, 128), (128, 64) and (128, 128) at width 64 and (64, 64)
-//   at 128, the f32 pairs built there. With BK = 64 a warpgroup issues
-//   tile i's Q K^T and tile i-1's P V back to back and runs tile i's
-//   softmax under P V (P of tile i-1, 64 registers of hi and lo, stays
-//   live beside the scores of tile i); with BK = 128 P is 128 registers
-//   and the warpgroup runs Q K^T, softmax and P V in turn.
+//   fence to the async proxy) and an empty one. The splits cost: a build
+//   without them took 0.114 ms at yi-6b's heads, S=1024, against 0.185
+//   (H100, benchmarks/flash_ab.py), about the share of shared-memory
+//   traffic they add (192 of about 544 KB a tile at (64, 64), width 128).
+//   With 7 converter warps instead of 3 the kernel took 0.98x the time
+//   there and 0.91-0.92x at BQ = 128, so BQ = 64 keeps 3 and its 256
+//   threads, whose consumers may take up to 255 registers with no
+//   setmaxnreg.
 //
-// Widths 192 and 256 (head dims 136-256) stay SIMT (`flash_fwd_f32_simt_
-// kernel`): the design above needs 344,064 B at (64, 64) and 192 columns.
-// There Q, one K/V stage and the probability tile are copied into shared
-// memory with 16-byte cp.async, each lane owns keys l, l+32, ... of S =
-// Q K^T (K rows XOR-swizzled by key % 8) and output columns l, l+32, ...
-// of O += P V, P written to shared memory by each warp: 4 * (DP * (BQ + 2
-// * BK) + BQ * BK) bytes, built at (64, 64). BQ is 64: at 128 the block's
-// 512 threads get at most 128 registers each, too few for 6 or 8
-// accumulator columns a lane. Tile i+1 is copied once every warp is done
-// with tile i.
+// Up to 128 columns (`flash_fwd_f32_kernel`) every tile is whole, one
+// buffer of each: Q hi and lo, K (hi) and its lo, V as it lands, V^T hi and
+// lo: 4 * (2 * BQ * DP + 5 * BK * DP) bytes plus 128 of barriers and 1024 of
+// alignment slack. That fits one block at (64, 64), (64, 128), (128, 64)
+// and (128, 128) at width 64 and (64, 64) at 128. K of tile i+1 lands and
+// is split while tile i's softmax and P V run, and V of tile i while tile
+// i+1's Q K^T runs. With BK = 64 a warpgroup issues tile i's Q K^T and
+// tile i-1's P V back to back and runs tile i's softmax under P V (P of
+// tile i-1, 64 registers of hi and lo, stays live beside the scores of
+// tile i); with BK = 128 P is 128 registers and the warpgroup runs Q K^T,
+// softmax and P V in turn. With BQ = 128 `setmaxnreg` leaves the
+// producer side 40 registers and gives a consumer thread 216 (512
+// threads, 128 at launch).
+//
+// Past 128 columns (`flash_fwd_f32_wide_kernel`, widths 192 and 256, head
+// dims 136-256) those tiles would take 344,064 B at (64, 64) and 192
+// columns; one block may use 232,448. Only Q stays whole (its hi and lo,
+// 98,304 B at 192, 131,072 at 256); K and V stream through one ring of
+// 64-column chunks, each stage a chunk's hi and lo (64 keys x 64 columns,
+// 16 KB each): 4 stages at 192 and 3 at 256, 230,528 B with Q, barriers and
+// slack (4 * (2 * BQ * DP + stages * 2 * BK * 64) + 1152), built at (64, 64)
+// only. Each key tile takes DP/64 K chunks, then DP/64 V chunks, in the
+// ring's order:
+// - S = Q K^T accumulates over the K chunks, 8 k8 steps of three SS
+//   wgmma m64n64k8 each; a K chunk lands by TMA in the stage's hi half
+//   (two swizzled boxes of 32 columns) and is split in place, its lo in
+//   the other half.
+// - The softmax, then O[:, 64c, 64c + 64) += P V_c for each chunk c, 8 k8
+//   steps of three RS wgmma m64n64k8 into that 32-register slice of the
+//   accumulator. A V chunk lands unswizzled in the stage's lo half
+//   ([64 keys][64 columns]); the converters read all of it, write V^T's hi
+//   into the hi half, meet at a named barrier and write V^T's lo over what
+//   landed, so no landing tile takes room of its own.
+// - The consumer issues chunk c+1 before it waits for chunk c's products,
+//   and hands chunk c's stage back then; the producer and converters run
+//   up to a ring ahead, across the softmax and from one tile to the next.
+//   There is no overlap of P V with the next softmax: at these widths a
+//   tile's products are 8-16x its softmax, and the accumulator (128
+//   registers at 256), P's hi and lo (64) and the scores (32) would not
+//   all fit a thread's 255.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -86,9 +104,121 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// ---------------------------------------------------- f32, three-pass TF32
+// ------------------------------------------ f32: the consumers' softmax
 
 constexpr int kF32Atom = 32;  // f32 columns of one 128-byte swizzle atom
+
+// The online softmax of the key tile at k0, its scores a m64nBK
+// accumulator (this thread's rows row0 and row0 + 8, columns 8j + 2t and
+// 8j + 2t + 1): scaled to the log2 domain and masked (in a tile that
+// reaches past S or, causal, past the warpgroup's first row), the running
+// maxima m0, m1 and this thread's share of the row sums l0, l1 updated, the
+// scores turned into probabilities in place. c0 and c1 are the factors the
+// output's rows must be rescaled by.
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], int k0, int wg_row_min,
+                                               float scale_log2, int t, int row0, int s,
+                                               int causal, float& m0, float& m1, float& l0,
+                                               float& l1, float& c0, float& c1) {
+  if (k0 + BK > s || (causal && k0 + BK - 1 > wg_row_min)) {
+    scale_scores<true, BK>(sc, scale_log2, k0, t, row0, s, causal);
+  } else {
+    scale_scores<false, BK>(sc, scale_log2, k0, t, row0, s, causal);
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  // a row's 8-column tiles are spread over the 4 lanes of one quad
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  c0 = exp2_ftz(m0 - mx0);
+  c1 = exp2_ftz(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    sc[4 * j] = exp2_ftz(sc[4 * j] - mx0);
+    sc[4 * j + 1] = exp2_ftz(sc[4 * j + 1] - mx0);
+    sc[4 * j + 2] = exp2_ftz(sc[4 * j + 2] - mx1);
+    sc[4 * j + 3] = exp2_ftz(sc[4 * j + 3] - mx1);
+    ps0 += sc[4 * j] + sc[4 * j + 1];
+    ps1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  l0 = l0 * c0 + ps0;
+  l1 = l1 * c1 + ps1;
+}
+
+// Once no P V is in flight: the accumulator's rows rescaled by c0 and c1,
+// and P split into tf32 A fragments of hi and lo. k-step kk of P V is key
+// group kk of the scores, slot t its key 2t and slot t + 4 its key 2t + 1
+// (V^T's key order).
+template <int BK, int N>
+__device__ __forceinline__ void rescale_and_split(float (&acc)[N], const float (&sc)[BK / 2],
+                                                  float c0, float c1,
+                                                  uint32_t (&phi)[BK / 8][4],
+                                                  uint32_t (&plo)[BK / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    acc[4 * j] *= c0;
+    acc[4 * j + 1] *= c0;
+    acc[4 * j + 2] *= c1;
+    acc[4 * j + 3] *= c1;
+  }
+#pragma unroll
+  for (int kk = 0; kk < BK / 8; ++kk) {
+    split_tf32(sc[4 * kk], phi[kk][0], plo[kk][0]);      // row g, key 2t
+    split_tf32(sc[4 * kk + 2], phi[kk][1], plo[kk][1]);  // row g + 8, key 2t
+    split_tf32(sc[4 * kk + 1], phi[kk][2], plo[kk][2]);  // row g, key 2t + 1
+    split_tf32(sc[4 * kk + 3], phi[kk][3], plo[kk][3]);  // row g + 8, key 2t + 1
+  }
+}
+
+// The row sums gathered over each quad, then rows row0 and row0 + 8 of the
+// output below S, its real d columns only (d is a multiple of 8: a pair is
+// whole); columns past d of the accumulator are V's zero fill.
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N], float l0, float l1,
+                                           float* oh, int row0, int t, int s, int d) {
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = fmaxf(l0, 1e-30f);
+  const float d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col >= d) continue;
+    if (row0 < s) {
+      *reinterpret_cast<float2*>(oh + (size_t)row0 * d + col) =
+          make_float2(acc[4 * j] / d0, acc[4 * j + 1] / d0);
+    }
+    if (row0 + 8 < s) {
+      *reinterpret_cast<float2*>(oh + (size_t)(row0 + 8) * d + col) =
+          make_float2(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+    }
+  }
+}
+
+// Every tile sits at a fixed address, so a k-step's descriptors are the
+// same in every tile: made per k-step, ptxas hoisted them out of the tile
+// loop (4 x DP/8 64-bit registers for Q K^T) and the (64, 64) build at
+// width 128 spilled. An opaque copy of each base descriptor per use keeps
+// them in the loop, one add per k-step (a descriptor's address field is
+// the byte address >> 4, and no offset carries out of it).
+__device__ __forceinline__ uint64_t opaque_desc(uint32_t addr) {
+  uint64_t desc = smem_desc_sw128(addr, 16, 1024);
+  asm volatile("" : "+l"(desc));
+  return desc;
+}
+
+// ------------------------------------- f32 up to 128 columns, whole tiles
 
 template <int BQ, int BK, int DP>
 struct CfgTf32 {
@@ -108,6 +238,7 @@ struct CfgTf32 {
   static constexpr int kCols = DP / kF32Atom;              // atoms per Q or K row
   static constexpr int kQBytes = BQ * DP * 4;
   static constexpr int kKVBytes = BK * DP * 4;
+  static constexpr int kVCols = DP;  // V lands in one box of the whole width
   // Q hi and lo, K (hi in place) and K lo, V as it lands, V^T hi and lo
   static constexpr int kQLo = kQBytes;
   static constexpr int kK = 2 * kQBytes;
@@ -258,18 +389,6 @@ __global__ void __launch_bounds__(CfgTf32<BQ, BK, DP>::kThreads, 1)
     float m0 = kNegInf, m1 = kNegInf;  // running max (log2 domain) of row0, row0+8
     float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
 
-    // Every tile sits at the same address in every key tile (one buffer
-    // each), so the k-steps' descriptors are the same in every tile: made
-    // per k-step, ptxas hoisted them out of the tile loop (4 x DP/8 64-bit
-    // registers for Q K^T) and the (64, 64) build at width 128 spilled. An
-    // opaque copy of each base descriptor per call keeps them in the loop,
-    // one add per k-step (a descriptor's address field is the byte address
-    // >> 4, and no offset carries out of it).
-    auto opaque_desc = [&](uint32_t addr) {
-      uint64_t desc = smem_desc_sw128(addr, 16, 1024);
-      asm volatile("" : "+l"(desc));
-      return desc;
-    };
     // S = Q K^T: DP/8 k-steps (the zero fill past d adds nothing), step kk
     // 32 bytes into column atom kk/4; hi.lo, lo.hi, hi.hi
     auto issue_s = [&](float (&sc)[BK / 2]) {
@@ -296,61 +415,12 @@ __global__ void __launch_bounds__(CfgTf32<BQ, BK, DP>::kThreads, 1)
         wgmma_tf32_rs<DP>(acc, phi[kk], dvh + ov, 1);
       }
     };
-    // the scores (landed) -> probabilities in place; updates m and l and
-    // returns the factors the accumulator must be rescaled by
     auto softmax = [&](int i, float (&sc)[BK / 2], float& c0, float& c1) {
-      const int k0 = i * BK;
-      if (k0 + BK > s || (causal && k0 + BK - 1 > wg_row_min)) {
-        scale_scores<true, BK>(sc, scale_log2, k0, t, row0, s, causal);
-      } else {
-        scale_scores<false, BK>(sc, scale_log2, k0, t, row0, s, causal);
-      }
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-      }
-      // a row's 8-column tiles are spread over the 4 lanes of one quad
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      c0 = exp2_ftz(m0 - mx0);
-      c1 = exp2_ftz(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        sc[4 * j] = exp2_ftz(sc[4 * j] - mx0);
-        sc[4 * j + 1] = exp2_ftz(sc[4 * j + 1] - mx0);
-        sc[4 * j + 2] = exp2_ftz(sc[4 * j + 2] - mx1);
-        sc[4 * j + 3] = exp2_ftz(sc[4 * j + 3] - mx1);
-        ps0 += sc[4 * j] + sc[4 * j + 1];
-        ps1 += sc[4 * j + 2] + sc[4 * j + 3];
-      }
-      l0 = l0 * c0 + ps0;
-      l1 = l1 * c1 + ps1;
+      online_softmax<BK>(sc, i * BK, wg_row_min, scale_log2, t, row0, s, causal, m0, m1, l0,
+                         l1, c0, c1);
     };
-    // once no P V is in flight: rescale the accumulator and split P. k-step
-    // kk of P V is key tile kk of the scores, slot t its key 2t and slot
-    // t + 4 its key 2t + 1 (V^T's key order)
-    auto rescale_and_split = [&](const float (&sc)[BK / 2], float c0, float c1) {
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        acc[4 * j] *= c0;
-        acc[4 * j + 1] *= c0;
-        acc[4 * j + 2] *= c1;
-        acc[4 * j + 3] *= c1;
-      }
-#pragma unroll
-      for (int kk = 0; kk < BK / 8; ++kk) {
-        split_tf32(sc[4 * kk], phi[kk][0], plo[kk][0]);      // row g, key 2t
-        split_tf32(sc[4 * kk + 2], phi[kk][1], plo[kk][1]);  // row g + 8, key 2t
-        split_tf32(sc[4 * kk + 1], phi[kk][2], plo[kk][2]);  // row g, key 2t + 1
-        split_tf32(sc[4 * kk + 3], phi[kk][3], plo[kk][3]);  // row g + 8, key 2t + 1
-      }
+    auto rescale_and_split_p = [&](const float (&sc)[BK / 2], float c0, float c1) {
+      rescale_and_split<BK>(acc, sc, c0, c1, phi, plo);
     };
     auto fence_scores = [&](float (&sc)[BK / 2]) {
 #pragma unroll
@@ -395,7 +465,7 @@ __global__ void __launch_bounds__(CfgTf32<BQ, BK, DP>::kThreads, 1)
         fence_scores(sc);
         mbar_arrive(k_empty);
         softmax(0, sc, c0, c1);
-        rescale_and_split(sc, c0, c1);
+        rescale_and_split_p(sc, c0, c1);
       }
       // step i issues tile i's S and tile i-1's P V back to back, then
       // runs tile i's softmax while P V is still on the tensor cores
@@ -417,7 +487,7 @@ __global__ void __launch_bounds__(CfgTf32<BQ, BK, DP>::kThreads, 1)
         wgmma_wait<0>();  // P V of tile i-1 is done: acc, P and V^T are free
         fence_acc_and_p();
         mbar_arrive(vt_empty);
-        rescale_and_split(sc, c0, c1);
+        rescale_and_split_p(sc, c0, c1);
       }
       {  // the last tile's P V
         mbar_wait(vt_ready, (n_tiles - 1) & 1);
@@ -443,7 +513,7 @@ __global__ void __launch_bounds__(CfgTf32<BQ, BK, DP>::kThreads, 1)
         fence_scores(sc);
         mbar_arrive(k_empty);
         softmax(i, sc, c0, c1);
-        rescale_and_split(sc, c0, c1);
+        rescale_and_split_p(sc, c0, c1);
         mbar_wait(vt_ready, i & 1);
         take_turn();
         wgmma_fence();
@@ -455,82 +525,60 @@ __global__ void __launch_bounds__(CfgTf32<BQ, BK, DP>::kThreads, 1)
         mbar_arrive(vt_empty);
       }
     }
-
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float d0 = fmaxf(l0, 1e-30f);
-    const float d1 = fmaxf(l1, 1e-30f);
-    // the real d columns only (d is a multiple of 8: a pair is whole)
-    float* oh = o + (size_t)h * s * d;
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      if (col >= d) continue;
-      if (row0 < s) {
-        *reinterpret_cast<float2*>(oh + (size_t)row0 * d + col) =
-            make_float2(acc[4 * j] / d0, acc[4 * j + 1] / d0);
-      }
-      if (row0 + 8 < s) {
-        *reinterpret_cast<float2*>(oh + (size_t)(row0 + 8) * d + col) =
-            make_float2(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
-      }
-    }
+    store_rows(acc, l0, l1, o + (size_t)h * s * d, row0, t, s, d);
   }
 }
 
-// --------------------------------------------------- f32 past 128, SIMT
-
-// 16-byte asynchronous copy global -> shared; `bytes` < 16 zero-fills the
-// rest (0: all zeros, nothing read)
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+// --------------------------- f32 past 128 columns, K and V in 64-col chunks
 
 template <int BQ, int BK, int DP>
-struct CfgSimt {
-  static_assert(BQ == 64, "BQ is 8 warps of 8 rows (registers)");
-  static_assert(BK == 64 || BK == 128, "BK is 2 or 4 keys a lane");
-  static_assert(DP == 192 || DP == 256, "DP is 6 or 8 columns a lane");
-  static constexpr int kRows = 8;                 // query rows a warp owns
-  static constexpr int kThreads = 32 * BQ / kRows;
-  static constexpr int kKJ = BK / 32;             // keys a lane owns
-  static constexpr int kDJ = DP / 32;             // output columns a lane owns
-  // floats: Q [BQ][DP], K [BK][DP] (swizzled), V [BK][DP], P [BQ][BK]
-  static constexpr int kKV = BK * DP;
-  static constexpr int kKOff = BQ * DP;
-  static constexpr int kVOff = kKOff + kKV;
-  static constexpr int kPOff = kVOff + kKV;
-  static constexpr int kSmem = 4 * (kPOff + BQ * BK);
-  static_assert(kSmem == 4 * (DP * (BQ + 2 * BK) + BQ * BK), "the pickers' count");
+struct CfgTf32Wide {
+  static_assert(BQ == 64, "one consumer warpgroup: Q's hi and lo at BQ = 128 leave no stage");
+  static_assert(BK == 64, "BK is the N of an m64n64k8 wgmma (P's hi and lo: 64 registers)");
+  static_assert(DP == 192 || DP == 256, "DP is 3 or 4 chunks of 64 columns");
+  static constexpr int kThreads = 256;  // the consumers, then the producer's warpgroup
+  static constexpr int kConverters = 96;  // its warps 1-3 (warp 0 issues TMA)
+  static constexpr int kChunk = 64;       // columns of a K or V chunk
+  static constexpr int kChunks = DP / kChunk;
+  static constexpr int kCols = DP / kF32Atom;  // atoms per Q row
+  static constexpr int kVCols = kChunk;        // V lands one chunk per box
+  static constexpr int kQBytes = BQ * DP * 4;
+  static constexpr int kHalf = BK * kChunk * 4;  // a chunk's hi or lo: 16 KB
+  static constexpr int kStage = 2 * kHalf;
+  // as many stages as fit beside Q's hi and lo
+  static constexpr int kStages = DP == 192 ? 4 : 3;
+  static constexpr int kQLo = kQBytes;
+  static constexpr int kRing = 2 * kQBytes;
+  static constexpr int kBarOff = kRing + kStages * kStage;
+  // q_full, q_ready and a full, ready and empty barrier per stage (8 B
+  // each, 128 B reserved) and 1024 B of slack to align the tiles' base to
+  // the swizzle period
+  static_assert(8 * (2 + 3 * kStages) <= 128, "the barriers fit their 128 bytes");
+  static constexpr int kSmem = kBarOff + 128 + 1024;
+  static_assert(kSmem == 4 * (2 * BQ * DP + kStages * 2 * BK * 64) + 1152, "the pickers' count");
   static_assert(kSmem <= 232448, "fits one block's shared memory");
+  static_assert(kSmem + kStage > 232448, "no further stage fits");
 };
 
 template <int BQ, int BK, int DP>
-__global__ void __launch_bounds__(CfgSimt<BQ, BK, DP>::kThreads, 1)
-    flash_fwd_f32_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, float* __restrict__ o, int hq,
-                              int hkv, int s, int d, float scale_log2, int causal) {
-  using C = CfgSimt<BQ, BK, DP>;
-  constexpr int R = C::kRows, KJ = C::kKJ, DJ = C::kDJ;
-  extern __shared__ float4 smem_f4[];
-  float* smem = reinterpret_cast<float*>(smem_f4);
-  const uint32_t smem_base = smem_u32(smem);
-  float* q_s = smem;
-  const float* k_s = smem + C::kKOff;
-  float* v_s = smem + C::kVOff;
-  float* p_s = smem + C::kPOff;
+__global__ void __launch_bounds__(CfgTf32Wide<BQ, BK, DP>::kThreads, 1)
+    flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
+                              int hq, int hkv, int s, int d, float scale_log2, int causal) {
+  using C = CfgTf32Wide<BQ, BK, DP>;
+  constexpr int NS = C::kStages, NCH = C::kChunks;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t q_s = base, q_lo = base + C::kQLo;
+  // stage st: a chunk's hi at stage_hi(st), its lo C::kHalf further
+  auto stage_hi = [&](int st) { return base + C::kRing + st * C::kStage; };
+  const uint32_t bar = base + C::kBarOff;
+  const uint32_t q_full = bar, q_ready = bar + 8;
+  auto full = [&](int st) { return bar + 16 + 8 * st; };
+  auto ready = [&](int st) { return bar + 16 + 8 * (NS + st); };
+  auto empty = [&](int st) { return bar + 16 + 8 * (2 * NS + st); };
 
   const int h = blockIdx.x;
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -538,207 +586,276 @@ __global__ void __launch_bounds__(CfgSimt<BQ, BK, DP>::kThreads, 1)
   const int kvrow = (h / hq) * hkv + (h % hq) / (hq / hkv);
   const int nk = (s + BK - 1) / BK;
   const int n_tiles = causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
-  const int tid = threadIdx.x;
-  const int nc = d / 4;  // 16-byte chunks in a row
 
-  // V's columns d..DP-1 are never loaded: zero them once, so the
-  // accumulator's columns past d stay zero
-  for (int e = tid; e < BK * (DP - d); e += C::kThreads) {
-    const int row = e / (DP - d);
-    v_s[row * DP + d + e % (DP - d)] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_ready, C::kConverters);
+#pragma unroll
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(ready(st), C::kConverters);
+      mbar_init(empty(st), 128);
+    }
+    fence_mbarrier_init();
   }
-  const float* qh = q + (size_t)h * s * d;
-  const float* kh = k + (size_t)kvrow * s * d;
-  const float* vh = v + (size_t)kvrow * s * d;
-  // rows past S read as zeros (and nothing is read for them)
-  auto load_rows = [&](const float* src, int row0, int n, int dst, bool swizzle) {
-    for (int e = tid; e < n * nc; e += C::kThreads) {
-      const int row = e / nc, c = e % nc;
-      const int g = row0 + row;
-      const int sc = swizzle ? (c ^ (row & 7)) : c;
-      cp_async_16(smem_base + 4u * (dst + row * DP + 4 * sc),
-                  src + (size_t)min(g, s - 1) * d + 4 * c, g < s ? 16 : 0);
+  __syncthreads();
+
+  // The ring takes each key tile's NCH chunks of K, then its NCH chunks of
+  // V: every thread walks it in that order, stage st on its pass `pass`
+  // (the parity of its barriers' phase).
+  int st = 0, pass = 0;
+  auto advance = [&]() {
+    if (++st == NS) {
+      st = 0;
+      pass ^= 1;
     }
   };
-  auto load_kv = [&](int i) {
-    load_rows(kh, i * BK, BK, C::kKOff, true);
-    load_rows(vh, i * BK, BK, C::kVOff, false);
-  };
-  load_rows(qh, q0, BQ, 0, false);
-  load_kv(0);
-  cp_async_commit();
-
-  const int w = tid / 32, lane = tid % 32;
-  const int r0 = w * R;  // the warp's first row in the tile
-  float acc[R][DJ], m[R], l[R];
+  if (threadIdx.x >= 128) {
+    // ------------------------------------------- producer and converters
+    const int pt = threadIdx.x - 128;
+    if (pt == 0) {
+      mbar_arrive_expect_tx(q_full, C::kQBytes);
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[r][j] = 0.f;
-  }
-
-  for (int i = 0; i < n_tiles; ++i) {
-    cp_async_wait_all();
-    __syncthreads();  // tile i (and Q) landed for every thread's copies
-
-    // S = Q K^T over the d columns: a float4 of Q (broadcast) against a
-    // float4 of each of the lane's keys; chunk c of key row j lies at chunk
-    // c ^ (j % 8), and j % 8 == lane % 8
-    float sc[R][KJ];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) sc[r][j] = 0.f;
-    }
-    for (int c = 0; c < nc; ++c) {
-      float4 kv[KJ];
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        kv[j] = *reinterpret_cast<const float4*>(
-            k_s + (lane + 32 * j) * DP + 4 * (c ^ (lane & 7)));
+      for (int c = 0; c < C::kCols; ++c) {
+        tma_load_3d(q_s + c * BQ * kAtomBytes, &tq, q_full, c * kF32Atom, q0, h);
       }
+      bool wrapped = false;  // every stage was filled once
+      for (int i = 0; i < n_tiles; ++i) {
+        for (int c = 0; c < 2 * NCH; ++c) {
+          // a stage once the consumers are done with its last chunk
+          if (wrapped) mbar_wait(empty(st), pass ^ 1);
+          mbar_arrive_expect_tx(full(st), C::kHalf);
+          if (c < NCH) {  // K chunk c: two swizzled boxes of 32 columns
+            tma_load_3d(stage_hi(st), &tk, full(st), c * C::kChunk, i * BK, kvrow);
+            tma_load_3d(stage_hi(st) + BK * kAtomBytes, &tk, full(st),
+                        c * C::kChunk + kF32Atom, i * BK, kvrow);
+          } else {  // V chunk c - NCH, as it is, into the lo half
+            tma_load_3d(stage_hi(st) + C::kHalf, &tv, full(st), (c - NCH) * C::kChunk,
+                        i * BK, kvrow);
+          }
+          wrapped |= st == NS - 1;
+          advance();
+        }
+      }
+    } else if (pt >= 32) {
+      // the converter warps: Q once, then each chunk in the ring's order
+      const int ct = pt - 32;
+      constexpr int NC = C::kConverters;
+      mbar_wait(q_full, 0);
+      split_tf32_tile(reinterpret_cast<float4*>(base_ptr),
+                      reinterpret_cast<float4*>(base_ptr + C::kQLo), C::kQBytes / 16, ct, NC);
+      fence_proxy_async();
+      mbar_arrive(q_ready);
+      // V^T is K-major, one [64 columns][32 keys] swizzled tile per 32 keys
+      // in each half. Item (b, ch, col): chunk ch (4 slots) of row col of
+      // tile b holds keys 32b + 8(ch/2) + ch%2 + {0, 2, 4, 6}, the
+      // fragment's key order; lanes take consecutive columns (one V row
+      // read without conflict, 8 chunks a quarter-warp apart)
+      constexpr int kItems = (BK / kF32Atom) * 8 * C::kChunk;
+      constexpr int kPer = (kItems + NC - 1) / NC;
+      for (int i = 0; i < n_tiles; ++i) {
+        for (int c = 0; c < 2 * NCH; ++c) {
+          unsigned char* hi = base_ptr + C::kRing + st * C::kStage;
+          unsigned char* lo = hi + C::kHalf;
+          mbar_wait(full(st), pass);
+          if (c < NCH) {
+            split_tf32_tile(reinterpret_cast<float4*>(hi), reinterpret_cast<float4*>(lo),
+                            C::kHalf / 16, ct, NC);
+          } else {
+            // V landed in the lo half: every converter reads its items and
+            // writes their V^T hi, and once all have read, their V^T lo
+            const float* vs = reinterpret_cast<const float*>(lo);
+            uint4 keep[kPer];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(q_s + (r0 + r) * DP + 4 * c);
+            for (int j = 0; j < kPer; ++j) {
+              const int e = ct + j * NC;
+              if (e < kItems) {
+                const int col = e % C::kChunk, ch = (e / C::kChunk) % 8;
+                const int b = e / (8 * C::kChunk);
+                const float* src =
+                    vs + (kF32Atom * b + 8 * (ch >> 1) + (ch & 1)) * C::kChunk + col;
+                uint4 h4;
+                split_tf32(src[0], h4.x, keep[j].x);
+                split_tf32(src[2 * C::kChunk], h4.y, keep[j].y);
+                split_tf32(src[4 * C::kChunk], h4.z, keep[j].z);
+                split_tf32(src[6 * C::kChunk], h4.w, keep[j].w);
+                const int off =
+                    b * C::kChunk * kAtomBytes + col * kAtomBytes + ((ch ^ (col & 7)) << 4);
+                *reinterpret_cast<uint4*>(hi + off) = h4;
+              }
+            }
+            named_barrier_sync(3, NC);
 #pragma unroll
-        for (int j = 0; j < KJ; ++j) {
-          sc[r][j] = fmaf(qv.x, kv[j].x, sc[r][j]);
-          sc[r][j] = fmaf(qv.y, kv[j].y, sc[r][j]);
-          sc[r][j] = fmaf(qv.z, kv[j].z, sc[r][j]);
-          sc[r][j] = fmaf(qv.w, kv[j].w, sc[r][j]);
+            for (int j = 0; j < kPer; ++j) {
+              const int e = ct + j * NC;
+              if (e < kItems) {
+                const int col = e % C::kChunk, ch = (e / C::kChunk) % 8;
+                const int b = e / (8 * C::kChunk);
+                const int off =
+                    b * C::kChunk * kAtomBytes + col * kAtomBytes + ((ch ^ (col & 7)) << 4);
+                *reinterpret_cast<uint4*>(lo + off) = keep[j];
+              }
+            }
+          }
+          fence_proxy_async();
+          mbar_arrive(ready(st));
+          advance();
         }
       }
     }
+  } else {
+    // --------------------------------------------------------- consumers
+    const int tid = threadIdx.x;
+    const int lane = tid % 32;
+    const int t = lane & 3;                           // column pair
+    const int row0 = q0 + (tid / 32) * 16 + (lane >> 2);  // and row0 + 8
 
-    // online softmax in the log2 domain; P to this warp's rows of p_s
-    const int k0 = i * BK;
-    const bool mask = k0 + BK > s || (causal && k0 + BK - 1 > q0 + r0);
+    float acc[DP / 2];  // columns past d stay zero (V's fill)
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = q0 + r0 + r;
-      float mx = m[r];
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    uint32_t phi[BK / 8][4], plo[BK / 8][4];  // P as tf32 A fragments
+    float m0 = kNegInf, m1 = kNegInf;  // running max (log2 domain) of row0, row0+8
+    float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
+    // keeps the compiler's reads and writes of the accumulator and P on
+    // their side of the products that own them
+    auto fence_acc_and_p = [&]() {
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        float x = sc[r][j] * scale_log2;
-        if (mask) {
-          const int key = k0 + lane + 32 * j;
-          if (key >= s || (causal && key > row)) x = kNegInf;
-        }
-        sc[r][j] = x;
-        mx = fmaxf(mx, x);
-      }
+      for (int j = 0; j < DP / 2; ++j) fence_operand(acc[j]);
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float corr = exp2_ftz(m[r] - mx);
-      m[r] = mx;
-      float ps = 0.f;
+      for (int kk = 0; kk < BK / 8; ++kk) {
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const float p = exp2_ftz(sc[r][j] - mx);
-        p_s[(r0 + r) * BK + lane + 32 * j] = p;
-        ps += p;
-      }
-      l[r] = l[r] * corr + ps;  // this lane's share of the row sum
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[r][j] *= corr;
-    }
-    __syncwarp();
-
-    // O += P V: four keys a step, P as a float4 broadcast per row
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float vv[4][DJ];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) vv[e][j] = v_s[(kk + e) * DP + lane + 32 * j];
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 p = *reinterpret_cast<const float4*>(p_s + (r0 + r) * BK + kk);
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          acc[r][j] = fmaf(p.x, vv[0][j], acc[r][j]);
-          acc[r][j] = fmaf(p.y, vv[1][j], acc[r][j]);
-          acc[r][j] = fmaf(p.z, vv[2][j], acc[r][j]);
-          acc[r][j] = fmaf(p.w, vv[3][j], acc[r][j]);
+        for (int e = 0; e < 4; ++e) {
+          fence_operand(phi[kk][e]);
+          fence_operand(plo[kk][e]);
         }
       }
-    }
-    __syncthreads();  // every warp is done with this tile (and its P)
-    if (i + 1 < n_tiles) {
-      load_kv(i + 1);
-      cp_async_commit();
-    }
-  }
+    };
 
-  float* oh = o + (size_t)h * s * d;
+    mbar_wait(q_ready, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      // S = Q K^T over the K chunks: chunk c's k-step kk is Q's column atom
+      // 2c + kk/4 and the chunk's atom kk/4, 32 bytes a step; hi.lo, lo.hi,
+      // hi.hi. Chunk c+1 is issued before chunk c's stage is handed back.
+      float sc[BK / 2], c0, c1;
+      int prev = 0;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float sum = l[r];
+      for (int c = 0; c < NCH; ++c) {
+        mbar_wait(ready(st), pass);
+        const uint64_t dqh = opaque_desc(q_s), dql = opaque_desc(q_lo);
+        const uint64_t dkh = opaque_desc(stage_hi(st)), dkl = dkh + (C::kHalf >> 4);
+        wgmma_fence();
 #pragma unroll
-    for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const int row = q0 + r0 + r;
-    const float inv = 1.f / fmaxf(sum, 1e-30f);
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint64_t oq = ((2 * c + kk / 4) * BQ * kAtomBytes + (kk % 4) * 32) >> 4;
+          const uint64_t ok = ((kk / 4) * BK * kAtomBytes + (kk % 4) * 32) >> 4;
+          wgmma_tf32_ss<BK>(sc, dqh + oq, dkl + ok, c > 0 || kk > 0);
+          wgmma_tf32_ss<BK>(sc, dql + oq, dkh + ok, 1);
+          wgmma_tf32_ss<BK>(sc, dqh + oq, dkh + ok, 1);
+        }
+        wgmma_commit();
+        if (c > 0) {
+          wgmma_wait<1>();
+          mbar_arrive(empty(prev));
+        }
+        prev = st;
+        advance();
+      }
+      wgmma_wait<0>();
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int col = lane + 32 * j;
-      if (row < s && col < d) oh[(size_t)row * d + col] = acc[r][j] * inv;
+      for (int j = 0; j < BK / 2; ++j) fence_operand(sc[j]);
+      mbar_arrive(empty(prev));
+      online_softmax<BK>(sc, i * BK, q0, scale_log2, t, row0, s, causal, m0, m1, l0, l1, c0,
+                         c1);
+      rescale_and_split<BK>(acc, sc, c0, c1, phi, plo);
+      fence_acc_and_p();
+      // O[:, 64c, 64c + 64) += P V_c, into the accumulator's 32-register
+      // slice c: V^T chunk c is [64 columns][BK keys], K-major, step kk 32
+      // bytes into key atom kk/4
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        mbar_wait(ready(st), pass);
+        const uint64_t dvh = opaque_desc(stage_hi(st)), dvl = dvh + (C::kHalf >> 4);
+        float(&oc)[C::kChunk / 2] = *reinterpret_cast<float(*)[C::kChunk / 2]>(
+            &acc[c * C::kChunk / 2]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) {
+          const uint64_t ov = ((kk / 4) * C::kChunk * kAtomBytes + (kk % 4) * 32) >> 4;
+          wgmma_tf32_rs<C::kChunk>(oc, phi[kk], dvl + ov, 1);
+          wgmma_tf32_rs<C::kChunk>(oc, plo[kk], dvh + ov, 1);
+          wgmma_tf32_rs<C::kChunk>(oc, phi[kk], dvh + ov, 1);
+        }
+        wgmma_commit();
+        if (c > 0) {
+          wgmma_wait<1>();
+          mbar_arrive(empty(prev));
+        }
+        prev = st;
+        advance();
+      }
+      wgmma_wait<0>();
+      fence_acc_and_p();
+      mbar_arrive(empty(prev));
     }
+    store_rows(acc, l0, l1, o + (size_t)h * s * d, row0, t, s, d);
   }
 }
 
 // ------------------------------------------------------------------- host
 
-template <int BQ, int BK, int DP>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int b,
-                       int hq, int hkv, int s, int d, float scale, int causal,
-                       cudaStream_t stream) {
-  using C = CfgTf32<BQ, BK, DP>;
-  auto kern = flash_fwd_f32_kernel<BQ, BK, DP>;
-  static bool raised[kMaxDevices] = {};
-  cudaError_t err = raise_smem(kern, C::kSmem, raised);
+// Q and K in swizzled boxes [rows][32 floats]; V in unswizzled boxes
+// [BK][v_cols] (the whole width, or one 64-column chunk)
+template <typename K>
+cudaError_t launch_tf32(K kern, int smem, int threads, bool (&raised)[kMaxDevices], int bq,
+                        int bk, int v_cols, const void* q, const void* k, const void* v,
+                        void* o, int b, int hq, int hkv, int s, int d, float scale,
+                        int causal, cudaStream_t stream) {
+  cudaError_t err = raise_smem(kern, smem, raised);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
-  // Q and K in swizzled boxes [rows][32]; V in one unswizzled box [BK][DP]
-  if (!make_map_f32_sw128(&tq, q, b * hq, s, d, BQ) ||
-      !make_map_f32_sw128(&tk, k, b * hkv, s, d, BK) ||
-      !make_map_f32(&tv, v, b * hkv, s, d, BK, DP)) {
+  if (!make_map_f32_sw128(&tq, q, b * hq, s, d, bq) ||
+      !make_map_f32_sw128(&tk, k, b * hkv, s, d, bk) ||
+      !make_map_f32(&tv, v, b * hkv, s, d, bk, v_cols)) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid(b * hq, (s + BQ - 1) / BQ);
-  kern<<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, static_cast<float*>(o), hq,
-                                                hkv, s, d, scale * kLog2e, causal);
+  const dim3 grid(b * hq, (s + bq - 1) / bq);
+  kern<<<grid, threads, smem, stream>>>(tq, tk, tv, static_cast<float*>(o), hq, hkv, s, d,
+                                        scale * kLog2e, causal);
   return cudaGetLastError();
+}
+
+// the f32 kernel of a width: whole tiles up to 128 columns, 64-column
+// chunks past it
+template <int BQ, int BK, int DP>
+constexpr int f32_smem() {
+  if constexpr (DP <= 128) {
+    return CfgTf32<BQ, BK, DP>::kSmem;
+  } else {
+    return CfgTf32Wide<BQ, BK, DP>::kSmem;
+  }
 }
 
 template <int BQ, int BK, int DP>
-cudaError_t launch_f32_simt(const void* q, const void* k, const void* v, void* o, int b,
-                            int hq, int hkv, int s, int d, float scale, int causal,
-                            cudaStream_t stream) {
-  using C = CfgSimt<BQ, BK, DP>;
-  auto kern = flash_fwd_f32_simt_kernel<BQ, BK, DP>;
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int b, int hq,
+                       int hkv, int s, int d, float scale, int causal, cudaStream_t stream) {
   static bool raised[kMaxDevices] = {};
-  cudaError_t err = raise_smem(kern, C::kSmem, raised);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(b * hq, (s + BQ - 1) / BQ);
-  kern<<<grid, C::kThreads, C::kSmem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, s, d,
-      scale * kLog2e, causal);
-  return cudaGetLastError();
+  if constexpr (DP <= 128) {
+    using C = CfgTf32<BQ, BK, DP>;
+    return launch_tf32(flash_fwd_f32_kernel<BQ, BK, DP>, C::kSmem, C::kThreads, raised, BQ,
+                       BK, C::kVCols, q, k, v, o, b, hq, hkv, s, d, scale, causal, stream);
+  } else {
+    using C = CfgTf32Wide<BQ, BK, DP>;
+    return launch_tf32(flash_fwd_f32_wide_kernel<BQ, BK, DP>, C::kSmem, C::kThreads, raised,
+                       BQ, BK, C::kVCols, q, k, v, o, b, hq, hkv, s, d, scale, causal,
+                       stream);
+  }
 }
 
-// f32, every (BQ, BK, DP) whose shared memory fits one block: three-pass
-// TF32 up to 128 columns, SIMT with one K/V stage past it (BQ 64, registers)
-#define FLASH_F32_BUILT(X) \
-  X(64, 64, 64) X(64, 128, 64) X(128, 64, 64) X(128, 128, 64) X(64, 64, 128)
-
-#define FLASH_F32_SIMT_BUILT(X) X(64, 64, 192) X(64, 64, 256)
+// f32, every (BQ, BK, DP) whose shared memory fits one block: whole tiles
+// up to 128 columns, the chunked ring at 192 and 256
+#define FLASH_F32_BUILT(X)                                                    \
+  X(64, 64, 64) X(64, 128, 64) X(128, 64, 64) X(128, 128, 64) X(64, 64, 128) \
+      X(64, 64, 192) X(64, 64, 256)
 
 // a head dim the f32 kernels take: a multiple of 8 from 8 to 256
 inline bool f32_head_dim_ok(int d) { return d >= 8 && d <= 256 && d % 8 == 0; }
@@ -751,19 +868,14 @@ extern "C" int flash_attention_smem_bytes(int d, int block_q, int block_k) {
   return narrow_smem_bytes(d, block_q, block_k);
 }
 
-// The same for the f32 kernel.
+// The same for the f32 kernels.
 extern "C" int flash_attention_f32_smem_bytes(int d, int block_q, int block_k) {
   if (!f32_head_dim_ok(d)) return -1;
 #define FLASH_SMEM_F32(BQ_, BK_, DP_)                       \
   if (padded(d) == DP_ && block_q == BQ_ && block_k == BK_) \
-    return CfgTf32<BQ_, BK_, DP_>::kSmem;
+    return f32_smem<BQ_, BK_, DP_>();
   FLASH_F32_BUILT(FLASH_SMEM_F32)
 #undef FLASH_SMEM_F32
-#define FLASH_SMEM_F32_SIMT(BQ_, BK_, DP_)                  \
-  if (padded(d) == DP_ && block_q == BQ_ && block_k == BK_) \
-    return CfgSimt<BQ_, BK_, DP_>::kSmem;
-  FLASH_F32_SIMT_BUILT(FLASH_SMEM_F32_SIMT)
-#undef FLASH_SMEM_F32_SIMT
   return -1;
 }
 
@@ -795,11 +907,5 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void*
     return launch_f32<BQ_, BK_, DP_>(q, k, v, o, b, hq, hkv, s, d, scale, causal, st);
   FLASH_F32_BUILT(FLASH_CASE_F32)
 #undef FLASH_CASE_F32
-#define FLASH_CASE_F32_SIMT(BQ_, BK_, DP_)                                         \
-  if (padded(d) == DP_ && block_q == BQ_ && block_k == BK_)                        \
-    return launch_f32_simt<BQ_, BK_, DP_>(q, k, v, o, b, hq, hkv, s, d, scale, causal, \
-                                          st);
-  FLASH_F32_SIMT_BUILT(FLASH_CASE_F32_SIMT)
-#undef FLASH_CASE_F32_SIMT
   return cudaErrorInvalidValue;
 }

@@ -13,16 +13,17 @@ every other head dim runs a generic build of its padded width
 384 or 512, whose output columns are computed in two chunks of 192 or 256
 by two blocks that each repeat Q Kᵀ (a 64-row warpgroup holds at most a
 64 x 256 f32 accumulator). f32 tensors launch a second entry point,
-``flash_attention_fwd_f32``: up to 128 columns a kernel of the same shape
-whose products are three TF32 passes on ``wgmma`` (each operand split as
-hi + lo in the kernel, hi·lo + lo·hi + hi·hi accumulated in f32: within
-the reference's f32 limits, where one TF32 pass is not), and past 128
-columns a SIMT kernel of true f32 products by FFMA with one K/V stage
-copied by cp.async. Each dtype and width is built at the blocks whose
-shared memory fits one block (``built``). The instantiations are split over four libraries, one nvcc
-each, built in parallel (``SOURCE``): bf16 up to 128 with f32, f16 up to
-128, both 16-bit types at 129-256 and at 257-512. The sources say what
-bounds each kernel on the H100 and what the design does about it.
+``flash_attention_fwd_f32``: kernels of the same shape whose products are
+three TF32 passes on ``wgmma`` (each operand split as hi + lo in the
+kernel, hi·lo + lo·hi + hi·hi accumulated in f32: within the reference's
+f32 limits, where one TF32 pass is not), with whole K and V tiles up to
+128 columns and, past 128, Q resident and K and V streamed through a ring
+of 64-column chunks. Each dtype and width is built at the blocks whose
+shared memory fits one block (``built``). The instantiations are split
+over four libraries, one nvcc each, built in parallel (``SOURCE``): bf16
+up to 128 with f32, f16 up to 128, both 16-bit types at 129-256 and at
+257-512. The sources say what bounds each kernel on the H100 and what the
+design does about it.
 
 What launches: in bf16 and f16 every head dim from 1 to 512, in f32 from 1
 to 256 (``MAX_HEAD_DIM``, ``supports_head_dim``). A kernel runs head dims
@@ -73,8 +74,11 @@ PADDED_WIDTHS = (64, 128, 192, 256, 384, 512)
 # output's columns run in two chunks of at most 256 (a 64-row warpgroup
 # holds at most a 64 x 256 f32 accumulator), and at 512 one stage of Q, K
 # and a 256-wide V chunk is what fits one block's shared memory at (64,
-# 64) and (128, 64). f32: past 128 columns the SIMT kernel's Q, one K/V
-# stage and its probability tile fit one block up to 256 columns.
+# 64) and (128, 64). f32: past 128 columns Q's hi and lo stay resident
+# beside a ring of 64-column K/V chunks, which fits one block up to 256
+# columns (past 256 the width is 384: Q's hi and lo alone take 196,608 of
+# its 232,448 bytes, and a 192-register accumulator beside P's 64 exceeds a
+# thread's 255).
 MAX_HEAD_DIM = {torch.bfloat16: 512, torch.float16: 512, torch.float32: 256}
 # head dims (staged) past NARROW run the wide builds (padded widths 192 and
 # 256), past WIDE the chunked ones (384 and 512)
@@ -143,9 +147,9 @@ def entry_for(dtype: torch.dtype, d: int) -> str:
 
 def build_of(dtype: torch.dtype, d: int) -> str:
     """The build (one of ``BUILDS``) that runs ``dtype`` at head dim ``d``:
-    the entry point's library, with f32's SIMT instantiations past NARROW
-    apart (``flash_attention_f32_wide``) and both 16-bit types under one
-    name past it."""
+    the entry point's library, with f32's chunked instantiations past
+    NARROW apart (``flash_attention_f32_wide``) and both 16-bit types under
+    one name past it."""
     if dtype == torch.float32:
         return "flash_attention_f32_wide" if staged_head_dim(d) > NARROW else "flash_attention_f32"
     return SOURCE[entry_for(dtype, d)]
@@ -154,13 +158,9 @@ def build_of(dtype: torch.dtype, d: int) -> str:
 def fits(block_q: int, block_k: int, d: int, size: int) -> bool:
     """Whether the kernel of ``size``-byte elements is built at these
     blocks for head dim ``d``: its shared memory at d's padded width (in
-    f32 up to 128 columns the hi and lo tiles of the three TF32 passes, past
-    it the probability tile) fits one H100 block, and in f32 past 128
-    columns block_q is 64 (at 128 the SIMT kernel's 512 threads get at most
-    128 registers each, too few for 6 or 8 accumulator columns a lane). The
-    block picker prunes with it."""
-    if size == 4 and padded_head_dim(d) > 128 and block_q != 64:
-        return False
+    f32 the hi and lo tiles of the three TF32 passes, past 128 columns Q's
+    and a ring of 64-column K/V chunks) fits one H100 block. The block
+    picker prunes with it."""
     return smem_bytes(block_q, block_k, d, size) <= GPU_H100.fast_mem_bytes
 
 
@@ -169,7 +169,8 @@ def built(block_q: int, block_k: int, d: int, dtype: torch.dtype) -> bool:
     ``dtype`` (``fits`` at the staged head dim). In bf16 and f16 that is
     every block pair of BLOCKS up to 128 columns, three at 192 and at 384,
     two at 256 and at 512; in f32 four up to 64 columns, one at 128, 192
-    and 256 ((64, 64))."""
+    and 256 ((64, 64): at block_q 128 or block_k 128 the ring's stages no
+    longer fit beside Q's hi and lo)."""
     if (not supports_head_dim(d, dtype) or block_q not in BLOCKS
             or block_k not in BLOCKS):
         return False
@@ -370,7 +371,7 @@ def _launch(q, k, v, causal: bool, scale: float, block_q: int,
             raise TypeError(f"the flash kernels take bfloat16, float16 or float32, "
                             f"q, k and v alike; {name} is {t.dtype}, q {q.dtype}")
     if not supports_head_dim(d, q.dtype):
-        what = ("Q, one K/V stage and the probability tile in f32"
+        what = ("Q's hi and lo beside a ring of 64-column K/V chunks in f32"
                 if q.dtype == torch.float32 else "Q, K and one 256-column V chunk")
         raise ValueError(f"the flash kernels take head dims from 1 to "
                          f"{MAX_HEAD_DIM[q.dtype]} in {q.dtype}, not {d}: past it "

@@ -100,7 +100,7 @@ def launch_counts() -> Dict[str, int]:
 def build_launch_counts() -> Dict[str, int]:
     """The flash launches of ``launch_counts`` per build that ran them
     (``flash_attention.build_of``): the narrow bf16, f16 and f32 builds,
-    f32's one-stage build past 128 columns, and the 16-bit wide (129-256)
+    f32's chunked build past 128 columns, and the 16-bit wide (129-256)
     and chunked (257-512) builds, bf16 and f16 together."""
     return dict(_flash_mod.BUILD_LAUNCHES)
 
@@ -160,27 +160,35 @@ def tuned_flash_blocks(s: int, d: int, dtype_bytes: int = 2) -> Tuple[int, int]:
     space, whose signature keys the stored record by S, the real head dim
     and the dtype width).
 
-    A stored record (snapshot, then DB) is returned as it is. On a miss
-    the score is the reference pick's (``repro/kernels/ops.py``): per KV
-    step a fixed matrix-unit cost plus the staged q/k/v bytes over the
-    memory rate, times the number of (q-tile, kv-tile) steps, with ragged
+    A stored record (bundle, snapshot, then DB) is returned when the kernel
+    is built at its blocks for this head dim and dtype width; one that is
+    not (a record from sources that built other blocks) counts as a miss.
+    On a miss the score is the reference pick's (``repro/kernels/ops.py``):
+    per KV step a fixed matrix-unit cost plus the staged q/k/v bytes over
+    the memory rate, times the number of (q-tile, kv-tile) steps, with ragged
     tiles counted whole, and the head dim at the width the kernel stages it
     (``padded_head_dim``). Candidates the kernel is not built for at this
     dtype width are pruned (``flash_attention.fits``: their shared memory,
     ``smem_bytes``, the q tile and the k and v stages, and in f32 the hi
-    and lo tiles of its three TF32 passes or past 128 columns the
-    probability tile, exceeds what one H100 block may use, or in f32 past
-    128 columns block_q is 128). f16 takes bf16's picks (``dtype_bytes=2``):
-    the two share the kernel's tiles, shared memory and rate. The pick is
-    written back to a writable default DB under strategy ``flash_grid``."""
+    and lo tiles of its three TF32 passes, past 128 columns Q's and a ring
+    of 64-column K/V chunks, exceeds what one H100 block may use). f16
+    takes bf16's picks (``dtype_bytes=2``): the two share the kernel's
+    tiles, shared memory and rate. The pick is written back to a writable
+    default DB under strategy ``flash_grid``; a stale record in an
+    immutable store (a snapshot or bundle) is passed over and left as it
+    is. The DB keeps the lowest score per key, so a stale record that
+    scored lower stays its best, and each lookup passes it over again."""
     target = GPU_H100
     space = op_registry.make_space(
         "flash", {"s": s, "d": d, "dtype_bytes": dtype_bytes}, target.kind)
     sig = space.signature()
-    rec = tuner.lookup_best(sig, target.name)  # snapshot cache, then DB
-    if rec is not None:
-        return rec.config["block_q"], rec.config["block_k"]
+    rec = tuner.lookup_best(sig, target.name)  # bundle, snapshot, then DB
     dp = padded_head_dim(d)
+    if rec is not None:
+        bq, bk = rec.config["block_q"], rec.config["block_k"]
+        if bq in _flash_mod.BLOCKS and bk in _flash_mod.BLOCKS and _flash_mod.fits(
+                bq, bk, dp, dtype_bytes):
+            return bq, bk
     best, best_score, evals = None, float("inf"), 0
     for cfg in space.enumerate(None):
         bq, bk = cfg["block_q"], cfg["block_k"]

@@ -151,6 +151,85 @@ def test_f32_kernel_matches_plain(card, s, d, blocks, causal):
                                atol=F32_ATOL)
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest even): what one TF32
+    pass of the tensor cores reads."""
+    i = x.float().contiguous().view(torch.int32).to(torch.int64)
+    i = (i + 0xFFF + ((i >> 13) & 1)) & ~0x1FFF
+    return i.to(torch.int32).view(torch.float32)
+
+
+def _f32_outside(got, want):
+    """(elements outside F32_ATOL + F32_RTOL*|want|, worst share)."""
+    ratio = (got.double() - want.double()).abs() / (F32_ATOL + F32_RTOL * want.double().abs())
+    return int((ratio > 1).sum()), float(ratio.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (32, 4)])
+@pytest.mark.parametrize("s", [77, 1024, 4096])
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_wide_kernel_matches_plain_and_oracle(card, hq, hkv, s, d, causal):
+    """f32 past 128 columns (three TF32 passes, K and V in 64-column chunks;
+    136 and 200 staged inside 192 and 256): one launch of that build at its
+    one block pair, within the reference's f32 limit of the plain version and
+    of an f64 oracle, at S up to 4096, where P V sums 64 key tiles into one
+    accumulator; the plain version on TF32-rounded inputs (one pass) is
+    outside it."""
+    from repro_torch.kernels import ref
+
+    # f32 draws (``_qkv``'s are bf16 values, which TF32 holds exactly)
+    rng = np.random.default_rng(s * 1000 + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(card)
+               for shape in ((1, hq, s, d), (1, hkv, s, d), (1, hkv, s, d)))
+    ops.reset_launch_counts()
+    got = ops.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.build_launch_counts()["flash_attention_f32_wide"] == 1
+    assert got.shape == q.shape and got.dtype == torch.float32
+    want = flash_attention_plain(q, k, v, causal=causal, block_q=64, block_k=64)
+    oracle = ref.attention(q.double(), k.double(), v.double(), causal=causal)
+    for against in (want, oracle):
+        bad, worst = _f32_outside(got, against)
+        assert bad == 0, f"{bad} outside, worst at {worst:.3f} of the limit"
+    one = flash_attention_plain(_tf32(q), _tf32(k), _tf32(v), causal=causal, block_q=64,
+                                block_k=64)
+    assert _f32_outside(one, oracle)[0] > 0
+
+
+@pytest.mark.gpu
+def test_attention_passes_over_a_stored_pick_that_is_not_built(card, tmp_path, monkeypatch):
+    """A schedule DB holding the f32 pick (128, 64) at S=1024, D=128, from
+    sources that built it: ops.attention launches the f32 kernel at a built
+    pair, where it raised before any launch."""
+    from repro_torch.core import op_registry, tuner
+    from repro_torch.hw.gpu_h100 import GPU_H100
+    from repro_torch.tuna.db import ScheduleDatabase, ScheduleRecord
+
+    for var in ("REPRO_TUNA_DB", "REPRO_TUNA_CACHE", "REPRO_TUNA_BUNDLE"):
+        monkeypatch.delenv(var, raising=False)
+    sig = op_registry.make_space("flash", {"s": 1024, "d": 128, "dtype_bytes": 4},
+                                 GPU_H100.kind).signature()
+    path = str(tmp_path / "db.jsonl")
+    ScheduleDatabase(path).add(ScheduleRecord(
+        op=sig, target=GPU_H100.name, config={"block_q": 128, "block_k": 64}, score=1e-9))
+    q, k, v = (t.float() for t in _qkv(1, 8, 2, 1024, 128, card))
+    ops.use_schedule_db(path)
+    try:
+        assert not kflash.built(128, 64, 128, torch.float32)
+        ops.reset_launch_counts()
+        got = ops.attention(q, k, v)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention_f32"] == 1
+        bq, bk = ops.tuned_flash_blocks(1024, 128, 4)
+        assert kflash.built(bq, bk, 128, torch.float32)
+    finally:
+        tuner.set_default_db(None)
+    want = flash_attention_plain(q, k, v, block_q=bq, block_k=bk)
+    assert _f32_outside(got, want)[0] == 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [8, 16, 64, 80, 96, 128, 136, 192, 200, 256, 20, 264, 320,
                                512])

@@ -214,7 +214,7 @@ class TestKernelBundle:
         and past 256 (the chunked ones), and keeps in its schedule index
         only, as skips with their reason, the records no kernel is built
         for: an f32 matmul whose two stages exceed shared memory, an f32
-        flash record at blocks whose probability tile does not fit, and a
+        flash record at blocks whose tiles do not fit, and a
         head dim past 512."""
         bf16 = ScheduleRecord(op="matmul[K=256,M=256,N=256,dtype_bytes=2]",
                               target=TGT, score=1e-6,
@@ -289,6 +289,11 @@ class TestKernelBundle:
                    ((1, 2, 64, 264), "float32")], {"block_q": 64, "block_k": 64}, False),
         ("flash", [((1, 4, 64, 192), "float32"), ((1, 2, 64, 192), "float32"),
                    ((1, 2, 64, 192), "float32")], {"block_q": 128, "block_k": 64}, False),
+        # a stored f32 pick from sources that built (128, 64) at 128 columns:
+        # no CUDA bundle entry (the schedule index keeps it; the picker
+        # passes it over)
+        ("flash", [((1, 4, 1024, 128), "float32"), ((1, 2, 1024, 128), "float32"),
+                   ((1, 2, 1024, 128), "float32")], {"block_q": 128, "block_k": 64}, False),
     ])
     def test_cuda_skip_admits_f32_and_other_head_dims(self, kernel, avals, config, ok):
         """``_cuda_skip`` admits what a kernel is built for and states why
@@ -654,15 +659,18 @@ class TestStaleCacheDegradeClearsMemos:
                                                   monkeypatch):
         """$REPRO_TUNA_CACHE degrading to OFF must drop the block-pick
         memos, so shapes memoised under an earlier snapshot do not keep
-        serving its blocks after the snapshot was rejected."""
+        serving its blocks after the snapshot was rejected. The stored
+        pick is a built pair the grid would not pick, (64, 128): the
+        reference's test stores (256, 128), which the port's kernel is not
+        built for, so its picker would pass it over."""
         db = ScheduleDatabase(tmp_path / "db.jsonl")
         db.add(ScheduleRecord(
             op="flash[d=128,dtype_bytes=2,s=2048]", target=TGT,
-            config={"block_q": 256, "block_k": 128}, score=1e-9))
+            config={"block_q": 64, "block_k": 128}, score=1e-9))
         snap = str(tmp_path / "cache.json")
         ScheduleCache.build(db.path, snap)
         tuner.set_default_cache(snap)
-        assert ops.tuned_flash_blocks(2048, 128) == (256, 128)  # memoised
+        assert ops.tuned_flash_blocks(2048, 128) == (64, 128)  # memoised
 
         obj = json.load(open(snap))
         obj["cost_model_version"] = "cm0"
@@ -673,7 +681,7 @@ class TestStaleCacheDegradeClearsMemos:
         with pytest.warns(StaleSnapshotWarning,
                           match="REPRO_TUNA_CACHE disabled"):
             assert tuner.get_default_cache() is None
-        assert ops.tuned_flash_blocks(2048, 128) != (256, 128)
+        assert ops.tuned_flash_blocks(2048, 128) != (64, 128)
 
 
 class TestPublishRoundtrip:

@@ -2,6 +2,7 @@
 on a card) held against the reference's Pallas kernels in interpret mode and
 the reference oracles, on the same numpy-seeded inputs."""
 import itertools
+import json
 import re
 import sys
 
@@ -15,6 +16,7 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.core.tuner import tuned_matmul_blocks as jtuned_matmul_blocks
 from repro.kernels.matmul import matmul_pallas
 from repro.models.attention import chunked_attention as jchunked
+from repro_torch.core import tuner
 from repro_torch.core.spaces import SM90_MATMUL_TILES
 from repro_torch.hw.gpu_h100 import GPU_H100
 from repro_torch.kernels import build, ops, ref, stage
@@ -270,9 +272,9 @@ def test_flash_source_instantiates_exactly_the_built_blocks():
     256 (flash_attention_chunked.cu, both types) and the f32 builds
     (flash_attention.cu) are the (block_q, block_k, padded width) that
     ``built`` admits; the 16-bit products are wgmma, and so are the f32
-    kernel's up to 128 columns, in three TF32 passes, while past it the f32
-    products are FFMA. Each entry point is in the library ``SOURCE``
-    names."""
+    kernels', in three TF32 passes at every width: whole tiles up to 128
+    columns, K and V in 64-column chunks past it. Each entry point is in
+    the library ``SOURCE`` names."""
     read = lambda name: (build.CSRC / name).read_text()
     head, src = read("flash_attention.cuh"), read("flash_attention.cu")
     f16, wide = read("flash_attention_f16.cu"), read("flash_attention_wide.cu")
@@ -296,11 +298,8 @@ def test_flash_source_instantiates_exactly_the_built_blocks():
     assert "launch<T, BQ_, BK_, 0, DP_, DP_ / 2, 1>" in chunked
     assert "Cfg<BQ_, BK_, 0, DP_, DP_ / 2, 1>::kSmem" in chunked
     assert _macro(src, "FLASH_F32_BUILT") == {
-        (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in (64, 128)
-        if kflash.built(bq, bk, dp, torch.float32)}
-    assert _macro(src, "FLASH_F32_SIMT_BUILT") == {
         (bq, bk, dp) for bq in BLOCKS for bk in BLOCKS for dp in PADDED_WIDTHS
-        if dp > 128 and kflash.built(bq, bk, dp, torch.float32)}
+        if kflash.built(bq, bk, dp, torch.float32)}
     assert "wgmma_ss" in head and "wgmma_rs" in head and "mma.sync" not in head
     # tiles and accumulator at the padded width, the store at the real one
     assert "int DP = (D + 63) / 64 * 64" in head and "wgmma_rs<T, C::kVW, 1>" in head
@@ -316,18 +315,24 @@ def test_flash_source_instantiates_exactly_the_built_blocks():
             e for e, source in kflash.SOURCE.items() if source == lib]
         assert any(e.endswith("smem_bytes") for e in entries)
     assert "flash_attention_f32_smem_bytes" in src
-    # the f32 kernel up to 128 columns: TMA loads, tf32 wgmma (S = Q K^T
-    # from shared memory, P V with P in registers), the operands split in
-    # the kernel, no FFMA product; past 128 it stages with cp.async and
-    # multiplies by FFMA (fmaf), with no tensor-core product
-    tf32 = src[src.index("f32, three-pass TF32"):src.index("f32 past 128, SIMT")]
-    assert "wgmma_tf32_ss<BK>" in tf32 and "wgmma_tf32_rs<DP>" in tf32
-    assert "split_tf32" in tf32 and "tma_load_3d" in tf32 and "fmaf(" not in tf32
-    assert "make_map_f32_sw128(&tq, q, b * hq, s, d, BQ)" in src
-    simt = src[src.index("f32 past 128, SIMT"):src.index("// ---------------------------"
-                                                           "---------------------------------------- host")]
-    assert "cp.async.cg.shared.global" in simt and "fmaf(" in simt
-    assert "wgmma" not in simt and "tf32" not in simt
+    # the f32 kernels: TMA loads, tf32 wgmma (S = Q K^T from shared memory,
+    # P V with P in registers), the operands split in the kernel, no FFMA
+    # product; up to 128 columns whole tiles (m64n{DP} P V), past it Q
+    # resident and K and V through a ring of 64-column chunks (m64n64 P V
+    # into a slice of the accumulator, V^T written over the landed V once
+    # the converters met at a named barrier). No SIMT kernel is left.
+    host = src.index("// ------------------------------------------------------------------- host")
+    whole = src[src.index("f32 up to 128 columns, whole tiles"):
+                src.index("f32 past 128 columns, K and V in 64-col chunks")]
+    chunked = src[src.index("f32 past 128 columns, K and V in 64-col chunks"):host]
+    assert "wgmma_tf32_ss<BK>" in whole and "wgmma_tf32_rs<DP>" in whole
+    assert "wgmma_tf32_ss<BK>" in chunked and "wgmma_tf32_rs<C::kChunk>" in chunked
+    for part in (whole, chunked):
+        assert "split_tf32" in part and "tma_load_3d" in part and "fmaf(" not in part
+    assert "named_barrier_sync(3, NC)" in chunked and "kVCols = kChunk" in chunked
+    assert "make_map_f32_sw128(&tq, q, b * hq, s, d, bq)" in src
+    assert "make_map_f32(&tv, v, b * hkv, s, d, bk, v_cols)" in src
+    assert "simt" not in src and "cp.async" not in src and "fmaf(" not in src
     hopper = read("hopper.cuh")
     assert "cvt.rna.tf32.f32" in hopper and "k8.f32.tf32.tf32" in hopper
 
@@ -384,22 +389,25 @@ def test_supports_head_dim_at_the_rules_edges(d, ok):
 @pytest.mark.parametrize("bk", BLOCKS)
 @pytest.mark.parametrize("dp", PADDED_WIDTHS)
 def test_f32_flash_smem_is_the_kernels_count(bq, bk, dp):
-    """The f32 kernel up to 128 columns (three TF32 passes) stages Q's hi
-    and lo [bq][dp], K [bk][dp] and its lo, V as it lands and V^T's hi and
-    lo, all f32, with 128 bytes of barriers and 1024 of slack; past 128
-    (SIMT) Q [bq][dp], one stage of K and V [bk][dp] and P [bq][bk], with no
-    barrier and no slack. It is built exactly where that fits one H100
-    block, up to 256 columns, with bq = 64 past 128 (registers). The
-    16-bit kernels are built where their own count fits: every pair up to
+    """The f32 kernels (three TF32 passes) stage, with 128 bytes of
+    barriers and 1024 of slack: up to 128 columns Q's hi and lo [bq][dp], K
+    [bk][dp] and its lo, V as it lands and V^T's hi and lo, all f32; past
+    128 Q's hi and lo and a ring of 4 stages at 192 columns, 3 at 256, each
+    the hi and lo [bk][64] of a 64-column K or V chunk. They are built
+    exactly where that fits one H100 block, up to 256 columns: past 128
+    only at (64, 64), as the SIMT kernel they replaced was. The 16-bit
+    kernels are built where their own count fits: every pair up to
     128 columns, three at 192 and 384, two at 256 and 512 (past 256: Q and
     K at the full width, one V chunk of dp / 2, one stage)."""
     if dp <= 128:
         hand = 4 * (2 * bq * dp + 5 * bk * dp) + 128 + 1024
     else:
-        hand = 4 * (bq * dp + 2 * bk * dp + bq * bk)
+        hand = 4 * (2 * bq * dp + (4 if dp == 192 else 3) * 2 * bk * 64) + 128 + 1024
     assert smem_bytes(bq, bk, dp, 4) == hand == smem_bytes(bq, bk, dp - 8, 4)
     assert kflash.built(bq, bk, dp, torch.float32) is (
-        hand <= GPU_H100.fast_mem_bytes and (dp <= 128 or (bq == 64 and dp <= 256)))
+        hand <= GPU_H100.fast_mem_bytes and dp <= 256)
+    if 128 < dp <= 256:
+        assert kflash.built(bq, bk, dp, torch.float32) is ((bq, bk) == (64, 64))
     # the 16-bit kernels: built wherever their own count fits
     fits = smem_bytes(bq, bk, dp, 2) <= GPU_H100.fast_mem_bytes
     assert kflash.built(bq, bk, dp, torch.bfloat16) is fits
@@ -413,12 +421,90 @@ def test_f32_flash_smem_is_the_kernels_count(bq, bk, dp):
 
 
 @pytest.mark.parametrize("s", [1, 12, 64, 77, 513, 1024, 2047])
-@pytest.mark.parametrize("d", [8, 16, 48, 64, 80, 96, 128])
+@pytest.mark.parametrize("d", [8, 16, 48, 64, 80, 96, 128, 136, 192, 200, 256])
 def test_tuned_flash_blocks_fit_the_f32_kernel(s, d):
     """Every f32 pick is a block pair the f32 kernel is built for."""
     bq, bk = ops.tuned_flash_blocks(s, d, 4)
     assert kflash.built(bq, bk, d, torch.float32)
     assert smem_bytes(bq, bk, d, 4) <= GPU_H100.fast_mem_bytes
+
+
+@pytest.fixture
+def no_default_store(monkeypatch):
+    """The port's process defaults (DB, snapshot, bundle) off around the
+    test, whatever the env variables say, and the memos cleared."""
+    for var in ("REPRO_TUNA_DB", "REPRO_TUNA_CACHE", "REPRO_TUNA_BUNDLE"):
+        monkeypatch.delenv(var, raising=False)
+    for setter in (tuner.set_default_db, tuner.set_default_cache, tuner.set_default_bundle):
+        setter(None)
+    yield
+    for setter in (tuner.set_default_db, tuner.set_default_cache, tuner.set_default_bundle):
+        setter(None)
+
+
+def _stale_f32_flash_record():
+    """The f32 flash pick at S=1024, D=128 of a store written while (128,
+    64) was built at 128 columns (the SIMT kernel, before the three-pass
+    one), at a score below the grid's own pick's."""
+    from repro_torch.core import op_registry
+    from repro_torch.tuna.db import ScheduleRecord
+
+    sig = op_registry.make_space("flash", {"s": 1024, "d": 128, "dtype_bytes": 4},
+                                 GPU_H100.kind).signature()
+    return ScheduleRecord(op=sig, target=GPU_H100.name,
+                          config={"block_q": 128, "block_k": 64}, score=1e-9,
+                          evaluations=4, meta={"strategy": "flash_grid"})
+
+
+def _store_lines(path):
+    return [json.loads(line) for line in open(path) if line.strip()]
+
+
+def test_a_stored_flash_pick_that_is_not_built_is_a_miss(tmp_path, no_default_store):
+    """A DB record whose blocks the kernel is not built for at its head
+    dim and dtype width is a miss: the picker returns a built pair, the
+    grid's, and writes that pick back to the DB (the stale record, lower
+    in score, stays the DB's best and is passed over at every lookup)."""
+    from repro_torch.tuna.db import ScheduleDatabase
+
+    stale = _stale_f32_flash_record()
+    assert not kflash.built(128, 64, 128, torch.float32)
+    path = tmp_path / "db.jsonl"
+    ScheduleDatabase(str(path)).add(stale)
+    ops.use_schedule_db(str(path))
+    assert tuner.lookup_best(stale.op, GPU_H100.name).config == stale.config
+    bq, bk = ops.tuned_flash_blocks(1024, 128, 4)
+    assert kflash.built(bq, bk, 128, torch.float32) and (bq, bk) == (64, 64)
+    lines = _store_lines(path)
+    assert [r["config"] for r in lines] == [stale.config, {"block_q": 64, "block_k": 64}]
+    assert lines[-1]["op"] == stale.op and lines[-1]["meta"]["strategy"] == "flash_grid"
+    # a fresh read of the store (memos cleared) passes it over again
+    ops.use_schedule_db(str(path))
+    assert ops.tuned_flash_blocks(1024, 128, 4) == (64, 64)
+
+
+def test_a_stale_flash_pick_in_a_snapshot_is_skipped_not_rewritten(tmp_path,
+                                                                  no_default_store):
+    """The same stale record served from a read-only snapshot: the picker
+    passes it over, the snapshot's bytes stay as they were, and the pick
+    goes to a writable DB beside it, if there is one."""
+    from repro_torch.tuna.cache import ScheduleCache
+    from repro_torch.tuna.db import ScheduleDatabase
+
+    stale = _stale_f32_flash_record()
+    src_db = ScheduleDatabase(str(tmp_path / "src.jsonl"))
+    src_db.add(stale)
+    snap = tmp_path / "snap.json"
+    ScheduleCache.build(src_db, str(snap))
+    before = snap.read_bytes()
+    ops.use_schedule_cache(str(snap))
+    assert ops.tuned_flash_blocks(1024, 128, 4) == (64, 64)
+    db_path = tmp_path / "db.jsonl"
+    ops.use_schedule_db(str(db_path))
+    assert ops.tuned_flash_blocks(1024, 128, 4) == (64, 64)
+    assert snap.read_bytes() == before
+    assert ScheduleCache.load(str(snap)).best(stale.op, GPU_H100.name).config == stale.config
+    assert [r["config"] for r in _store_lines(db_path)] == [{"block_q": 64, "block_k": 64}]
 
 
 class _FakeLibrary:
@@ -443,7 +529,7 @@ class _FakeLibrary:
 
 @pytest.mark.parametrize("dtype,d,blocks,err", [
     (torch.float64, 64, (64, 64), TypeError),     # f64: no kernel
-    (torch.float32, 136, (64, 64), None),         # f32 at D > 128: one K/V stage
+    (torch.float32, 136, (64, 64), None),         # f32 at D > 128: K/V chunks
     (torch.bfloat16, 20, (64, 64), None),         # D % 8 != 0: staged at 24
     (torch.float32, 128, (128, 128), ValueError),  # f32 blocks that do not fit
     (torch.bfloat16, 64, (32, 64), ValueError),   # blocks never built
@@ -454,7 +540,7 @@ class _FakeLibrary:
     (torch.bfloat16, 192, (128, 128), ValueError),
     (torch.bfloat16, 520, (64, 64), ValueError),  # past the 16-bit ceiling
     (torch.float32, 264, (64, 64), ValueError),   # past the f32 ceiling
-    (torch.float32, 192, (128, 64), ValueError),  # f32 past 128: block_q 64
+    (torch.float32, 192, (128, 64), ValueError),  # f32 past 128: (64, 64) only
     (torch.float16, 512, (64, 128), ValueError),  # chunked blocks that do not fit
 ])
 def test_flash_launch_refuses_what_no_kernel_is_built_for(monkeypatch, dtype, d,
@@ -701,12 +787,27 @@ def _one_pass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _tf32(a) @ _tf32(b)
 
 
+def _by_chunks(product, chunk: int = 64):
+    """``product`` over 64-column chunks of the reduction, summed in f32 in
+    chunk order into one result: how the f32 kernel past 128 columns forms
+    Q K^T, one K chunk after another into one accumulator."""
+    def chunked(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        out = product(a[..., :chunk], b[..., :chunk, :])
+        for c0 in range(chunk, a.shape[-1], chunk):
+            out = out + product(a[..., c0:c0 + chunk], b[..., c0:c0 + chunk, :])
+        return out
+    return chunked
+
+
 def _attention_by(product, q, k, v, causal: bool) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v in f32 with both products formed by
-    ``product`` (k and v expanded to the query heads)."""
+    ``product`` (k and v expanded to the query heads); past 128 columns q
+    k^T by 64-column chunks of d (each output column of p v is one chunk's
+    product whole)."""
     d, group = q.shape[-1], q.shape[1] // k.shape[1]
     k, v = (t.repeat_interleave(group, dim=1) for t in (k, v))
-    sc = product(q, k.transpose(-1, -2)) * d ** -0.5
+    qk = _by_chunks(product) if d > 128 else product
+    sc = qk(q, k.transpose(-1, -2)) * d ** -0.5
     if causal:
         s = q.shape[2]
         sc = sc.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1), float("-inf"))
@@ -723,6 +824,8 @@ F32_MM_SHAPES = [(128, 128, 128), (256, 128, 512), (64, 256, 128), (384, 256, 25
                  (256, 256, 256), (512, 512, 512)]
 F32_FLASH_GRID = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 32),
                   (2, 4, 4, 512, 128)]
+# and past 128 columns, where K and V stream in 64-column chunks
+F32_WIDE_FLASH_GRID = [(1, 4, 2, s, d) for d in (192, 256) for s in (77, 256)]
 
 
 @pytest.mark.parametrize("m,n,k", F32_MM_SHAPES)
@@ -739,13 +842,14 @@ def test_three_tf32_passes_meet_the_f32_matmul_limit(m, n, k):
     assert _outside(_one_pass(tx, ty), want, **tol) > 0
 
 
-@pytest.mark.parametrize("b,hq,hkv,s,d", F32_FLASH_GRID)
+@pytest.mark.parametrize("b,hq,hkv,s,d", F32_FLASH_GRID + F32_WIDE_FLASH_GRID)
 @pytest.mark.parametrize("causal", [True, False])
 def test_three_tf32_passes_meet_the_f32_flash_limit(b, hq, hkv, s, d, causal):
     """Attention with Q K^T and P V each formed in three TF32 passes, as
-    the f32 flash kernel forms them, emulated in torch, is within the
-    reference's f32 limit (atol 3e-5, rtol 3e-4) of the JAX reference; with
-    one TF32 pass each it is not."""
+    the f32 flash kernels form them (past 128 columns Q K^T summed over
+    64-column chunks), emulated in torch, is within the reference's f32
+    limit (atol 3e-5, rtol 3e-4) of the JAX reference; with one TF32 pass
+    each it is not."""
     arrs = _qkv(b, hq, hkv, s, d)
     want = jref.attention(*map(jnp.asarray, arrs), causal=causal)
     tq, tk, tv = _torch(arrs)
@@ -1137,14 +1241,17 @@ def test_flash_smem_count_is_unchanged_where_a_kernel_was_built(size):
     """The shared-memory count the picker prunes with keeps its value at
     every (block_q, block_k, width) a 16-bit kernel was built for before
     16 bits reached past 256: two K/V stages at the padded width, so no
-    pick there moves. In f32 up to 128 columns it is the three-pass TF32
-    kernel's count (Q's hi and lo, one K, K lo, V, V^T hi and lo tile, 128
-    bytes of barriers, 1024 of slack), and of the pairs the SIMT kernel it
-    replaced was built at (two K/V stages and the probability tile) every
-    one but (128, 64) at 128 columns stays built, so no other pick moves."""
+    pick there moves. In f32 it is the three-pass TF32 kernels' count, 128
+    bytes of barriers and 1024 of slack with, up to 128 columns, Q's hi and
+    lo, one K, K lo, V, V^T hi and lo tile, and past 128, Q's hi and lo and
+    a ring of 64-column K/V chunks' hi and lo (4 stages at 192, 3 at 256).
+    Of the pairs the SIMT kernels it replaced were built at, up to 128
+    columns (two K/V stages and the probability tile) every one but (128,
+    64) at 128 columns stays built, and past 128 (one K/V stage and the
+    probability tile, block_q 64) every one, so no other pick moves."""
     for bq in BLOCKS:
         for bk in BLOCKS:
-            for d in range(8, (257 if size == 2 else 129), 8):
+            for d in range(8, 257, 8):
                 dp = -(-d // 64) * 64
                 if size == 2:
                     before = 2 * dp * (bq + 4 * bk) + 128 + 1024
@@ -1152,9 +1259,15 @@ def test_flash_smem_count_is_unchanged_where_a_kernel_was_built(size):
                         assert smem_bytes(bq, bk, d, size) == before
                         assert kflash.fits(bq, bk, d, size)
                     continue
-                now = 4 * (2 * bq * dp + 5 * bk * dp) + 128 + 1024
+                if dp <= 128:
+                    now = 4 * (2 * bq * dp + 5 * bk * dp) + 128 + 1024
+                    simt = 4 * (dp * (bq + 4 * bk) + bq * bk)
+                    kept = (bq, bk, dp) != (128, 64, 128)
+                else:
+                    now = 4 * (2 * bq * dp + (4 if dp == 192 else 3) * 2 * bk * 64) + 1152
+                    simt = 4 * (dp * (bq + 2 * bk) + bq * bk)
+                    kept = bq == 64
                 assert smem_bytes(bq, bk, d, 4) == now
                 assert kflash.fits(bq, bk, d, 4) is (now <= GPU_H100.fast_mem_bytes)
-                simt = 4 * (dp * (bq + 4 * bk) + bq * bk)
-                if simt <= GPU_H100.fast_mem_bytes and (bq, bk, dp) != (128, 64, 128):
+                if simt <= GPU_H100.fast_mem_bytes and kept:
                     assert kflash.fits(bq, bk, d, 4)
